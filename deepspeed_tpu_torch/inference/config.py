@@ -1,0 +1,110 @@
+"""Inference configuration: ``DeepSpeedInferenceConfig`` as a strict dataclass.
+
+Same key names as ``deepspeed_tpu/inference/config.py`` (and so as DeepSpeed's
+own), built from a dict. An unknown key raises ``ValueError``; a key whose
+feature this package does not serve yet, set to anything but its default,
+raises ``NotImplementedError`` naming the ``ROADMAP.md`` queue item that ports it.
+"""
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
+           "float16": torch.float16, "fp16": torch.float16, "half": torch.float16,
+           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def _from_dict(cls, data: Dict[str, Any], where: str):
+    if isinstance(data, cls):
+        return data
+    if not isinstance(data, dict):
+        raise TypeError(f"{where} must be a dict, got {type(data).__name__}")
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(data) - known)
+    if unknown:
+        raise ValueError(f"unknown {where} key(s) {unknown}; known: {sorted(known)}")
+    return cls(**data)
+
+
+@dataclasses.dataclass
+class DeepSpeedTPConfig:
+    enabled: bool = True
+    tp_size: int = 1
+
+
+@dataclasses.dataclass
+class QuantConfig:
+    enabled: bool = False
+    bits: int = 8
+
+
+@dataclasses.dataclass
+class WeightQuantConfig:
+    enabled: bool = False
+    bits: int = 8
+    group: int = 128
+    exclude: List[str] = dataclasses.field(default_factory=list)
+    outlier_threshold: Optional[float] = None
+
+
+@dataclasses.dataclass
+class DeepSpeedInferenceConfig:
+    dtype: str = "bfloat16"
+    tensor_parallel: DeepSpeedTPConfig = dataclasses.field(default_factory=DeepSpeedTPConfig)
+    data_parallel: int = 1
+    max_out_tokens: int = 1024
+    max_batch_size: int = 1
+    replace_with_kernel_inject: bool = True
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+    weight_quant: WeightQuantConfig = dataclasses.field(default_factory=WeightQuantConfig)
+    checkpoint: Optional[Any] = None
+    replace_method: str = "auto"
+    enable_cuda_graph: bool = False
+    min_out_tokens: int = 1
+    moe_decode_impl: Optional[str] = None
+    comm_overlap: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    mp_size: Optional[int] = None                 # deprecated alias of tensor_parallel.tp_size
+
+    def __post_init__(self):
+        self.tensor_parallel = _from_dict(DeepSpeedTPConfig, self.tensor_parallel,
+                                          "tensor_parallel")
+        self.quant = _from_dict(QuantConfig, self.quant, "quant")
+        self.weight_quant = _from_dict(WeightQuantConfig, self.weight_quant, "weight_quant")
+        key = str(self.dtype).replace("torch.", "")
+        if key == "int8" or self.quant.enabled or self.weight_quant.enabled:
+            raise NotImplementedError("quantized serving (dtype='int8', quant, weight_quant) "
+                                      "is not ported yet: ROADMAP.md queue 1 item 7")
+        if key not in _DTYPES:
+            raise ValueError(f"dtype={self.dtype!r} is not one of {sorted(_DTYPES)}")
+        if self.resolved_tp() > 1:
+            raise NotImplementedError("tensor parallelism (tp_size > 1) is not ported yet: "
+                                      "ROADMAP.md queue 1 item 11")
+        if int(self.data_parallel) > 1:
+            raise NotImplementedError("data_parallel > 1 is not ported yet: "
+                                      "ROADMAP.md queue 1 item 11")
+        if self.comm_overlap:
+            raise NotImplementedError("comm_overlap is not ported yet: "
+                                      "ROADMAP.md queue 1 item 11")
+        if self.moe_decode_impl is not None:
+            raise NotImplementedError("MoE serving (moe_decode_impl) is not ported yet: "
+                                      "ROADMAP.md queue 1 item 10")
+        if self.checkpoint is not None:
+            raise NotImplementedError("checkpoint loading is not ported yet: "
+                                      "ROADMAP.md queue 1 item 12")
+        if self.enable_cuda_graph:
+            raise NotImplementedError("CUDA-graph capture of the decode step is not "
+                                      "ported yet: ROADMAP.md queue 1 item 3")
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "DeepSpeedInferenceConfig":
+        return _from_dict(cls, data, "inference config")
+
+    def resolved_tp(self) -> int:
+        if self.mp_size is not None:
+            return int(self.mp_size)
+        return int(self.tensor_parallel.tp_size)
+
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[str(self.dtype).replace("torch.", "")]

@@ -1,0 +1,3 @@
+from .causal_lm import (FAMILIES, CausalLM, CausalLMConfig, bloom_cfg,  # noqa: F401
+                        gpt2_cfg, gptj_cfg, gptneox_cfg, init_cache, llama_cfg, opt_cfg)
+from .convert import causal_lm_params_from_jax  # noqa: F401
