@@ -11,21 +11,11 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..config.config_utils import from_dict as _from_dict
+
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "float16": torch.float16, "fp16": torch.float16, "half": torch.float16,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
-
-
-def _from_dict(cls, data: Dict[str, Any], where: str):
-    if isinstance(data, cls):
-        return data
-    if not isinstance(data, dict):
-        raise TypeError(f"{where} must be a dict, got {type(data).__name__}")
-    known = {f.name for f in dataclasses.fields(cls)}
-    unknown = sorted(set(data) - known)
-    if unknown:
-        raise ValueError(f"unknown {where} key(s) {unknown}; known: {sorted(known)}")
-    return cls(**data)
 
 
 @dataclasses.dataclass

@@ -1,11 +1,18 @@
-"""Flash-attention forward: the hand-written Hopper kernel ``csrc/flash_fwd.cu``
-and its plain PyTorch version.
+"""Flash attention: the hand-written Hopper kernels ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu``, their plain PyTorch
+versions, and the autograd Function that joins them.
 
 Counterpart of ``deepspeed_tpu/ops/attention/flash.py`` (``_flash_fwd`` /
-``_fwd_kernel``, public ``flash_attention``). Forward only: the backward
-kernels are still to be ported. :func:`flash_fwd` launches the kernel for a
-CUDA tensor and runs :func:`flash_fwd_plain` only for a CPU tensor. The kernel
-masks a ragged last tile itself, so every ``t`` takes it.
+``_fwd_kernel``, ``_flash_bwd`` / ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``, the
+``_flash_core`` custom VJP, public ``flash_attention``). Each wrapper
+(:func:`flash_fwd`, :func:`flash_bwd`) launches its kernels for CUDA tensors and
+runs its plain version only for CPU tensors. The kernels mask a ragged last
+tile themselves, so every ``t`` takes them.
+
+The forward kernel writes through raw pointers, so its output has no autograd
+history: under autograd the only way to it is :class:`FlashAttnFunction`, whose
+backward runs the two backward kernels, and :func:`flash_fwd` refuses CUDA
+inputs that require grad while grad mode is on.
 """
 
 import ctypes
@@ -26,6 +33,17 @@ FLASH_FWD = CudaKernel(
     [_vp, _vp, _vp, _vp, _vp, _vp,            # q, k, v, slopes, o, lse
      _int, _int, _int, _int,                  # bh, t, d, n_heads
      ctypes.c_float, _int, _int, _vp])        # scale, causal, dtype, stream
+FLASH_BWD_DQ = CudaKernel(
+    "flash_bwd_dq", "flash_bwd_dq.cu", "flash_bwd_dq",
+    [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,  # q, k, v, do, lse, delta, slopes, dq
+     _int, _int, _int, _int,                  # bh, t, d, n_heads
+     ctypes.c_float, _int, _int, _vp])        # scale, causal, dtype, stream
+FLASH_BWD_DKV = CudaKernel(
+    "flash_bwd_dkv", "flash_bwd_dkv.cu", "flash_bwd_dkv",
+    [_vp, _vp, _vp, _vp, _vp, _vp, _vp,       # q, k, v, do, lse, delta, slopes
+     _vp, _vp,                                # dk, dv
+     _int, _int, _int, _int,                  # bh, t, d, n_heads
+     ctypes.c_float, _int, _int, _vp])        # scale, causal, dtype, stream
 
 
 def _check(q3, k3, v3, slopes, n_heads):
@@ -41,28 +59,46 @@ def _check(q3, k3, v3, slopes, n_heads):
         raise ValueError(f"alibi slopes must be ({n_heads},), got {tuple(slopes.shape)}")
 
 
+def _check_cuda(name: str, tensors, slopes, device) -> None:
+    """What the CUDA kernels take: head_dim 64 or 128, contiguous 16-byte-aligned
+    tensors on one device, f32 slopes."""
+    d = tensors[0].shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if not all(x.device == device and x.is_contiguous() and x.data_ptr() % 16 == 0
+               for x in tensors):
+        raise ValueError(f"{name} kernel takes contiguous, 16-byte-aligned inputs "
+                         f"on one device")
+    if slopes is not None:
+        if slopes.dtype != torch.float32 or slopes.device != device \
+                or not slopes.is_contiguous():
+            raise ValueError("alibi slopes must be a contiguous f32 tensor on q's device")
+
+
+def _scale(q3: torch.Tensor, softmax_scale: Optional[float]) -> float:
+    return softmax_scale if softmax_scale is not None else 1.0 / float(np.sqrt(q3.shape[-1]))
+
+
 def flash_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
               slopes: Optional[torch.Tensor] = None, softmax_scale: Optional[float] = None,
               causal: bool = True, n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """q3/k3/v3 ``(b*h, t, d)`` → ``(o (b*h, t, d) in q's dtype, lse (b*h, t) f32)``.
 
     ``slopes`` ``(n_heads,)``: ALiBi bias ``slopes[i % n_heads] * (col - row)``
-    on row block ``i``, added before the mask."""
+    on row block ``i``, added before the mask. The kernel's output has no
+    autograd history, so CUDA inputs that require grad are refused while grad
+    mode is on: :class:`FlashAttnFunction` is the differentiable way in."""
     _check(q3, k3, v3, slopes, n_heads)
-    scale = softmax_scale if softmax_scale is not None else 1.0 / float(np.sqrt(q3.shape[-1]))
+    scale = _scale(q3, softmax_scale)
     if q3.device.type == "cpu":
         return flash_fwd_plain(q3, k3, v3, slopes, scale, causal, n_heads)
     if q3.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu tensors, not {q3.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q3, k3, v3)):
+        raise ValueError("flash_fwd's kernel output carries no gradient: under autograd "
+                         "call flash_attention (FlashAttnFunction) instead")
+    _check_cuda("flash_fwd", (q3, k3, v3), slopes, q3.device)
     bh, t, d = q3.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel takes head_dim in {HEAD_DIMS}, got {d}")
-    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in (q3, k3, v3)):
-        raise ValueError("flash_fwd kernel takes contiguous, 16-byte-aligned q/k/v")
-    if slopes is not None:
-        if slopes.dtype != torch.float32 or slopes.device != q3.device \
-                or not slopes.is_contiguous():
-            raise ValueError("alibi slopes must be a contiguous f32 tensor on q's device")
     o = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
@@ -73,12 +109,9 @@ def flash_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     return o, lse
 
 
-def flash_fwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
-                    slopes: Optional[torch.Tensor], scale: float, causal: bool,
-                    n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The same function as the kernel in plain tensor code: f32 scores, the
-    ALiBi bias, the -1e30 causal mask, f32 softmax, probabilities cast to the
-    input dtype before the product with v."""
+def _scores(q3, k3, slopes, scale, causal, n_heads):
+    """f32 scores ``(b*h, t, t)`` as the kernels form them: scaled, ALiBi bias,
+    then the -1e30 causal mask."""
     bh, t, _ = q3.shape
     s = torch.einsum("ntd,nsd->nts", q3.float(), k3.float()) * scale
     rows = torch.arange(t, device=q3.device)[:, None]
@@ -88,25 +121,170 @@ def flash_fwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
         s = s + per_row[:, None, None] * (cols - rows).float()
     if causal:
         s = s.masked_fill(cols > rows, NEG_INF)
+    return s
+
+
+def flash_fwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                    slopes: Optional[torch.Tensor], scale: float, causal: bool,
+                    n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same function as the kernel in plain tensor code: f32 scores, the
+    ALiBi bias, the -1e30 causal mask, f32 softmax, probabilities cast to the
+    input dtype before the product with v."""
+    s = _scores(q3, k3, slopes, scale, causal, n_heads)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1).to(v3.dtype)
     o = torch.einsum("nts,nsd->ntd", p.float(), v3.float()).to(q3.dtype)
     return o, lse
 
 
+def flash_bwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, o3: torch.Tensor,
+              lse: torch.Tensor, do3: torch.Tensor, slopes: Optional[torch.Tensor] = None,
+              softmax_scale: Optional[float] = None, causal: bool = True,
+              n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_fwd` for the output gradient
+    ``do3``, each in its input's dtype, from the forward's ``o3`` and f32
+    ``lse``. ``delta = rowsum(do * o)`` is formed here in f32, as the JAX
+    package forms it outside its kernels; then :func:`flash_bwd_dq` and
+    :func:`flash_bwd_dkv` each recompute the probabilities from ``lse``."""
+    if o3.shape != q3.shape:
+        raise ValueError(f"o must be {tuple(q3.shape)}, got {tuple(o3.shape)}")
+    delta = (do3.float() * o3.float()).sum(-1)
+    dq = flash_bwd_dq(q3, k3, v3, do3, lse, delta, slopes, softmax_scale, causal, n_heads)
+    dk, dv = flash_bwd_dkv(q3, k3, v3, do3, lse, delta, slopes, softmax_scale, causal,
+                           n_heads)
+    return dq, dk, dv
+
+
+def _check_bwd(name, q3, k3, v3, do3, lse, delta, slopes, n_heads) -> None:
+    _check(q3, k3, v3, slopes, n_heads)
+    rows = tuple(q3.shape[:2])
+    if do3.shape != q3.shape or tuple(lse.shape) != rows or tuple(delta.shape) != rows:
+        raise ValueError(f"{name}: do must be {tuple(q3.shape)}, lse and delta {rows}; got "
+                         f"{tuple(do3.shape)}, {tuple(lse.shape)}, {tuple(delta.shape)}")
+    if do3.dtype != q3.dtype or lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError(f"{name}: do must be {q3.dtype}, lse and delta float32; got "
+                        f"{do3.dtype}, {lse.dtype}, {delta.dtype}")
+    if q3.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {q3.device}")
+    if q3.device.type == "cuda":
+        _check_cuda(name, (q3, k3, v3, do3, lse, delta), slopes, q3.device)
+
+
+def flash_bwd_dq(q3, k3, v3, do3, lse, delta, slopes=None, softmax_scale=None,
+                 causal: bool = True, n_heads: int = 1) -> torch.Tensor:
+    """dq in q's dtype: the kernel ``csrc/flash_bwd_dq.cu`` for CUDA tensors,
+    :func:`flash_bwd_dq_plain` for CPU tensors. ``delta`` ``(b*h, t)`` f32 is
+    ``rowsum(do * o)``."""
+    _check_bwd("flash_bwd_dq", q3, k3, v3, do3, lse, delta, slopes, n_heads)
+    scale = _scale(q3, softmax_scale)
+    if q3.device.type == "cpu":
+        return flash_bwd_dq_plain(q3, k3, v3, do3, lse, delta, slopes, scale, causal, n_heads)
+    bh, t, d = q3.shape
+    dq = torch.empty_like(q3)
+    FLASH_BWD_DQ.launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(),
+                        None if slopes is None else slopes.data_ptr(), dq.data_ptr(),
+                        bh, t, d, n_heads, scale, int(causal), DTYPE_CODES[q3.dtype],
+                        torch.cuda.current_stream(q3.device).cuda_stream)
+    return dq
+
+
+def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, slopes=None, softmax_scale=None,
+                  causal: bool = True, n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` in k's and v's dtype: the kernel ``csrc/flash_bwd_dkv.cu`` for
+    CUDA tensors, :func:`flash_bwd_dkv_plain` for CPU tensors."""
+    _check_bwd("flash_bwd_dkv", q3, k3, v3, do3, lse, delta, slopes, n_heads)
+    scale = _scale(q3, softmax_scale)
+    if q3.device.type == "cpu":
+        return flash_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, slopes, scale, causal,
+                                   n_heads)
+    bh, t, d = q3.shape
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    FLASH_BWD_DKV.launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+                         lse.data_ptr(), delta.data_ptr(),
+                         None if slopes is None else slopes.data_ptr(), dk.data_ptr(),
+                         dv.data_ptr(), bh, t, d, n_heads, scale, int(causal),
+                         DTYPE_CODES[q3.dtype], torch.cuda.current_stream(q3.device).cuda_stream)
+    return dk, dv
+
+
+def _probs_and_ds(q3, k3, v3, do3, lse, delta, slopes, scale, causal, n_heads):
+    """The kernels' recompute: p = exp(s - lse) in f32, and ds = p (dp -
+    delta) scale rounded to the input dtype (returned in f32)."""
+    p = torch.exp(_scores(q3, k3, slopes, scale, causal, n_heads) - lse.float()[..., None])
+    dp = torch.einsum("ntd,nsd->nts", do3.float(), v3.float())
+    ds = (p * (dp - delta.float()[..., None]) * scale).to(q3.dtype).float()
+    return p, ds
+
+
+def flash_bwd_dq_plain(q3, k3, v3, do3, lse, delta, slopes, scale, causal, n_heads=1):
+    """The dq kernel's function in plain tensor code: dq = ds k, f32 sums."""
+    _, ds = _probs_and_ds(q3, k3, v3, do3, lse, delta, slopes, scale, causal, n_heads)
+    return torch.einsum("nts,nsd->ntd", ds, k3.float()).to(q3.dtype)
+
+
+def flash_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, slopes, scale, causal, n_heads=1):
+    """The dk/dv kernel's function in plain tensor code: dk = ds^T q, dv =
+    p^T do with p rounded to do's dtype first, f32 sums."""
+    p, ds = _probs_and_ds(q3, k3, v3, do3, lse, delta, slopes, scale, causal, n_heads)
+    dk = torch.einsum("nts,ntd->nsd", ds, q3.float()).to(k3.dtype)
+    dv = torch.einsum("nts,ntd->nsd", p.to(do3.dtype).float(), do3.float()).to(v3.dtype)
+    return dk, dv
+
+
+def flash_bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, o3: torch.Tensor,
+                    lse: torch.Tensor, do3: torch.Tensor, slopes: Optional[torch.Tensor],
+                    scale: float, causal: bool, n_heads: int = 1
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_bwd` in plain tensor code, with the kernels' recompute
+    formula and roundings (not autograd through :func:`flash_fwd_plain`):
+    delta = rowsum(do * o) in f32, p = exp(s - lse), ds = p (dp - delta) scale
+    rounded to the input dtype before the products with k and q, p rounded to
+    do's dtype before the product with do."""
+    delta = (do3.float() * o3.float()).sum(-1)
+    dq = flash_bwd_dq_plain(q3, k3, v3, do3, lse, delta, slopes, scale, causal, n_heads)
+    dk, dv = flash_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, slopes, scale, causal, n_heads)
+    return dq, dk, dv
+
+
+class FlashAttnFunction(torch.autograd.Function):
+    """``o = attention(q3, k3, v3)`` through :func:`flash_fwd`, differentiated by
+    :func:`flash_bwd`; the port of the ``_flash_core`` custom VJP. It saves q, k,
+    v, o and the f32 lse. The ALiBi slopes are a fixed schedule and get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, slopes, softmax_scale, causal, n_heads):
+        o3, lse = flash_fwd(q3, k3, v3, slopes, softmax_scale, causal, n_heads)
+        ctx.save_for_backward(q3, k3, v3, o3, lse, slopes)
+        ctx.args = (softmax_scale, causal, n_heads)
+        return o3
+
+    @staticmethod
+    def backward(ctx, do3):
+        q3, k3, v3, o3, lse, slopes = ctx.saved_tensors
+        softmax_scale, causal, n_heads = ctx.args
+        dq, dk, dv = flash_bwd(q3, k3, v3, o3, lse, do3.contiguous(), slopes,
+                               softmax_scale, causal, n_heads)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                     softmax_scale: Optional[float] = None,
                     alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention on ``(b, t, h, d)`` q/k/v → ``(b, t, h, d)``, through
-    :func:`flash_fwd`. ``alibi_slopes`` ``(h,)`` adds the per-head ALiBi bias
-    inside the kernel."""
+    :class:`FlashAttnFunction`, so it is differentiable on the card as on the
+    CPU. ``alibi_slopes`` ``(h,)`` adds the per-head ALiBi bias inside the
+    kernels."""
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention is self-attention: q/k/v must share one "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
 
     def to3(x):
-        return x.transpose(1, 2).reshape(b * h, t, d)
+        return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
 
-    o3, _ = flash_fwd(to3(q), to3(k), to3(v), alibi_slopes, softmax_scale, causal, n_heads=h)
+    o3 = FlashAttnFunction.apply(to3(q), to3(k), to3(v), alibi_slopes, softmax_scale, causal,
+                                 h)
     return o3.reshape(b, h, t, d).transpose(1, 2)

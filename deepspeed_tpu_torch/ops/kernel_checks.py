@@ -4,10 +4,12 @@ Shared by ``chip_smoke.py`` and the card-only test
 ``tests/test_torch_kernels_cuda.py``, so the two cannot drift. Each case builds
 seeded inputs on the card, calls the kernel's public wrapper and its plain
 PyTorch version on the same inputs, and compares them in the working dtype.
-The first case of each kernel is the shape the serving main path gives it
-(GPT-2 125M, batch 4, prompt 512).
+The first case of each kernel is the shape its main path gives it: serving
+(GPT-2 125M, batch 4, prompt 512) for the forward and decode kernels, training
+(GPT-2 125M, micro-batch 24, seq 1024) for the two backward kernels.
 
-Tolerances (max-abs-error of the output), by input dtype:
+Tolerances of the forward and decode kernels (max-abs-error of the output),
+by input dtype:
 
 - bfloat16 3e-2: the output is rounded to bf16 (half an ulp is up to 7.8e-3
   for |o| < 4), and the flash kernel rounds P to bf16 before normalising
@@ -16,6 +18,18 @@ Tolerances (max-abs-error of the output), by input dtype:
 - float16 5e-3: the same two roundings with 3 more mantissa bits.
 - float32 5e-5: everything is f32 in both; only the order of the sums and
   the exponential's implementation differ, a few ulp of values below 4.
+
+Tolerances of the backward kernels (max-abs-error over dq, or over dk and
+dv), by input dtype. The gradients reach |g| ~ 4-5 at these shapes (causal,
+early key columns collect many rows), and the kernel and the plain version
+sum over up to t terms in different orders:
+
+- bfloat16 5e-2: one bf16 ulp at 4 <= |g| < 8 is 3.1e-2, and ds is rounded
+  to bf16 before its products, where a different f32 sum can flip that
+  rounding by an ulp. The JAX package's bf16 gradient check uses 5e-2.
+- float16 1e-2: 2.5 fp16 ulps at 4 <= |g| < 8, for the same two reasons.
+- float32 1e-4: f32 sums of up to t = 1024 terms of |values| below ~5 in
+  different orders, with p = exp(s - lse) moving with s's last bits.
 
 f32 matrix products of the plain versions run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set here).
@@ -30,9 +44,12 @@ import torch.nn.functional as F
 
 from ..models.causal_lm import alibi_slopes
 from .attention.decode import decode_attention, decode_attention_plain
-from .attention.flash import flash_fwd, flash_fwd_plain
+from .attention.flash import (flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
+                             flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
 
 TOLERANCES = {torch.bfloat16: 3e-2, torch.float16: 5e-3, torch.float32: 5e-5}
+BWD_TOLERANCES = {torch.bfloat16: 5e-2, torch.float16: 1e-2, torch.float32: 1e-4}
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 LSE_TOLERANCE = 1e-3        # f32 logsumexp; sums of exp in another order
 
 #: H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s of device
@@ -47,14 +64,18 @@ KERNEL_INFO = {
                   "replaces": "deepspeed_tpu/ops/attention/flash.py:96"},
     "decode_attention": {"source": "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
                          "replaces": "deepspeed_tpu/ops/attention/decode.py:30"},
+    "flash_bwd_dq": {"source": "deepspeed_tpu_torch/ops/csrc/flash_bwd_dq.cu",
+                     "replaces": "deepspeed_tpu/ops/attention/flash.py:205"},
+    "flash_bwd_dkv": {"source": "deepspeed_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
+                      "replaces": "deepspeed_tpu/ops/attention/flash.py:257"},
 }
 
 
 @dataclasses.dataclass
 class Case:
-    kernel: str                  # "flash_fwd" | "decode_attention"
+    kernel: str                  # "flash_fwd" | "decode_attention" | BWD_KERNELS
     name: str
-    dims: Dict[str, int]         # flash: b, t, h, d; decode: b, h, hk, T, d
+    dims: Dict[str, int]         # flash (fwd and bwd): b, t, h, d; decode: b, h, hk, T, d
     dtype: torch.dtype
     causal: bool = True
     alibi: bool = False
@@ -65,6 +86,8 @@ class Case:
 CASES: List[Case] = [
     Case("flash_fwd", "gpt2-prefill", dict(b=4, t=512, h=12, d=64), torch.bfloat16,
          main_path=True),
+    # the training main path's forward: GPT-2 125M, micro-batch 24, seq 1024
+    Case("flash_fwd", "gpt2-train", dict(b=24, t=1024, h=12, d=64), torch.bfloat16),
     Case("flash_fwd", "fp32", dict(b=2, t=1024, h=4, d=64), torch.float32),
     Case("flash_fwd", "alibi", dict(b=2, t=512, h=4, d=64), torch.bfloat16, alibi=True),
     Case("flash_fwd", "ragged-t500", dict(b=2, t=500, h=4, d=64), torch.bfloat16),
@@ -78,7 +101,17 @@ CASES: List[Case] = [
          torch.bfloat16, lens=(2048, 1337, 700, 101)),
     Case("decode_attention", "fp32-gqa-T300", dict(b=3, h=8, hk=2, T=300, d=64),
          torch.float32, lens=(300, 65, 1)),
-]
+] + [c for kernel in BWD_KERNELS for c in (
+    # the training main path: GPT-2 125M, micro-batch 24, seq 1024
+    Case(kernel, "gpt2-train", dict(b=24, t=1024, h=12, d=64), torch.bfloat16,
+         main_path=True),
+    Case(kernel, "d128", dict(b=2, t=1024, h=8, d=128), torch.bfloat16),
+    Case(kernel, "ragged-t1000", dict(b=2, t=1000, h=4, d=64), torch.bfloat16),
+    Case(kernel, "alibi", dict(b=2, t=512, h=4, d=64), torch.bfloat16, alibi=True),
+    Case(kernel, "fp32", dict(b=2, t=1024, h=4, d=64), torch.float32),
+    Case(kernel, "fp16-full-d128", dict(b=2, t=300, h=4, d=128), torch.float16,
+         causal=False),
+)]
 
 
 def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
@@ -90,11 +123,18 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=device).to(case.dtype)
 
-    if case.kernel == "flash_fwd":
+    if case.kernel == "flash_fwd" or case.kernel in BWD_KERNELS:
         bh, t, d = dims["b"] * dims["h"], dims["t"], dims["d"]
         inp = {"q": randn(bh, t, d), "k": randn(bh, t, d), "v": randn(bh, t, d)}
         if case.alibi:
             inp["slopes"] = torch.from_numpy(alibi_slopes(dims["h"])).to(device)
+        if case.kernel in BWD_KERNELS:
+            # o and lse from the plain forward, so the backward's inputs do not
+            # depend on the forward kernel
+            inp["do"] = randn(bh, t, d)
+            o, inp["lse"] = flash_fwd_plain(inp["q"], inp["k"], inp["v"], inp.get("slopes"),
+                                            _scale(case), case.causal, dims["h"])
+            inp["delta"] = (inp["do"].float() * o.float()).sum(-1)
         return inp
     b, h, hk, cap, d = dims["b"], dims["h"], dims["hk"], dims["T"], dims["d"]
     inp = {"q": randn(b, h, d), "k": randn(b, hk, cap, d), "v": randn(b, hk, cap, d),
@@ -105,8 +145,22 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
     return inp
 
 
+def _scale(case: Case) -> float:
+    return 1.0 / float(np.sqrt(case.dims["d"]))
+
+
+def _bwd_args(case: Case, inp):
+    return (inp["q"], inp["k"], inp["v"], inp["do"], inp["lse"], inp["delta"],
+            inp.get("slopes"), _scale(case), case.causal, case.dims["h"])
+
+
 def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
-    """The kernel through its public wrapper: flash ``(o, lse)``, decode ``(o,)``."""
+    """The kernel through its public wrapper: flash ``(o, lse)``, decode ``(o,)``,
+    dq ``(dq,)``, dk/dv ``(dk, dv)``."""
+    if case.kernel == "flash_bwd_dq":
+        return (flash_bwd_dq(*_bwd_args(case, inp)),)
+    if case.kernel == "flash_bwd_dkv":
+        return flash_bwd_dkv(*_bwd_args(case, inp))
     if case.kernel == "flash_fwd":
         return flash_fwd(inp["q"], inp["k"], inp["v"], inp.get("slopes"), None, case.causal,
                          n_heads=case.dims["h"])
@@ -115,7 +169,11 @@ def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
 
 def run_plain(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     """The plain version on the same inputs, same outputs as :func:`run_kernel`."""
-    scale = 1.0 / float(np.sqrt(case.dims["d"]))
+    scale = _scale(case)
+    if case.kernel == "flash_bwd_dq":
+        return (flash_bwd_dq_plain(*_bwd_args(case, inp)),)
+    if case.kernel == "flash_bwd_dkv":
+        return flash_bwd_dkv_plain(*_bwd_args(case, inp))
     if case.kernel == "flash_fwd":
         return flash_fwd_plain(inp["q"], inp["k"], inp["v"], inp.get("slopes"), scale,
                                case.causal, case.dims["h"])
@@ -125,20 +183,26 @@ def run_plain(case: Case, inp) -> Tuple[torch.Tensor, ...]:
 def library_fn(case: Case, inp) -> Optional[Callable[[], torch.Tensor]]:
     """One PyTorch call computing the same function, as a yardstick of speed
     only (never called by the package), or None where the installed torch
-    has none."""
+    has none. The backward kernels' yardstick is SDPA's whole backward (dq,
+    dk and dv in one call), run on a graph built once outside the timing."""
     dims = case.dims
-    if case.kernel == "flash_fwd":
+    if case.kernel == "flash_fwd" or case.kernel in BWD_KERNELS:
         b, t, h, d = dims["b"], dims["t"], dims["h"], dims["d"]
         q, k, v = (inp[n].view(b, h, t, d) for n in ("q", "k", "v"))
-        if not case.alibi:
-            return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=case.causal)
-        rows = torch.arange(t, device=q.device)[:, None]
-        cols = torch.arange(t, device=q.device)[None, :]
-        bias = inp["slopes"][:, None, None] * (cols - rows).float()
-        if case.causal:
-            bias = bias.masked_fill(cols > rows, float("-inf"))
-        bias = bias.to(q.dtype)
-        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        kw = {"is_causal": case.causal}
+        if case.alibi:
+            rows = torch.arange(t, device=q.device)[:, None]
+            cols = torch.arange(t, device=q.device)[None, :]
+            bias = inp["slopes"][:, None, None] * (cols - rows).float()
+            if case.causal:
+                bias = bias.masked_fill(cols > rows, float("-inf"))
+            kw = {"attn_mask": bias.to(q.dtype)}
+        if case.kernel == "flash_fwd":
+            return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v, **kw)
+        do = inp["do"].view(b, h, t, d)
+        return lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
     b, h, hk, cap, d = dims["b"], dims["h"], dims["hk"], dims["T"], dims["d"]
     q = inp["q"].view(b, h, 1, d)
     mask = (torch.arange(cap, device=q.device)[None, :] < inp["lens"][:, None])[:, None, None]
@@ -157,9 +221,15 @@ def work(case: Case) -> Tuple[float, float]:
     dims = case.dims
     es = torch.tensor([], dtype=case.dtype).element_size()
     d = dims["d"]
-    if case.kernel == "flash_fwd":
+    if case.kernel == "flash_fwd" or case.kernel in BWD_KERNELS:
         bh, t = dims["b"] * dims["h"], dims["t"]
         pairs = t * (t + 1) // 2 if case.causal else t * t
+        if case.kernel == "flash_bwd_dq":
+            # recompute s, dp, dq: 6 d a pair; q, k, v, do in, dq out; f32 lse, delta
+            return 6.0 * d * pairs * bh, 5.0 * bh * t * d * es + 8.0 * bh * t
+        if case.kernel == "flash_bwd_dkv":
+            # recompute s, dp, dv, dk: 8 d a pair; q, k, v, do in, dk, dv out
+            return 8.0 * d * pairs * bh, 6.0 * bh * t * d * es + 8.0 * bh * t
         ops = 4.0 * d * pairs * bh
         nbytes = 4.0 * bh * t * d * es + 4.0 * bh * t          # q, k, v, o; f32 lse
         return ops, nbytes
@@ -190,7 +260,11 @@ def check(case: Case, device, seed: int = 0) -> Dict[str, float]:
     torch.backends.cudnn.allow_tf32 = False
     inp = make_inputs(case, device, seed)
     out, ref = run_kernel(case, inp), run_plain(case, inp)
-    result = {"max_abs_err": max_abs_err(out[0], ref[0]), "tol": TOLERANCES[case.dtype]}
+    if case.kernel in BWD_KERNELS:
+        result = {"max_abs_err": max(max_abs_err(a, b) for a, b in zip(out, ref)),
+                  "tol": BWD_TOLERANCES[case.dtype]}
+    else:
+        result = {"max_abs_err": max_abs_err(out[0], ref[0]), "tol": TOLERANCES[case.dtype]}
     if case.kernel == "flash_fwd":
         result["lse_err"] = max_abs_err(out[1], ref[1])
     name = f"{case.kernel}/{case.name}"

@@ -1,0 +1,20 @@
+"""Optimizer protocol.
+
+Counterpart of ``deepspeed_tpu/ops/optimizer.py``: an optimizer is a pair of
+functions over the engine's parameter dict, with the learning rate passed in
+each step, so a schedule is a Python float and never a rebuild. Where the JAX
+functions return new trees, ``update`` here writes the new parameters and
+state into the old tensors, which saves a copy of both; ``keep`` (a 0-d bool
+tensor) makes it keep every old value instead (the fp16 overflow skip), decided
+on the device.
+"""
+
+from typing import Any, Callable, NamedTuple
+
+
+class Optimizer(NamedTuple):
+    """``init(params) -> state``; ``update(grads, state, params, lr, keep=None)``
+    updates ``params`` and ``state`` in place."""
+    init: Callable[[Any], Any]
+    update: Callable[..., None]
+    name: str = "optimizer"

@@ -1,1 +1,1 @@
-from .attention import reference_attention  # noqa: F401
+from .attention import get_attention_impl, reference_attention  # noqa: F401

@@ -116,7 +116,8 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     flash_attention(q, k, v)
     decode_attention(q[:, 0], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
                      torch.tensor([10], dtype=torch.int32))
-    assert op_builder.launch_counts() == {"flash_fwd": 0, "decode_attention": 0}
+    assert op_builder.launch_counts() == {"flash_fwd": 0, "decode_attention": 0,
+                                          "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def test_other_devices_raise():
