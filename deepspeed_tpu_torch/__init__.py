@@ -19,16 +19,14 @@ from .utils.logging import logger  # noqa: F401
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
-               collate_fn=None, config=None, config_params=None, device=None,
-               seed: int = 42):
+               collate_fn=None, config=None, config_params=None, device=None):
     """Create a training engine for a :class:`~.models.base.Model` (e.g.
     ``models.gpt2_model(cfg)``) from a config dict, a :class:`DeepSpeedConfig`
     or a ``.json`` path (``config``, ``config_params`` or
     ``args.deepspeed_config``). Returns ``(engine, optimizer, None,
     lr_scheduler)``, as DeepSpeed's ``initialize`` does; the third item is the
     dataloader, which is not ported (ROADMAP.md queue 1 item 5). ``device``
-    defaults to ``cuda:0`` and raises where there is no CUDA; ``seed`` seeds
-    the model's initial weights."""
+    defaults to ``cuda:0`` and raises where there is no CUDA."""
     config = config if config is not None else config_params
     if config is None and getattr(args, "deepspeed_config", None) is not None:
         config = args.deepspeed_config
@@ -41,7 +39,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
                              model_parameters=model_parameters, training_data=training_data,
                              lr_scheduler=lr_scheduler, mpu=mpu, collate_fn=collate_fn,
-                             config=config, device=device, seed=seed)
+                             config=config, device=device)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
