@@ -19,7 +19,20 @@ non-zero:
    decode attention in the decode kernel; the prefill logits must agree with
    the same engine run on the plain versions; one more ``generate`` is traced
    with torch.profiler to show where its device time goes;
-5. training path: ``initialize`` on GPT-2 125M at ``bench.py``'s training
+5. serving path: ``ContinuousBatchingScheduler`` on the same GPT-2 125M
+   engine, 16 slots, chunks of 8 steps, the paged KV pool (page 16, cap
+   1024) with the prefix cache inserting at prefill, and 48 greedy requests
+   from ``np.random.default_rng(0)``, all submitted up front: a shared
+   250-token system prefix (not page-aligned, so hits copy their boundary
+   page) and a user suffix of 8-256 tokens, ``max_new_tokens`` from {16, 32,
+   64, 128}, drained by ``run()``. Every request must finish with exactly its
+   budget; the launch counts must be exact (paged kernel = n_layer x
+   chunk_size x chunks, dense decode 0, flash forward = n_layer x prefix
+   misses); there must be prefix hits and copy-on-write copies; one mid-run
+   decode step of the whole slot-batch, from a copy of the pool, must give
+   logits within 0.1 of the same step on the plain versions on every live
+   slot; one chunk of a second run is traced;
+6. training path: ``initialize`` on GPT-2 125M at ``bench.py``'s training
    configuration (vocab 50304, seq 1024, micro-batch 24, bf16 AdamW lr 2e-4,
    weight decay 0.01, ZeRO stage 1, clipping 1.0; seeded random weights, no
    remat) and 3 warm-up plus 20 timed ``train_batch`` steps on one seeded
@@ -34,6 +47,7 @@ The last lines are a JSON line of the main paths' metrics, a JSON line on the
 kernels, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
 import os
 import statistics
@@ -43,6 +57,8 @@ import time
 
 SEED = 0
 N_NEW = 64
+SERVE_REQUESTS, SERVE_PREFIX, SERVE_SLOTS, SERVE_CHUNK = 48, 250, 16, 8
+SERVE_CHECK_STEP = 6   # the scheduler step after which the pool is copied for the check
 PROMPT = 512
 SHORT_PROMPT = 384
 LOGITS_TOL = 0.1   # bf16 prefill logits, kernel vs plain attention: see main_path()
@@ -92,6 +108,9 @@ def kernel_checks(device):
         res.update(ms=time_ms(lambda: kc.run_kernel(case, inp)),
                    plain_ms=time_ms(lambda: kc.run_plain(case, inp), reps=5),
                    library_ms=None if lib is None else time_ms(lib))
+        if case.kernel == "paged_decode_attention":
+            # for comparison only: K2 on the same rows laid out densely
+            res["dense_decode_ms"] = time_ms(kc.dense_decode_fn(case, inp))
         res["bound_ms"], res["bound_by"] = kc.bound_ms(case)
         print(f"[check] {case.kernel}/{case.name} {case.dims} {str(case.dtype)[6:]} "
               f"causal={case.causal} alibi={case.alibi} lens={case.lens}: "
@@ -100,7 +119,9 @@ def kernel_checks(device):
               + (f" lse_err={res['lse_err']:.3e}" if "lse_err" in res else "")
               + f" | ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} library_ms="
               + ("null" if res["library_ms"] is None else f"{res['library_ms']:.4f}")
-              + f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']})", flush=True)
+              + f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']})"
+              + (f" dense_decode_ms={res['dense_decode_ms']:.4f}" if "dense_decode_ms" in res
+                 else ""), flush=True)
         if case.main_path:
             rows[case.kernel] = res
         del inp
@@ -117,6 +138,7 @@ def plain_attention():
     from deepspeed_tpu_torch.models import causal_lm
     from deepspeed_tpu_torch.ops.attention import flash
     from deepspeed_tpu_torch.ops.attention.decode import decode_attention_plain
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention_plain
 
     def flash_plain(q3, k3, v3, slopes=None, softmax_scale=None, causal=True, n_heads=1):
         scale = softmax_scale or 1.0 / float(np.sqrt(q3.shape[-1]))
@@ -133,6 +155,10 @@ def plain_attention():
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       1.0 / float(np.sqrt(q.shape[-1])))
 
+    def paged_plain(q, k_pages, v_pages, page_table, cache_len, cap):
+        return paged_attention_plain(q, k_pages, v_pages, page_table, cache_len, cap,
+                                     1.0 / float(np.sqrt(q.shape[-1])))
+
     stack = ExitStack()
     stack.enter_context(mock.patch.object(flash, "flash_fwd", flash_plain))
     stack.enter_context(mock.patch.object(flash, "flash_bwd_dq",
@@ -140,6 +166,7 @@ def plain_attention():
     stack.enter_context(mock.patch.object(flash, "flash_bwd_dkv",
                                           bwd_plain(flash.flash_bwd_dkv_plain)))
     stack.enter_context(mock.patch.object(causal_lm, "decode_attention", decode_plain))
+    stack.enter_context(mock.patch.object(causal_lm, "paged_attention", paged_plain))
     return stack
 
 
@@ -168,8 +195,8 @@ def profile_call(label: str, fn, top: int = 12):
               flush=True)
         return
     print(f"[profile] {label} traced: wall {wall_us / 1e3:.2f} ms, device "
-          f"{total / 1e3:.2f} ms, busy share {total / wall_us:.3f}, {len(events)} kernel names",
-          flush=True)
+          f"{total / 1e3:.2f} ms, busy share {total / wall_us:.3f}, "
+          f"{sum(e.count for e in events)} kernel launches of {len(events)} names", flush=True)
     for e in sorted(events, key=device_us, reverse=True)[:top]:
         print(f"[profile]   {device_us(e) / 1e3:8.3f} ms  {e.count:6d} calls  {e.key[:90]}",
               flush=True)
@@ -202,7 +229,7 @@ def main_path(device):
     if out.shape != (4, PROMPT + N_NEW) or not ((out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError(f"generate returned shape {out.shape} or ids out of range")
     want = {"flash_fwd": cfg.n_layer, "decode_attention": cfg.n_layer * (n - 1),
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "paged_decode_attention": 0}
     print(f"[main] launches {launches} (expected {want})", flush=True)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -240,6 +267,135 @@ def main_path(device):
     return {"ttft_ms": ttft * 1e3, "tpot_ms": tpot * 1e3, "decode_tokens_per_s": tps,
             "new_tokens": n, "launches": launches, "prefill_logit_err": logit_err,
             "token_agreement": agree}
+
+
+def serve_step_logits(engine, snap, plain: bool):
+    """One decode step of the whole slot-batch on a fresh copy of the pool
+    state ``snap``: f32 logits ``(slots, V)``, through the kernels or, with
+    ``plain``, through the plain versions."""
+    import torch
+    from contextlib import nullcontext
+    pages = [{k: v.clone() for k, v in c.items()} for c in snap["caches"]]
+    with torch.no_grad(), (plain_attention() if plain else nullcontext()):
+        logits, _ = engine.module(snap["toks"], positions=snap["lens"][:, None], caches=pages,
+                                  cache_lens=snap["lens"], page_table=snap["table"],
+                                  kv_cap=snap["cap"])
+    return logits[:, -1]
+
+
+def serve_path(device, smi: str):
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.serving import (ContinuousBatchingScheduler,
+                                                       PrefixCacheConfig, ServingConfig)
+    from deepspeed_tpu_torch.models import gpt2_cfg
+    from deepspeed_tpu_torch.ops import op_builder
+
+    cfg = gpt2_cfg(vocab_size=50304, max_seq_len=1024, n_embd=768, n_layer=12, n_head=12)
+    engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
+                                device=device)
+    config = ServingConfig(slots=SERVE_SLOTS, chunk_size=SERVE_CHUNK, max_queue=64,
+                           max_seq_len=1024, kv_pool="paged", kv_page_size=16,
+                           prefix_cache=PrefixCacheConfig(min_hit_tokens=8,
+                                                          min_insert_tokens=8,
+                                                          insert_on="prefill"))
+    rng = np.random.default_rng(SEED)
+    system = rng.integers(0, cfg.vocab_size, SERVE_PREFIX)
+    requests = [(np.concatenate([system, rng.integers(0, cfg.vocab_size,
+                                                      int(rng.integers(8, 257)))]),
+                 int(rng.choice([16, 32, 64, 128]))) for _ in range(SERVE_REQUESTS)]
+
+    sched = ContinuousBatchingScheduler(engine, config)
+    handles = [sched.submit(p, max_new_tokens=m) for p, m in requests]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    op_builder.reset_launch_counts()
+    t0 = time.perf_counter()
+    peak_pages, steps, snap = 0, 0, None
+    while sched.busy:
+        sched.step()
+        steps += 1
+        pool = sched.executor.pool
+        peak_pages = max(peak_pages, pool.pages_in_use)
+        if steps == SERVE_CHECK_STEP:
+            # a copy of the mid-run slot-batch for the consistency check after the run
+            snap = {"caches": [{k: v.clone() for k, v in c.items()} for c in pool.caches],
+                    "table": torch.from_numpy(pool.page_table.copy()).to(device),
+                    "toks": torch.from_numpy(sched._toks.copy()).to(device)[:, None],
+                    "lens": torch.from_numpy(sched._lens.copy()).to(device),
+                    "active": sched._active.copy(), "cap": sched.cap}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = op_builder.launch_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    tele = sched.telemetry.snapshot()
+
+    bad = [(h.id, len(h.tokens), m, h.state.value) for h, (_, m) in zip(handles, requests)
+           if len(h.tokens) != m or h.finish_reason != "length"]
+    if bad:
+        raise AssertionError(f"requests that did not finish with their budget: {bad}")
+    chunks, misses = tele["chunks"], tele["prefix_misses"]
+    want = {"flash_fwd": cfg.n_layer * misses, "decode_attention": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "paged_decode_attention": cfg.n_layer * SERVE_CHUNK * chunks}
+    print(f"[serve] launches {launches} (expected {want}: {chunks} chunks, {misses} prefix "
+          f"misses)", flush=True)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if not (tele["prefix_hits"] > 0 and tele["paged_cow_copies_total"] > 0):
+        raise AssertionError(f"no prefix hits or no copy-on-write copies: {tele}")
+
+    live = torch.from_numpy(snap["active"]).to(device)
+    logits_k = serve_step_logits(engine, snap, plain=False)
+    logits_p = serve_step_logits(engine, snap, plain=True)
+    if not bool(torch.isfinite(logits_k).all()) or logits_k.shape != (SERVE_SLOTS,
+                                                                      cfg.vocab_size):
+        raise AssertionError(f"serve step logits non-finite or shaped {tuple(logits_k.shape)}")
+    step_err = float((logits_k[live] - logits_p[live]).abs().max())
+    print(f"[serve] mid-run decode step after scheduler step {SERVE_CHECK_STEP}, "
+          f"{int(live.sum())} live slots of {SERVE_SLOTS}, lens "
+          f"{snap['lens'][live].tolist()}: logits max_abs_err kernels vs plain "
+          f"{step_err:.4e} (tol {LOGITS_TOL})", flush=True)
+    if not int(live.sum()) > 0 or not step_err <= LOGITS_TOL:
+        raise AssertionError(f"serve step logits differ by {step_err} > {LOGITS_TOL}")
+    del snap, logits_k, logits_p
+
+    tokens = sum(len(h.tokens) for h in handles)
+    out = {"requests_per_s": SERVE_REQUESTS / wall, "tokens_per_s": tokens / wall,
+           "wall_s": wall, "generated_tokens": tokens,
+           "ttft_ms_p50": tele["ttft_ms_p50"], "ttft_ms_p95": tele["ttft_ms_p95"],
+           "tpot_ms_p50": tele["tpot_ms_p50"], "tpot_ms_p95": tele["tpot_ms_p95"],
+           "chunk_ms_mean": sched.telemetry.decode_seconds / chunks * 1e3, "chunks": chunks,
+           "prefix_hit_rate": tele["prefix_hit_rate"], "prefix_misses": misses,
+           "cow_copies": tele["paged_cow_copies_total"], "peak_pages_in_use": peak_pages,
+           "total_pages": tele["paged_total_pages"], "peak_memory_bytes": peak_mem,
+           "step_logit_err": step_err, "launches": launches}
+    print(f"[serve] {smi}: {SERVE_REQUESTS} requests in {wall:.3f} s: "
+          f"{out['requests_per_s']:.3f} requests/s, {out['tokens_per_s']:.1f} generated "
+          f"tokens/s ({tokens} tokens); TTFT p50 {out['ttft_ms_p50']:.2f} ms p95 "
+          f"{out['ttft_ms_p95']:.2f} ms; TPOT p50 {out['tpot_ms_p50']:.3f} ms p95 "
+          f"{out['tpot_ms_p95']:.3f} ms; mean chunk {out['chunk_ms_mean']:.3f} ms over "
+          f"{chunks} chunks of {SERVE_CHUNK} steps; prefix hit rate "
+          f"{out['prefix_hit_rate']:.4f} ({misses} misses), {out['cow_copies']:.0f} COW copies; "
+          f"peak pages in use {peak_pages} of {out['total_pages']:.0f}; peak memory "
+          f"{peak_mem / 2**30:.2f} GiB", flush=True)
+
+    # one chunk of a second run, 16 requests in flight, traced
+    sched2 = ContinuousBatchingScheduler(engine, config)
+    for p, m in requests[:SERVE_SLOTS]:
+        sched2.submit(p, max_new_tokens=max(m, 2 * SERVE_CHUNK + 1))
+    sched2.step()                   # admits all 16, runs one chunk
+
+    def traced_chunk():
+        sched2.step()
+        torch.cuda.synchronize()
+
+    profile_call(f"serve chunk ({SERVE_SLOTS} slots, {SERVE_CHUNK} steps)", traced_chunk,
+                 top=15)
+    sched2.run()
+    return out
 
 
 def grads_of(engine, batch):
@@ -287,7 +443,8 @@ def train_path(device, smi: str):
     peak = torch.cuda.max_memory_allocated()
     per_attention = cfg.n_layer * TRAIN_STEPS
     want = {"flash_fwd": per_attention, "flash_bwd_dq": per_attention,
-            "flash_bwd_dkv": per_attention, "decode_attention": 0}
+            "flash_bwd_dkv": per_attention, "decode_attention": 0,
+            "paged_decode_attention": 0}
     print(f"[train] launches {launches} (expected {want})", flush=True)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -362,25 +519,35 @@ def main() -> int:
     print(f"[main] {smi}: TTFT {main['ttft_ms']:.3f} ms, TPOT {main['tpot_ms']:.4f} ms, "
           f"decode {main['decode_tokens_per_s']:.1f} tokens/s (batch 4, prompt {PROMPT}, "
           f"{main['new_tokens']} new)", flush=True)
+    serve = serve_path(device, smi)
+    # a scheduler holds itself through its prefix cache's page hooks: collect
+    # the serving phase's pools before training measures its peak memory
+    gc.collect()
     train = train_path(device, smi)
 
     # each kernel's launches on its own main path (the one its first check case
-    # is shaped by): serving for the forward and decode kernels, training for
-    # the backward kernels; the forward's training launches ride beside
+    # is shaped by): generate for the forward and decode kernels, the
+    # scheduler for the paged kernel, training for the backward kernels; the
+    # forward's serving and training launches ride beside
     kernels = []
     for name, res in rows.items():
-        path = train if name in kc.BWD_KERNELS else main
+        path = (train if name in kc.BWD_KERNELS else
+                serve if name == "paged_decode_attention" else main)
         entry = {"name": name, "route": "cuda", **kc.KERNEL_INFO[name],
                  "launches": path["launches"][name],
                  "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                  "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                  "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
         if name == "flash_fwd":
+            entry["serve_launches"] = serve["launches"][name]
             entry["train_launches"] = train["launches"][name]
+        if "dense_decode_ms" in res:
+            entry["dense_decode_ms"] = res["dense_decode_ms"]
         kernels.append(entry)
     print(json.dumps({"main_path": {
         k: main[k] for k in ("ttft_ms", "tpot_ms", "decode_tokens_per_s",
                              "prefill_logit_err", "token_agreement")},
+        "serve_path": {k: v for k, v in serve.items() if k != "launches"},
         "train_path": {k: train[k] for k in ("step_ms", "tokens_per_s", "mfu",
                                              "peak_memory_bytes", "first_loss", "last_loss",
                                              "grad_rel_err_max", "loss_err")}}))

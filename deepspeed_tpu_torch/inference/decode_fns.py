@@ -1,19 +1,30 @@
-"""Generation steps: token selection, prefill and the decode loop.
+"""Generation steps: token selection, prefill, the decode loop and the serving
+chunks.
 
 Counterpart of ``deepspeed_tpu/inference/decode_fns.py`` (``logits_transform``,
-``make_select_fn``, ``build_prefill``, ``build_decode_loop``). PyTorch runs
-eagerly, so the builders become plain functions, and the compiled
-``lax.while_loop`` becomes a Python loop. The loop stops after ``n_new`` tokens
-or when every row has emitted EOS; that check reads one flag per step back to
-the host.
+``make_select_fn``, ``make_slot_select_fn``, ``build_prefill``,
+``build_prefix_prefill``, ``build_decode_loop``, ``build_decode_chunk``,
+``build_paged_decode_chunk``). PyTorch runs eagerly, so the builders become
+plain functions, and the compiled loops become Python loops. ``decode_loop``
+(the ``generate`` path) stops after ``n_new`` tokens or when every row has
+emitted EOS; that check reads one flag per step back to the host. A serving
+chunk runs exactly ``chunk_size`` steps with every piece of per-slot state on
+the device, so nothing inside it waits for the host: the caller's harvest at
+the chunk's end is its only synchronisation.
 
-Sampling draws from the ``torch.Generator`` the caller passes, one per
-``generate`` call; its numbers differ from JAX's threefry keys for the same seed.
+``generate`` samples from the ``torch.Generator`` the caller passes, one per
+call; its numbers differ from JAX's threefry keys for the same seed. The
+serving chunks sample by Gumbel-max over noise hashed on the device from
+``(base_seed, seed, step, token id)``: a request's tokens are a function of
+its own seed and token index, independent of its slot and of who shares the
+slot-batch, as in JAX, but they are not JAX's threefry draws.
 """
 
-from typing import Callable
+from typing import Callable, List
 
 import torch
+
+from ..ops.paged_attention import gather_kv_dense, page_rows
 
 
 def logits_transform(temperature: float, top_k: int,
@@ -78,3 +89,149 @@ def decode_loop(model, select, tok0: torch.Tensor, caches, lens: torch.Tensor, n
         out.append(tok[:, 0])
         lens = lens + 1
     return torch.stack(out, dim=1)
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``x * m mod 2**32`` for int64 ``x`` in ``[0, 2**32)``, in two 16-bit
+    halves of ``m`` so that no product leaves int64."""
+    return (x * (m & 0xFFFF) + (((x * (m >> 16)) & 0xFFFF) << 16)) & _MASK32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xor-shift-multiply, lowbias32 constants)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(base_seed: int, seeds: torch.Tensor, steps: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """``(S, vocab)`` f32 Gumbel noise, a pure function of ``(base_seed,
+    seeds[s], steps[s], token id)``, computed on the seeds' device."""
+    h = _mix32(torch.full_like(seeds, base_seed, dtype=torch.int64) & _MASK32)
+    h = _mix32(h ^ (seeds.long() & _MASK32))
+    h = _mix32(h ^ (steps.long() & _MASK32))
+    ids = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    h = _mix32(h[:, None] ^ ids[None, :])
+    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))          # (0, 1), 24 bits
+    return -torch.log(-torch.log(u))
+
+
+def make_slot_select_fn(do_sample: bool, temperature: float, top_k: int, top_p: float):
+    """``(S, V)`` logits, ``base_seed``, per-slot ``seeds`` and ``steps`` → ``(S, 1)``
+    int32 tokens. Greedy is argmax; sampling is argmax of the transformed
+    logits plus :func:`gumbel_noise`, so a request's draw depends on its own
+    ``(seed, step)`` only, never on its slot or its neighbours."""
+    transform = logits_transform(temperature, top_k, top_p)
+
+    def select(logits: torch.Tensor, base_seed: int, seeds: torch.Tensor,
+               steps: torch.Tensor) -> torch.Tensor:
+        if not do_sample:
+            return logits.argmax(dim=-1, keepdim=True).int()
+        x = transform(logits.float())
+        noise = gumbel_noise(base_seed, seeds, steps, x.shape[-1])
+        return (x + noise).argmax(dim=-1, keepdim=True).int()
+
+    return select
+
+
+def prefix_prefill(model, ids: torch.Tensor, caches, prefix_len: torch.Tensor,
+                   suffix_len: torch.Tensor) -> torch.Tensor:
+    """Suffix prefill at a nonzero cache offset, the prefix-cache hit path:
+    ``caches`` hold a prompt prefix in rows ``[0, prefix_len)``; the forward
+    runs over the right-padded suffix ``ids (b, t)`` only, writes its K/V at
+    rows ``prefix_len + i`` and reads the logits at the suffix's last valid
+    position. Returns ``(b, V)`` f32 logits."""
+    t = ids.shape[1]
+    positions = prefix_len.long()[:, None] + torch.arange(t, device=ids.device)[None]
+    logits, _ = model(ids, positions=positions, caches=caches, cache_lens=prefix_len,
+                      logits_positions=(suffix_len - 1).clamp(min=0), prefix_fill=True)
+    return logits[:, 0]
+
+
+def _chunk_loop(step_logits, select, chunk_size: int, toks, lens, active, remaining,
+                eos_ids, seeds, steps, base_seed: int):
+    """``chunk_size`` decode steps over a slot-batch, every state tensor on the
+    device. ``step_logits(toks, lens)`` runs the model one step and returns
+    ``(S, V)`` logits. Inactive slots flow through (fixed shapes), emit
+    ``max(eos, 0)`` and freeze; active turns inactive at EOS or when the
+    budget runs out, never back, so a slot's real tokens are a prefix of its
+    row of ``buf``."""
+    buf = torch.zeros((toks.shape[0], chunk_size), dtype=torch.int32, device=toks.device)
+    pad = eos_ids.clamp(min=0)[:, None]
+    for i in range(chunk_size):
+        nxt = select(step_logits(toks, lens), base_seed, seeds, steps)
+        toks = torch.where(active[:, None], nxt, pad).int()
+        buf[:, i] = toks[:, 0]
+        live = active.int()
+        remaining = remaining - live
+        finished = (toks[:, 0] == eos_ids) | (remaining <= 0)
+        lens = lens + live
+        steps = steps + live
+        active = active & ~finished
+    return buf, toks, lens, active, remaining, steps
+
+
+def decode_chunk(model, select, chunk_size: int, toks, caches, lens, active, remaining,
+                 eos_ids, seeds, steps, base_seed: int):
+    """``chunk_size`` steps against slot-row caches ``(S, h_kv, cap, d)``,
+    updated in place. Per-slot state (all ``(S,)`` on the device unless
+    noted): ``toks (S, 1)`` each slot's last token; ``lens`` its KV append
+    position, which advances only while the slot is active; ``active``;
+    ``remaining`` decode budget; ``eos_ids`` (-1: none); ``seeds``/``steps``
+    the sampling coordinates. Returns ``(buf (S, chunk_size), toks, lens,
+    active, remaining, steps)``, still on the device."""
+
+    def step_logits(toks, lens):
+        logits, _ = model(toks, positions=lens[:, None], caches=caches, cache_lens=lens)
+        return logits[:, -1]
+
+    return _chunk_loop(step_logits, select, chunk_size, toks, lens, active, remaining,
+                       eos_ids, seeds, steps, base_seed)
+
+
+def paged_decode_chunk(model, select, chunk_size: int, kv_cap: int, fused: bool, toks,
+                       caches: List[dict], page_table: torch.Tensor, lens, active, remaining,
+                       eos_ids, seeds, steps, base_seed: int):
+    """:func:`decode_chunk` against a paged pool: ``caches`` are global pages
+    ``(P, h_kv, page, d)`` per layer, updated in place, and ``page_table (S,
+    max_pages)`` int32 on the device, uploaded once for the chunk (pages are
+    bound at admission, so it never changes inside one).
+
+    ``fused`` (every model but ALiBi, on the CPU as on the card): each step
+    appends at the page-mapped row and attends through :func:`paged_attention`,
+    the paged kernel on the card. Otherwise (ALiBi, whose bias the kernel does
+    not take): the dense per-slot view is gathered once, the steps run the
+    slot-row decode on it, and the rows this chunk appended are mirrored back
+    into the pages, as JAX's fallback chunk does."""
+    if fused:
+        def step_logits(toks, lens):
+            logits, _ = model(toks, positions=lens[:, None], caches=caches, cache_lens=lens,
+                              page_table=page_table, kv_cap=kv_cap)
+            return logits[:, -1]
+
+        return _chunk_loop(step_logits, select, chunk_size, toks, lens, active, remaining,
+                           eos_ids, seeds, steps, base_seed)
+    dense = [dict(zip(("k", "v"), (x.contiguous() for x in gather_kv_dense(
+        c["k"], c["v"], page_table, kv_cap)))) for c in caches]
+    lens_in = lens
+    out = decode_chunk(model, select, chunk_size, toks, dense, lens, active, remaining,
+                       eos_ids, seeds, steps, base_seed)
+    done = out[2] - lens_in
+    ps = caches[0]["k"].shape[2]
+    slots = torch.arange(lens.shape[0], device=lens.device)
+    for j in range(chunk_size):
+        rows = lens_in + j
+        # rows a slot did not append this chunk, or past the cap, go to the
+        # null page (page_rows): the mirror writes only rows the slot owns
+        pidx, off = page_rows(page_table, rows, ps, (j < done) & (rows < kv_cap))
+        src = rows.long().clamp(max=kv_cap - 1)
+        for c, dn in zip(caches, dense):
+            c["k"][pidx, :, off] = dn["k"][slots, :, src]
+            c["v"][pidx, :, off] = dn["v"][slots, :, src]
+    return out

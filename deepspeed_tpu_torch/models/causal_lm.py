@@ -6,7 +6,10 @@ residual, GQA, gated MLP, pre-LN with LayerNorm or RMSNorm), and per-family
 constructors pin the knobs. Prefill attention goes through the flash kernel
 (``ops/attention/flash.py``); decode attention goes through the decode kernel
 (``ops/attention/decode.py``) against a head-major ``(b, h_kv, T, d)`` cache,
-except ALiBi (BLOOM) decode, which is plain tensor code as in the JAX package.
+or through the paged decode kernel (``ops/paged_attention.py``) against a
+global pool of KV pages and a page table, except ALiBi (BLOOM) decode, which
+is plain tensor code as in the JAX package. Suffix prefill (``prefix_fill``,
+the prefix-cache hit path) attends in plain tensor code, as JAX does in XLA.
 
 Parameters follow the JAX tree's names. A projection's ``weight`` is
 ``(out, in)``, the flax ``kernel`` transposed (``models/convert.py``). Norms run
@@ -15,10 +18,12 @@ dtype, and are cast where they are used.
 
 The KV caches are updated in place: prefill writes rows ``[0, t)``, a decode
 step writes one row per sequence at ``cache_len`` (clamped to ``T - 1``, as
-``dynamic_update_slice`` clamps), so no second cache is ever allocated.
+``dynamic_update_slice`` clamps; paged: at the page-mapped row), a suffix
+prefill writes rows ``[cache_len, cache_len + t)`` below ``T``, so no second
+cache is ever allocated.
 
-Not in this slice (each raises ``NotImplementedError``): MoE layers, paged
-caches and suffix prefill, quantized projections, tensor parallelism.
+Not in this slice (each raises ``NotImplementedError``): MoE layers,
+quantized projections, tensor parallelism.
 """
 
 import dataclasses
@@ -32,6 +37,7 @@ from torch import nn
 from ..accelerator import resolve_device
 from ..ops.attention.decode import decode_attention
 from ..ops.attention.flash import flash_attention
+from ..ops.paged_attention import gather_kv_dense, paged_attention, paged_cache_update
 
 
 @dataclasses.dataclass
@@ -267,10 +273,18 @@ class CausalLMLayer(nn.Module):
         return self.fc_out(h)
 
     def forward(self, x, positions, cache: Optional[Dict[str, torch.Tensor]] = None,
-                cache_len: Optional[torch.Tensor] = None):
+                cache_len: Optional[torch.Tensor] = None, prefix_fill: bool = False,
+                page_table: Optional[torch.Tensor] = None, kv_cap: Optional[int] = None):
         """x ``(b, t, d)``. With ``cache`` and t == 1 (decode): write this step's
-        K/V at row ``cache_len`` and attend over rows ``[0, cache_len]``. With
-        ``cache`` and t > 1 (prefill): attend over the prompt and write its K/V
+        K/V at row ``cache_len`` and attend over rows ``[0, cache_len]``; with
+        ``page_table`` ``(b, max_pages)`` the cache holds global pages
+        ``(P, h_kv, page, d)`` and row r of sequence i lives in page
+        ``page_table[i, r // page]`` (``kv_cap``: the slot capacity of a dense
+        view, ``max_pages * page`` by default). With ``cache`` and
+        ``prefix_fill`` (suffix prefill): the cache holds a prompt prefix in
+        rows ``[0, cache_len)``; write the t suffix rows at ``cache_len + i``
+        and attend each over every row at or before its position. With
+        ``cache`` otherwise (prefill): attend over the prompt and write its K/V
         into rows ``[0, t)``."""
         cfg = self.cfg
         b, t, _ = x.shape
@@ -283,7 +297,19 @@ class CausalLMLayer(nn.Module):
             q = apply_rotary(q, positions, cfg.rotary_base, cfg.rotary_pct)
             k = apply_rotary(k, positions, cfg.rotary_base, cfg.rotary_pct)
 
-        if cache is not None and t == 1:
+        if cache is not None and t == 1 and page_table is not None:
+            paged_cache_update(cache["k"], cache["v"], k.transpose(1, 2), v.transpose(1, 2),
+                               page_table, cache_len)
+            lens = cache_len + 1
+            q1 = q[:, 0].contiguous()
+            cap = kv_cap or page_table.shape[1] * cache["k"].shape[2]
+            if self.alibi is not None:
+                kd, vd = gather_kv_dense(cache["k"], cache["v"], page_table, cap)
+                o = decode_attention_alibi_plain(q1, kd, vd, lens, self.alibi)
+            else:
+                o = paged_attention(q1, cache["k"], cache["v"], page_table, lens, cap)
+            o = o[:, None]
+        elif cache is not None and t == 1:
             cache_update(cache["k"], k.transpose(1, 2), cache_len)
             cache_update(cache["v"], v.transpose(1, 2), cache_len)
             lens = cache_len + 1
@@ -293,6 +319,10 @@ class CausalLMLayer(nn.Module):
             else:
                 o = decode_attention(q1, cache["k"], cache["v"], lens)
             o = o[:, None]
+        elif cache is not None and prefix_fill:
+            write_rows(cache["k"], k.transpose(1, 2), cache_len)
+            write_rows(cache["v"], v.transpose(1, 2), cache_len)
+            o = prefix_attention(q, cache["k"], cache["v"], cache_len, self.alibi)
         else:
             o = bias_attention(q, k, v, self.alibi)
             if cache is not None:
@@ -325,6 +355,46 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor, cache_len: torch.Tensor
     b, _, cap, _ = cache.shape
     rows = cache_len.long().clamp(0, cap - 1)
     cache[torch.arange(b, device=cache.device), :, rows] = new[:, :, 0].to(cache.dtype)
+
+
+def write_rows(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> None:
+    """In place: ``cache (b, hk, T, d)`` rows ``[start[i], start[i] + t)`` of
+    sequence ``i`` ← ``new (b, hk, t, d)``; rows at or past ``T`` are dropped.
+
+    Out-of-range indices: JAX's scatter drops rows past ``T``, where a PyTorch
+    index write would assert or write out of bounds, and clamping them would
+    make several rows race for row ``T - 1``. So every cache row is written
+    exactly once, from its own suffix row where it has one and from itself
+    elsewhere: a whole-cache pass, paid once per prefill."""
+    b, hk, cap, d = cache.shape
+    t = new.shape[2]
+    rel = torch.arange(cap, device=cache.device)[None, :] - start.long()[:, None]   # (b, T)
+    inside = (rel >= 0) & (rel < t)
+    src = new.to(cache.dtype).gather(2, rel.clamp(0, t - 1)[:, None, :, None].expand(b, hk, cap, d))
+    cache.copy_(torch.where(inside[:, None, :, None], src, cache))
+
+
+def prefix_attention(q, k_cache, v_cache, offset, slopes=None):
+    """Suffix-prefill attention in f32 plain tensor code, as JAX's
+    ``_prefix_attention_xla``: queries at positions ``offset + i`` over every
+    cache row (restored prefix and just-written suffix), masked ``key_pos <=
+    query_pos``, with the ALiBi bias when ``slopes`` is given. q ``(b, t, h,
+    d)``; caches ``(b, hk, T, d)``; offset ``(b,)``."""
+    b, t, h, d = q.shape
+    hk, cap = k_cache.shape[1], k_cache.shape[2]
+    g = h // hk
+    q5 = q.reshape(b, t, hk, g, d).float()
+    s = torch.einsum("btkgd,bkTd->bkgtT", q5, k_cache.float()) / float(np.sqrt(d))
+    q_pos = offset.long()[:, None] + torch.arange(t, device=q.device)[None]      # (b, t)
+    k_pos = torch.arange(cap, device=q.device)
+    if slopes is not None:
+        rel = (k_pos[None, None, :] - q_pos[:, :, None]).float()
+        s = s + slopes.float().reshape(1, hk, g, 1, 1) * rel[:, None, None]
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]                              # (b, t, T)
+    s = s.masked_fill(~mask[:, None, None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgtT,bkTd->btkgd", p, v_cache.float())
+    return o.reshape(b, t, h, d).to(q.dtype)
 
 
 def decode_attention_alibi_plain(q, k_cache, v_cache, cache_len, slopes):
@@ -390,24 +460,30 @@ class CausalLM(nn.Module):
                 caches: Optional[List[Dict[str, torch.Tensor]]] = None,
                 cache_lens: Optional[torch.Tensor] = None,
                 logits_positions: Optional[torch.Tensor] = None,
-                prefix_fill: bool = False, page_table=None):
+                prefix_fill: bool = False, page_table: Optional[torch.Tensor] = None,
+                kv_cap: Optional[int] = None):
         """``input_ids (b, t)`` → f32 logits ``(b, t, V)``, or ``(b, 1, V)`` read
         only at ``logits_positions (b,)``. With ``caches`` (from
-        :func:`init_cache`, updated in place) returns ``(logits, caches)``."""
-        if prefix_fill or page_table is not None:
-            raise NotImplementedError("suffix prefill and paged KV caches are not ported "
-                                      "yet: ROADMAP.md queue 1 item 6")
+        :func:`init_cache`, or a paged pool's pages with ``page_table``; updated
+        in place) returns ``(logits, caches)``. ``prefix_fill``: suffix prefill
+        at offset ``cache_lens``; the caller passes ``positions = cache_lens +
+        arange(t)``. See :meth:`CausalLMLayer.forward`."""
         cfg = self.cfg
         b, t = input_ids.shape
         if positions is None:
             positions = torch.arange(t, device=input_ids.device)[None].expand(b, t)
         x = F.embedding(input_ids.long(), self.wte).to(cfg.dtype)
         if cfg.pos_emb == "learned":
-            x = x + F.embedding(positions.long(), self.wpe).to(cfg.dtype)
+            # out-of-range indices: the pad rows of a right-padded suffix bucket
+            # can pass the last learned position, where JAX's take fills and a
+            # PyTorch lookup asserts; their outputs are never read, so clamp
+            pos = positions.long().clamp(0, cfg.max_seq_len - 1)
+            x = x + F.embedding(pos, self.wpe).to(cfg.dtype)
         if cfg.embed_layernorm:
             x = self.ln_embed(x).to(cfg.dtype)
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, None if caches is None else caches[i], cache_lens)
+            x = layer(x, positions, None if caches is None else caches[i], cache_lens,
+                      prefix_fill, page_table, kv_cap)
         x = self.ln_f(x)
         if logits_positions is not None:
             x = x[torch.arange(b, device=x.device), logits_positions.long()][:, None]

@@ -5,34 +5,45 @@ Shared by ``chip_smoke.py`` and the card-only test
 seeded inputs on the card, calls the kernel's public wrapper and its plain
 PyTorch version on the same inputs, and compares them in the working dtype.
 The first case of each kernel is the shape its main path gives it: serving
-(GPT-2 125M, batch 4, prompt 512) for the forward and decode kernels, training
-(GPT-2 125M, micro-batch 24, seq 1024) for the two backward kernels.
+(GPT-2 125M, batch 4, prompt 512) for the forward and dense decode kernels,
+continuous-batching serving (GPT-2 125M, 16 slots, page 16, a 250-token
+shared prefix) for the paged decode kernel, training (GPT-2 125M,
+micro-batch 24, seq 1024) for the two backward kernels.
 
-Tolerances of the forward and decode kernels (max-abs-error of the output),
-by input dtype:
+Every kernel is held to its plain version elementwise: every element of
+every output must have |kernel - plain| <= atol + rtol * |plain|, with
+(atol, rtol) by kernel and input dtype. One absolute limit cannot do: at
+the decode main shape a typical output element is about 0.07 (the sum of
+p**2 is about e / n over n ~ 544 rows), while early causal rows of the
+forward reach 2-3, so a limit loose enough for the largest values passes a
+kernel that is wrong by 20 % on most rows.
 
-- bfloat16 3e-2: the output is rounded to bf16 (half an ulp is up to 7.8e-3
-  for |o| < 4), and the flash kernel rounds P to bf16 before normalising
-  where the plain version rounds after, so one output can move by a few ulp.
-  The JAX package's bf16 kernel checks use 3e-2 to 5e-2.
-- float16 5e-3: the same two roundings with 3 more mantissa bits.
-- float32 5e-5: everything is f32 in both; only the order of the sums and
-  the exponential's implementation differ, a few ulp of values below 4.
-
-Tolerances of the backward kernels are elementwise and relative to the plain
-version: every element of dq, dk and dv must have |kernel - plain| <= atol +
-rtol * |plain|. Most gradients at these shapes are of order 0.01-0.1, and
-a few reach 4-5 (causal: early key columns collect many rows), so one
-absolute limit would be either too tight for the largest or as large as a
-typical value. The kernel and the plain version sum in different orders, and
-ds is rounded to the input dtype before its products, where a different f32
-sum can flip that rounding by an ulp. By input dtype:
-
-- bfloat16 (2e-3, 1.6e-2): rtol is 2 bf16 ulps of the value (8 significant
-  bits, one ulp is at most 2**-7 of it); atol covers values near 0, where a
-  flipped ds rounding moves a sum by more than its own ulps.
-- float16 (2.5e-4, 2e-3): the same two ulps and atol at fp16's 11 bits.
-- float32 (2e-6, 2e-5): f32 sums of up to t = 1024 terms in other orders,
+- Dense and paged decode, ``DECODE_TOLERANCES``: both sides compute in f32
+  and round to the input dtype once, at the end, so f32 sums in another
+  order can at most flip that last rounding; rtol is one ulp of the value.
+  bfloat16 (1e-5, 8e-3): 8 significant bits, an ulp is at most 2**-7 of the
+  value. float16 (1e-5, 1e-3): 11 bits, 2**-10. float32 (2e-5, 2e-5): sums
+  of up to 2,048 terms of size ~1 in another order, and expf against
+  torch's exp. atol covers values near 0, where f32 noise exceeds an ulp.
+- The flash forward's o, ``FWD_TOLERANCES``: the kernel rounds each
+  unnormalised probability (relative to the running max) to the input dtype
+  before its product with v, the plain version rounds the normalised one,
+  so every term of o moves by up to an ulp of itself on each side. Where a
+  row has few keys whose terms cancel (early causal rows), that leaves an
+  absolute error near an ulp of the largest term, far above an ulp of the
+  small sum. bfloat16 (1e-2, 1.6e-2) and float16 (1.5e-3, 2e-3): rtol two
+  ulps of the value, atol an ulp of a term of size ~2. float32 (2e-5,
+  2e-5), as decode: p is not rounded. The f32 lse keeps its absolute limit,
+  ``LSE_TOLERANCE``.
+- The backward kernels, ``BWD_TOLERANCES``: most gradients at these shapes
+  are of order 0.01-0.1, and a few reach 4-5 (causal: early key columns
+  collect many rows). The kernel and the plain version sum in different
+  orders, and ds is rounded to the input dtype before its products, where a
+  different f32 sum can flip that rounding by an ulp. bfloat16 (2e-3,
+  1.6e-2): rtol is 2 bf16 ulps of the value; atol covers values near 0,
+  where a flipped ds rounding moves a sum by more than its own ulps.
+  float16 (2.5e-4, 2e-3): the same two ulps and atol at fp16's 11 bits.
+  float32 (2e-6, 2e-5): f32 sums of up to t = 1024 terms in other orders,
   with p = exp(s - lse) moving with s's last bits.
 
 f32 matrix products of the plain versions run in full f32
@@ -50,9 +61,13 @@ from ..models.causal_lm import alibi_slopes
 from .attention.decode import decode_attention, decode_attention_plain
 from .attention.flash import (flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
                              flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
+from .paged_attention import gather_kv_dense, paged_attention, paged_attention_plain
 
-TOLERANCES = {torch.bfloat16: 3e-2, torch.float16: 5e-3, torch.float32: 5e-5}
-#: (atol, rtol) of the backward kernels, by input dtype (see above)
+#: (atol, rtol) by input dtype, for each family of kernels (see above)
+FWD_TOLERANCES = {torch.bfloat16: (1e-2, 1.6e-2), torch.float16: (1.5e-3, 2e-3),
+                  torch.float32: (2e-5, 2e-5)}
+DECODE_TOLERANCES = {torch.bfloat16: (1e-5, 8e-3), torch.float16: (1e-5, 1e-3),
+                     torch.float32: (2e-5, 2e-5)}
 BWD_TOLERANCES = {torch.bfloat16: (2e-3, 1.6e-2), torch.float16: (2.5e-4, 2e-3),
                   torch.float32: (2e-6, 2e-5)}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
@@ -74,20 +89,36 @@ KERNEL_INFO = {
                      "replaces": "deepspeed_tpu/ops/attention/flash.py:205"},
     "flash_bwd_dkv": {"source": "deepspeed_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
                       "replaces": "deepspeed_tpu/ops/attention/flash.py:257"},
+    "paged_decode_attention": {
+        "source": "deepspeed_tpu_torch/ops/csrc/paged_decode_attention.cu",
+        "replaces": "deepspeed_tpu/ops/paged_attention.py:111"},
 }
 
 
 @dataclasses.dataclass
 class Case:
-    kernel: str                  # "flash_fwd" | "decode_attention" | BWD_KERNELS
+    kernel: str                  # a key of KERNEL_INFO
     name: str
-    dims: Dict[str, int]         # flash (fwd and bwd): b, t, h, d; decode: b, h, hk, T, d
+    # flash (fwd and bwd): b, t, h, d; decode: b, h, hk, T, d; paged: b, h,
+    # hk, page, cap, d (max_pages = cdiv(cap, page))
+    dims: Dict[str, int]
     dtype: torch.dtype
     causal: bool = True
     alibi: bool = False
-    lens: Optional[Tuple[int, ...]] = None      # decode: valid rows per sequence
+    lens: Optional[Tuple[int, ...]] = None      # decode and paged: valid rows per sequence
     main_path: bool = False
 
+    def tolerance(self) -> Tuple[float, float]:
+        if self.kernel in BWD_KERNELS:
+            return BWD_TOLERANCES[self.dtype]
+        if self.kernel == "flash_fwd":
+            return FWD_TOLERANCES[self.dtype]
+        return DECODE_TOLERANCES[self.dtype]
+
+
+# the [serve] phase's slots mid-run: a 250-token prefix, suffixes of 8-256
+# tokens and up to 128 generated ones
+SERVE_LENS = (262, 290, 318, 347, 375, 403, 431, 460, 488, 516, 545, 573, 601, 630, 300, 420)
 
 CASES: List[Case] = [
     Case("flash_fwd", "gpt2-prefill", dict(b=4, t=512, h=12, d=64), torch.bfloat16,
@@ -107,6 +138,18 @@ CASES: List[Case] = [
          torch.bfloat16, lens=(2048, 1337, 700, 101)),
     Case("decode_attention", "fp32-gqa-T300", dict(b=3, h=8, hk=2, T=300, d=64),
          torch.float32, lens=(300, 65, 1)),
+    Case("paged_decode_attention", "gpt2-serve",
+         dict(b=16, h=12, hk=12, page=16, cap=1024, d=64), torch.bfloat16, lens=SERVE_LENS,
+         main_path=True),
+    Case("paged_decode_attention", "gqa-d128", dict(b=4, h=16, hk=4, page=16, cap=2048, d=128),
+         torch.bfloat16, lens=(2048, 1337, 700, 101)),
+    # cap not a multiple of the page; the JAX tests' page size
+    Case("paged_decode_attention", "fp32-gqa-page8-cap300",
+         dict(b=3, h=8, hk=2, page=8, cap=300, d=64), torch.float32, lens=(300, 65, 1)),
+    Case("paged_decode_attention", "fp16-page1", dict(b=2, h=4, hk=4, page=1, cap=200, d=64),
+         torch.float16, lens=(200, 37)),
+    Case("paged_decode_attention", "bf16-page5-d128",
+         dict(b=3, h=8, hk=8, page=5, cap=512, d=128), torch.bfloat16, lens=(512, 333, 6)),
 ] + [c for kernel in BWD_KERNELS for c in (
     # the training main path: GPT-2 125M, micro-batch 24, seq 1024
     Case(kernel, "gpt2-train", dict(b=24, t=1024, h=12, d=64), torch.bfloat16,
@@ -120,9 +163,16 @@ CASES: List[Case] = [
 )]
 
 
+def max_pages(case: Case) -> int:
+    return -(-case.dims["cap"] // case.dims["page"])
+
+
 def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Seeded inputs on ``device``. Decode caches hold 1e4 in the rows past each
-    sequence's length, so a kernel that read them would show it."""
+    sequence's length, so a kernel that read them would show it. Paged inputs
+    put each slot's live pages at shuffled physical indices, and hold 1e4 in
+    the null page 0 (every table pad points at it) and in the rows past each
+    slot's length."""
     gen = torch.Generator(device=device).manual_seed(seed)
     dims = case.dims
 
@@ -142,12 +192,31 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
                                             _scale(case), case.causal, dims["h"])
             inp["delta"] = (inp["do"].float() * o.float()).sum(-1)
         return inp
-    b, h, hk, cap, d = dims["b"], dims["h"], dims["hk"], dims["T"], dims["d"]
-    inp = {"q": randn(b, h, d), "k": randn(b, hk, cap, d), "v": randn(b, hk, cap, d),
-           "lens": torch.tensor(case.lens, dtype=torch.int32, device=device)}
+    lens = torch.tensor(case.lens, dtype=torch.int32, device=device)
+    if case.kernel == "decode_attention":
+        b, h, hk, cap, d = dims["b"], dims["h"], dims["hk"], dims["T"], dims["d"]
+        inp = {"q": randn(b, h, d), "k": randn(b, hk, cap, d), "v": randn(b, hk, cap, d),
+               "lens": lens}
+        for i, n in enumerate(case.lens):
+            inp["k"][i, :, n:] = 1e4
+            inp["v"][i, :, n:] = 1e4
+        return inp
+    b, h, hk, ps, d = dims["b"], dims["h"], dims["hk"], dims["page"], dims["d"]
+    mp = max_pages(case)
+    n_pages = b * mp + 1
+    order = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
+    table = np.zeros((b, mp), np.int32)
+    inp = {"q": randn(b, h, d), "k": randn(n_pages, hk, ps, d), "v": randn(n_pages, hk, ps, d),
+           "lens": lens}
     for i, n in enumerate(case.lens):
-        inp["k"][i, :, n:] = 1e4
-        inp["v"][i, :, n:] = 1e4
+        live = -(-n // ps)
+        table[i, :live] = order[i * mp:i * mp + live]
+        if n % ps:
+            for name in ("k", "v"):
+                inp[name][int(table[i, live - 1]), :, n % ps:] = 1e4
+    for name in ("k", "v"):
+        inp[name][0] = 1e4
+    inp["table"] = torch.from_numpy(table).to(device)
     return inp
 
 
@@ -161,8 +230,8 @@ def _bwd_args(case: Case, inp):
 
 
 def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
-    """The kernel through its public wrapper: flash ``(o, lse)``, decode ``(o,)``,
-    dq ``(dq,)``, dk/dv ``(dk, dv)``."""
+    """The kernel through its public wrapper: flash ``(o, lse)``, decode and
+    paged ``(o,)``, dq ``(dq,)``, dk/dv ``(dk, dv)``."""
     if case.kernel == "flash_bwd_dq":
         return (flash_bwd_dq(*_bwd_args(case, inp)),)
     if case.kernel == "flash_bwd_dkv":
@@ -170,6 +239,9 @@ def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     if case.kernel == "flash_fwd":
         return flash_fwd(inp["q"], inp["k"], inp["v"], inp.get("slopes"), None, case.causal,
                          n_heads=case.dims["h"])
+    if case.kernel == "paged_decode_attention":
+        return (paged_attention(inp["q"], inp["k"], inp["v"], inp["table"], inp["lens"],
+                                case.dims["cap"]),)
     return (decode_attention(inp["q"], inp["k"], inp["v"], inp["lens"]),)
 
 
@@ -183,15 +255,29 @@ def run_plain(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     if case.kernel == "flash_fwd":
         return flash_fwd_plain(inp["q"], inp["k"], inp["v"], inp.get("slopes"), scale,
                                case.causal, case.dims["h"])
+    if case.kernel == "paged_decode_attention":
+        return (paged_attention_plain(inp["q"], inp["k"], inp["v"], inp["table"], inp["lens"],
+                                      case.dims["cap"], scale),)
     return (decode_attention_plain(inp["q"], inp["k"], inp["v"], inp["lens"], scale),)
+
+
+def dense_decode_fn(case: Case, inp) -> Callable[[], torch.Tensor]:
+    """For a paged case: the dense decode kernel K2 on the same rows laid out
+    densely, ``(b, h_kv, max_pages * page, d)``, for comparison only."""
+    cap = max_pages(case) * case.dims["page"]
+    k, v = (x.contiguous() for x in gather_kv_dense(inp["k"], inp["v"], inp["table"], cap))
+    return lambda: decode_attention(inp["q"], k, v, inp["lens"])
 
 
 def library_fn(case: Case, inp) -> Optional[Callable[[], torch.Tensor]]:
     """One PyTorch call computing the same function, as a yardstick of speed
-    only (never called by the package), or None where the installed torch
-    has none. The backward kernels' yardstick is SDPA's whole backward (dq,
+    only (never called by the package), or None where there is none: no single
+    call gathers K/V by page index, and a torch without ``enable_gqa`` has no
+    GQA decode. The backward kernels' yardstick is SDPA's whole backward (dq,
     dk and dv in one call), run on a graph built once outside the timing."""
     dims = case.dims
+    if case.kernel == "paged_decode_attention":
+        return None
     if case.kernel == "flash_fwd" or case.kernel in BWD_KERNELS:
         b, t, h, d = dims["b"], dims["t"], dims["h"], dims["d"]
         q, k, v = (inp[n].view(b, h, t, d) for n in ("q", "k", "v"))
@@ -222,8 +308,9 @@ def library_fn(case: Case, inp) -> Optional[Callable[[], torch.Tensor]]:
 
 def work(case: Case) -> Tuple[float, float]:
     """(operations, bytes) the function needs on these inputs: each input read
-    once, each output written once; decode counts only the valid cache rows,
-    causal attention only the pairs with col <= row."""
+    once, each output written once; decode counts only the valid cache rows
+    (paged: and the live table entries), causal attention only the pairs with
+    col <= row."""
     dims = case.dims
     es = torch.tensor([], dtype=case.dtype).element_size()
     d = dims["d"]
@@ -240,9 +327,12 @@ def work(case: Case) -> Tuple[float, float]:
         nbytes = 4.0 * bh * t * d * es + 4.0 * bh * t          # q, k, v, o; f32 lse
         return ops, nbytes
     b, h, hk = dims["b"], dims["h"], dims["hk"]
-    rows = float(sum(min(n, dims["T"]) for n in case.lens))
+    cap = dims["T"] if case.kernel == "decode_attention" else dims["cap"]
+    rows = float(sum(min(n, cap) for n in case.lens))
     ops = 4.0 * d * h * rows
     nbytes = 2.0 * b * h * d * es + 2.0 * hk * d * es * rows + 4.0 * b
+    if case.kernel == "paged_decode_attention":
+        nbytes += 4.0 * sum(-(-min(n, cap) // dims["page"]) for n in case.lens)
     return ops, nbytes
 
 
@@ -274,12 +364,9 @@ def check(case: Case, device, seed: int = 0) -> Dict[str, float]:
     torch.backends.cudnn.allow_tf32 = False
     inp = make_inputs(case, device, seed)
     out, ref = run_kernel(case, inp), run_plain(case, inp)
-    if case.kernel in BWD_KERNELS:
-        atol, rtol = BWD_TOLERANCES[case.dtype]
-        pairs = list(zip(out, ref))
-    else:
-        atol, rtol = TOLERANCES[case.dtype], 0.0
-        pairs = [(out[0], ref[0])]
+    atol, rtol = case.tolerance()
+    # the forward's second output is the f32 lse, held to LSE_TOLERANCE below
+    pairs = list(zip(out, ref))[:1] if case.kernel == "flash_fwd" else list(zip(out, ref))
     result = {"max_abs_err": max(max_abs_err(a, b) for a, b in pairs), "atol": atol,
               "rtol": rtol, "err_ratio": max(err_ratio(a, b, atol, rtol) for a, b in pairs)}
     if case.kernel == "flash_fwd":

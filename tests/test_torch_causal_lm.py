@@ -97,8 +97,12 @@ def test_refused_model_features():
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         torch_lm.CausalLM(torch_lm.gpt2_cfg(**TINY, num_experts=4), device="cpu")
     model = torch_lm.CausalLM(torch_lm.gpt2_cfg(**TINY), device="cpu")
+    model.init_weights(0)
     ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        model(ids, prefix_fill=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        model(ids, page_table=torch.zeros(1, 2, dtype=torch.int32))
+    # suffix prefill and paged decode are ported (queue 1 item 6); as in JAX
+    # they act only on a cache, and without one the forward is the plain one
+    with torch.no_grad():
+        plain = model(ids)
+        torch.testing.assert_close(model(ids, prefix_fill=True), plain, atol=0, rtol=0)
+        torch.testing.assert_close(model(ids, page_table=torch.zeros(1, 2, dtype=torch.int32)),
+                                   plain, atol=0, rtol=0)

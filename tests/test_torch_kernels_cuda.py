@@ -83,3 +83,23 @@ def test_refused_launch_raises():
     for fn in (flash_bwd_dq, flash_bwd_dkv):
         with pytest.raises(KernelLaunchError, match="invalid argument"):
             fn(q, q, q, q, rows, rows)
+
+
+def test_paged_kernel_zero_length_slot_and_launch_count():
+    """A slot with cache_len 0 gets zeros from the paged kernel (the TPU
+    kernel's l_safe); the other slot matches the plain version; one launch."""
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+    device = _card()
+    gen = torch.Generator(device=device).manual_seed(0)
+    q = torch.randn(2, 4, 64, generator=gen, device=device).to(torch.bfloat16)
+    pages = torch.randn(5, 4, 16, 64, generator=gen, device=device).to(torch.bfloat16)
+    table = torch.tensor([[3, 1], [0, 0]], dtype=torch.int32, device=device)
+    lens = torch.tensor([20, 0], dtype=torch.int32, device=device)
+    op_builder.reset_launch_counts()
+    out = paged_attention(q, pages, pages, table, lens, 32)
+    assert op_builder.launch_counts()["paged_decode_attention"] == 1
+    assert bool((out[1] == 0).all())
+    ref = paged_attention_plain(q, pages, pages, table, lens, 32, 0.125)
+    atol, rtol = kernel_checks.DECODE_TOLERANCES[torch.bfloat16]
+    assert kernel_checks.err_ratio(out[:1], ref[:1], atol, rtol) <= 1.0
