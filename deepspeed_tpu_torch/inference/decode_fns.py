@@ -109,17 +109,33 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def gumbel_noise(base_seed: int, seeds: torch.Tensor, steps: torch.Tensor,
+def token_hashes(base_seed: int, seeds: torch.Tensor, steps: torch.Tensor,
                  vocab: int) -> torch.Tensor:
-    """``(S, vocab)`` f32 Gumbel noise, a pure function of ``(base_seed,
-    seeds[s], steps[s], token id)``, computed on the seeds' device."""
+    """``(S, vocab)`` int64 32-bit hashes of ``(base_seed, seeds[s], steps[s],
+    token id)``, computed on the seeds' device."""
     h = _mix32(torch.full_like(seeds, base_seed, dtype=torch.int64) & _MASK32)
     h = _mix32(h ^ (seeds.long() & _MASK32))
     h = _mix32(h ^ (steps.long() & _MASK32))
     ids = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
-    h = _mix32(h[:, None] ^ ids[None, :])
-    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))          # (0, 1), 24 bits
+    return _mix32(h[:, None] ^ ids[None, :])
+
+
+def gumbel_from_hash(h: torch.Tensor) -> torch.Tensor:
+    """f32 Gumbel noise from 32-bit hashes. The top 23 bits ``k`` give ``u = (k
+    + 0.5) / 2**23``, which f32 holds exactly, so ``u`` lies in ``[2**-24, 1 -
+    2**-24]`` and the noise is finite. With 24 bits, ``k + 0.5`` rounds up to
+    ``2**24`` at the top value, ``u`` to 1 and the noise to +inf, which wins
+    the argmax whatever the logit and turns a token masked to -inf into NaN,
+    which argmax takes as well."""
+    u = ((h >> 9).float() + 0.5) * (1.0 / (1 << 23))
     return -torch.log(-torch.log(u))
+
+
+def gumbel_noise(base_seed: int, seeds: torch.Tensor, steps: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """``(S, vocab)`` f32 Gumbel noise, a pure function of ``(base_seed,
+    seeds[s], steps[s], token id)``, computed on the seeds' device."""
+    return gumbel_from_hash(token_hashes(base_seed, seeds, steps, vocab))
 
 
 def make_slot_select_fn(do_sample: bool, temperature: float, top_k: int, top_p: float):

@@ -15,11 +15,14 @@
 // read feeds 2*g multiply-adds, far below the H100's ~295 operations a byte,
 // so device-memory bytes bound it, and the bytes it must move are the valid
 // K/V rows, sum(cache_len) * h_kv * d * 2 elements. The design reads nothing
-// else: a block stages only its slot's cdiv(cache_len, page) live table
-// entries in shared memory and loads only rows of those pages, 16 bytes a
-// thread, through the tile loop of decode_core.cuh (tiles of 64 rows that
-// may span several pages; any page size >= 1 works, since a row of d values
-// is a whole number of 16-byte vectors). Physical pages may be in any order.
+// else: a block reads only its slot's cdiv(cache_len, page) live table
+// entries, through the read-only cache (a warp's 16-byte loads span at most
+// four rows, so at most four entries, each a broadcast), and loads only rows
+// of those pages, 16 bytes a thread, through the tile loop of decode_core.cuh
+// (tiles of 64 rows that may span several pages). Shared memory holds only
+// the tile loop's buffers, whatever the table's width, so any page size >= 1
+// and any cap work, since a row of d values is a whole number of 16-byte
+// vectors. Physical pages may be in any order.
 //
 // Layout: one block of 128 threads per (slot, kv head). At 16 slots and 12 kv
 // heads (GPT-2 serving) that is 192 blocks on 132 SMs; splitting long
@@ -36,14 +39,14 @@ using decode_core::NTHREADS;
 // r % page; rows of the live pages (r < live_rows) have storage
 template <int D>
 struct PagedRows {
-    const int* tbl;     // the slot's live table entries, in shared memory
+    const int* tbl;     // the slot's table row, in device memory
     int page;
     int hk;
     int kh;
     int live_rows;      // cdiv(len, page) * page
     __device__ __forceinline__ bool readable(int r) const { return r < live_rows; }
     __device__ __forceinline__ size_t offset(int r) const {
-        const size_t p = (size_t)tbl[r / page];
+        const size_t p = (size_t)__ldg(tbl + r / page);
         return ((p * hk + kh) * page + (size_t)(r % page)) * D;
     }
 };
@@ -54,15 +57,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
                     const int* __restrict__ table, const int* __restrict__ lens,
                     T* __restrict__ out, int hk, int g, int page, int max_pages, float scale) {
     extern __shared__ float smem[];
-    int* tbl = reinterpret_cast<int*>(smem + decode_core::smem_floats<D>(g));
     const int bi = blockIdx.x;
     const int kh = blockIdx.y;
     const int len = min(max(lens[bi], 0), max_pages * page);
-    const int npg = (len + page - 1) / page;            // only the live pages
-    for (int j = threadIdx.x; j < npg; j += NTHREADS) tbl[j] = table[(size_t)bi * max_pages + j];
-    __syncthreads();                                    // tbl before the first fetch
+    const int npg = (len + page - 1) / page;            // only the live pages are read
     const size_t qoff = ((size_t)bi * hk + kh) * g * D;
-    const PagedRows<D> rows{tbl, page, hk, kh, npg * page};
+    const PagedRows<D> rows{table + (size_t)bi * max_pages, page, hk, kh, npg * page};
     decode_core::decode_block<T, D>(q + qoff, kp, vp, out + qoff, len, g, scale, rows, smem);
 }
 
@@ -70,8 +70,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* table,
                    const void* lens, void* out, int b, int hk, int g, int page, int max_pages,
                    float scale, cudaStream_t stream) {
-    const size_t smem = sizeof(float) * decode_core::smem_floats<D>(g) +
-                        sizeof(int) * (size_t)max_pages;
+    const size_t smem = sizeof(float) * decode_core::smem_floats<D>(g);
     cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);

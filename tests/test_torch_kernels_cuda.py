@@ -6,12 +6,21 @@ without a CUDA card each case skips. This file imports no JAX, so it also
 runs on the card's machine, which has none; there ``tests/conftest.py``
 (which imports JAX) is left out:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py``.
+Add ``-s`` to see each planted fault's ``err/limit``.
 """
+
+import json
+import os
+import shutil
+import subprocess
+import sys
 
 import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import kernel_checks
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("case", kernel_checks.CASES,
@@ -103,3 +112,101 @@ def test_paged_kernel_zero_length_slot_and_launch_count():
     ref = paged_attention_plain(q, pages, pages, table, lens, 32, 0.125)
     atol, rtol = kernel_checks.DECODE_TOLERANCES[torch.bfloat16]
     assert kernel_checks.err_ratio(out[:1], ref[:1], atol, rtol) <= 1.0
+
+
+def test_paged_kernel_page_one_long_cap():
+    """Page size 1 under a 60000-entry table: the kernel reads only a slot's
+    live entries and its shared memory does not grow with the table, so it
+    launches at any cap. Rows are scattered over the pool in random order."""
+    from deepspeed_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+    device = _card()
+    gen = torch.Generator(device=device).manual_seed(1)
+    b, h, hk, d, mp, pool = 2, 4, 2, 128, 60000, 5000
+    q = torch.randn(b, h, d, generator=gen, device=device).to(torch.bfloat16)
+    kp, vp = (torch.randn(pool, hk, 1, d, generator=gen, device=device).to(torch.bfloat16)
+              for _ in range(2))
+    lens = torch.tensor([4000, 1234], dtype=torch.int32, device=device)
+    table = torch.zeros(b, mp, dtype=torch.int32, device=device)
+    for i, n in enumerate(lens.tolist()):
+        table[i, :n] = torch.randperm(pool - 1, generator=gen, device=device)[:n].int() + 1
+    out = paged_attention(q, kp, vp, table, lens, mp)
+    ref = paged_attention_plain(q, kp, vp, table, lens, mp, d ** -0.5)
+    atol, rtol = kernel_checks.DECODE_TOLERANCES[torch.bfloat16]
+    assert kernel_checks.err_ratio(out, ref, atol, rtol) <= 1.0
+
+
+#: faults planted in a copy of the package: name -> (source in csrc/, line as
+#: written, line as planted, kernels whose check cases the fault must fail)
+PLANTED_FAULTS = {
+    "decode-skips-last-tile": (
+        "decode_attention.cu",
+        "const int len = min(max(lens[bi], 0), cap);",
+        "const int len = (min(max(lens[bi], 0), cap) - 1) / decode_core::BK * decode_core::BK;",
+        ("decode_attention",)),
+    "paged-skips-last-live-page": (
+        "paged_decode_attention.cu",
+        "const int len = min(max(lens[bi], 0), max_pages * page);",
+        "const int len = (min(max(lens[bi], 0), max_pages * page) - 1) / page * page;",
+        ("paged_decode_attention",)),
+    "flash-fwd-o-5pct-high": (
+        "flash_fwd.cu",
+        "o[off + tx + 16 * c] = from_f32<T>(acc[i][c] / l_safe);",
+        "o[off + tx + 16 * c] = from_f32<T>(1.05f * acc[i][c] / l_safe);",
+        ("flash_fwd",)),
+    "decode-o-5pct-high": (
+        "decode_core.cuh",
+        "out[e] = from_f32<T>(acc[e] / (lj > 0.f ? lj : 1.f));",
+        "out[e] = from_f32<T>(1.05f * acc[e] / (lj > 0.f ? lj : 1.f));",
+        ("decode_attention", "paged_decode_attention")),
+}
+
+# run inside the planted copy: which package it imported, then err/limit of
+# every check case of the named kernels (the forward's o only: its lse limit
+# does not see a scaled o)
+_PLANTED_CHILD = """
+import json, sys, torch
+from deepspeed_tpu_torch.ops import kernel_checks as kc
+print(json.dumps({"module": kc.__file__}), flush=True)
+dev = torch.device("cuda", 0)
+for case in kc.CASES:
+    if case.kernel not in sys.argv[1:]:
+        continue
+    inp = kc.make_inputs(case, dev)
+    out, ref = kc.run_kernel(case, inp), kc.run_plain(case, inp)
+    atol, rtol = case.tolerance()
+    pairs = list(zip(out, ref))[:1] if case.kernel == "flash_fwd" else list(zip(out, ref))
+    ratio = max(kc.err_ratio(a, b, atol, rtol) for a, b in pairs)
+    print(json.dumps({"case": f"{case.kernel}/{case.name}", "err_ratio": ratio}), flush=True)
+"""
+
+
+@pytest.mark.parametrize("fault", sorted(PLANTED_FAULTS))
+def test_kernel_checks_fail_planted_fault(fault):
+    """The kernel checks catch a wrong kernel. A copy of the package under
+    ``build/planted/<fault>/`` gets one line of one kernel source changed and
+    builds its own kernels into the copy's ``build/``; every check case of
+    the kernels the fault reaches must then exceed its limit. The package
+    itself is never touched."""
+    _card()
+    source, line, planted, kernels = PLANTED_FAULTS[fault]
+    work = os.path.join(REPO, "build", "planted", fault)
+    shutil.rmtree(work, ignore_errors=True)
+    pkg = os.path.join(work, "deepspeed_tpu_torch")
+    shutil.copytree(os.path.join(REPO, "deepspeed_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(pkg, "ops", "csrc", source)
+    with open(path) as f:
+        text = f.read()
+    assert text.count(line) == 1, f"the line to plant is not once in {source}: {line}"
+    with open(path, "w") as f:
+        f.write(text.replace(line, planted))
+    env = {k: v for k, v in os.environ.items() if k != "DS_TORCH_BUILD_DIR"}
+    proc = subprocess.run([sys.executable, "-c", _PLANTED_CHILD, *kernels], cwd=work, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    first, *rows = [json.loads(x) for x in proc.stdout.splitlines()]
+    assert first["module"].startswith(pkg), first
+    assert rows, "no check case of the planted kernels ran"
+    for row in rows:
+        print(f"[fault] {fault} {row['case']}: err/limit {row['err_ratio']:.4g}")
+    assert all(row["err_ratio"] > 1.0 for row in rows), rows

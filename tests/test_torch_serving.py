@@ -27,6 +27,7 @@ from deepspeed_tpu.inference.serving import PrefixCacheConfig as JaxPrefixCacheC
 from deepspeed_tpu.inference.serving import ServingConfig as JaxServingConfig
 from deepspeed_tpu.models import causal_lm as jax_lm
 import deepspeed_tpu_torch as dst
+from deepspeed_tpu_torch.inference import decode_fns
 from deepspeed_tpu_torch.inference.serving import (ChunkTimeoutError,
                                                    ContinuousBatchingScheduler,
                                                    PrefixCacheConfig, QueueFullError,
@@ -257,6 +258,29 @@ def test_sampling_depends_on_seed_only(gpt2):
     np.testing.assert_array_equal(alone, crowded)
     np.testing.assert_array_equal(alone, run("slots", True)[0])
     assert not np.array_equal(alone, run("paged", False, seed=18)[0])
+
+
+def test_gumbel_noise_finite_at_extreme_hashes():
+    """The noise stays finite at the smallest and largest hashes."""
+    h = torch.tensor([0, 1, 511, 512, 0x80000000, 0xFFFFFE00, 0xFFFFFFDC, 0xFFFFFFFF])
+    noise = decode_fns.gumbel_from_hash(h)
+    assert noise.dtype == torch.float32 and bool(torch.isfinite(noise).all())
+    assert bool((noise[1:] >= noise[:-1]).all())   # monotone in the hash
+
+
+def test_sampled_token_never_masked_at_top_hash():
+    """At (base_seed 0, seed 0, step 84) token 5285 of GPT-2's 50304-token
+    vocabulary hashes to 0xFFFFFFDC, the top value of 24 hash bits. Masked by
+    top-k there, it must still never be drawn."""
+    vocab, top_k, masked = 50304, 4, 5285
+    seeds, steps = torch.tensor([0], dtype=torch.int32), torch.tensor([84], dtype=torch.int32)
+    assert int(decode_fns.token_hashes(0, seeds, steps, vocab)[0, masked]) == 0xFFFFFFDC
+    noise = decode_fns.gumbel_noise(0, seeds, steps, vocab)
+    assert bool(torch.isfinite(noise).all())
+    logits = torch.linspace(0.0, -1.0, vocab)[None]     # the top k are tokens 0 .. k-1
+    select = decode_fns.make_slot_select_fn(True, 1.0, top_k, 1.0)
+    tok = int(select(logits, 0, seeds, steps)[0, 0])
+    assert 0 <= tok < top_k
 
 
 def test_speculate_raises(gpt2):
