@@ -31,7 +31,11 @@ non-zero:
    misses); there must be prefix hits and copy-on-write copies; one mid-run
    decode step of the whole slot-batch, from a copy of the pool, must give
    logits within 0.1 of the same step on the plain versions on every live
-   slot; one chunk of a second run is traced;
+   slot; one chunk of a second run is traced. Then the same 48 requests run
+   on an int8 weight-quantized engine of the same model: every request must
+   finish with its budget, the dequant-GEMM must launch exactly 72 times (12
+   layers x 6 projections) per forward pass the scheduler's telemetry counts
+   (prefills and decode steps), the paged kernel as in the bf16 run;
 6. training path: ``initialize`` on GPT-2 125M at ``bench.py``'s training
    configuration (vocab 50304, seq 1024, micro-batch 24, bf16 AdamW lr 2e-4,
    weight decay 0.01, ZeRO stage 1, clipping 1.0; seeded random weights, no
@@ -41,7 +45,22 @@ non-zero:
    backward kernels (12 layers x 20 steps each); every loss must be finite and
    the last below the first; the loss and every parameter's gradient of one
    micro-batch of 4 must agree with the plain attention's; one more
-   ``train_batch`` is traced with torch.profiler.
+   ``train_batch`` is traced with torch.profiler;
+7. weight-quantized serving (``[wq]``): BLOOM-7B at full width and depth as
+   ``bench.py --wq`` serves it on a TPU (vocab 250,880, n_embd 4,096, 30
+   layers, 32 heads, ALiBi, tied head; seeded random weights, bf16), batch
+   1, a 512-token prompt, greedy; three lanes built one after another on
+   one seed: bf16, int8 and int4 (``weight_quant``, group 128). Each lane:
+   warm-up, then 3 rounds of ``generate`` at 64 and at 16 new tokens (decode
+   tokens/s by differencing the two, TTFT); launch counts exact in every
+   call (dequant-GEMM 180 x new tokens in the quantized lanes, flash forward
+   30, dense decode 0: BLOOM decode attends in plain PyTorch); greedy
+   parity of int8 (>= 0.98) and int4 (reported) against bf16, teacher-forced
+   on the bf16 lane's own tokens; 180 matrices quantized; modeled weight
+   bytes reduced >= 1.9x (int8) and >= 3.5x (int4) on the quantized
+   matrices; peak memory; one traced decode step. The bf16 lane also
+   quantizes layer 0's fc_in on the card and on the CPU, which must agree
+   byte for byte, and with the quantized lanes' own.
 
 The last lines are a JSON line of the main paths' metrics, a JSON line on the
 kernels, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -63,6 +82,9 @@ PROMPT = 512
 SHORT_PROMPT = 384
 LOGITS_TOL = 0.1   # bf16 prefill logits, kernel vs plain attention: see main_path()
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_MICRO, TRAIN_SEQ = 20, 3, 24, 1024
+WQ_PROMPT, WQ_NEW, WQ_SHORT, WQ_ROUNDS = 512, 64, 16, 3
+WQ_PARITY_INT8 = 0.98   # bench.py's int8 acceptance: teacher-forced greedy parity vs bf16
+WQ_REDUCTION = {8: 1.9, 4: 3.5}   # bench.py's modeled weight-byte reduction gates
 GRAD_RTOL = 5e-2   # bf16 whole-model gradients, kernel vs plain attention: see train_path()
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 SPIN_CYCLES = 2_000_000   # ~1.1 ms at the H100's 1.98 GHz boost: longer than any enqueue
@@ -112,8 +134,9 @@ def kernel_checks(device):
             # for comparison only: K2 on the same rows laid out densely
             res["dense_decode_ms"] = time_ms(kc.dense_decode_fn(case, inp))
         res["bound_ms"], res["bound_by"] = kc.bound_ms(case)
-        print(f"[check] {case.kernel}/{case.name} {case.dims} {str(case.dtype)[6:]} "
-              f"causal={case.causal} alibi={case.alibi} lens={case.lens}: "
+        shape = ("" if case.kernel == "quantized_matmul" else
+                 f" causal={case.causal} alibi={case.alibi} lens={case.lens}")
+        print(f"[check] {case.kernel}/{case.name} {case.dims} {str(case.dtype)[6:]}{shape}: "
               f"max_abs_err={res['max_abs_err']:.3e} err/limit={res['err_ratio']:.3g} "
               f"(limit {res['atol']:g} + {res['rtol']:g}|plain|)"
               + (f" lse_err={res['lse_err']:.3e}" if "lse_err" in res else "")
@@ -175,7 +198,9 @@ def profile_call(label: str, fn, top: int = 12):
     call, and the device's busy share of the call's wall time (kernels run on
     one stream, so their times do not overlap). The call must end in a
     synchronise. The tracer slows the host, so the busy share reads low
-    against an untraced run."""
+    against an untraced run. Returns ``{"wall_us", "device_us",
+    "by_kernel"}`` (device microseconds by kernel name), or None when the
+    tracer recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -193,13 +218,15 @@ def profile_call(label: str, fn, top: int = 12):
     if total == 0:
         print(f"[profile] {label}: the tracer recorded no device time: not measured",
               flush=True)
-        return
+        return None
     print(f"[profile] {label} traced: wall {wall_us / 1e3:.2f} ms, device "
           f"{total / 1e3:.2f} ms, busy share {total / wall_us:.3f}, "
           f"{sum(e.count for e in events)} kernel launches of {len(events)} names", flush=True)
     for e in sorted(events, key=device_us, reverse=True)[:top]:
         print(f"[profile]   {device_us(e) / 1e3:8.3f} ms  {e.count:6d} calls  {e.key[:90]}",
               flush=True)
+    return {"wall_us": wall_us, "device_us": total,
+            "by_kernel": {e.key: device_us(e) for e in events}}
 
 
 def main_path(device):
@@ -229,7 +256,8 @@ def main_path(device):
     if out.shape != (4, PROMPT + N_NEW) or not ((out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError(f"generate returned shape {out.shape} or ids out of range")
     want = {"flash_fwd": cfg.n_layer, "decode_attention": cfg.n_layer * (n - 1),
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "paged_decode_attention": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "paged_decode_attention": 0,
+            "quantized_matmul": 0}
     print(f"[main] launches {launches} (expected {want})", flush=True)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -339,7 +367,7 @@ def serve_path(device, smi: str):
     chunks, misses = tele["chunks"], tele["prefix_misses"]
     want = {"flash_fwd": cfg.n_layer * misses, "decode_attention": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_decode_attention": cfg.n_layer * SERVE_CHUNK * chunks}
+            "paged_decode_attention": cfg.n_layer * SERVE_CHUNK * chunks, "quantized_matmul": 0}
     print(f"[serve] launches {launches} (expected {want}: {chunks} chunks, {misses} prefix "
           f"misses)", flush=True)
     if launches != want:
@@ -395,6 +423,65 @@ def serve_path(device, smi: str):
     profile_call(f"serve chunk ({SERVE_SLOTS} slots, {SERVE_CHUNK} steps)", traced_chunk,
                  top=15)
     sched2.run()
+    del sched, sched2, engine
+    gc.collect()
+    out["int8"] = serve_int8(device, smi, cfg, config, requests, out)
+    return out
+
+
+def serve_int8(device, smi: str, cfg, config, requests, bf16):
+    """The same requests through an int8 weight-quantized engine of the same
+    model: every projection of every forward pass in the dequant-GEMM."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.ops import op_builder
+
+    engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024,
+                                      "weight_quant": {"enabled": True, "bits": 8}},
+                                device=device)
+    n_q = sum(1 for e in engine.quant_audit if e["decision"] == "quantized")
+    sched = ContinuousBatchingScheduler(engine, config)
+    handles = [sched.submit(p, max_new_tokens=m) for p, m in requests]
+    torch.cuda.synchronize()
+    op_builder.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = op_builder.launch_counts()
+    tele = sched.telemetry.snapshot()
+    bad = [(h.id, len(h.tokens), m) for h, (_, m) in zip(handles, requests)
+           if len(h.tokens) != m or h.finish_reason != "length"]
+    if bad:
+        raise AssertionError(f"int8 requests that did not finish with their budget: {bad}")
+    chunks, hits, misses = tele["chunks"], tele["prefix_hits"], tele["prefix_misses"]
+    forwards = hits + misses + SERVE_CHUNK * chunks
+    per_forward = cfg.n_layer * 6
+    want = {"flash_fwd": cfg.n_layer * misses, "decode_attention": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "paged_decode_attention": cfg.n_layer * SERVE_CHUNK * chunks,
+            "quantized_matmul": per_forward * forwards}
+    print(f"[serve] int8: {n_q} matrices quantized; launches {launches} (expected {want}: "
+          f"{forwards} forward passes = {hits + misses} prefills + {SERVE_CHUNK} x {chunks} "
+          f"chunk steps)", flush=True)
+    if launches != want or n_q != per_forward or hits + misses != len(requests):
+        raise AssertionError(f"int8 launch counts {launches} != {want} or {n_q} matrices")
+    tokens = sum(len(h.tokens) for h in handles)
+    out = {"requests_per_s": len(requests) / wall, "tokens_per_s": tokens / wall,
+           "wall_s": wall, "tpot_ms_p50": tele["tpot_ms_p50"], "tpot_ms_p95": tele["tpot_ms_p95"],
+           "ttft_ms_p50": tele["ttft_ms_p50"], "chunks": chunks,
+           "chunk_ms_mean": sched.telemetry.decode_seconds / chunks * 1e3,
+           "launches": launches}
+    print(f"[serve] {smi}: int8 {len(requests)} requests in {wall:.3f} s: "
+          f"{out['requests_per_s']:.3f} requests/s (bf16 {bf16['requests_per_s']:.3f}), "
+          f"{out['tokens_per_s']:.1f} generated tokens/s; TPOT p50 {out['tpot_ms_p50']:.3f} ms "
+          f"p95 {out['tpot_ms_p95']:.3f} ms (bf16 {bf16['tpot_ms_p50']:.3f} / "
+          f"{bf16['tpot_ms_p95']:.3f}); mean chunk {out['chunk_ms_mean']:.3f} ms over {chunks} "
+          f"chunks", flush=True)
+    del sched, engine
+    gc.collect()
     return out
 
 
@@ -444,7 +531,7 @@ def train_path(device, smi: str):
     per_attention = cfg.n_layer * TRAIN_STEPS
     want = {"flash_fwd": per_attention, "flash_bwd_dq": per_attention,
             "flash_bwd_dkv": per_attention, "decode_attention": 0,
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, "quantized_matmul": 0}
     print(f"[train] launches {launches} (expected {want})", flush=True)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -494,6 +581,167 @@ def train_path(device, smi: str):
             "grad_rel_err_max": rel[worst], "loss_err": loss_err, "launches": launches}
 
 
+def wq_same_bytes(a, b) -> bool:
+    """Two quant nodes hold the same keys, shapes, dtypes and bytes."""
+    return set(a) == set(b) and all(
+        a[k].shape == b[k].shape and a[k].dtype == b[k].dtype and
+        a[k].cpu().numpy().tobytes() == b[k].cpu().numpy().tobytes() for k in a)
+
+
+def wq_path(device, smi: str):
+    """Weight-quantized serving of BLOOM-7B: bf16, int8 and int4 lanes, one
+    after another (each engine is built in f32 first, ~28 GB), on one seed."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.decode_fns import prefill
+    from deepspeed_tpu_torch.models import bloom_cfg, init_cache
+    from deepspeed_tpu_torch.models.causal_lm import QuantDense
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.quantizer import quantize_with_audit
+
+    cfg = bloom_cfg(vocab_size=250880, max_seq_len=WQ_PROMPT + WQ_NEW, n_embd=4096,
+                    n_layer=30, n_head=32)
+    lanes = {"bf16": None, "int8": 8, "int4": 4}
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, WQ_PROMPT))
+    n_proj = cfg.n_layer * 6
+    probe = {}                    # layer 0 fc_in quantized on the card and on the CPU
+    out, full, ref = {}, None, None
+    for name, bits in lanes.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        config = {"dtype": "bfloat16", "max_out_tokens": WQ_PROMPT + WQ_NEW}
+        if bits:
+            config["weight_quant"] = {"enabled": True, "bits": bits}
+        t0 = time.perf_counter()
+        engine = dst.init_inference(cfg, config, device=device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated()
+        resident = torch.cuda.memory_allocated()
+        lane = {"build_s": build_s, "build_peak_bytes": build_peak, "resident_bytes": resident}
+        if bits is None:
+            w = engine.module.layers[0].fc_in.weight.t()
+            for b in (8, 4):
+                on_card, _ = quantize_with_audit(w, bits=b, group_size=128, threshold=1.0,
+                                                 name="layers_0/fc_in/kernel")
+                on_cpu, _ = quantize_with_audit(w.cpu(), bits=b, group_size=128,
+                                                threshold=1.0, name="layers_0/fc_in/kernel")
+                same = wq_same_bytes(on_card, on_cpu)
+                print(f"[wq] layers_0/fc_in int{b}: quantized on the card == on the CPU, byte "
+                      f"for byte: {same}", flush=True)
+                if not same:
+                    raise AssertionError(f"int{b}: card and CPU quantization differ")
+                probe[b] = {k: v.cpu() for k, v in on_cpu.items()}
+                del on_card
+            del w
+        else:
+            audit = engine.quant_audit
+            n_q = sum(1 for e in audit if e["decision"] == "quantized")
+            node = engine.module.layers[0].fc_in.node()
+            same = wq_same_bytes(node, probe[bits])
+            rep = engine.weight_stream_report()
+            lane.update(matrices_quantized=n_q, matrices_kept_fp=len(audit) - n_q,
+                        weight_stream=rep, node_matches_cpu=same)
+            print(f"[wq] {name}: {n_q} matrices quantized, {len(audit) - n_q} kept fp; layer 0 "
+                  f"fc_in == the CPU's quantization: {same}; modeled weight bytes a step "
+                  f"{rep['modeled_step_bytes'] / 1e9:.4f} GB (bf16 equivalent "
+                  f"{rep['bf16_equiv_step_bytes'] / 1e9:.4f} GB), reduction on the quantized "
+                  f"matrices {rep['reduction_quantized_nodes']:.4f}x, total "
+                  f"{rep['reduction_total']:.4f}x", flush=True)
+            if n_q != n_proj or not same or \
+                    not rep["reduction_quantized_nodes"] >= WQ_REDUCTION[bits] or \
+                    sum(isinstance(m, QuantDense) for m in engine.module.modules()) != n_proj:
+                raise AssertionError(f"{name}: {n_q} matrices, node match {same}, reduction "
+                                     f"{rep['reduction_quantized_nodes']}")
+
+        def counted(fn, new_tokens):
+            op_builder.reset_launch_counts()
+            res = fn()
+            torch.cuda.synchronize()
+            launches = op_builder.launch_counts()
+            want = {"flash_fwd": cfg.n_layer, "decode_attention": 0, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0, "paged_decode_attention": 0,
+                    "quantized_matmul": n_proj * new_tokens if bits else 0}
+            if launches != want:
+                raise AssertionError(f"{name}: launch counts {launches} != {want}")
+            return res, launches
+
+        for n in (WQ_SHORT, WQ_NEW):                     # warm-up
+            counted(lambda: engine.generate(ids, max_new_tokens=n), n)
+        samples = []
+        for _ in range(WQ_ROUNDS):
+            t0 = time.perf_counter()
+            toks, launches = counted(lambda: engine.generate(ids, max_new_tokens=WQ_NEW), WQ_NEW)
+            dt_long, ttft = time.perf_counter() - t0, engine.ttft
+            t0 = time.perf_counter()
+            counted(lambda: engine.generate(ids, max_new_tokens=WQ_SHORT), WQ_SHORT)
+            dt_short = time.perf_counter() - t0
+            per_token = (dt_long - dt_short) / (WQ_NEW - WQ_SHORT)
+            samples.append((1.0 / per_token if per_token > 0 else None, ttft))
+        if toks.shape != (1, WQ_PROMPT + WQ_NEW) or \
+                not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{name}: generate returned {toks.shape} or ids out of range")
+        tps = [t for t, _ in samples if t]
+        lane.update(decode_tokens_per_s=statistics.median(tps) if tps else None,
+                    ttft_ms=statistics.median(tt for _, tt in samples) * 1e3,
+                    generate_launches=launches, peak_bytes=torch.cuda.max_memory_allocated())
+
+        # teacher-forced greedy parity on the bf16 lane's own tokens
+        with torch.inference_mode():
+            if bits is None:
+                full = toks
+            logits, _ = counted(lambda: engine.forward(full), 1)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{name}: non-finite teacher-forced logits")
+            am = logits[:, WQ_PROMPT - 1:-1].argmax(-1)
+            del logits
+        if bits is None:
+            ref = am
+        else:
+            lane["greedy_parity_vs_bf16"] = float((am == ref).float().mean())
+
+        # one decode step traced, at the prompt's end
+        with torch.inference_mode():
+            caches = init_cache(engine.model_config, 1, WQ_PROMPT + WQ_NEW, device=device)
+            lens = torch.full((1,), WQ_PROMPT, dtype=torch.int32, device=device)
+            tok = prefill(engine.module, torch.from_numpy(ids).to(device), caches,
+                          lens).argmax(-1)[:, None]
+
+            def step():
+                engine.module(tok, positions=lens[:, None], caches=caches, cache_lens=lens)
+                torch.cuda.synchronize()
+
+            step()
+            prof = profile_call(f"[wq] {name} decode step (BLOOM-7B, batch 1, row {WQ_PROMPT})",
+                                step, top=10)
+            del caches
+        if prof is not None:
+            qmm = sum(v for k, v in prof["by_kernel"].items() if "qmm_" in k)
+            lane["decode_step_device_ms"] = prof["device_us"] / 1e3
+            lane["decode_step_qmm_ms"] = qmm / 1e3
+            lane["decode_step_busy_share"] = prof["device_us"] / prof["wall_us"]
+        print(f"[wq] {smi}: {name}: decode {lane['decode_tokens_per_s'] or 0:.2f} tokens/s, "
+              f"TTFT {lane['ttft_ms']:.2f} ms (medians of {WQ_ROUNDS} rounds), build "
+              f"{build_s:.1f} s (peak {build_peak / 2**30:.2f} GiB), resident "
+              f"{resident / 2**30:.2f} GiB, peak {lane['peak_bytes'] / 2**30:.2f} GiB; "
+              f"launches of a {WQ_NEW}-token generate {launches}"
+              + (f"; greedy parity vs bf16 {lane['greedy_parity_vs_bf16']:.4f}" if bits else "")
+              + (f"; traced decode step: device {lane['decode_step_device_ms']:.3f} ms, "
+                 f"dequant-GEMM {lane['decode_step_qmm_ms']:.3f} ms, busy share "
+                 f"{lane['decode_step_busy_share']:.3f}" if prof else ""), flush=True)
+        out[name] = lane
+        del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not out["int8"]["greedy_parity_vs_bf16"] >= WQ_PARITY_INT8:
+        raise AssertionError(f"int8 greedy parity {out['int8']['greedy_parity_vs_bf16']} < "
+                             f"{WQ_PARITY_INT8}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -524,15 +772,22 @@ def main() -> int:
     # the serving phase's pools before training measures its peak memory
     gc.collect()
     train = train_path(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wq = wq_path(device, smi)
 
     # each kernel's launches on its own main path (the one its first check case
     # is shaped by): generate for the forward and decode kernels, the
-    # scheduler for the paged kernel, training for the backward kernels; the
-    # forward's serving and training launches ride beside
+    # scheduler for the paged kernel, training for the backward kernels, the
+    # int8 lane's 64-token generate for the dequant-GEMM; the forward's
+    # serving and training launches, and the dequant-GEMM's in the int8
+    # scheduler run, ride beside
     kernels = []
     for name, res in rows.items():
         path = (train if name in kc.BWD_KERNELS else
-                serve if name == "paged_decode_attention" else main)
+                serve if name == "paged_decode_attention" else
+                {"launches": wq["int8"]["generate_launches"]} if name == "quantized_matmul" else
+                main)
         entry = {"name": name, "route": "cuda", **kc.KERNEL_INFO[name],
                  "launches": path["launches"][name],
                  "max_abs_err": res["max_abs_err"], "ms": res["ms"],
@@ -543,11 +798,16 @@ def main() -> int:
             entry["train_launches"] = train["launches"][name]
         if "dense_decode_ms" in res:
             entry["dense_decode_ms"] = res["dense_decode_ms"]
+        if name == "quantized_matmul":
+            entry["serve_int8_launches"] = serve["int8"]["launches"][name]
         kernels.append(entry)
     print(json.dumps({"main_path": {
         k: main[k] for k in ("ttft_ms", "tpot_ms", "decode_tokens_per_s",
                              "prefill_logit_err", "token_agreement")},
-        "serve_path": {k: v for k, v in serve.items() if k != "launches"},
+        "serve_path": {k: v for k, v in serve.items() if k not in ("launches", "int8")},
+        "serve_int8": {k: v for k, v in serve["int8"].items() if k != "launches"},
+        "wq_path": {name: {k: v for k, v in lane.items() if k != "generate_launches"}
+                    for name, lane in wq.items()},
         "train_path": {k: train[k] for k in ("step_ms", "tokens_per_s", "mfu",
                                              "peak_memory_bytes", "first_loss", "last_loss",
                                              "grad_rel_err_max", "loss_err")}}))

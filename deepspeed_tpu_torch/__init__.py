@@ -2,9 +2,10 @@
 
 It trains a model through ``initialize(model=..., config=...)`` and
 ``engine.train_batch(batch)``, and serves a causal LM through
-``init_inference(model, config)`` and ``engine.generate(...)``, on one NVIDIA
-card, with hand-written Hopper kernels for attention: the flash forward and its
-two backward kernels, and decode attention. It imports torch, numpy and the
+``init_inference(model, config)`` and ``engine.generate(...)`` (in bf16, or
+with int8/int4 weights), on one NVIDIA card, with hand-written Hopper kernels:
+the flash forward and its two backward kernels, dense and paged decode
+attention, and the dequant-GEMM of quantized projections. It imports torch, numpy and the
 standard library only; the JAX package stays beside it as the reference. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -32,11 +32,23 @@ class QuantConfig:
 
 @dataclasses.dataclass
 class WeightQuantConfig:
+    """Weight-streaming quantized serving: the projections (``QUANT_NAMES`` of
+    ``models/causal_lm.py``) are stored grouped-quantized and run in the
+    dequant-GEMM kernel; embeddings, norms, biases and the head stay fp.
+    ``bits`` 8 or 4; ``group`` rows a scale group; ``exclude`` parameter-path
+    substrings (JAX paths, e.g. ``"layers_0/"``, ``"fc_out"``) kept fp;
+    ``outlier_threshold`` the audit's relative-error bound, None for the
+    per-bits default (:meth:`resolved_threshold`)."""
     enabled: bool = False
     bits: int = 8
     group: int = 128
     exclude: List[str] = dataclasses.field(default_factory=list)
     outlier_threshold: Optional[float] = None
+
+    def resolved_threshold(self) -> float:
+        if self.outlier_threshold is not None:
+            return float(self.outlier_threshold)
+        return 0.05 if self.bits == 8 else 0.30
 
 
 @dataclasses.dataclass
@@ -63,11 +75,9 @@ class DeepSpeedInferenceConfig:
         self.quant = _from_dict(QuantConfig, self.quant, "quant")
         self.weight_quant = _from_dict(WeightQuantConfig, self.weight_quant, "weight_quant")
         key = str(self.dtype).replace("torch.", "")
-        if key == "int8" or self.quant.enabled or self.weight_quant.enabled:
-            raise NotImplementedError("quantized serving (dtype='int8', quant, weight_quant) "
-                                      "is not ported yet: ROADMAP.md queue 1 item 7")
-        if key not in _DTYPES:
-            raise ValueError(f"dtype={self.dtype!r} is not one of {sorted(_DTYPES)}")
+        if key != "int8" and key not in _DTYPES:
+            raise ValueError(f"dtype={self.dtype!r} is not one of "
+                             f"{sorted(_DTYPES) + ['int8']}")
         if self.resolved_tp() > 1:
             raise NotImplementedError("tensor parallelism (tp_size > 1) is not ported yet: "
                                       "ROADMAP.md queue 1 item 11")
@@ -96,5 +106,23 @@ class DeepSpeedInferenceConfig:
             return int(self.mp_size)
         return int(self.tensor_parallel.tp_size)
 
+    def is_int8(self) -> bool:
+        """int8 serving: int8-quantized weights and bf16 compute, spelled
+        ``dtype="int8"`` or with the legacy ``quant`` block."""
+        return str(self.dtype).replace("torch.", "") == "int8" or self.quant.enabled
+
+    def resolved_weight_quant(self) -> WeightQuantConfig:
+        """One weight-quantization surface: the ``weight_quant`` block wins;
+        the legacy ``quant`` block and ``dtype="int8"`` resolve to its 8-bit
+        defaults."""
+        if self.weight_quant.enabled:
+            return self.weight_quant
+        if self.is_int8():
+            return WeightQuantConfig(enabled=True, bits=8)
+        return self.weight_quant
+
     def torch_dtype(self) -> torch.dtype:
-        return _DTYPES[str(self.dtype).replace("torch.", "")]
+        """The compute dtype; ``"int8"`` computes in bf16 (its weights are
+        quantized separately)."""
+        key = str(self.dtype).replace("torch.", "")
+        return torch.bfloat16 if key == "int8" else _DTYPES[key]

@@ -3,20 +3,25 @@
 Counterpart of ``deepspeed_tpu/inference/engine.py`` (``InferenceEngine``):
 the model comes as a :class:`CausalLMConfig` (seeded random weights) or as
 ``(cfg, state_dict)``; weights of two or more dimensions are cast to the serve
-dtype, 1-D norms and biases stay f32. ``generate`` runs the prefill, then a
-Python decode loop, and records ``ttft``, ``tpot`` and ``decode_tps``, each
-bracketed by a device synchronise on the card.
+dtype, 1-D norms and biases stay f32. With weight quantization on
+(``weight_quant``, or the legacy ``dtype="int8"`` / ``quant`` spellings) the
+projections are then quantized, as the JAX engine's ``_place_params`` does,
+and served through the dequant-GEMM kernel. ``generate`` runs the prefill,
+then a Python decode loop, and records ``ttft``, ``tpot`` and ``decode_tps``,
+each bracketed by a device synchronise on the card.
 """
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..accelerator import resolve_device
-from ..models.causal_lm import CausalLM, CausalLMConfig, init_cache
+from ..models.causal_lm import QUANT_NAMES, CausalLM, CausalLMConfig, Dense, QuantDense, init_cache
+from ..ops.quantizer import (dense_weight_bytes, node_logical_shape, node_weight_bytes,
+                             quantize_with_audit, validate_quant_config)
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
 from .decode_fns import decode_loop, make_select_fn, prefill
@@ -35,6 +40,7 @@ class InferenceEngine:
         if state_dict is None:
             self.module.init_weights(seed)
         else:
+            self._adopt_quant_nodes(state_dict)
             self.module.load_state_dict(state_dict)
         self._place_params()
         self.module.requires_grad_(False).eval()
@@ -59,13 +65,112 @@ class InferenceEngine:
             f"cannot serve a {type(model).__name__}: this package serves a CausalLMConfig "
             "or (CausalLMConfig, state_dict); encoder serving is ROADMAP.md queue 1 item 13")
 
+    def _adopt_quant_nodes(self, state_dict) -> None:
+        """Projections that come quantized in ``state_dict`` (``<prefix>.int8_q``
+        / ``int4_q`` and their scales, from ``models/convert.py``) become
+        :class:`QuantDense` before the load, and are served as they are."""
+        for key in state_dict:
+            prefix, _, leaf = key.rpartition(".")
+            if leaf not in ("int8_q", "int4_q"):
+                continue
+            bits = 8 if leaf == "int8_q" else 4
+            parent_name, _, name = prefix.rpartition(".")
+            parent = self.module.get_submodule(parent_name)
+            dense = getattr(parent, name)
+            node = {f"__int{bits}_q__": state_dict[key],
+                    f"__int{bits}_scale__": state_dict[f"{prefix}.int{bits}_scale"]}
+            setattr(parent, name, QuantDense(node, dense.bias, dense.dtype))
+
     @torch.no_grad()
     def _place_params(self):
         """Cast every floating parameter of two or more dimensions to the serve
-        dtype; 1-D norms and biases stay f32."""
+        dtype (1-D norms and biases stay f32), then, with weight quantization
+        on, quantize the projections as the JAX engine does.
+
+        Each ``Dense`` at a ``QUANT_NAMES`` site, in the serve dtype and in the
+        JAX ``(in, out)`` layout (``weight.t()``), passes the audit of
+        ``quantize_with_audit``: outlier-heavy matrices and paths matching a
+        ``weight_quant.exclude`` substring stay fp; the rest become
+        :class:`QuantDense`. Paths are the JAX tree's (``layers_0/q_proj/kernel``)
+        so that one config excludes the same matrices in both packages.
+        Projections already quantized (from the state dict) pass through. The
+        decisions land in ``self.quant_audit`` with the JAX engine's keys and
+        go to the log."""
+        if self._config.quant.enabled or self._config.is_int8():
+            validate_quant_config(self._config.quant)
+        wq = self._config.resolved_weight_quant()
+        if wq.enabled and wq.bits not in (8, 4):
+            raise ValueError(f"weight_quant.bits={wq.bits} not in (8, 4)")
+        if wq.enabled and wq.group < 1:
+            raise ValueError(f"weight_quant.group={wq.group} must be >= 1")
+        self._wq = wq
         for p in self.module.parameters():
             if p.ndim >= 2 and p.is_floating_point():
                 p.data = p.data.to(self.dtype)
+        threshold = wq.resolved_threshold()
+        audit = []
+        if wq.enabled:
+            for i, layer in enumerate(self.module.layers):
+                for name in QUANT_NAMES:
+                    dense = getattr(layer, name, None)
+                    if not isinstance(dense, Dense):
+                        continue
+                    path = f"layers_{i}/{name}/kernel"
+                    if any(sub in path for sub in wq.exclude):
+                        audit.append({"name": path, "decision": "excluded",
+                                      "reason": "weight_quant.exclude match", "bits": wq.bits,
+                                      "group_requested": wq.group, "group_effective": None,
+                                      "rel_err": None})
+                        continue
+                    node, info = quantize_with_audit(dense.weight.t(), bits=wq.bits,
+                                                     group_size=wq.group, threshold=threshold,
+                                                     name=path)
+                    audit.append(info)
+                    if node is not None:
+                        setattr(layer, name, QuantDense(node, dense.bias, dense.dtype))
+        self.quant_audit = audit
+        n_q = sum(1 for e in audit if e["decision"] == "quantized")
+        self._quantized = wq.enabled and n_q > 0
+        if wq.enabled:
+            for e in audit:
+                if e["decision"] != "quantized":
+                    log_dist(f"weight_quant: {e['name']} kept fp — {e['reason']}", ranks=[0])
+                elif e["group_effective"] != e["group_requested"]:
+                    log_dist(f"weight_quant: {e['name']} effective group "
+                             f"{e['group_effective']} (requested {wq.group})", ranks=[0])
+            log_dist(f"weight_quant: int{wq.bits} group={wq.group} — {n_q} matrices "
+                     f"quantized, {len(audit) - n_q} kept fp (outlier_threshold={threshold})",
+                     ranks=[0])
+
+    def weight_stream_report(self) -> Dict[str, float]:
+        """Modeled device-memory weight bytes of one full pass over the
+        parameters (about one decode step), as the JAX engine reports them:
+        quantized projections at the kernel's own count (payload and scales,
+        each read once, ``node_weight_bytes``); every fp matrix, and the bf16
+        equivalent of each quantized one, at 2 bytes an element whatever the
+        serve dtype. ``reduction_quantized_nodes`` is over the quantized set,
+        ``reduction_total`` includes the fp matrices (embeddings, head,
+        excluded projections)."""
+        acc = {"quantized_bytes": 0, "quantized_bf16_equiv": 0, "fp_bytes": 0}
+        for mod in self.module.modules():
+            if isinstance(mod, QuantDense):
+                node = mod.node()
+                acc["quantized_bytes"] += node_weight_bytes(node)
+                acc["quantized_bf16_equiv"] += dense_weight_bytes(node_logical_shape(node),
+                                                                  torch.bfloat16)
+        for p in self.module.parameters():
+            if p.ndim >= 2:
+                acc["fp_bytes"] += dense_weight_bytes(p.shape, torch.bfloat16)
+        step = acc["quantized_bytes"] + acc["fp_bytes"]
+        bf16_equiv = acc["quantized_bf16_equiv"] + acc["fp_bytes"]
+        return {
+            **acc,
+            "modeled_step_bytes": step,
+            "bf16_equiv_step_bytes": bf16_equiv,
+            "reduction_total": bf16_equiv / step if step else 1.0,
+            "reduction_quantized_nodes": (acc["quantized_bf16_equiv"] / acc["quantized_bytes"]
+                                          if acc["quantized_bytes"] else 1.0),
+        }
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -22,8 +22,13 @@ step writes one row per sequence at ``cache_len`` (clamped to ``T - 1``, as
 prefill writes rows ``[cache_len, cache_len + t)`` below ``T``, so no second
 cache is ever allocated.
 
-Not in this slice (each raises ``NotImplementedError``): MoE layers,
-quantized projections, tensor parallelism.
+A served projection may be a :class:`QuantDense` instead of a :class:`Dense`:
+the engine swaps it in at the ``QUANT_NAMES`` sites when weight quantization
+is on (``inference/engine.py``), and its product runs in the dequant-GEMM
+kernel (``ops/quantizer/fused_matmul.py``).
+
+Not in this slice (each raises ``NotImplementedError``): MoE layers, tensor
+parallelism.
 """
 
 import dataclasses
@@ -38,6 +43,7 @@ from ..accelerator import resolve_device
 from ..ops.attention.decode import decode_attention
 from ..ops.attention.flash import flash_attention
 from ..ops.paged_attention import gather_kv_dense, paged_attention, paged_cache_update
+from ..ops.quantizer import make_quant_node, node_bits, node_qs, quant_dense_apply
 
 
 @dataclasses.dataclass
@@ -240,6 +246,38 @@ class Dense(nn.Module):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+#: the projections weight quantization may replace (the JAX engine's
+#: ``_QUANT_NAMES``); embeddings, norms and the head stay fp
+QUANT_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "fc_in", "fc_out", "gate_proj",
+               "up_proj")
+
+
+class QuantDense(nn.Module):
+    """A projection over a quant node, the counterpart of the JAX
+    ``QuantDense``: ``x @ dequant(payload, scales) + bias`` in ``dtype``.
+
+    Buffers ``int8_q`` and ``int8_scale`` (or ``int4_q`` and ``int4_scale``):
+    the int8 payload in the JAX node's ``(in, out)`` layout (``(in/2, out)``
+    packed for int4) and the f32 scales ``(in/g, out)``, so a state dict names
+    the bits in its keys. ``bias`` stays f32, as in :class:`Dense`."""
+
+    def __init__(self, node, bias: Optional[torch.Tensor], dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.bits = node_bits(node)
+        q, s = node_qs(node)
+        self.register_buffer(f"int{self.bits}_q", q.contiguous())
+        self.register_buffer(f"int{self.bits}_scale", s.float().contiguous())
+        self.bias = None if bias is None else nn.Parameter(bias.detach(), requires_grad=False)
+
+    def node(self) -> dict:
+        return make_quant_node(getattr(self, f"int{self.bits}_q"),
+                               getattr(self, f"int{self.bits}_scale"), self.bits)
+
+    def forward(self, x):
+        return quant_dense_apply(x, self.node(), self.bias, self.dtype)
 
 
 class CausalLMLayer(nn.Module):

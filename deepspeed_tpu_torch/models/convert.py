@@ -7,6 +7,11 @@
 ``deepspeed_tpu.models.gpt2.GPT2`` and this package's :class:`~.gpt2.GPT2`. A flax ``kernel`` ``(in, out)`` becomes a
 ``weight`` ``(out, in)`` (transposed); ``scale`` becomes ``weight``; embeddings
 keep their layout. Values keep their dtype: the engine casts to the serve dtype.
+A weight-quantized tree (``jax.device_get`` of a JAX engine serving with
+``weight_quant``) carries its quant nodes across unchanged, neither transposed
+nor re-quantized: a projection's ``{"__int8_q__", "__int8_scale__"}`` becomes
+``<prefix>.int8_q`` / ``<prefix>.int8_scale`` (int4 likewise), which the
+inference engine serves through :class:`~.causal_lm.QuantDense`.
 """
 
 from typing import Any, Dict
@@ -14,6 +19,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..ops.quantizer import is_quant_node, node_bits, node_qs
 from .causal_lm import CausalLMConfig
 from .gpt2 import GPT2Config
 
@@ -23,7 +29,14 @@ def _t(x) -> torch.Tensor:
 
 
 def _dense(sd, prefix: str, node: Dict[str, Any]):
-    sd[f"{prefix}.weight"] = _t(node["kernel"]).t().contiguous()
+    kernel = node["kernel"]
+    if is_quant_node(kernel):
+        bits = node_bits(kernel)
+        q, s = node_qs(kernel)
+        sd[f"{prefix}.int{bits}_q"] = torch.from_numpy(np.array(q, dtype=np.int8))
+        sd[f"{prefix}.int{bits}_scale"] = _t(s)
+    else:
+        sd[f"{prefix}.weight"] = _t(kernel).t().contiguous()
     if "bias" in node:
         sd[f"{prefix}.bias"] = _t(node["bias"])
 

@@ -8,7 +8,8 @@ The first case of each kernel is the shape its main path gives it: serving
 (GPT-2 125M, batch 4, prompt 512) for the forward and dense decode kernels,
 continuous-batching serving (GPT-2 125M, 16 slots, page 16, a 250-token
 shared prefix) for the paged decode kernel, training (GPT-2 125M,
-micro-batch 24, seq 1024) for the two backward kernels.
+micro-batch 24, seq 1024) for the two backward kernels, weight-quantized
+serving (BLOOM-7B decode, batch 1) for the dequant-GEMM.
 
 Every kernel is held to its plain version elementwise: every element of
 every output must have |kernel - plain| <= atol + rtol * |plain|, with
@@ -45,6 +46,17 @@ kernel that is wrong by 20 % on most rows.
   float16 (2.5e-4, 2e-3): the same two ulps and atol at fp16's 11 bits.
   float32 (2e-6, 2e-5): f32 sums of up to t = 1024 terms in other orders,
   with p = exp(s - lse) moving with s's last bits.
+- The dequant-GEMM, ``QMM_TOLERANCES``: both sides dequantize each weight
+  element in f32 and round it to x's dtype, so every product is the same
+  (exact in f32 for 16-bit inputs); only the f32 sum differs: the kernel's
+  order (mma.sync's internal accumulation in the tiled bf16/fp16 regime, a
+  split-k sum in the skinny one) against cuBLAS's f32 GEMM. The inputs give
+  outputs of order 1 (w ~ N(0, 1/k) before quantization, x ~ N(0, 1)), where
+  that noise is at most ~1e-4 at k = 16,384. Both round the f32 result to
+  the output dtype once, which can flip by one ulp. bfloat16 (1e-3, 8e-3)
+  and float16 (1e-3, 1e-3): rtol one ulp of the value, atol ten times the
+  sum noise for values near 0. float32 (2e-5, 2e-5): sums of up to 512
+  terms in other orders.
 
 f32 matrix products of the plain versions run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set here).
@@ -62,6 +74,9 @@ from .attention.decode import decode_attention, decode_attention_plain
 from .attention.flash import (flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
                              flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
 from .paged_attention import gather_kv_dense, paged_attention, paged_attention_plain
+from .quantizer import (dequantize_to, pack_int4, quantize_grouped, quantized_matmul,
+                        quantized_matmul_plain)
+from .quantizer.quant import _group_size
 
 #: (atol, rtol) by input dtype, for each family of kernels (see above)
 FWD_TOLERANCES = {torch.bfloat16: (1e-2, 1.6e-2), torch.float16: (1.5e-3, 2e-3),
@@ -72,6 +87,8 @@ BWD_TOLERANCES = {torch.bfloat16: (2e-3, 1.6e-2), torch.float16: (2.5e-4, 2e-3),
                   torch.float32: (2e-6, 2e-5)}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 LSE_TOLERANCE = 1e-3        # f32 logsumexp; sums of exp in another order
+QMM_TOLERANCES = {torch.bfloat16: (1e-3, 8e-3), torch.float16: (1e-3, 1e-3),
+                  torch.float32: (2e-5, 2e-5)}
 
 #: H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s of device
 #: memory, operations/s by input dtype (bf16/fp16 on the tensor cores, f32
@@ -92,6 +109,8 @@ KERNEL_INFO = {
     "paged_decode_attention": {
         "source": "deepspeed_tpu_torch/ops/csrc/paged_decode_attention.cu",
         "replaces": "deepspeed_tpu/ops/paged_attention.py:111"},
+    "quantized_matmul": {"source": "deepspeed_tpu_torch/ops/csrc/quantized_matmul.cu",
+                         "replaces": "deepspeed_tpu/ops/quantizer/fused_matmul.py:67"},
 }
 
 
@@ -100,7 +119,8 @@ class Case:
     kernel: str                  # a key of KERNEL_INFO
     name: str
     # flash (fwd and bwd): b, t, h, d; decode: b, h, hk, T, d; paged: b, h,
-    # hk, page, cap, d (max_pages = cdiv(cap, page))
+    # hk, page, cap, d (max_pages = cdiv(cap, page)); dequant-GEMM: m, k, n,
+    # group (requested; the quantizer may degrade it), bits
     dims: Dict[str, int]
     dtype: torch.dtype
     causal: bool = True
@@ -113,6 +133,8 @@ class Case:
             return BWD_TOLERANCES[self.dtype]
         if self.kernel == "flash_fwd":
             return FWD_TOLERANCES[self.dtype]
+        if self.kernel == "quantized_matmul":
+            return QMM_TOLERANCES[self.dtype]
         return DECODE_TOLERANCES[self.dtype]
 
 
@@ -160,7 +182,31 @@ CASES: List[Case] = [
     Case(kernel, "fp32", dict(b=2, t=1024, h=4, d=64), torch.float32),
     Case(kernel, "fp16-full-d128", dict(b=2, t=300, h=4, d=128), torch.float16,
          causal=False),
-)]
+)] + [
+    # weight-quantized serving: BLOOM-7B (n_embd 4096, ffn 16,384, group 128)
+    # decode at batch 1 and prefill of 512 tokens, then GPT-2 125M decode over
+    # the scheduler's 16 slots
+    Case("quantized_matmul", "bloom7b-decode-fc_in-int8",
+         dict(m=1, k=4096, n=16384, group=128, bits=8), torch.bfloat16, main_path=True),
+    Case("quantized_matmul", "bloom7b-decode-fc_out-int4",
+         dict(m=1, k=16384, n=4096, group=128, bits=4), torch.bfloat16),
+    Case("quantized_matmul", "bloom7b-prefill-q_proj-int8",
+         dict(m=512, k=4096, n=4096, group=128, bits=8), torch.bfloat16),
+    Case("quantized_matmul", "bloom7b-prefill-fc_in-int4",
+         dict(m=512, k=4096, n=16384, group=128, bits=4), torch.bfloat16),
+    Case("quantized_matmul", "gpt2-serve-decode-fc_in-int8",
+         dict(m=16, k=768, n=3072, group=128, bits=8), torch.bfloat16),
+    Case("quantized_matmul", "fp32-ragged-int8", dict(m=300, k=256, n=200, group=64, bits=8),
+         torch.float32),
+    Case("quantized_matmul", "fp16-int4", dict(m=3, k=512, n=72, group=32, bits=4),
+         torch.float16),
+    # k 200: a requested group of 128 degrades to 8
+    Case("quantized_matmul", "k200-g8-int4", dict(m=37, k=200, n=96, group=128, bits=4),
+         torch.bfloat16),
+    # k 13: group 1, and n not a multiple of 4
+    Case("quantized_matmul", "fp32-k13-g1-n70-int8", dict(m=4, k=13, n=70, group=8, bits=8),
+         torch.float32),
+]
 
 
 def max_pages(case: Case) -> int:
@@ -179,6 +225,13 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=device).to(case.dtype)
 
+    if case.kernel == "quantized_matmul":
+        m, k, n, bits = dims["m"], dims["k"], dims["n"], dims["bits"]
+        w = torch.randn(k, n, generator=gen, device=device) / float(np.sqrt(k))
+        q, s = quantize_grouped(w, dims["group"], bits=bits)
+        if bits == 4:
+            q = pack_int4(q, s.shape[0])
+        return {"x": randn(m, k), "q": q, "scales": s}
     if case.kernel == "flash_fwd" or case.kernel in BWD_KERNELS:
         bh, t, d = dims["b"] * dims["h"], dims["t"], dims["d"]
         inp = {"q": randn(bh, t, d), "k": randn(bh, t, d), "v": randn(bh, t, d)}
@@ -220,6 +273,11 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
     return inp
 
 
+def effective_group(case: Case) -> int:
+    """The dequant-GEMM case's group after the quantizer's degradation."""
+    return _group_size(case.dims["k"], case.dims["group"])
+
+
 def _scale(case: Case) -> float:
     return 1.0 / float(np.sqrt(case.dims["d"]))
 
@@ -231,7 +289,9 @@ def _bwd_args(case: Case, inp):
 
 def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     """The kernel through its public wrapper: flash ``(o, lse)``, decode and
-    paged ``(o,)``, dq ``(dq,)``, dk/dv ``(dk, dv)``."""
+    paged ``(o,)``, dq ``(dq,)``, dk/dv ``(dk, dv)``, dequant-GEMM ``(y,)``."""
+    if case.kernel == "quantized_matmul":
+        return (quantized_matmul(inp["x"], inp["q"], inp["scales"], bits=case.dims["bits"]),)
     if case.kernel == "flash_bwd_dq":
         return (flash_bwd_dq(*_bwd_args(case, inp)),)
     if case.kernel == "flash_bwd_dkv":
@@ -247,6 +307,9 @@ def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
 
 def run_plain(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     """The plain version on the same inputs, same outputs as :func:`run_kernel`."""
+    if case.kernel == "quantized_matmul":
+        return (quantized_matmul_plain(inp["x"], inp["q"], inp["scales"],
+                                       bits=case.dims["bits"]),)
     scale = _scale(case)
     if case.kernel == "flash_bwd_dq":
         return (flash_bwd_dq_plain(*_bwd_args(case, inp)),)
@@ -274,8 +337,13 @@ def library_fn(case: Case, inp) -> Optional[Callable[[], torch.Tensor]]:
     only (never called by the package), or None where there is none: no single
     call gathers K/V by page index, and a torch without ``enable_gqa`` has no
     GQA decode. The backward kernels' yardstick is SDPA's whole backward (dq,
-    dk and dv in one call), run on a graph built once outside the timing."""
+    dk and dv in one call), run on a graph built once outside the timing. The
+    dequant-GEMM's is the GEMM it replaces: ``torch.matmul`` (cuBLAS) of x by
+    the weight dequantized to x's dtype beforehand."""
     dims = case.dims
+    if case.kernel == "quantized_matmul":
+        w = dequantize_to(inp["q"], inp["scales"], dims["bits"], case.dtype)
+        return lambda: torch.matmul(inp["x"], w)
     if case.kernel == "paged_decode_attention":
         return None
     if case.kernel == "flash_fwd" or case.kernel in BWD_KERNELS:
@@ -310,9 +378,15 @@ def work(case: Case) -> Tuple[float, float]:
     """(operations, bytes) the function needs on these inputs: each input read
     once, each output written once; decode counts only the valid cache rows
     (paged: and the live table entries), causal attention only the pairs with
-    col <= row."""
+    col <= row; the dequant-GEMM counts the payload, the scales, x and the
+    output (in x's dtype), 2 m k n operations."""
     dims = case.dims
     es = torch.tensor([], dtype=case.dtype).element_size()
+    if case.kernel == "quantized_matmul":
+        m, k, n, bits = dims["m"], dims["k"], dims["n"], dims["bits"]
+        groups = k // effective_group(case)
+        payload = k * n if bits == 8 else k // 2 * n
+        return 2.0 * m * k * n, float(payload + 4 * groups * n + es * m * (k + n))
     d = dims["d"]
     if case.kernel == "flash_fwd" or case.kernel in BWD_KERNELS:
         bh, t = dims["b"] * dims["h"], dims["t"]

@@ -23,6 +23,7 @@ from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.attention.decode import decode_attention
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention, flash_fwd
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+from deepspeed_tpu_torch.ops.quantizer import quantize_grouped, quantized_matmul
 from deepspeed_tpu_torch.ops.transformer.attention import reference_attention
 
 ATOL = 1e-5
@@ -120,9 +121,11 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     pages = k.reshape(4, 16, 2, 64).transpose(1, 2).contiguous()
     paged_attention(q[:, 0], pages, pages, torch.tensor([[1, 2]], dtype=torch.int32),
                     torch.tensor([20], dtype=torch.int32), 32)
+    qw, scales = quantize_grouped(torch.randn(64, 32), 32)
+    quantized_matmul(q[0, :3, 0], qw, scales)
     assert op_builder.launch_counts() == {"flash_fwd": 0, "decode_attention": 0,
                                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                                          "paged_decode_attention": 0}
+                                          "paged_decode_attention": 0, "quantized_matmul": 0}
 
 
 def test_other_devices_raise():

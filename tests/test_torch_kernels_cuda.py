@@ -135,8 +135,45 @@ def test_paged_kernel_page_one_long_cap():
     assert kernel_checks.err_ratio(out, ref, atol, rtol) <= 1.0
 
 
+def test_quantized_matmul_launch_count_and_refusals():
+    """Each call of the dequant-GEMM wrapper on the card is one launch, in
+    either regime and width; a shape it refuses raises before launching, and
+    an argument the C entry refuses comes back as a CUDA error, raised."""
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.op_builder import KernelLaunchError
+    from deepspeed_tpu_torch.ops.quantizer import (pack_int4, quantize_grouped,
+                                                   quantized_matmul, quantized_matmul_plain)
+    from deepspeed_tpu_torch.ops.quantizer.fused_matmul import QUANTIZED_MATMUL
+    device = _card()
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(64, 256, generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn(256, 96, generator=gen, device=device) / 16
+    q8, s = quantize_grouped(w, 64)
+    q4 = pack_int4(quantize_grouped(w, 64, bits=4)[0], s.shape[0])
+    op_builder.reset_launch_counts()
+    calls = [(x[:1], q8, 8), (x[:16], q8, 8), (x, q8, 8), (x[:3], q4, 4), (x, q4, 4)]
+    for i, (xi, q, bits) in enumerate(calls):
+        y = quantized_matmul(xi, q, s, bits=bits)
+        assert op_builder.launch_counts()["quantized_matmul"] == i + 1
+        ref = quantized_matmul_plain(xi, q, s, bits=bits)
+        assert kernel_checks.err_ratio(y, ref, *kernel_checks.QMM_TOLERANCES[x.dtype]) <= 1.0
+    with pytest.raises(ValueError, match="payload"):
+        quantized_matmul(x, q8[:128], s, bits=8)
+    with pytest.raises(ValueError, match="even group"):
+        quantized_matmul(x[:, :6], torch.zeros(3, 96, dtype=torch.int8, device=device),
+                         torch.ones(2, 96, device=device), bits=4)
+    assert op_builder.launch_counts()["quantized_matmul"] == len(calls)
+    out = torch.empty(17, 96, device=device)
+    with pytest.raises(KernelLaunchError, match="invalid argument"):
+        # the skinny regime (chunk > 0) at 17 rows, past SKINNY_M
+        QUANTIZED_MATMUL.launch(x.data_ptr(), q8.data_ptr(), s.data_ptr(), out.data_ptr(),
+                                out.data_ptr(), 17, 256, 96, 64, 8, 8, 2,
+                                torch.cuda.current_stream(device).cuda_stream)
+
+
 #: faults planted in a copy of the package: name -> (source in csrc/, line as
-#: written, line as planted, kernels whose check cases the fault must fail)
+#: written, line as planted, the check cases the fault must fail: every case
+#: of a kernel named, or of "kernel:int4" its int4 cases only)
 PLANTED_FAULTS = {
     "decode-skips-last-tile": (
         "decode_attention.cu",
@@ -158,6 +195,16 @@ PLANTED_FAULTS = {
         "out[e] = from_f32<T>(acc[e] / (lj > 0.f ? lj : 1.f));",
         "out[e] = from_f32<T>(1.05f * acc[e] / (lj > 0.f ? lj : 1.f));",
         ("decode_attention", "paged_decode_attention")),
+    "qmm-skips-last-group": (
+        "quantized_matmul.cu",
+        "const int k_used = k;",
+        "const int k_used = k - group;",
+        ("quantized_matmul",)),
+    "qmm-high-nibble-unsigned": (
+        "quantized_matmul.cu",
+        "__device__ __forceinline__ int nib_hi(int b) { return b >> 4; }",
+        "__device__ __forceinline__ int nib_hi(int b) { return (b & 0xFF) >> 4; }",
+        ("quantized_matmul:int4",)),
 }
 
 # run inside the planted copy: which package it imported, then err/limit of
@@ -169,7 +216,7 @@ from deepspeed_tpu_torch.ops import kernel_checks as kc
 print(json.dumps({"module": kc.__file__}), flush=True)
 dev = torch.device("cuda", 0)
 for case in kc.CASES:
-    if case.kernel not in sys.argv[1:]:
+    if not {case.kernel, f"{case.kernel}:int{case.dims.get('bits')}"} & set(sys.argv[1:]):
         continue
     inp = kc.make_inputs(case, dev)
     out, ref = kc.run_kernel(case, inp), kc.run_plain(case, inp)
