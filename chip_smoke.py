@@ -719,9 +719,16 @@ def wq_path(device, smi: str):
                                 step, top=10)
             del caches
         if prof is not None:
-            qmm = sum(v for k, v in prof["by_kernel"].items() if "qmm_" in k)
+            # K6's kernels by name; the library's matrix products by the
+            # substrings of cuBLAS/CUTLASS kernel names (in the quantized
+            # lanes only the tied head's product is left)
+            by = prof["by_kernel"]
             lane["decode_step_device_ms"] = prof["device_us"] / 1e3
-            lane["decode_step_qmm_ms"] = qmm / 1e3
+            lane["decode_step_qmm_ms"] = sum(v for key, v in by.items() if "qmm_" in key) / 1e3
+            lane["decode_step_library_gemm_ms"] = sum(
+                v for key, v in by.items()
+                if any(t in key.lower() for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
+            ) / 1e3
             lane["decode_step_busy_share"] = prof["device_us"] / prof["wall_us"]
         print(f"[wq] {smi}: {name}: decode {lane['decode_tokens_per_s'] or 0:.2f} tokens/s, "
               f"TTFT {lane['ttft_ms']:.2f} ms (medians of {WQ_ROUNDS} rounds), build "
@@ -730,7 +737,8 @@ def wq_path(device, smi: str):
               f"launches of a {WQ_NEW}-token generate {launches}"
               + (f"; greedy parity vs bf16 {lane['greedy_parity_vs_bf16']:.4f}" if bits else "")
               + (f"; traced decode step: device {lane['decode_step_device_ms']:.3f} ms, "
-                 f"dequant-GEMM {lane['decode_step_qmm_ms']:.3f} ms, busy share "
+                 f"dequant-GEMM {lane['decode_step_qmm_ms']:.3f} ms, library GEMMs "
+                 f"{lane['decode_step_library_gemm_ms']:.3f} ms, busy share "
                  f"{lane['decode_step_busy_share']:.3f}" if prof else ""), flush=True)
         out[name] = lane
         del engine

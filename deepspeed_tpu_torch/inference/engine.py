@@ -20,8 +20,8 @@ import torch
 
 from ..accelerator import resolve_device
 from ..models.causal_lm import QUANT_NAMES, CausalLM, CausalLMConfig, Dense, QuantDense, init_cache
-from ..ops.quantizer import (dense_weight_bytes, node_logical_shape, node_weight_bytes,
-                             quantize_with_audit, validate_quant_config)
+from ..ops.quantizer import (dense_weight_bytes, make_quant_node, node_logical_shape,
+                             node_weight_bytes, quantize_with_audit, validate_quant_config)
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
 from .decode_fns import decode_loop, make_select_fn, prefill
@@ -77,8 +77,7 @@ class InferenceEngine:
             parent_name, _, name = prefix.rpartition(".")
             parent = self.module.get_submodule(parent_name)
             dense = getattr(parent, name)
-            node = {f"__int{bits}_q__": state_dict[key],
-                    f"__int{bits}_scale__": state_dict[f"{prefix}.int{bits}_scale"]}
+            node = make_quant_node(state_dict[key], state_dict[f"{prefix}.int{bits}_scale"], bits)
             setattr(parent, name, QuantDense(node, dense.bias, dense.dtype))
 
     @torch.no_grad()
@@ -103,7 +102,6 @@ class InferenceEngine:
             raise ValueError(f"weight_quant.bits={wq.bits} not in (8, 4)")
         if wq.enabled and wq.group < 1:
             raise ValueError(f"weight_quant.group={wq.group} must be >= 1")
-        self._wq = wq
         for p in self.module.parameters():
             if p.ndim >= 2 and p.is_floating_point():
                 p.data = p.data.to(self.dtype)
@@ -129,9 +127,8 @@ class InferenceEngine:
                     if node is not None:
                         setattr(layer, name, QuantDense(node, dense.bias, dense.dtype))
         self.quant_audit = audit
-        n_q = sum(1 for e in audit if e["decision"] == "quantized")
-        self._quantized = wq.enabled and n_q > 0
         if wq.enabled:
+            n_q = sum(1 for e in audit if e["decision"] == "quantized")
             for e in audit:
                 if e["decision"] != "quantized":
                     log_dist(f"weight_quant: {e['name']} kept fp — {e['reason']}", ranks=[0])

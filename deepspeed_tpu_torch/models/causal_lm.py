@@ -263,14 +263,14 @@ class QuantDense(nn.Module):
     packed for int4) and the f32 scales ``(in/g, out)``, so a state dict names
     the bits in its keys. ``bias`` stays f32, as in :class:`Dense`."""
 
-    def __init__(self, node, bias: Optional[torch.Tensor], dtype):
+    def __init__(self, node, bias: Optional[nn.Parameter], dtype):
         super().__init__()
         self.dtype = dtype
         self.bits = node_bits(node)
         q, s = node_qs(node)
         self.register_buffer(f"int{self.bits}_q", q.contiguous())
         self.register_buffer(f"int{self.bits}_scale", s.float().contiguous())
-        self.bias = None if bias is None else nn.Parameter(bias.detach(), requires_grad=False)
+        self.bias = bias
 
     def node(self) -> dict:
         return make_quant_node(getattr(self, f"int{self.bits}_q"),

@@ -22,20 +22,25 @@
 //
 // - skinny (m <= 16): each thread owns 4 adjacent columns and walks its block's
 //   slice of the payload rows, one 32-bit load a row (a warp reads 128
-//   contiguous bytes of a row); the scales load once a group; x is read from
-//   global memory, the same address in every thread of a warp, so it is one
-//   broadcast and hits L1 after its first row. The rows are split across
-//   blockIdx.y so that a 4096-column matrix gives several hundred blocks for
-//   132 SMs; the splits write f32 partials, and a second kernel adds them in
-//   split order, so the result does not depend on the schedule.
+//   contiguous bytes of a row), 8 rows requested before any is used so that
+//   enough bytes are in flight to cover the memory latency; the scales load
+//   once a group; x is read from global memory, the same address in every
+//   thread of a warp, so it is one broadcast and hits L1 after its first
+//   row. The rows are split across blockIdx.y so that a 4096-column matrix
+//   gives several hundred blocks for 132 SMs; the splits write f32 partials,
+//   and a second kernel adds them in split order, so the result does not
+//   depend on the schedule.
 // - tiled (m > 16): a block of 4 warps computes a 64 x 64 tile of out over k
 //   tiles of 32: it stages x's tile and dequantizes the weight's tile into
-//   shared memory in x's dtype, then bf16/fp16 run mma.sync m16n8k16 with f32
-//   accumulation (each warp a 32 x 32 quarter), f32 x runs FMAs on the CUDA
-//   cores (each thread 8 x 4 outputs). The k tiles run in order in the block.
+//   shared memory in x's dtype (4 columns a payload word), and fetches the
+//   next tile into registers (16-byte x vectors, payload words, scales)
+//   while bf16/fp16 run mma.sync m16n8k16 with f32 accumulation (each warp a
+//   32 x 32 quarter; B fragments by ldmatrix.trans), or f32 x runs FMAs on
+//   the CUDA cores (each thread 8 x 4 outputs). The k tiles run in order in
+//   the block. Each m tile dequantizes the weight tile again.
 //
-// Later work: cp.async/TMA pipelining of the tiles, wgmma, 16-byte payload
-// loads, and a CUDA graph of the decode step that calls it 180 times at 7B.
+// Later work: wider payload loads, cp.async/TMA pipelines, wgmma, larger m
+// tiles, and a CUDA graph of the decode step that calls it 180 times at 7B.
 
 #include <stdint.h>
 
@@ -48,6 +53,7 @@ namespace {
 constexpr int SKINNY_M = 16;        // the wrapper's regime switch (fused_matmul.SKINNY_M)
 constexpr int SK_THREADS = 128;
 constexpr int SK_COLS = 4;          // columns a skinny thread owns
+constexpr int SK_BATCH = 8;         // payload rows a skinny thread loads before it uses them
 constexpr int TL_THREADS = 128;
 constexpr int BM = 64, BN = 64, BK = 32;
 
@@ -55,6 +61,11 @@ constexpr int BM = 64, BN = 64, BK = 32;
 // low nibble is the group's first-half row, the high nibble its second-half row
 __device__ __forceinline__ int nib_lo(int b) { return ((b & 0xF) ^ 8) - 8; }
 __device__ __forceinline__ int nib_hi(int b) { return b >> 4; }
+
+// the bits of one element, low-aligned in a 32-bit word
+__device__ __forceinline__ uint32_t raw_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t raw_bits(__half v) { return __half_as_ushort(v); }
+__device__ __forceinline__ uint32_t raw_bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
 
 // byte c (0..3) of a 32-bit word, sign-extended
 __device__ __forceinline__ int byte_of(uint32_t w, int c) { return (int)(int8_t)(w >> (8 * c)); }
@@ -80,51 +91,68 @@ qmm_skinny(const T* __restrict__ x, const int8_t* __restrict__ q, const float* _
 #pragma unroll
         for (int c = 0; c < SK_COLS; ++c) acc[i][c] = 0.f;
 
+    const int rows_a_group = BITS == 8 ? group : half;
     int r = r0;
     while (r < r1) {
-        const int rows_a_group = BITS == 8 ? group : half;
         const int G = r / rows_a_group;
         const int rend = min(r1, (G + 1) * rows_a_group);
         float sc[SK_COLS];
 #pragma unroll
         for (int c = 0; c < SK_COLS; ++c) sc[c] = c < ncols ? s[(size_t)G * n + c0 + c] : 0.f;
-#pragma unroll 8
-        for (; r < rend; ++r) {
-            uint32_t word = 0;
-            const int8_t* qr = q + (size_t)r * n + c0;
-            if (vec) {
-                word = __ldg(reinterpret_cast<const uint32_t*>(qr));
-            } else {
-                for (int c = 0; c < ncols; ++c) word |= (uint32_t)(uint8_t)__ldg(qr + c) << (8 * c);
-            }
-            if (BITS == 8) {
-                float w[SK_COLS];
+        while (r < rend) {
+            // the batch's payload words are all requested before any is used,
+            // so each thread keeps SK_BATCH loads in flight
+            const int nb = min(SK_BATCH, rend - r);
+            uint32_t words[SK_BATCH];
 #pragma unroll
-                for (int c = 0; c < SK_COLS; ++c) w[c] = round_to<T>((float)byte_of(word, c) * sc[c]);
-#pragma unroll
-                for (int i = 0; i < M; ++i) {
-                    const float xv = i < m ? to_f32(x[(size_t)i * k + r]) : 0.f;
-#pragma unroll
-                    for (int c = 0; c < SK_COLS; ++c) acc[i][c] = fmaf(xv, w[c], acc[i][c]);
-                }
-            } else {
-                const int lo_row = G * group + (r - G * half);     // its high nibble: + half
-                float wl[SK_COLS], wh[SK_COLS];
-#pragma unroll
-                for (int c = 0; c < SK_COLS; ++c) {
-                    const int b = byte_of(word, c);
-                    wl[c] = round_to<T>((float)nib_lo(b) * sc[c]);
-                    wh[c] = round_to<T>((float)nib_hi(b) * sc[c]);
-                }
-#pragma unroll
-                for (int i = 0; i < M; ++i) {
-                    const float xl = i < m ? to_f32(x[(size_t)i * k + lo_row]) : 0.f;
-                    const float xh = i < m ? to_f32(x[(size_t)i * k + lo_row + half]) : 0.f;
-#pragma unroll
-                    for (int c = 0; c < SK_COLS; ++c)
-                        acc[i][c] = fmaf(xh, wh[c], fmaf(xl, wl[c], acc[i][c]));
+            for (int u = 0; u < SK_BATCH; ++u) {
+                words[u] = 0;
+                if (u < nb) {
+                    const int8_t* qr = q + (size_t)(r + u) * n + c0;
+                    if (vec) {
+                        words[u] = __ldg(reinterpret_cast<const uint32_t*>(qr));
+                    } else {
+                        for (int c = 0; c < ncols; ++c)
+                            words[u] |= (uint32_t)(uint8_t)__ldg(qr + c) << (8 * c);
+                    }
                 }
             }
+#pragma unroll
+            for (int u = 0; u < SK_BATCH; ++u) {
+                if (u < nb) {
+                    if (BITS == 8) {
+                        float w[SK_COLS];
+#pragma unroll
+                        for (int c = 0; c < SK_COLS; ++c)
+                            w[c] = round_to<T>((float)byte_of(words[u], c) * sc[c]);
+#pragma unroll
+                        for (int i = 0; i < M; ++i) {
+                            const float xv = i < m ? to_f32(x[(size_t)i * k + r + u]) : 0.f;
+#pragma unroll
+                            for (int c = 0; c < SK_COLS; ++c) acc[i][c] = fmaf(xv, w[c], acc[i][c]);
+                        }
+                    } else {
+                        // byte row r + u holds logical rows lo (low nibble) and lo + half
+                        const int lo = G * group + (r + u - G * half);
+                        float wl[SK_COLS], wh[SK_COLS];
+#pragma unroll
+                        for (int c = 0; c < SK_COLS; ++c) {
+                            const int b = byte_of(words[u], c);
+                            wl[c] = round_to<T>((float)nib_lo(b) * sc[c]);
+                            wh[c] = round_to<T>((float)nib_hi(b) * sc[c]);
+                        }
+#pragma unroll
+                        for (int i = 0; i < M; ++i) {
+                            const float xl = i < m ? to_f32(x[(size_t)i * k + lo]) : 0.f;
+                            const float xh = i < m ? to_f32(x[(size_t)i * k + lo + half]) : 0.f;
+#pragma unroll
+                            for (int c = 0; c < SK_COLS; ++c)
+                                acc[i][c] = fmaf(xh, wh[c], fmaf(xl, wl[c], acc[i][c]));
+                        }
+                    }
+                }
+            }
+            r += nb;
         }
     }
     float* dst = out + (size_t)split * m * n;
@@ -152,7 +180,8 @@ __device__ __forceinline__ uint32_t ld_pair(const void* p) {
 }
 
 template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]);
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]);
 
 template <>
 __device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&d)[4], const uint32_t (&a)[4],
@@ -174,25 +203,118 @@ __device__ __forceinline__ void mma16816<__half>(float (&d)[4], const uint32_t (
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// B fragments of two neighbouring n8 tiles from a row-major (k, n) tile in
+// shared memory: lane l gives the address of row (l % 8) + 8 * ((l / 8) & 1)
+// of column block (l / 16); .trans hands each thread the pair (k = 2 tig,
+// 2 tig + 1) at n = gid that mma's "col" B operand wants.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+}
+
 // One 64 x 64 tile of out. xs holds x's tile row-major ([row][kk]), ws the
-// dequantized weight tile column-major ([col][kk]), so both mma operands are
-// pairs of adjacent k in one 32-bit word.
+// dequantized weight tile row-major ([kk][col]), both in x's dtype. The next
+// k tile's x vectors, payload words and scales are fetched into registers
+// while the tensor cores (or FMAs) work on this one.
 template <typename T, int BITS>
 __global__ void __launch_bounds__(TL_THREADS)
 qmm_tiled(const T* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-          float* __restrict__ out, int m, int k, int n, int group, int k_used) {
+          float* __restrict__ out, int m, int k, int n, int group, int k_used, int vec_x,
+          int vec_q) {
     constexpr bool MMA = !std::is_same<T, float>::value;
-    constexpr int LD = BK + (MMA ? 8 : 1);     // padded row stride, in elements
+    constexpr int VE = 16 / sizeof(T);              // elements of a 16-byte vector
+    constexpr int LDX = BK + VE;                    // row strides, in elements: rows stay
+    constexpr int LDW = BN + VE;                    // 16-byte aligned, mma reads conflict-free
+    constexpr int XV = BM * BK / VE / TL_THREADS;   // x vectors a thread fetches a tile
+    constexpr int WR = BK * BN / 4 / TL_THREADS;    // payload words (4 columns) a thread fetches
     // raw bytes: the 16-bit types have constructors, which __shared__ arrays refuse
-    __shared__ __align__(16) unsigned char smem[sizeof(T) * (BM + BN) * LD];
+    __shared__ __align__(16) unsigned char smem[sizeof(T) * (BM * LDX + BK * LDW)];
     T* xs = reinterpret_cast<T*>(smem);
-    T* ws = xs + BM * LD;
+    T* ws = xs + BM * LDX;
     const int tid = threadIdx.x;
     const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
     const int half = group >> 1;
 
-    // MMA: warp (wm, wn) owns rows wm*32.., columns wn*32..; lane (gid, tig)
-    // FMA: thread (ty, tx) owns rows ty + 8i (i < 8), columns tx + 16j (j < 4)
+    // x: vector v = tid + i * TL_THREADS is row v / (BK / VE), columns
+    // (v % (BK / VE)) * VE ..; weights: thread owns columns 4 * (tid % 16) ..
+    // + 3 of rows tid / 16 + 8 i
+    const int wc = 4 * (tid & 15), wr0 = tid >> 4;
+    uint4 xv[XV];
+    uint32_t qw[WR];
+    float sc[WR][4];
+    auto fetch = [&](int k0) {
+#pragma unroll
+        for (int i = 0; i < XV; ++i) {
+            const int v = tid + i * TL_THREADS;
+            const int row = m0 + v / (BK / VE), col = k0 + (v % (BK / VE)) * VE;
+            if (vec_x && row < m && col + VE <= k_used) {
+                xv[i] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)row * k + col));
+            } else {                                // element by element, masked
+                uint32_t wd[4];
+#pragma unroll
+                for (int w = 0; w < 4; ++w) {
+                    wd[w] = 0;
+#pragma unroll
+                    for (int t = 0; t < 4 / (int)sizeof(T); ++t) {
+                        const int j = w * (4 / (int)sizeof(T)) + t;
+                        const T e = (row < m && col + j < k_used) ? x[(size_t)row * k + col + j]
+                                                                  : from_f32<T>(0.f);
+                        wd[w] |= raw_bits(e) << (16 * t);
+                    }
+                }
+                xv[i] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < WR; ++i) {
+            const int L = k0 + wr0 + 8 * i, c = n0 + wc;
+            qw[i] = 0;
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) sc[i][cc] = 0.f;
+            if (L < k_used && c < n) {
+                const int G = L / group, j = L - G * group;
+                const int brow = BITS == 8 ? L : G * half + (j < half ? j : j - half);
+                const int8_t* qp = q + (size_t)brow * n + c;
+                const float* sp = s + (size_t)G * n + c;
+                if (vec_q) {
+                    qw[i] = __ldg(reinterpret_cast<const uint32_t*>(qp));
+                    const float4 f = __ldg(reinterpret_cast<const float4*>(sp));
+                    sc[i][0] = f.x, sc[i][1] = f.y, sc[i][2] = f.z, sc[i][3] = f.w;
+                } else {
+                    for (int cc = 0; cc < 4 && c + cc < n; ++cc) {
+                        qw[i] |= (uint32_t)(uint8_t)__ldg(qp + cc) << (8 * cc);
+                        sc[i][cc] = __ldg(sp + cc);
+                    }
+                }
+            }
+        }
+    };
+    // registers -> shared memory; the weights dequantized, rounded to x's dtype
+    auto stage = [&](int k0) {
+#pragma unroll
+        for (int i = 0; i < XV; ++i) {
+            const int v = tid + i * TL_THREADS;
+            *reinterpret_cast<uint4*>(xs + (v / (BK / VE)) * LDX + (v % (BK / VE)) * VE) = xv[i];
+        }
+#pragma unroll
+        for (int i = 0; i < WR; ++i) {
+            const int kk = wr0 + 8 * i;
+            const int j = (k0 + kk) % group;
+            T w[4];
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) {
+                const int b = byte_of(qw[i], cc);
+                const int qv = BITS == 8 ? b : (j < half ? nib_lo(b) : nib_hi(b));
+                w[cc] = from_f32<T>((float)qv * sc[i][cc]);
+            }
+            T* dst = ws + kk * LDW + wc;
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) dst[cc] = w[cc];
+        }
+    };
+
     const int warp = tid >> 5, lane = tid & 31;
     const int wm = warp >> 1, wn = warp & 1, gid = lane >> 2, tig = lane & 3;
     const int ty = tid >> 4, tx = tid & 15;
@@ -209,34 +331,12 @@ qmm_tiled(const T* __restrict__ x, const int8_t* __restrict__ q, const float* __
 #pragma unroll
         for (int b = 0; b < 4; ++b) facc[a][b] = 0.f;
 
+    fetch(0);
     for (int k0 = 0; k0 < k_used; k0 += BK) {
         __syncthreads();                       // the previous tile's reads are done
-#pragma unroll 4
-        for (int e = tid; e < BM * BK; e += TL_THREADS) {
-            const int rr = e / BK, kk = e % BK;
-            const int row = m0 + rr, col = k0 + kk;
-            xs[rr * LD + kk] = (row < m && col < k_used) ? x[(size_t)row * k + col]
-                                                         : from_f32<T>(0.f);
-        }
-#pragma unroll 4
-        for (int e = tid; e < BK * BN; e += TL_THREADS) {
-            const int kk = e / BN, nn = e % BN;   // neighbouring threads, neighbouring columns
-            const int L = k0 + kk, c = n0 + nn;
-            float w = 0.f;
-            if (L < k_used && c < n) {
-                const int G = L / group, j = L - G * group;
-                int qv;
-                if (BITS == 8) {
-                    qv = q[(size_t)L * n + c];
-                } else {
-                    const int b = q[(size_t)(G * half + (j < half ? j : j - half)) * n + c];
-                    qv = j < half ? nib_lo(b) : nib_hi(b);
-                }
-                w = (float)qv * s[(size_t)G * n + c];
-            }
-            ws[nn * LD + kk] = from_f32<T>(w);   // rounded to x's dtype
-        }
+        stage(k0);
         __syncthreads();
+        if (k0 + BK < k_used) fetch(k0 + BK);
 
         if constexpr (MMA) {
 #pragma unroll
@@ -244,17 +344,20 @@ qmm_tiled(const T* __restrict__ x, const int8_t* __restrict__ q, const float* __
                 uint32_t a[2][4], b[4][2];
 #pragma unroll
                 for (int mi = 0; mi < 2; ++mi) {
-                    const T* p = xs + (wm * 32 + mi * 16 + gid) * LD + ks + tig * 2;
+                    const T* p = xs + (wm * 32 + mi * 16 + gid) * LDX + ks + tig * 2;
                     a[mi][0] = ld_pair(p);
-                    a[mi][1] = ld_pair(p + 8 * LD);
+                    a[mi][1] = ld_pair(p + 8 * LDX);
                     a[mi][2] = ld_pair(p + 8);
-                    a[mi][3] = ld_pair(p + 8 * LD + 8);
+                    a[mi][3] = ld_pair(p + 8 * LDX + 8);
                 }
 #pragma unroll
-                for (int ni = 0; ni < 4; ++ni) {
-                    const T* p = ws + (wn * 32 + ni * 8 + gid) * LD + ks + tig * 2;
-                    b[ni][0] = ld_pair(p);
-                    b[ni][1] = ld_pair(p + 8);
+                for (int np = 0; np < 2; ++np) {
+                    uint32_t r[4];
+                    const int krow = ks + (lane & 7) + 8 * ((lane >> 3) & 1);
+                    const int col = wn * 32 + np * 16 + 8 * (lane >> 4);
+                    ldmatrix_x4_trans(r, ws + krow * LDW + col);
+                    b[2 * np][0] = r[0], b[2 * np][1] = r[1];
+                    b[2 * np + 1][0] = r[2], b[2 * np + 1][1] = r[3];
                 }
 #pragma unroll
                 for (int mi = 0; mi < 2; ++mi)
@@ -264,15 +367,15 @@ qmm_tiled(const T* __restrict__ x, const int8_t* __restrict__ q, const float* __
         } else {
 #pragma unroll 8
             for (int kk = 0; kk < BK; ++kk) {
-                float xv[8], wv[4];
+                float xf[8], wf[4];
 #pragma unroll
-                for (int i = 0; i < 8; ++i) xv[i] = to_f32(xs[(ty + 8 * i) * LD + kk]);
+                for (int i = 0; i < 8; ++i) xf[i] = to_f32(xs[(ty + 8 * i) * LDX + kk]);
 #pragma unroll
-                for (int j = 0; j < 4; ++j) wv[j] = to_f32(ws[(tx + 16 * j) * LD + kk]);
+                for (int j = 0; j < 4; ++j) wf[j] = to_f32(ws[kk * LDW + tx + 16 * j]);
 #pragma unroll
                 for (int i = 0; i < 8; ++i)
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) facc[i][j] = fmaf(xv[i], wv[j], facc[i][j]);
+                    for (int j = 0; j < 4; ++j) facc[i][j] = fmaf(xf[i], wf[j], facc[i][j]);
             }
         }
     }
@@ -311,7 +414,12 @@ cudaError_t run(const void* x, const int8_t* q, const float* s, float* out, floa
     if (chunk == 0) {
         const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
         if (grid.y > 65535) return cudaErrorInvalidValue;
-        qmm_tiled<T, BITS><<<grid, TL_THREADS, 0, stream>>>(xt, q, s, out, m, k, n, group, k_used);
+        // 16-byte x vectors need 16-byte rows; 4-byte payload words and
+        // 16-byte scale vectors need n % 4 == 0 and aligned bases
+        const int vec_x = k % (16 / (int)sizeof(T)) == 0 && (uintptr_t)x % 16 == 0;
+        const int vec_q = n % 4 == 0 && (uintptr_t)q % 4 == 0 && (uintptr_t)s % 16 == 0;
+        qmm_tiled<T, BITS><<<grid, TL_THREADS, 0, stream>>>(xt, q, s, out, m, k, n, group, k_used,
+                                                            vec_x, vec_q);
         return cudaGetLastError();
     }
     const int prow = BITS == 8 ? k_used : k_used / 2;

@@ -203,6 +203,9 @@ CASES: List[Case] = [
     # k 200: a requested group of 128 degrades to 8
     Case("quantized_matmul", "k200-g8-int4", dict(m=37, k=200, n=96, group=128, bits=4),
          torch.bfloat16),
+    # the same at decode: 4 payload rows a group, fewer than a skinny batch
+    Case("quantized_matmul", "k200-g8-int4-decode", dict(m=2, k=200, n=96, group=128, bits=4),
+         torch.bfloat16),
     # k 13: group 1, and n not a multiple of 4
     Case("quantized_matmul", "fp32-k13-g1-n70-int8", dict(m=4, k=13, n=70, group=8, bits=8),
          torch.float32),

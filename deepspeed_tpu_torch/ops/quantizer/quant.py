@@ -61,7 +61,10 @@ def quantize_grouped(w, group_size: int = DEFAULT_GROUP, bits: int = 8,
     qmax = 127.0 if bits == 8 else 7.0
     wg = w.reshape(*lead, k // g, g, n).float()
     amax = wg.abs().amax(dim=-2, keepdim=True)                  # (..., k//g, 1, n)
-    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    # qmax as a tensor on w's device: CUDA divides by a CPU scalar as a
+    # product with its reciprocal, one bit off the CPU's (and JAX's) quotient
+    qmax_t = torch.tensor(qmax, dtype=torch.float32, device=w.device)
+    scale = torch.where(amax > 0, amax / qmax_t, torch.ones_like(amax))
     q = torch.clamp(torch.round(wg / scale), -qmax, qmax).to(torch.int8)
     return q.reshape(*lead, k, n), scale[..., 0, :].contiguous()
 

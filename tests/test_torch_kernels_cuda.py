@@ -135,6 +135,20 @@ def test_paged_kernel_page_one_long_cap():
     assert kernel_checks.err_ratio(out, ref, atol, rtol) <= 1.0
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantization_on_card_equals_cpu(bits):
+    """A matrix quantized on the card has the payload and scales, byte for
+    byte, that the CPU (and so the JAX package) gives it."""
+    from deepspeed_tpu_torch.ops.quantizer import quantize_with_audit
+    device = _card()
+    w = (torch.randn(512, 384, generator=torch.Generator().manual_seed(bits)) / 20).bfloat16()
+    on_card, _ = quantize_with_audit(w.to(device), bits=bits, group_size=128, threshold=1.0,
+                                     name="w")
+    on_cpu, _ = quantize_with_audit(w, bits=bits, group_size=128, threshold=1.0, name="w")
+    for key, v in on_cpu.items():
+        assert on_card[key].cpu().numpy().tobytes() == v.numpy().tobytes(), key
+
+
 def test_quantized_matmul_launch_count_and_refusals():
     """Each call of the dequant-GEMM wrapper on the card is one launch, in
     either regime and width; a shape it refuses raises before launching, and

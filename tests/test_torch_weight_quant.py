@@ -184,8 +184,9 @@ def test_legacy_spellings_resolve_to_int8():
     want = base.generate(ids, max_new_tokens=5)
     for config in ({"dtype": "int8"}, {"dtype": "bfloat16", "quant": {"enabled": True}}):
         eng = dst.init_inference(cfg, {**config, "max_out_tokens": CAP}, device="cpu")
+        wq = eng._config.resolved_weight_quant()
         assert eng.dtype == torch.bfloat16 and eng._config.is_int8()
-        assert eng._wq.enabled and eng._wq.bits == 8 and eng._quantized
+        assert wq.enabled and wq.bits == 8
         assert eng.quant_audit == base.quant_audit
         assert isinstance(eng.module.layers[0].q_proj, torch_lm.QuantDense)
         assert not isinstance(eng.module.wte, torch_lm.QuantDense)
