@@ -60,7 +60,20 @@ non-zero:
    bytes reduced >= 1.9x (int8) and >= 3.5x (int4) on the quantized
    matrices; peak memory; one traced decode step. The bf16 lane also
    quantizes layer 0's fc_in on the card and on the CPU, which must agree
-   byte for byte, and with the quantized lanes' own.
+   byte for byte, and with the quantized lanes' own;
+8. MoE serving (``[moe]``): GPT-2 125M with every 2nd FFN a top-1 mixture of
+   8 experts, as ``bench.py``'s MoE lane serves it (vocab 50304, 12 layers,
+   width 768, ffn 3072; seeded random weights, bf16), batch 1, a 512-token
+   prompt, greedy: warm-up, then 3 rounds of ``generate`` at 256 and at 64
+   new tokens (decode tokens/s by differencing, TTFT); launch counts exact in
+   every call (selected-expert FFN 6 x (new - 1), flash forward 12, dense
+   decode 12 x (new - 1)); one decode step's logits on the kernel within 0.1
+   of the plain FFN's, greedy agreement over 64 tokens; one traced decode
+   step; ``[serve]``'s 48 requests through the scheduler (every request
+   finishes with its budget, selected-expert FFN 6 x 8 x chunks); the dense
+   twin (no experts) on the same seed and traffic; a top-2 engine (16 new
+   tokens); an int8 engine whose 12 expert stacks are quantized (the
+   selected-expert FFN does not launch, the dequant-GEMM 60 x forwards).
 
 The last lines are a JSON line of the main paths' metrics, a JSON line on the
 kernels, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -83,6 +96,8 @@ SHORT_PROMPT = 384
 LOGITS_TOL = 0.1   # bf16 prefill logits, kernel vs plain attention: see main_path()
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_MICRO, TRAIN_SEQ = 20, 3, 24, 1024
 WQ_PROMPT, WQ_NEW, WQ_SHORT, WQ_ROUNDS = 512, 64, 16, 3
+MOE_PROMPT, MOE_NEW, MOE_SHORT, MOE_ROUNDS, MOE_SMALL_NEW = 512, 256, 64, 3, 16
+MOE_BLOCK_F = (16, 32, 64, 128)   # K7 f-block widths timed at the main-path shapes
 WQ_PARITY_INT8 = 0.98   # bench.py's int8 acceptance: teacher-forced greedy parity vs bf16
 WQ_REDUCTION = {8: 1.9, 4: 3.5}   # bench.py's modeled weight-byte reduction gates
 GRAD_RTOL = 5e-2   # bf16 whole-model gradients, kernel vs plain attention: see train_path()
@@ -95,6 +110,16 @@ def nvidia_smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def expect(**counts) -> dict:
+    """Expected launch counts: ``counts`` by kernel name, 0 for every other
+    kernel of the port."""
+    from deepspeed_tpu_torch.ops.kernel_checks import KERNEL_INFO
+    unknown = set(counts) - set(KERNEL_INFO)
+    if unknown:
+        raise KeyError(f"no kernels named {sorted(unknown)}")
+    return {name: counts.get(name, 0) for name in KERNEL_INFO}
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -133,6 +158,11 @@ def kernel_checks(device):
         if case.kernel == "paged_decode_attention":
             # for comparison only: K2 on the same rows laid out densely
             res["dense_decode_ms"] = time_ms(kc.dense_decode_fn(case, inp))
+        if case.kernel == "moe_decode_ffn":
+            # for comparison only: the gather path (w[idx] copies, cuBLAS bmm)
+            res["gather_ms"] = time_ms(kc.moe_gather_fn(case, inp))
+            if case.name.startswith("gpt2moe-") and case.dims["k"] == 1:
+                res["block_f_ms"] = moe_block_f_sweep(case, inp)
         res["bound_ms"], res["bound_by"] = kc.bound_ms(case)
         shape = ("" if case.kernel == "quantized_matmul" else
                  f" causal={case.causal} alibi={case.alibi} lens={case.lens}")
@@ -144,11 +174,32 @@ def kernel_checks(device):
               + ("null" if res["library_ms"] is None else f"{res['library_ms']:.4f}")
               + f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']})"
               + (f" dense_decode_ms={res['dense_decode_ms']:.4f}" if "dense_decode_ms" in res
-                 else ""), flush=True)
+                 else "")
+              + (f" gather_ms={res['gather_ms']:.4f}" if "gather_ms" in res else "")
+              + (" block_f_ms={" + ", ".join(f"{bf}: {t:.4f}" for bf, t in
+                                             res["block_f_ms"].items()) + "}"
+                 if "block_f_ms" in res else ""), flush=True)
         if case.main_path:
             rows[case.kernel] = res
         del inp
     return rows
+
+
+def moe_block_f_sweep(case, inp):
+    """K7 at each of ``MOE_BLOCK_F``'s f-block widths on one case's inputs."""
+    from deepspeed_tpu_torch.ops.moe import moe_decode_ffn
+    args = (inp["x"], inp["idx"], inp["w1"], inp["b1"], inp["w2"], inp["b2"], case.activation)
+    return {bf: time_ms(lambda: moe_decode_ffn(*args, block_f=bf)) for bf in MOE_BLOCK_F}
+
+
+def plain_moe():
+    """Context manager: the MoE decode step's selected-expert FFN goes to its
+    plain version on CUDA tensors too. Used only to make the reference run."""
+    from unittest import mock
+
+    from deepspeed_tpu_torch.models import causal_lm
+    from deepspeed_tpu_torch.ops.moe import moe_decode_ffn_plain
+    return mock.patch.object(causal_lm, "moe_decode_ffn", moe_decode_ffn_plain)
 
 
 def plain_attention():
@@ -255,9 +306,7 @@ def main_path(device):
     n = out.shape[1] - PROMPT
     if out.shape != (4, PROMPT + N_NEW) or not ((out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError(f"generate returned shape {out.shape} or ids out of range")
-    want = {"flash_fwd": cfg.n_layer, "decode_attention": cfg.n_layer * (n - 1),
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "paged_decode_attention": 0,
-            "quantized_matmul": 0}
+    want = expect(flash_fwd=cfg.n_layer, decode_attention=cfg.n_layer * (n - 1))
     print(f"[main] launches {launches} (expected {want})", flush=True)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -311,19 +360,13 @@ def serve_step_logits(engine, snap, plain: bool):
     return logits[:, -1]
 
 
-def serve_path(device, smi: str):
+def serve_setup(cfg):
+    """The serving configuration (16 slots, chunks of 8, paged pool of page 16,
+    prefix cache inserting at prefill) and the 48 seeded requests: a shared
+    250-token prefix, a suffix of 8-256 tokens, budgets from {16, 32, 64, 128}."""
     import numpy as np
-    import torch
 
-    import deepspeed_tpu_torch as dst
-    from deepspeed_tpu_torch.inference.serving import (ContinuousBatchingScheduler,
-                                                       PrefixCacheConfig, ServingConfig)
-    from deepspeed_tpu_torch.models import gpt2_cfg
-    from deepspeed_tpu_torch.ops import op_builder
-
-    cfg = gpt2_cfg(vocab_size=50304, max_seq_len=1024, n_embd=768, n_layer=12, n_head=12)
-    engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
-                                device=device)
+    from deepspeed_tpu_torch.inference.serving import PrefixCacheConfig, ServingConfig
     config = ServingConfig(slots=SERVE_SLOTS, chunk_size=SERVE_CHUNK, max_queue=64,
                            max_seq_len=1024, kv_pool="paged", kv_page_size=16,
                            prefix_cache=PrefixCacheConfig(min_hit_tokens=8,
@@ -334,6 +377,21 @@ def serve_path(device, smi: str):
     requests = [(np.concatenate([system, rng.integers(0, cfg.vocab_size,
                                                       int(rng.integers(8, 257)))]),
                  int(rng.choice([16, 32, 64, 128]))) for _ in range(SERVE_REQUESTS)]
+    return config, requests
+
+
+def serve_path(device, smi: str):
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.models import gpt2_cfg
+    from deepspeed_tpu_torch.ops import op_builder
+
+    cfg = gpt2_cfg(vocab_size=50304, max_seq_len=1024, n_embd=768, n_layer=12, n_head=12)
+    engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
+                                device=device)
+    config, requests = serve_setup(cfg)
 
     sched = ContinuousBatchingScheduler(engine, config)
     handles = [sched.submit(p, max_new_tokens=m) for p, m in requests]
@@ -365,9 +423,8 @@ def serve_path(device, smi: str):
     if bad:
         raise AssertionError(f"requests that did not finish with their budget: {bad}")
     chunks, misses = tele["chunks"], tele["prefix_misses"]
-    want = {"flash_fwd": cfg.n_layer * misses, "decode_attention": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_decode_attention": cfg.n_layer * SERVE_CHUNK * chunks, "quantized_matmul": 0}
+    want = expect(flash_fwd=cfg.n_layer * misses,
+                  paged_decode_attention=cfg.n_layer * SERVE_CHUNK * chunks)
     print(f"[serve] launches {launches} (expected {want}: {chunks} chunks, {misses} prefix "
           f"misses)", flush=True)
     if launches != want:
@@ -460,9 +517,9 @@ def serve_int8(device, smi: str, cfg, config, requests, bf16):
     chunks, hits, misses = tele["chunks"], tele["prefix_hits"], tele["prefix_misses"]
     forwards = hits + misses + SERVE_CHUNK * chunks
     per_forward = cfg.n_layer * 6
-    want = {"flash_fwd": cfg.n_layer * misses, "decode_attention": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "paged_decode_attention": cfg.n_layer * SERVE_CHUNK * chunks,
-            "quantized_matmul": per_forward * forwards}
+    want = expect(flash_fwd=cfg.n_layer * misses,
+                  paged_decode_attention=cfg.n_layer * SERVE_CHUNK * chunks,
+                  quantized_matmul=per_forward * forwards)
     print(f"[serve] int8: {n_q} matrices quantized; launches {launches} (expected {want}: "
           f"{forwards} forward passes = {hits + misses} prefills + {SERVE_CHUNK} x {chunks} "
           f"chunk steps)", flush=True)
@@ -529,9 +586,8 @@ def train_path(device, smi: str):
     launches = op_builder.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     per_attention = cfg.n_layer * TRAIN_STEPS
-    want = {"flash_fwd": per_attention, "flash_bwd_dq": per_attention,
-            "flash_bwd_dkv": per_attention, "decode_attention": 0,
-            "paged_decode_attention": 0, "quantized_matmul": 0}
+    want = expect(flash_fwd=per_attention, flash_bwd_dq=per_attention,
+                  flash_bwd_dkv=per_attention)
     print(f"[train] launches {launches} (expected {want})", flush=True)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -662,9 +718,8 @@ def wq_path(device, smi: str):
             res = fn()
             torch.cuda.synchronize()
             launches = op_builder.launch_counts()
-            want = {"flash_fwd": cfg.n_layer, "decode_attention": 0, "flash_bwd_dq": 0,
-                    "flash_bwd_dkv": 0, "paged_decode_attention": 0,
-                    "quantized_matmul": n_proj * new_tokens if bits else 0}
+            want = expect(flash_fwd=cfg.n_layer,
+                          quantized_matmul=n_proj * new_tokens if bits else 0)
             if launches != want:
                 raise AssertionError(f"{name}: launch counts {launches} != {want}")
             return res, launches
@@ -750,6 +805,243 @@ def wq_path(device, smi: str):
     return out
 
 
+def moe_path(device, smi: str):
+    """MoE serving (``[moe]``): GPT-2 125M with every 2nd FFN a top-1 mixture
+    of 8 experts, as ``bench.py``'s MoE lane serves it (BENCH_MOE_EXPERTS=8),
+    bf16, batch 1, prompt 512, greedy. Decode tokens/s by differencing 256-
+    and 64-token ``generate`` calls (median of 3 rounds), TTFT, launch counts
+    exact in every call; one decode step's logits on K7 against the plain
+    FFN; the dense twin on the same seed and traffic; a traced decode step;
+    a top-2 engine; the ``[serve]`` traffic through the scheduler; an int8
+    engine with quantized expert stacks."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.decode_fns import prefill
+    from deepspeed_tpu_torch.models import gpt2_cfg, init_cache
+    from deepspeed_tpu_torch.ops import op_builder
+
+    def model_cfg(**kw):
+        return gpt2_cfg(vocab_size=50304, max_seq_len=2048, n_embd=768, n_layer=12,
+                        n_head=12, **kw)
+
+    cfg = model_cfg(num_experts=8)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layer))
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, MOE_PROMPT))
+    config = {"dtype": "bfloat16", "max_out_tokens": MOE_PROMPT + MOE_NEW}
+
+    def counted(fn, want):
+        op_builder.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        launches = op_builder.launch_counts()
+        if launches != want:
+            raise AssertionError(f"[moe] launch counts {launches} != {want}")
+        return res, launches
+
+    def generate_want(model, new, moe_layers):
+        return expect(flash_fwd=model.n_layer, decode_attention=model.n_layer * (new - 1),
+                      moe_decode_ffn=moe_layers * (new - 1))
+
+    def lane(engine, moe_layers):
+        """Decode tokens/s by differencing, TTFT; launches exact in every call."""
+        model = engine.model_config
+        for n in (MOE_SHORT, MOE_NEW):                                  # warm-up
+            counted(lambda: engine.generate(ids, max_new_tokens=n),
+                    generate_want(model, n, moe_layers))
+        samples = []
+        for _ in range(MOE_ROUNDS):
+            t0 = time.perf_counter()
+            counted(lambda: engine.generate(ids, max_new_tokens=MOE_NEW),
+                    generate_want(model, MOE_NEW, moe_layers))
+            dt_long, ttft = time.perf_counter() - t0, engine.ttft
+            t0 = time.perf_counter()
+            toks, launches = counted(lambda: engine.generate(ids, max_new_tokens=MOE_SHORT),
+                                     generate_want(model, MOE_SHORT, moe_layers))
+            dt_short = time.perf_counter() - t0
+            per_token = (dt_long - dt_short) / (MOE_NEW - MOE_SHORT)
+            samples.append((1.0 / per_token if per_token > 0 else None, ttft))
+        if toks.shape != (1, MOE_PROMPT + MOE_SHORT) or \
+                not ((toks >= 0) & (toks < model.vocab_size)).all():
+            raise AssertionError(f"[moe] generate returned {toks.shape} or ids out of range")
+        tps = [t for t, _ in samples if t]
+        return {"decode_tokens_per_s": statistics.median(tps) if tps else None,
+                "ttft_ms": statistics.median(tt for _, tt in samples) * 1e3,
+                "generate_launches": launches, "tokens": toks}
+
+    t0 = time.perf_counter()
+    engine = dst.init_inference(cfg, config, device=device)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "moe_layers": n_moe,
+           "params": cfg.num_params()}
+    main = lane(engine, n_moe)
+    out.update(decode_tokens_per_s=main["decode_tokens_per_s"], ttft_ms=main["ttft_ms"],
+               launches=main["generate_launches"])
+
+    # one decode step's logits at the prompt's end: K7 against the plain FFN,
+    # same engine, same cache. bf16 activations through 12 layers, where h's
+    # rounding to bf16 can flip by an ulp between the two f32 sums, move
+    # logits of magnitude ~1 by a few bf16 ulps; LOGITS_TOL = 0.1 leaves room
+    # for that and fails on any real disagreement (a wrong expert, bias or
+    # f-block moves a layer's FFN output by its whole size)
+    lens = torch.full((1,), MOE_PROMPT, dtype=torch.int32, device=device)
+    ids_dev = torch.from_numpy(ids).to(device)
+    with torch.inference_mode():
+        caches = init_cache(engine.model_config, 1, MOE_PROMPT + 8, device=device)
+        tok = prefill(engine.module, ids_dev, caches, lens).argmax(-1)[:, None]
+        base = [{k: v.clone() for k, v in c.items()} for c in caches]
+
+        def step(plain=False):
+            from contextlib import nullcontext
+            pages = [{k: v.clone() for k, v in c.items()} for c in base]
+            with plain_moe() if plain else nullcontext():
+                logits, _ = engine.module(tok, positions=lens[:, None], caches=pages,
+                                          cache_lens=lens)
+            return logits[:, -1]
+
+        (logits_k, _), (logits_p, _) = (
+            counted(step, expect(decode_attention=cfg.n_layer, moe_decode_ffn=n_moe)),
+            counted(lambda: step(plain=True), expect(decode_attention=cfg.n_layer)))
+    if not bool(torch.isfinite(logits_k).all()) or logits_k.shape != (1, cfg.vocab_size):
+        raise AssertionError(f"[moe] step logits non-finite or shaped {tuple(logits_k.shape)}")
+    step_err = float((logits_k - logits_p).abs().max())
+    with plain_moe():
+        toks_p = engine.generate(ids, max_new_tokens=MOE_SHORT)
+    agree = float((toks_p[:, MOE_PROMPT:] == main["tokens"][:, MOE_PROMPT:]).mean())
+    print(f"[moe] decode step logits max_abs_err K7 vs plain FFN {step_err:.4e} (tol "
+          f"{LOGITS_TOL}, |logits| max {float(logits_p.abs().max()):.3f}); greedy agreement "
+          f"over {MOE_SHORT} tokens {agree:.4f} (not asserted: random-weight logits are "
+          "near-ties)", flush=True)
+    if not step_err <= LOGITS_TOL:
+        raise AssertionError(f"[moe] K7 step logits differ by {step_err} > {LOGITS_TOL}")
+    out.update(step_logit_err=step_err, token_agreement=agree)
+
+    # one decode step traced
+    with torch.inference_mode():
+        def traced_step():
+            step()
+            torch.cuda.synchronize()
+
+        traced_step()
+        prof = profile_call(f"[moe] decode step (GPT-2 125M, 8 experts, batch 1, row "
+                            f"{MOE_PROMPT})", traced_step, top=12)
+    if prof is not None:
+        by = prof["by_kernel"]
+        out.update(decode_step_device_ms=prof["device_us"] / 1e3,
+                   decode_step_k7_ms=sum(v for key, v in by.items() if "moe_ffn" in key) / 1e3,
+                   decode_step_busy_share=prof["device_us"] / prof["wall_us"])
+    del caches, base, logits_k, logits_p
+
+    # the scheduler: [serve]'s traffic on the MoE engine
+    out["serve"] = moe_serve(engine, n_moe)
+    del engine
+    gc.collect()
+
+    # the dense twin: same model without experts, same seed and traffic
+    dense = dst.init_inference(model_cfg(), config, device=device)
+    twin = lane(dense, 0)
+    out.update(dense_decode_tokens_per_s=twin["decode_tokens_per_s"],
+               dense_ttft_ms=twin["ttft_ms"])
+    if out["decode_tokens_per_s"] and twin["decode_tokens_per_s"]:
+        out["moe_over_dense_decode"] = out["decode_tokens_per_s"] / twin["decode_tokens_per_s"]
+    del dense
+    gc.collect()
+
+    # top-2: K7 at n = 2, once a MoE layer a step
+    top2 = dst.init_inference(model_cfg(num_experts=8, moe_top_k=2), config, device=device)
+    toks, launches = counted(lambda: top2.generate(ids, max_new_tokens=MOE_SMALL_NEW),
+                             generate_want(top2.model_config, MOE_SMALL_NEW, n_moe))
+    if toks.shape != (1, MOE_PROMPT + MOE_SMALL_NEW):
+        raise AssertionError(f"[moe] top-2 generate returned {toks.shape}")
+    out["top2_launches"] = launches
+    print(f"[moe] top-2: {MOE_SMALL_NEW} new tokens, launches {launches}", flush=True)
+    del top2
+    gc.collect()
+
+    # int8 expert stacks: the quantized decode path gathers the selected
+    # experts' payloads in plain tensor code (no K7); every projection in K6
+    q8 = dst.init_inference(cfg, {**config, "weight_quant": {"enabled": True, "bits": 8}},
+                            device=device)
+    audit = q8.quant_audit
+    n_q = sum(1 for e in audit if e["decision"] == "quantized")
+    n_stacks = sum(1 for e in audit if e["decision"] == "quantized" and "moe_experts" in e["name"])
+    n_proj = cfg.n_layer * 4 + (cfg.n_layer - n_moe) * 2
+    toks, launches = counted(
+        lambda: q8.generate(ids, max_new_tokens=MOE_SMALL_NEW),
+        expect(flash_fwd=cfg.n_layer, decode_attention=cfg.n_layer * (MOE_SMALL_NEW - 1),
+               quantized_matmul=n_proj * MOE_SMALL_NEW))
+    rep = q8.weight_stream_report()
+    print(f"[moe] int8: {n_q} of {len(audit)} matrices quantized ({n_stacks} expert stacks); "
+          f"launches of a {MOE_SMALL_NEW}-token generate {launches}; modeled weight bytes a "
+          f"step {rep['modeled_step_bytes'] / 1e9:.4f} GB (bf16 equivalent "
+          f"{rep['bf16_equiv_step_bytes'] / 1e9:.4f} GB)", flush=True)
+    if n_q != n_proj + 2 * n_moe or n_stacks != 2 * n_moe:
+        raise AssertionError(f"[moe] int8: {n_q} matrices, {n_stacks} expert stacks quantized")
+    out.update(int8_matrices_quantized=n_q, int8_expert_stacks=n_stacks,
+               int8_launches=launches, int8_modeled_step_bytes=rep["modeled_step_bytes"])
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[moe] {smi}: decode {out['decode_tokens_per_s'] or 0:.2f} tokens/s, TTFT "
+          f"{out['ttft_ms']:.2f} ms (medians of {MOE_ROUNDS} rounds; dense twin "
+          f"{out['dense_decode_tokens_per_s'] or 0:.2f} tokens/s, TTFT "
+          f"{out['dense_ttft_ms']:.2f} ms; MoE / dense decode "
+          f"{out.get('moe_over_dense_decode', 0):.4f}); launches of a {MOE_SHORT}-token "
+          f"generate {out['launches']}"
+          + (f"; traced decode step: device {out['decode_step_device_ms']:.3f} ms, K7 "
+             f"{out['decode_step_k7_ms']:.3f} ms, busy share "
+             f"{out['decode_step_busy_share']:.3f}" if prof else ""), flush=True)
+    return out
+
+
+def moe_serve(engine, n_moe: int):
+    """``[serve]``'s 48 requests through the scheduler on the MoE engine."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.ops import op_builder
+
+    cfg = engine.model_config
+    config, requests = serve_setup(cfg)
+    sched = ContinuousBatchingScheduler(engine, config)
+    handles = [sched.submit(p, max_new_tokens=m) for p, m in requests]
+    torch.cuda.synchronize()
+    op_builder.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = op_builder.launch_counts()
+    tele = sched.telemetry.snapshot()
+    bad = [(h.id, len(h.tokens), m) for h, (_, m) in zip(handles, requests)
+           if len(h.tokens) != m or h.finish_reason != "length"]
+    if bad:
+        raise AssertionError(f"[moe] scheduler requests that did not finish with their "
+                             f"budget: {bad}")
+    chunks, misses = tele["chunks"], tele["prefix_misses"]
+    want = expect(flash_fwd=cfg.n_layer * misses,
+                  paged_decode_attention=cfg.n_layer * SERVE_CHUNK * chunks,
+                  moe_decode_ffn=n_moe * SERVE_CHUNK * chunks)
+    print(f"[moe] scheduler launches {launches} (expected {want}: {chunks} chunks, {misses} "
+          "prefix misses)", flush=True)
+    if launches != want:
+        raise AssertionError(f"[moe] scheduler launch counts {launches} != {want}")
+    tokens = sum(len(h.tokens) for h in handles)
+    out = {"requests_per_s": len(requests) / wall, "tokens_per_s": tokens / wall,
+           "wall_s": wall, "tpot_ms_p50": tele["tpot_ms_p50"], "tpot_ms_p95": tele["tpot_ms_p95"],
+           "ttft_ms_p50": tele["ttft_ms_p50"], "chunks": chunks,
+           "chunk_ms_mean": sched.telemetry.decode_seconds / chunks * 1e3,
+           "launches": launches}
+    print(f"[moe] scheduler: {len(requests)} requests in {wall:.3f} s: "
+          f"{out['requests_per_s']:.3f} requests/s, {out['tokens_per_s']:.1f} generated "
+          f"tokens/s; TPOT p50 {out['tpot_ms_p50']:.3f} ms p95 {out['tpot_ms_p95']:.3f} ms; "
+          f"mean chunk {out['chunk_ms_mean']:.3f} ms over {chunks} chunks", flush=True)
+    del sched
+    gc.collect()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -783,18 +1075,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     wq = wq_path(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_path(device, smi)
 
     # each kernel's launches on its own main path (the one its first check case
     # is shaped by): generate for the forward and decode kernels, the
     # scheduler for the paged kernel, training for the backward kernels, the
-    # int8 lane's 64-token generate for the dequant-GEMM; the forward's
-    # serving and training launches, and the dequant-GEMM's in the int8
-    # scheduler run, ride beside
+    # int8 lane's 64-token generate for the dequant-GEMM, the MoE lane's
+    # 64-token generate for the selected-expert FFN; the forward's serving and
+    # training launches, the dequant-GEMM's in the int8 scheduler run and the
+    # selected-expert FFN's in the MoE scheduler and top-2 runs ride beside
     kernels = []
     for name, res in rows.items():
         path = (train if name in kc.BWD_KERNELS else
                 serve if name == "paged_decode_attention" else
                 {"launches": wq["int8"]["generate_launches"]} if name == "quantized_matmul" else
+                moe if name == "moe_decode_ffn" else
                 main)
         entry = {"name": name, "route": "cuda", **kc.KERNEL_INFO[name],
                  "launches": path["launches"][name],
@@ -808,6 +1105,10 @@ def main() -> int:
             entry["dense_decode_ms"] = res["dense_decode_ms"]
         if name == "quantized_matmul":
             entry["serve_int8_launches"] = serve["int8"]["launches"][name]
+        if name == "moe_decode_ffn":
+            entry.update(serve_launches=moe["serve"]["launches"][name],
+                         top2_launches=moe["top2_launches"][name],
+                         gather_ms=res["gather_ms"], block_f_ms=res["block_f_ms"])
         kernels.append(entry)
     print(json.dumps({"main_path": {
         k: main[k] for k in ("ttft_ms", "tpot_ms", "decode_tokens_per_s",
@@ -816,6 +1117,9 @@ def main() -> int:
         "serve_int8": {k: v for k, v in serve["int8"].items() if k != "launches"},
         "wq_path": {name: {k: v for k, v in lane.items() if k != "generate_launches"}
                     for name, lane in wq.items()},
+        "moe_path": {k: v for k, v in moe.items()
+                     if k not in ("launches", "top2_launches", "int8_launches", "serve")},
+        "moe_serve": {k: v for k, v in moe["serve"].items() if k != "launches"},
         "train_path": {k: train[k] for k in ("step_ms", "tokens_per_s", "mfu",
                                              "peak_memory_bytes", "first_loss", "last_loss",
                                              "grad_rel_err_max", "loss_err")}}))

@@ -12,6 +12,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..config.config_utils import from_dict as _from_dict
+from ..models.causal_lm import check_moe_decode_impl
 
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "float16": torch.float16, "fp16": torch.float16, "half": torch.float16,
@@ -65,6 +66,7 @@ class DeepSpeedInferenceConfig:
     replace_method: str = "auto"
     enable_cuda_graph: bool = False
     min_out_tokens: int = 1
+    # overrides the model's moe_decode_impl: "pallas" (the kernel) or "xla"
     moe_decode_impl: Optional[str] = None
     comm_overlap: Dict[str, Any] = dataclasses.field(default_factory=dict)
     mp_size: Optional[int] = None                 # deprecated alias of tensor_parallel.tp_size
@@ -88,8 +90,8 @@ class DeepSpeedInferenceConfig:
             raise NotImplementedError("comm_overlap is not ported yet: "
                                       "ROADMAP.md queue 1 item 11")
         if self.moe_decode_impl is not None:
-            raise NotImplementedError("MoE serving (moe_decode_impl) is not ported yet: "
-                                      "ROADMAP.md queue 1 item 10")
+            # fails at construction, before any model is built ('triton', 'XLA')
+            check_moe_decode_impl(self.moe_decode_impl)
         if self.checkpoint is not None:
             raise NotImplementedError("checkpoint loading is not ported yet: "
                                       "ROADMAP.md queue 1 item 12")

@@ -5,8 +5,9 @@ the model comes as a :class:`CausalLMConfig` (seeded random weights) or as
 ``(cfg, state_dict)``; weights of two or more dimensions are cast to the serve
 dtype, 1-D norms and biases stay f32. With weight quantization on
 (``weight_quant``, or the legacy ``dtype="int8"`` / ``quant`` spellings) the
-projections are then quantized, as the JAX engine's ``_place_params`` does,
-and served through the dequant-GEMM kernel. ``generate`` runs the prefill,
+projections and MoE expert stacks are then quantized, as the JAX engine's
+``_place_params`` does; projections are served through the dequant-GEMM
+kernel. ``moe_decode_impl`` overrides the model's before the module is built. ``generate`` runs the prefill,
 then a Python decode loop, and records ``ttft``, ``tpot`` and ``decode_tps``,
 each bracketed by a device synchronise on the card.
 """
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from ..accelerator import resolve_device
-from ..models.causal_lm import QUANT_NAMES, CausalLM, CausalLMConfig, Dense, QuantDense, init_cache
+from ..models.causal_lm import (QUANT_NAMES, CausalLM, CausalLMConfig, Dense, ExpertWeights,
+                                QuantDense, QuantNode, init_cache)
 from ..ops.quantizer import (dense_weight_bytes, make_quant_node, node_logical_shape,
                              node_weight_bytes, quantize_with_audit, validate_quant_config)
 from ..utils.logging import log_dist
@@ -34,8 +36,12 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.dtype = self._config.torch_dtype()
         cfg, state_dict = self._resolve_model(model)
-        # the serve dtype wins over the model's own
-        self.model_config = dataclasses.replace(cfg, dtype=self.dtype)
+        # the serve dtype wins over the model's own, and the config's MoE decode
+        # impl over the model's, before the module exists
+        overrides = {"dtype": self.dtype}
+        if self._config.moe_decode_impl is not None:
+            overrides["moe_decode_impl"] = self._config.moe_decode_impl
+        self.model_config = dataclasses.replace(cfg, **overrides)
         self.module = CausalLM(self.model_config, device=self.device)
         if state_dict is None:
             self.module.init_weights(seed)
@@ -66,9 +72,11 @@ class InferenceEngine:
             "or (CausalLMConfig, state_dict); encoder serving is ROADMAP.md queue 1 item 13")
 
     def _adopt_quant_nodes(self, state_dict) -> None:
-        """Projections that come quantized in ``state_dict`` (``<prefix>.int8_q``
-        / ``int4_q`` and their scales, from ``models/convert.py``) become
-        :class:`QuantDense` before the load, and are served as they are."""
+        """Projections and expert stacks that come quantized in ``state_dict``
+        (``<prefix>.int8_q`` / ``int4_q`` and their scales, from
+        ``models/convert.py``) become :class:`QuantDense` (or an
+        :class:`ExpertWeights` quant node) before the load, and are served as
+        they are."""
         for key in state_dict:
             prefix, _, leaf = key.rpartition(".")
             if leaf not in ("int8_q", "int4_q"):
@@ -76,25 +84,31 @@ class InferenceEngine:
             bits = 8 if leaf == "int8_q" else 4
             parent_name, _, name = prefix.rpartition(".")
             parent = self.module.get_submodule(parent_name)
-            dense = getattr(parent, name)
             node = make_quant_node(state_dict[key], state_dict[f"{prefix}.int{bits}_scale"], bits)
-            setattr(parent, name, QuantDense(node, dense.bias, dense.dtype))
+            if isinstance(parent, ExpertWeights):
+                parent.quantize(name, node)
+            else:
+                dense = getattr(parent, name)
+                setattr(parent, name, QuantDense(node, dense.bias, dense.dtype))
 
     @torch.no_grad()
     def _place_params(self):
         """Cast every floating parameter of two or more dimensions to the serve
-        dtype (1-D norms and biases stay f32), then, with weight quantization
-        on, quantize the projections as the JAX engine does.
+        dtype (1-D norms and biases stay f32; an MoE layer's gate and expert
+        biases are 2-D and are cast, as in JAX), then, with weight quantization
+        on, quantize the projections and expert stacks as the JAX engine does.
 
         Each ``Dense`` at a ``QUANT_NAMES`` site, in the serve dtype and in the
-        JAX ``(in, out)`` layout (``weight.t()``), passes the audit of
-        ``quantize_with_audit``: outlier-heavy matrices and paths matching a
-        ``weight_quant.exclude`` substring stay fp; the rest become
-        :class:`QuantDense`. Paths are the JAX tree's (``layers_0/q_proj/kernel``)
-        so that one config excludes the same matrices in both packages.
-        Projections already quantized (from the state dict) pass through. The
-        decisions land in ``self.quant_audit`` with the JAX engine's keys and
-        go to the log."""
+        JAX ``(in, out)`` layout (``weight.t()``), and each expert stack
+        ``w1 (e, d, f)`` / ``w2 (e, f, d)`` (grouped per expert along its
+        second-last axis) passes the audit of ``quantize_with_audit``:
+        outlier-heavy matrices and paths matching a ``weight_quant.exclude``
+        substring stay fp; the rest become :class:`QuantDense` or an expert
+        quant node. Paths are the JAX tree's (``layers_0/q_proj/kernel``,
+        ``layers_1/moe_experts/w1``) so that one config excludes the same
+        matrices in both packages. Weights already quantized (from the state
+        dict) pass through. The decisions land in ``self.quant_audit`` with the
+        JAX engine's keys and go to the log."""
         if self._config.quant.enabled or self._config.is_int8():
             validate_quant_config(self._config.quant)
         wq = self._config.resolved_weight_quant()
@@ -107,25 +121,35 @@ class InferenceEngine:
                 p.data = p.data.to(self.dtype)
         threshold = wq.resolved_threshold()
         audit = []
+
+        def quantize(path, w):
+            """The quant node of ``w`` (JAX layout), or None where it stays fp."""
+            if any(sub in path for sub in wq.exclude):
+                audit.append({"name": path, "decision": "excluded",
+                              "reason": "weight_quant.exclude match", "bits": wq.bits,
+                              "group_requested": wq.group, "group_effective": None,
+                              "rel_err": None})
+                return None
+            node, info = quantize_with_audit(w, bits=wq.bits, group_size=wq.group,
+                                             threshold=threshold, name=path)
+            audit.append(info)
+            return node
+
         if wq.enabled:
             for i, layer in enumerate(self.module.layers):
                 for name in QUANT_NAMES:
                     dense = getattr(layer, name, None)
-                    if not isinstance(dense, Dense):
-                        continue
-                    path = f"layers_{i}/{name}/kernel"
-                    if any(sub in path for sub in wq.exclude):
-                        audit.append({"name": path, "decision": "excluded",
-                                      "reason": "weight_quant.exclude match", "bits": wq.bits,
-                                      "group_requested": wq.group, "group_effective": None,
-                                      "rel_err": None})
-                        continue
-                    node, info = quantize_with_audit(dense.weight.t(), bits=wq.bits,
-                                                     group_size=wq.group, threshold=threshold,
-                                                     name=path)
-                    audit.append(info)
-                    if node is not None:
-                        setattr(layer, name, QuantDense(node, dense.bias, dense.dtype))
+                    if isinstance(dense, Dense):
+                        node = quantize(f"layers_{i}/{name}/kernel", dense.weight.t())
+                        if node is not None:
+                            setattr(layer, name, QuantDense(node, dense.bias, dense.dtype))
+                experts = getattr(layer, "moe_experts", None)
+                for name in ("w1", "w2"):
+                    w = getattr(experts, name, None)
+                    if isinstance(w, torch.nn.Parameter):
+                        node = quantize(f"layers_{i}/moe_experts/{name}", w)
+                        if node is not None:
+                            experts.quantize(name, node)
         self.quant_audit = audit
         if wq.enabled:
             n_q = sum(1 for e in audit if e["decision"] == "quantized")
@@ -142,15 +166,16 @@ class InferenceEngine:
     def weight_stream_report(self) -> Dict[str, float]:
         """Modeled device-memory weight bytes of one full pass over the
         parameters (about one decode step), as the JAX engine reports them:
-        quantized projections at the kernel's own count (payload and scales,
-        each read once, ``node_weight_bytes``); every fp matrix, and the bf16
+        quantized projections and expert stacks at the kernel's own count
+        (payload and scales, each read once, ``node_weight_bytes``); every fp
+        matrix (expert stacks, gates and expert biases included), and the bf16
         equivalent of each quantized one, at 2 bytes an element whatever the
         serve dtype. ``reduction_quantized_nodes`` is over the quantized set,
         ``reduction_total`` includes the fp matrices (embeddings, head,
         excluded projections)."""
         acc = {"quantized_bytes": 0, "quantized_bf16_equiv": 0, "fp_bytes": 0}
         for mod in self.module.modules():
-            if isinstance(mod, QuantDense):
+            if isinstance(mod, QuantNode):
                 node = mod.node()
                 acc["quantized_bytes"] += node_weight_bytes(node)
                 acc["quantized_bf16_equiv"] += dense_weight_bytes(node_logical_shape(node),

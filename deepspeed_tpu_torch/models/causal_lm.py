@@ -27,8 +27,12 @@ the engine swaps it in at the ``QUANT_NAMES`` sites when weight quantization
 is on (``inference/engine.py``), and its product runs in the dequant-GEMM
 kernel (``ops/quantizer/fused_matmul.py``).
 
-Not in this slice (each raises ``NotImplementedError``): MoE layers, tensor
-parallelism.
+With ``num_experts > 0`` every ``moe_layer_interval``-th layer's FFN is a
+gated mixture of experts (:meth:`CausalLMLayer._moe_mlp`, JAX's serving MoE):
+a decode step runs only the selected experts, through the selected-expert FFN
+kernel (``ops/moe/decode_ffn.py``); prefill routes through JAX's chunked
+one-hot dispatch. Tensor parallelism and expert parallelism are not ported
+(ROADMAP.md queue 1 item 11).
 """
 
 import dataclasses
@@ -41,9 +45,13 @@ from torch import nn
 
 from ..accelerator import resolve_device
 from ..ops.attention.decode import decode_attention
+from ..moe.sharded_moe import TopKGate, topk_select
 from ..ops.attention.flash import flash_attention
+from ..ops.moe import (ACTIVATIONS, moe_decode_ffn, moe_decode_ffn_quant,
+                       moe_decode_ffn_xla)
 from ..ops.paged_attention import gather_kv_dense, paged_attention, paged_cache_update
-from ..ops.quantizer import make_quant_node, node_bits, node_qs, quant_dense_apply
+from ..ops.quantizer import (dequantize_node, is_quant_node, make_quant_node, node_bits,
+                             node_qs, quant_dense_apply)
 
 
 @dataclasses.dataclass
@@ -71,10 +79,24 @@ class CausalLMConfig:
     dtype: torch.dtype = torch.bfloat16
     init_std: float = 0.02
     name: str = "causal-lm"
-    # MoE serving is not ported yet (ROADMAP.md queue 1 item 10): num_experts > 0 raises
+    # MoE serving: every ``moe_layer_interval``-th layer's FFN is a gated expert
+    # mixture. 0 experts = dense.
     num_experts: int = 0
     moe_layer_interval: int = 2
     moe_top_k: int = 1
+    # decode (t == 1) runs only the selected experts instead of the all-expert
+    # dispatch; False = always dispatch (parity testing)
+    moe_decode_fastpath: bool = True
+    # the JAX spellings, kept for config compatibility: "pallas" = the
+    # selected-expert FFN kernel (K7); "xla" = w[idx] gather + batched products
+    moe_decode_impl: str = "pallas"
+
+    VALID_MOE_DECODE_IMPLS = ("pallas", "xla")
+
+    def __post_init__(self):
+        # case-sensitive on purpose: 'XLA'/'Pallas'/'triton' must not silently
+        # select the kernel through a failed == "xla" comparison
+        check_moe_decode_impl(self.moe_decode_impl)
 
     def is_moe_layer(self, i: int) -> bool:
         return self.num_experts > 0 and (i + 1) % self.moe_layer_interval == 0
@@ -100,6 +122,13 @@ class CausalLMConfig:
         moe_extra = n_moe * (self.num_experts - 1) * 2 * d * f
         return (v * d + L * (attn + mlp) + moe_extra +
                 (0 if self.tie_word_embeddings else v * d))
+
+
+def check_moe_decode_impl(impl) -> None:
+    """Raise ``ValueError`` unless ``impl`` is one of the decode impls."""
+    if impl not in CausalLMConfig.VALID_MOE_DECODE_IMPLS:
+        raise ValueError(f"moe_decode_impl={impl!r} is not one of "
+                         f"{CausalLMConfig.VALID_MOE_DECODE_IMPLS}")
 
 
 # ---------------------------------------------------------------- family constructors
@@ -229,10 +258,6 @@ def _norm(cfg: CausalLMConfig, device) -> nn.Module:
     return cls(cfg.n_embd, cfg.ln_eps, device)
 
 
-_ACTIVATIONS = {"gelu": lambda x: F.gelu(x, approximate="tanh"), "relu": F.relu,
-                "silu": F.silu}
-
-
 class Dense(nn.Module):
     """``x @ weight.T + bias`` computed in ``dtype``. ``weight`` is ``(out, in)``;
     ``bias`` stays f32 and is cast at use."""
@@ -254,36 +279,78 @@ QUANT_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "fc_in", "fc_out", "gate_
                "up_proj")
 
 
-class QuantDense(nn.Module):
-    """A projection over a quant node, the counterpart of the JAX
-    ``QuantDense``: ``x @ dequant(payload, scales) + bias`` in ``dtype``.
+class QuantNode(nn.Module):
+    """A quant node held as buffers ``int8_q`` and ``int8_scale`` (or ``int4_q``
+    and ``int4_scale``): the int8 payload in the JAX node's ``(..., in, out)``
+    layout (``(..., in/2, out)`` packed for int4) and the f32 scales ``(...,
+    in/g, out)``, so a state dict names the bits in its keys. An expert stack
+    quantized by the engine is one (``ExpertWeights.quantize``)."""
 
-    Buffers ``int8_q`` and ``int8_scale`` (or ``int4_q`` and ``int4_scale``):
-    the int8 payload in the JAX node's ``(in, out)`` layout (``(in/2, out)``
-    packed for int4) and the f32 scales ``(in/g, out)``, so a state dict names
-    the bits in its keys. ``bias`` stays f32, as in :class:`Dense`."""
-
-    def __init__(self, node, bias: Optional[nn.Parameter], dtype):
+    def __init__(self, node):
         super().__init__()
-        self.dtype = dtype
         self.bits = node_bits(node)
         q, s = node_qs(node)
         self.register_buffer(f"int{self.bits}_q", q.contiguous())
         self.register_buffer(f"int{self.bits}_scale", s.float().contiguous())
-        self.bias = bias
 
     def node(self) -> dict:
         return make_quant_node(getattr(self, f"int{self.bits}_q"),
                                getattr(self, f"int{self.bits}_scale"), self.bits)
 
+
+class QuantDense(QuantNode):
+    """A projection over a quant node, the counterpart of the JAX
+    ``QuantDense``: ``x @ dequant(payload, scales) + bias`` in ``dtype``, the
+    payload ``(in, out)``. ``bias`` stays f32, as in :class:`Dense`."""
+
+    def __init__(self, node, bias: Optional[nn.Parameter], dtype):
+        super().__init__(node)
+        self.dtype = dtype
+        self.bias = bias
+
     def forward(self, x):
         return quant_dense_apply(x, self.node(), self.bias, self.dtype)
 
 
+class ExpertWeights(nn.Module):
+    """The stacked expert FFNs of an MoE layer, in the JAX tree's layout
+    (``moe_experts/{w1,b1,w2,b2}``): ``w1 (e, d, f)``, ``b1 (e, f)``, ``w2
+    (e, f, d)``, ``b2 (e, d)``, so that conversion and quantization are byte
+    for byte the JAX package's. The engine may replace ``w1``/``w2`` with a
+    :class:`QuantNode` (:meth:`quantize`)."""
+
+    def __init__(self, num_experts: int, d_model: int, d_ff: int, device):
+        super().__init__()
+        e, d, f = num_experts, d_model, d_ff
+        self.w1 = nn.Parameter(torch.empty(e, d, f, device=device))
+        self.b1 = nn.Parameter(torch.zeros(e, f, device=device))
+        self.w2 = nn.Parameter(torch.empty(e, f, d, device=device))
+        self.b2 = nn.Parameter(torch.zeros(e, d, device=device))
+
+    def quantize(self, name: str, node) -> None:
+        """Serve ``w1`` or ``w2`` from the quant node ``node``."""
+        delattr(self, name)
+        setattr(self, name, QuantNode(node))
+
+    def weights(self):
+        """``(w1, b1, w2, b2)``; a quantized stack comes as its quant node."""
+        def get(name):
+            w = getattr(self, name)
+            return w.node() if isinstance(w, QuantNode) else w
+
+        return get("w1"), self.b1, get("w2"), self.b2
+
+
 class CausalLMLayer(nn.Module):
-    def __init__(self, cfg: CausalLMConfig, device):
+    # prefill tokens are routed in chunks of this size: the one-hot
+    # dispatch/combine tensors are (C, e, C) per chunk, linear in the token
+    # count where one whole-sequence no-drop dispatch would be quadratic
+    MOE_CHUNK = 256
+
+    def __init__(self, cfg: CausalLMConfig, device, is_moe: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.is_moe = is_moe
         d, hd, dt = cfg.n_embd, cfg.head_dim, cfg.dtype
         self.ln_attn = _norm(cfg, device)
         self.q_proj = Dense(d, cfg.n_head * hd, cfg.qkv_bias, dt, device)
@@ -292,13 +359,18 @@ class CausalLMLayer(nn.Module):
         # o_proj's bias follows mlp_bias, as in the JAX layer
         self.o_proj = Dense(d, d, cfg.mlp_bias, dt, device)
         self.ln_mlp = _norm(cfg, device)
-        if cfg.gated_mlp:
-            self.gate_proj = Dense(d, cfg.ffn_dim, cfg.mlp_bias, dt, device)
-            self.up_proj = Dense(d, cfg.ffn_dim, cfg.mlp_bias, dt, device)
+        if is_moe:
+            # the experts are plain (ungated) FFNs with biases in every family
+            self.moe_gate = nn.Parameter(torch.empty(d, cfg.num_experts, device=device))
+            self.moe_experts = ExpertWeights(cfg.num_experts, d, cfg.ffn_dim, device)
         else:
-            self.fc_in = Dense(d, cfg.ffn_dim, cfg.mlp_bias, dt, device)
-        self.fc_out = Dense(cfg.ffn_dim, d, cfg.mlp_bias, dt, device)
-        self.act = _ACTIVATIONS[cfg.activation]
+            if cfg.gated_mlp:
+                self.gate_proj = Dense(d, cfg.ffn_dim, cfg.mlp_bias, dt, device)
+                self.up_proj = Dense(d, cfg.ffn_dim, cfg.mlp_bias, dt, device)
+            else:
+                self.fc_in = Dense(d, cfg.ffn_dim, cfg.mlp_bias, dt, device)
+            self.fc_out = Dense(cfg.ffn_dim, d, cfg.mlp_bias, dt, device)
+        self.act = ACTIVATIONS[cfg.activation]
         slopes = (torch.from_numpy(alibi_slopes(cfg.n_head)).to(device)
                   if cfg.pos_emb == "alibi" else None)
         self.register_buffer("alibi", slopes, persistent=False)
@@ -309,6 +381,72 @@ class CausalLMLayer(nn.Module):
         else:
             h = self.act(self.fc_in(h))
         return self.fc_out(h)
+
+    def _moe_mlp(self, h):
+        """Gated expert-mixture FFN for serving, JAX's three branches in JAX's
+        order. Eval-mode gating: deterministic, no token drops.
+
+        - Quantized experts at a decode step (t == 1, ``moe_decode_fastpath``,
+          more experts than ``moe_top_k``): gather the selected experts'
+          int8/int4 payloads and dequantize only those slices
+          (``moe_decode_ffn_quant``, plain tensor code; K7 does not run).
+        - fp decode step, same conditions: the selected-expert FFN, K7
+          (``moe_decode_impl="pallas"``) or the gather path (``"xla"``). The
+          routing indices stay on the device: no host synchronisation.
+        - Otherwise (prefill, suffix prefill, fast path off): tokens in chunks
+          of ``MOE_CHUNK`` are dispatched to every expert's ``cap`` slots by
+          one-hot tensors (capacity = chunk, so nothing drops), every expert
+          runs on its slots, and the combine weights sum the outputs back in
+          f32; quantized stacks are dequantized first."""
+        cfg = self.cfg
+        b, t, d = h.shape
+        s = b * t
+        x = h.reshape(s, d)
+        wg = self.moe_gate
+        w1, b1, w2, b2 = self.moe_experts.weights()
+        cdtype = cfg.dtype
+        k = cfg.moe_top_k
+        quant = is_quant_node(w1) or is_quant_node(w2)
+        fast = t == 1 and cfg.moe_decode_fastpath and cfg.num_experts > k
+        if fast:
+            # dispatch-time re-validation: a config changed after construction
+            # must not fall through to the kernel
+            check_moe_decode_impl(cfg.moe_decode_impl)
+            logits = x.float() @ wg.float()                              # (s, e)
+            idx, gw = topk_select(logits, k)                             # (s, k) x2
+            xk = x.to(cdtype)[:, None, :].expand(s, k, d).reshape(s * k, d)
+            if quant:
+                y = moe_decode_ffn_quant(xk, idx.reshape(-1), w1, b1, w2, b2,
+                                         cfg.activation)
+            else:
+                ffn = moe_decode_ffn_xla if cfg.moe_decode_impl == "xla" else moe_decode_ffn
+                y = ffn(xk, idx.reshape(-1), w1.to(cdtype), b1.to(cdtype), w2.to(cdtype),
+                        b2.to(cdtype), cfg.activation)
+            out = torch.einsum("bk,bkm->bm", gw, y.reshape(s, k, d))
+            return out.reshape(b, t, d).to(h.dtype)
+        if quant:
+            w1 = dequantize_node(w1) if is_quant_node(w1) else w1
+            w2 = dequantize_node(w2) if is_quant_node(w2) else w2
+
+        gate = TopKGate(k=k, drop_tokens=False, use_rts=False, top2_2nd_expert_sampling=False)
+        e = cfg.num_experts
+        chunk = min(s, self.MOE_CHUNK)
+        xc = F.pad(x, (0, 0, 0, (-s) % chunk)).reshape(-1, chunk, d)      # (n, C, m)
+        n = xc.shape[0]
+        gated = [gate(wg, xc[i], train=False) for i in range(n)]
+        combine = torch.stack([g[1] for g in gated])                      # (n, C, e, cap)
+        dispatch = torch.stack([g[2] for g in gated])
+        cap = combine.shape[-1]          # chunk for top-1, 2 * chunk for top-2 (no drops)
+        expert_in = torch.einsum("nsec,nsm->encm", dispatch.float(),
+                                 xc.float()).to(cdtype).reshape(e, n * cap, d)
+        hh = torch.einsum("ecm,emf->ecf", expert_in, w1.to(cdtype)) + \
+            b1[:, None, :].to(cdtype)
+        hh = self.act(hh)
+        expert_out = torch.einsum("ecf,efm->ecm", hh, w2.to(cdtype)) + \
+            b2[:, None, :].to(cdtype)
+        expert_out = expert_out.reshape(e, n, cap, d)
+        out = torch.einsum("nsec,encm->nsm", combine.float(), expert_out.float())
+        return out.reshape(-1, d)[:s].reshape(b, t, d).to(h.dtype)
 
     def forward(self, x, positions, cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_len: Optional[torch.Tensor] = None, prefix_fill: bool = False,
@@ -368,10 +506,11 @@ class CausalLMLayer(nn.Module):
                 cache["v"][:, :, :t] = v.transpose(1, 2)
         attn_out = self.o_proj(o.reshape(b, t, cfg.n_embd))
 
+        mlp = self._moe_mlp if self.is_moe else self._mlp
         if cfg.parallel_residual:
-            return x + attn_out + self._mlp(self.ln_mlp(x).to(cfg.dtype))
+            return x + attn_out + mlp(self.ln_mlp(x).to(cfg.dtype))
         x = x + attn_out
-        return x + self._mlp(self.ln_mlp(x).to(cfg.dtype))
+        return x + mlp(self.ln_mlp(x).to(cfg.dtype))
 
 
 def bias_attention(q, k, v, slopes: Optional[torch.Tensor]):
@@ -455,9 +594,6 @@ def decode_attention_alibi_plain(q, k_cache, v_cache, cache_len, slopes):
 class CausalLM(nn.Module):
     def __init__(self, cfg: CausalLMConfig, device=None):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError("MoE layers (num_experts > 0) are not ported yet: "
-                                      "ROADMAP.md queue 1 item 10")
         device = resolve_device(device)
         self.cfg = cfg
         self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.n_embd, device=device))
@@ -465,7 +601,8 @@ class CausalLM(nn.Module):
             self.wpe = nn.Parameter(torch.empty(cfg.max_seq_len, cfg.n_embd, device=device))
         if cfg.embed_layernorm:
             self.ln_embed = _norm(cfg, device)
-        self.layers = nn.ModuleList(CausalLMLayer(cfg, device) for _ in range(cfg.n_layer))
+        self.layers = nn.ModuleList(CausalLMLayer(cfg, device, cfg.is_moe_layer(i))
+                                    for i in range(cfg.n_layer))
         self.ln_f = _norm(cfg, device)
         if not cfg.tie_word_embeddings:
             self.lm_head = Dense(cfg.n_embd, cfg.vocab_size, cfg.lm_head_bias,
@@ -475,8 +612,10 @@ class CausalLM(nn.Module):
     def init_weights(self, seed: int) -> None:
         """Seeded random weights with the JAX model's initialisers: normal with
         ``init_std`` for embeddings and projections, ``init_std / sqrt(2 *
-        n_layer)`` for ``o_proj``/``fc_out``, zero biases, unit norm scales. One
-        ``torch.Generator`` on the parameters' device, seeded with ``seed``."""
+        n_layer)`` for ``o_proj``/``fc_out``, zero biases, unit norm scales;
+        MoE layers: gate and both expert stacks normal with ``init_std``, zero
+        expert biases. One ``torch.Generator`` on the parameters' device,
+        seeded with ``seed``."""
         cfg = self.cfg
         gen = torch.Generator(device=self.wte.device).manual_seed(seed)
         proj_std = cfg.init_std / (2 * cfg.n_layer) ** 0.5
@@ -490,6 +629,13 @@ class CausalLM(nn.Module):
                 mod.weight.normal_(0.0, std, generator=gen)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, CausalLMLayer) and mod.is_moe:
+                mod.moe_gate.normal_(0.0, cfg.init_std, generator=gen)
+            elif isinstance(mod, ExpertWeights):
+                for w in (mod.w1, mod.w2):
+                    w.normal_(0.0, cfg.init_std, generator=gen)
+                mod.b1.zero_()
+                mod.b2.zero_()
         self.wte.normal_(0.0, cfg.init_std, generator=gen)
         if cfg.pos_emb == "learned":
             self.wpe.normal_(0.0, cfg.init_std, generator=gen)

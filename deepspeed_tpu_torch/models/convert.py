@@ -11,7 +11,11 @@ A weight-quantized tree (``jax.device_get`` of a JAX engine serving with
 ``weight_quant``) carries its quant nodes across unchanged, neither transposed
 nor re-quantized: a projection's ``{"__int8_q__", "__int8_scale__"}`` becomes
 ``<prefix>.int8_q`` / ``<prefix>.int8_scale`` (int4 likewise), which the
-inference engine serves through :class:`~.causal_lm.QuantDense`.
+inference engine serves through :class:`~.causal_lm.QuantDense`. An MoE
+layer's raw gate ``moe_gate (d, e)`` and its expert stacks
+``moe_experts/{w1,b1,w2,b2}`` keep the JAX layout; a quantized stack (3-D
+payload and scales) becomes ``<prefix>.moe_experts.w1.int8_q`` /
+``...int8_scale``, served as an :class:`~.causal_lm.ExpertWeights` quant node.
 """
 
 from typing import Any, Dict
@@ -28,13 +32,17 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _quant(sd, prefix: str, node) -> None:
+    bits = node_bits(node)
+    q, s = node_qs(node)
+    sd[f"{prefix}.int{bits}_q"] = torch.from_numpy(np.array(q, dtype=np.int8))
+    sd[f"{prefix}.int{bits}_scale"] = _t(s)
+
+
 def _dense(sd, prefix: str, node: Dict[str, Any]):
     kernel = node["kernel"]
     if is_quant_node(kernel):
-        bits = node_bits(kernel)
-        q, s = node_qs(kernel)
-        sd[f"{prefix}.int{bits}_q"] = torch.from_numpy(np.array(q, dtype=np.int8))
-        sd[f"{prefix}.int{bits}_scale"] = _t(s)
+        _quant(sd, prefix, kernel)
     else:
         sd[f"{prefix}.weight"] = _t(kernel).t().contiguous()
     if "bias" in node:
@@ -61,8 +69,16 @@ def causal_lm_params_from_jax(params: Dict[str, Any],
         pre = f"layers.{i}"
         _norm(sd, f"{pre}.ln_attn", layer["ln_attn"])
         _norm(sd, f"{pre}.ln_mlp", layer["ln_mlp"])
-        names = ["q_proj", "k_proj", "v_proj", "o_proj", "fc_out"]
-        names += ["gate_proj", "up_proj"] if cfg.gated_mlp else ["fc_in"]
+        names = ["q_proj", "k_proj", "v_proj", "o_proj"]
+        if cfg.is_moe_layer(i):
+            sd[f"{pre}.moe_gate"] = _t(layer["moe_gate"])
+            for name, leaf in layer["moe_experts"].items():
+                if is_quant_node(leaf):
+                    _quant(sd, f"{pre}.moe_experts.{name}", leaf)
+                else:
+                    sd[f"{pre}.moe_experts.{name}"] = _t(leaf)
+        else:
+            names += ["fc_out"] + (["gate_proj", "up_proj"] if cfg.gated_mlp else ["fc_in"])
         for name in names:
             _dense(sd, f"{pre}.{name}", layer[name])
     _norm(sd, "ln_f", params["ln_f"])

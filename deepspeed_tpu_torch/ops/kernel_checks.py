@@ -9,7 +9,8 @@ The first case of each kernel is the shape its main path gives it: serving
 continuous-batching serving (GPT-2 125M, 16 slots, page 16, a 250-token
 shared prefix) for the paged decode kernel, training (GPT-2 125M,
 micro-batch 24, seq 1024) for the two backward kernels, weight-quantized
-serving (BLOOM-7B decode, batch 1) for the dequant-GEMM.
+serving (BLOOM-7B decode, batch 1) for the dequant-GEMM, MoE serving (GPT-2
+125M with 8 experts, decode at batch 1) for the selected-expert FFN.
 
 Every kernel is held to its plain version elementwise: every element of
 every output must have |kernel - plain| <= atol + rtol * |plain|, with
@@ -57,6 +58,18 @@ kernel that is wrong by 20 % on most rows.
   and float16 (1e-3, 1e-3): rtol one ulp of the value, atol ten times the
   sum noise for values near 0. float32 (2e-5, 2e-5): sums of up to 512
   terms in other orders.
+- The selected-expert FFN, ``MOE_TOLERANCES``: both sides take exact
+  products of the stored values with f32 sums (the kernel's order against
+  cuBLAS's f32 GEMM on the gathered weights), add b1 and apply the
+  activation in f32, round h to the dtype once, and return y in f32 without
+  a final rounding. The f32 noise of a sum (~1e-6 at d = 1,024) flips the
+  rounding of about one h element a token by one ulp, which moves y by
+  ulp(h) x |w2|: at most ~2e-3 in bfloat16 (h up to ~5, ulp 2**-5, w2 ~
+  N(0, 1/f) up to 4 sigma), ~2.5e-4 in float16. bfloat16 (2e-3, 8e-3) and
+  float16 (2.5e-4, 1e-3): atol that flip, rtol room for a few smaller ones
+  on outputs of order 1 (x ~ N(0, 1), w1 ~ N(0, 1/d), biases ~ N(0, 1/4)).
+  float32 (2e-5, 2e-5): h is not rounded; sums of up to 4,096 terms in
+  other orders.
 
 f32 matrix products of the plain versions run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set here).
@@ -73,6 +86,7 @@ from ..models.causal_lm import alibi_slopes
 from .attention.decode import decode_attention, decode_attention_plain
 from .attention.flash import (flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
                              flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
+from .moe import moe_decode_ffn, moe_decode_ffn_plain, moe_decode_ffn_xla
 from .paged_attention import gather_kv_dense, paged_attention, paged_attention_plain
 from .quantizer import (dequantize_to, pack_int4, quantize_grouped, quantized_matmul,
                         quantized_matmul_plain)
@@ -88,6 +102,8 @@ BWD_TOLERANCES = {torch.bfloat16: (2e-3, 1.6e-2), torch.float16: (2.5e-4, 2e-3),
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 LSE_TOLERANCE = 1e-3        # f32 logsumexp; sums of exp in another order
 QMM_TOLERANCES = {torch.bfloat16: (1e-3, 8e-3), torch.float16: (1e-3, 1e-3),
+                  torch.float32: (2e-5, 2e-5)}
+MOE_TOLERANCES = {torch.bfloat16: (2e-3, 8e-3), torch.float16: (2.5e-4, 1e-3),
                   torch.float32: (2e-5, 2e-5)}
 
 #: H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s of device
@@ -111,6 +127,8 @@ KERNEL_INFO = {
         "replaces": "deepspeed_tpu/ops/paged_attention.py:111"},
     "quantized_matmul": {"source": "deepspeed_tpu_torch/ops/csrc/quantized_matmul.cu",
                          "replaces": "deepspeed_tpu/ops/quantizer/fused_matmul.py:67"},
+    "moe_decode_ffn": {"source": "deepspeed_tpu_torch/ops/csrc/moe_decode_ffn.cu",
+                       "replaces": "deepspeed_tpu/ops/moe/decode_ffn.py:31"},
 }
 
 
@@ -120,13 +138,15 @@ class Case:
     name: str
     # flash (fwd and bwd): b, t, h, d; decode: b, h, hk, T, d; paged: b, h,
     # hk, page, cap, d (max_pages = cdiv(cap, page)); dequant-GEMM: m, k, n,
-    # group (requested; the quantizer may degrade it), bits
+    # group (requested; the quantizer may degrade it), bits; selected-expert
+    # FFN: n rows (tokens x k), e, d, f, k experts a token (distinct)
     dims: Dict[str, int]
     dtype: torch.dtype
     causal: bool = True
     alibi: bool = False
     lens: Optional[Tuple[int, ...]] = None      # decode and paged: valid rows per sequence
     main_path: bool = False
+    activation: str = "gelu"                    # selected-expert FFN
 
     def tolerance(self) -> Tuple[float, float]:
         if self.kernel in BWD_KERNELS:
@@ -135,6 +155,8 @@ class Case:
             return FWD_TOLERANCES[self.dtype]
         if self.kernel == "quantized_matmul":
             return QMM_TOLERANCES[self.dtype]
+        if self.kernel == "moe_decode_ffn":
+            return MOE_TOLERANCES[self.dtype]
         return DECODE_TOLERANCES[self.dtype]
 
 
@@ -209,6 +231,29 @@ CASES: List[Case] = [
     # k 13: group 1, and n not a multiple of 4
     Case("quantized_matmul", "fp32-k13-g1-n70-int8", dict(m=4, k=13, n=70, group=8, bits=8),
          torch.float32),
+    # MoE serving: GPT-2 125M with 8 experts (d 768, f 3072) decode at batch 1
+    # (generate), the scheduler's 16 slots, top-2 at batch 1
+    Case("moe_decode_ffn", "gpt2moe-decode-n1", dict(n=1, e=8, d=768, f=3072, k=1),
+         torch.bfloat16, main_path=True),
+    Case("moe_decode_ffn", "gpt2moe-serve-n16", dict(n=16, e=8, d=768, f=3072, k=1),
+         torch.bfloat16),
+    Case("moe_decode_ffn", "gpt2moe-top2-n2", dict(n=2, e=8, d=768, f=3072, k=2),
+         torch.bfloat16),
+    # a partial last f-block; 16-byte loads
+    Case("moe_decode_ffn", "ragged-d96-f200-relu", dict(n=5, e=3, d=96, f=200, k=1),
+         torch.bfloat16, activation="relu"),
+    Case("moe_decode_ffn", "fp32-silu-top2", dict(n=4, e=8, d=256, f=1024, k=2),
+         torch.float32, activation="silu"),
+    Case("moe_decode_ffn", "fp16", dict(n=3, e=4, d=512, f=2048, k=1), torch.float16),
+    # d and f not multiples of 8: one element a load
+    Case("moe_decode_ffn", "fp16-d77-f201-relu", dict(n=3, e=5, d=77, f=201, k=1),
+         torch.float16, activation="relu"),
+    # DeepSpeed-MoE 350M+MoE-128's expert shape (2.1 GB of stacks), where the
+    # experts dominate the weight stream
+    Case("moe_decode_ffn", "dsmoe350m-e128-n1", dict(n=1, e=128, d=1024, f=4096, k=1),
+         torch.bfloat16),
+    Case("moe_decode_ffn", "dsmoe350m-e128-n16", dict(n=16, e=128, d=1024, f=4096, k=1),
+         torch.bfloat16),
 ]
 
 
@@ -228,6 +273,8 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=device).to(case.dtype)
 
+    if case.kernel == "moe_decode_ffn":
+        return moe_inputs(case, device, seed)
     if case.kernel == "quantized_matmul":
         m, k, n, bits = dims["m"], dims["k"], dims["n"], dims["bits"]
         w = torch.randn(k, n, generator=gen, device=device) / float(np.sqrt(k))
@@ -276,6 +323,27 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
     return inp
 
 
+def moe_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Selected-expert FFN inputs: k distinct experts for each of n / k tokens
+    (numpy, seeded), each token's row repeated k times as the model does;
+    weights scaled so that h and y are of order 1, biases ~ N(0, 1/4)."""
+    n, e, d, f, k = (case.dims[x] for x in ("n", "e", "d", "f", "k"))
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(scale, *shape):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(case.dtype)
+
+    idx = torch.tensor(moe_inputs_idx(case, seed), dtype=torch.int32, device=device)
+    x = randn(1.0, n // k, d).repeat_interleave(k, dim=0)
+    return {"x": x, "idx": idx,
+            "w1": randn(float(d) ** -0.5, e, d, f), "b1": randn(0.5, e, f),
+            "w2": randn(float(f) ** -0.5, e, f, d), "b2": randn(0.5, e, d)}
+
+
+def _moe_args(case: Case, inp):
+    return (inp["x"], inp["idx"], inp["w1"], inp["b1"], inp["w2"], inp["b2"], case.activation)
+
+
 def effective_group(case: Case) -> int:
     """The dequant-GEMM case's group after the quantizer's degradation."""
     return _group_size(case.dims["k"], case.dims["group"])
@@ -292,7 +360,10 @@ def _bwd_args(case: Case, inp):
 
 def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     """The kernel through its public wrapper: flash ``(o, lse)``, decode and
-    paged ``(o,)``, dq ``(dq,)``, dk/dv ``(dk, dv)``, dequant-GEMM ``(y,)``."""
+    paged ``(o,)``, dq ``(dq,)``, dk/dv ``(dk, dv)``, dequant-GEMM and
+    selected-expert FFN ``(y,)``."""
+    if case.kernel == "moe_decode_ffn":
+        return (moe_decode_ffn(*_moe_args(case, inp)),)
     if case.kernel == "quantized_matmul":
         return (quantized_matmul(inp["x"], inp["q"], inp["scales"], bits=case.dims["bits"]),)
     if case.kernel == "flash_bwd_dq":
@@ -310,6 +381,8 @@ def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
 
 def run_plain(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     """The plain version on the same inputs, same outputs as :func:`run_kernel`."""
+    if case.kernel == "moe_decode_ffn":
+        return (moe_decode_ffn_plain(*_moe_args(case, inp)),)
     if case.kernel == "quantized_matmul":
         return (quantized_matmul_plain(inp["x"], inp["q"], inp["scales"],
                                        bits=case.dims["bits"]),)
@@ -335,15 +408,24 @@ def dense_decode_fn(case: Case, inp) -> Callable[[], torch.Tensor]:
     return lambda: decode_attention(inp["q"], k, v, inp["lens"])
 
 
+def moe_gather_fn(case: Case, inp) -> Callable[[], torch.Tensor]:
+    """For a selected-expert FFN case: the gather path ``moe_decode_ffn_xla``
+    (``w[idx]`` copies, then cuBLAS batched products), for comparison only."""
+    return lambda: moe_decode_ffn_xla(*_moe_args(case, inp))
+
+
 def library_fn(case: Case, inp) -> Optional[Callable[[], torch.Tensor]]:
     """One PyTorch call computing the same function, as a yardstick of speed
     only (never called by the package), or None where there is none: no single
     call gathers K/V by page index, and a torch without ``enable_gqa`` has no
-    GQA decode. The backward kernels' yardstick is SDPA's whole backward (dq,
-    dk and dv in one call), run on a graph built once outside the timing. The
-    dequant-GEMM's is the GEMM it replaces: ``torch.matmul`` (cuBLAS) of x by
-    the weight dequantized to x's dtype beforehand."""
+    GQA decode, and no single call runs a selected expert's FFN (see
+    :func:`moe_gather_fn`). The backward kernels' yardstick is SDPA's whole
+    backward (dq, dk and dv in one call), run on a graph built once outside
+    the timing. The dequant-GEMM's is the GEMM it replaces: ``torch.matmul``
+    (cuBLAS) of x by the weight dequantized to x's dtype beforehand."""
     dims = case.dims
+    if case.kernel == "moe_decode_ffn":
+        return None
     if case.kernel == "quantized_matmul":
         w = dequantize_to(inp["q"], inp["scales"], dims["bits"], case.dtype)
         return lambda: torch.matmul(inp["x"], w)
@@ -382,9 +464,16 @@ def work(case: Case) -> Tuple[float, float]:
     once, each output written once; decode counts only the valid cache rows
     (paged: and the live table entries), causal attention only the pairs with
     col <= row; the dequant-GEMM counts the payload, the scales, x and the
-    output (in x's dtype), 2 m k n operations."""
+    output (in x's dtype), 2 m k n operations; the selected-expert FFN counts
+    each distinct selected expert's w1, b1, w2 and b2 once, x, idx and the f32
+    output, 4 n d f operations."""
     dims = case.dims
     es = torch.tensor([], dtype=case.dtype).element_size()
+    if case.kernel == "moe_decode_ffn":
+        n, d, f = dims["n"], dims["d"], dims["f"]
+        distinct = len(set(moe_inputs_idx(case)))
+        expert = (2 * d * f + f + d) * es
+        return 4.0 * n * d * f, float(distinct * expert + n * d * es + 4 * n + 4 * n * d)
     if case.kernel == "quantized_matmul":
         m, k, n, bits = dims["m"], dims["k"], dims["n"], dims["bits"]
         groups = k // effective_group(case)
@@ -411,6 +500,14 @@ def work(case: Case) -> Tuple[float, float]:
     if case.kernel == "paged_decode_attention":
         nbytes += 4.0 * sum(-(-min(n, cap) // dims["page"]) for n in case.lens)
     return ops, nbytes
+
+
+def moe_inputs_idx(case: Case, seed: int = 0) -> List[int]:
+    """The expert ids :func:`moe_inputs` draws for ``case`` (the same numpy
+    draws), without building the tensors."""
+    rng = np.random.default_rng(seed)
+    e, k = case.dims["e"], case.dims["k"]
+    return [int(i) for _ in range(case.dims["n"] // k) for i in rng.permutation(e)[:k]]
 
 
 def bound_ms(case: Case) -> Tuple[float, str]:

@@ -22,6 +22,7 @@ from deepspeed_tpu_torch.models.causal_lm import alibi_slopes
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.attention.decode import decode_attention
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention, flash_fwd
+from deepspeed_tpu_torch.ops.moe import moe_decode_ffn
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention
 from deepspeed_tpu_torch.ops.quantizer import quantize_grouped, quantized_matmul
 from deepspeed_tpu_torch.ops.transformer.attention import reference_attention
@@ -123,9 +124,13 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
                     torch.tensor([20], dtype=torch.int32), 32)
     qw, scales = quantize_grouped(torch.randn(64, 32), 32)
     quantized_matmul(q[0, :3, 0], qw, scales)
+    w1, w2 = torch.randn(3, 64, 32), torch.randn(3, 32, 64)
+    moe_decode_ffn(q[0, :2, 0], torch.tensor([2, 0]), w1, torch.zeros(3, 32), w2,
+                   torch.zeros(3, 64))
     assert op_builder.launch_counts() == {"flash_fwd": 0, "decode_attention": 0,
                                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                                          "paged_decode_attention": 0, "quantized_matmul": 0}
+                                          "paged_decode_attention": 0, "quantized_matmul": 0,
+                                          "moe_decode_ffn": 0}
 
 
 def test_other_devices_raise():

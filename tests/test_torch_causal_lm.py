@@ -94,8 +94,10 @@ def test_cache_update_clamps_past_capacity():
 
 
 def test_refused_model_features():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        torch_lm.CausalLM(torch_lm.gpt2_cfg(**TINY, num_experts=4), device="cpu")
+    # MoE layers are served (queue 1 item 10); an unknown decode impl is refused
+    torch_lm.CausalLM(torch_lm.gpt2_cfg(**TINY, num_experts=4), device="cpu")
+    with pytest.raises(ValueError, match="moe_decode_impl='triton'"):
+        torch_lm.gpt2_cfg(**TINY, num_experts=4, moe_decode_impl="triton")
     model = torch_lm.CausalLM(torch_lm.gpt2_cfg(**TINY), device="cpu")
     model.init_weights(0)
     ids = torch.zeros(1, 4, dtype=torch.long)

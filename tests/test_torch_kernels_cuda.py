@@ -185,6 +185,45 @@ def test_quantized_matmul_launch_count_and_refusals():
                                 torch.cuda.current_stream(device).cuda_stream)
 
 
+def test_moe_decode_ffn_block_widths_launch_count_and_refusals():
+    """The selected-expert FFN on the card: every f-block width the C entry
+    takes gives the plain version's result (a ragged last block at most of
+    them), repeated calls are bit-identical (no atomics), each call is one
+    launch whatever n and k, and what the wrapper or the C entry refuses
+    raises."""
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.moe import moe_decode_ffn, moe_decode_ffn_plain
+    from deepspeed_tpu_torch.ops.moe.decode_ffn import MOE_DECODE_FFN
+    from deepspeed_tpu_torch.ops.op_builder import KernelLaunchError
+    device = _card()
+    case = kernel_checks.Case("moe_decode_ffn", "widths", dict(n=6, e=4, d=256, f=1000, k=2),
+                              torch.bfloat16)
+    inp = kernel_checks.make_inputs(case, device)
+    args = (inp["x"], inp["idx"], inp["w1"], inp["b1"], inp["w2"], inp["b2"], "gelu")
+    ref = moe_decode_ffn_plain(*args)
+    op_builder.reset_launch_counts()
+    widths = (1, 7, 16, 32, 64, 128, 256)
+    for bf in widths:
+        y = moe_decode_ffn(*args, block_f=bf)
+        assert kernel_checks.err_ratio(y, ref, *kernel_checks.MOE_TOLERANCES[torch.bfloat16]) \
+            <= 1.0, bf
+        assert torch.equal(y, moe_decode_ffn(*args, block_f=bf)), bf
+    assert op_builder.launch_counts()["moe_decode_ffn"] == 2 * len(widths)
+    with pytest.raises(ValueError, match="block_f"):
+        moe_decode_ffn(*args, block_f=512)
+    with pytest.raises(ValueError, match="w2"):
+        moe_decode_ffn(*args[:4], inp["w2"][:, :-1], *args[5:])
+    with pytest.raises(TypeError, match="share one"):
+        moe_decode_ffn(args[0].float(), *args[1:])
+    assert op_builder.launch_counts()["moe_decode_ffn"] == 2 * len(widths)
+    y = torch.empty(6, 256, device=device)
+    with pytest.raises(KernelLaunchError, match="invalid argument"):
+        MOE_DECODE_FFN.launch(args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+                              args[3].data_ptr(), args[4].data_ptr(), args[5].data_ptr(),
+                              y.data_ptr(), y.data_ptr(), 6, 256, 1000, 4, 300, 0, 2,
+                              torch.cuda.current_stream(device).cuda_stream)
+
+
 #: faults planted in a copy of the package: name -> (source in csrc/, line as
 #: written, line as planted, the check cases the fault must fail: every case
 #: of a kernel named, or of "kernel:int4" its int4 cases only)
@@ -214,6 +253,16 @@ PLANTED_FAULTS = {
         "const int k_used = k;",
         "const int k_used = k - group;",
         ("quantized_matmul",)),
+    "moe-skips-last-f-block": (
+        "moe_decode_ffn.cu",
+        "const int nfb_used = nfb;",
+        "const int nfb_used = nfb - 1;",
+        ("moe_decode_ffn",)),
+    "moe-adds-b2-twice": (
+        "moe_decode_ffn.cu",
+        "float t = to_f32(b2[(size_t)expert_of(idx, i, e) * d + col]);",
+        "float t = 2.f * to_f32(b2[(size_t)expert_of(idx, i, e) * d + col]);",
+        ("moe_decode_ffn",)),
     "qmm-high-nibble-unsigned": (
         "quantized_matmul.cu",
         "__device__ __forceinline__ int nib_hi(int b) { return b >> 4; }",
