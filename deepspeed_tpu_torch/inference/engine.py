@@ -7,9 +7,10 @@ dtype, 1-D norms and biases stay f32. With weight quantization on
 (``weight_quant``, or the legacy ``dtype="int8"`` / ``quant`` spellings) the
 projections and MoE expert stacks are then quantized, as the JAX engine's
 ``_place_params`` does; projections are served through the dequant-GEMM
-kernel. ``moe_decode_impl`` overrides the model's before the module is built. ``generate`` runs the prefill,
-then a Python decode loop, and records ``ttft``, ``tpot`` and ``decode_tps``,
-each bracketed by a device synchronise on the card.
+kernel. ``moe_decode_impl`` overrides the model's before the module is
+built. ``generate`` runs the prefill, then a Python decode loop, and
+records ``ttft``, ``tpot`` and ``decode_tps``, each bracketed by a device
+synchronise on the card.
 """
 
 import dataclasses

@@ -44,8 +44,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import resolve_device
-from ..ops.attention.decode import decode_attention
 from ..moe.sharded_moe import TopKGate, topk_select
+from ..ops.attention.decode import decode_attention
 from ..ops.attention.flash import flash_attention
 from ..ops.moe import (ACTIVATIONS, moe_decode_ffn, moe_decode_ffn_quant,
                        moe_decode_ffn_xla)
