@@ -46,7 +46,17 @@ non-zero:
    the last below the first; the loss and every parameter's gradient of one
    micro-batch of 4 must agree with the plain attention's; one more
    ``train_batch`` is traced with torch.profiler;
-7. weight-quantized serving (``[wq]``): BLOOM-7B at full width and depth as
+7. block-sparse training (``[sparse]``): the same model and training
+   configuration with ``attention_impl=make_sparse_attention_impl(...)`` of
+   the Fixed layout in ``kernel_checks.GPT2_SPARSE`` (block 16, 4 local
+   blocks, 1 global block, 4 global patterns, unidirectional), 3 warm-up and
+   20 timed ``train_batch`` steps on the same batch. The launch counts over
+   the timed steps must show every attention in the three block-sparse
+   kernels (12 x 20 each) and none in the flash kernels; losses finite and
+   falling; the loss and every gradient of a micro-batch of 4 against the
+   plain block-sparse versions; step ms, tokens/s and peak memory beside
+   ``[train]``'s step; one traced ``train_batch``;
+8. weight-quantized serving (``[wq]``): BLOOM-7B at full width and depth as
    ``bench.py --wq`` serves it on a TPU (vocab 250,880, n_embd 4,096, 30
    layers, 32 heads, ALiBi, tied head; seeded random weights, bf16), batch
    1, a 512-token prompt, greedy; three lanes built one after another on
@@ -61,7 +71,7 @@ non-zero:
    matrices; peak memory; one traced decode step. The bf16 lane also
    quantizes layer 0's fc_in on the card and on the CPU, which must agree
    byte for byte, and with the quantized lanes' own;
-8. MoE serving (``[moe]``): GPT-2 125M with every 2nd FFN a top-1 mixture of
+9. MoE serving (``[moe]``): GPT-2 125M with every 2nd FFN a top-1 mixture of
    8 experts, as ``bench.py``'s MoE lane serves it (vocab 50304, 12 layers,
    width 768, ffn 3072; seeded random weights, bf16), batch 1, a 512-token
    prompt, greedy: warm-up, then 3 rounds of ``generate`` at 256 and at 64
@@ -165,6 +175,8 @@ def kernel_checks(device):
                 res["block_f_ms"] = moe_block_f_sweep(case, inp)
         res["bound_ms"], res["bound_by"] = kc.bound_ms(case)
         shape = ("" if case.kernel == "quantized_matmul" else
+                 f" causal={case.causal} layout={case.layout[0]}{case.layout[1]}"
+                 if case.layout else
                  f" causal={case.causal} alibi={case.alibi} lens={case.lens}")
         print(f"[check] {case.kernel}/{case.name} {case.dims} {str(case.dtype)[6:]}{shape}: "
               f"max_abs_err={res['max_abs_err']:.3e} err/limit={res['err_ratio']:.3g} "
@@ -241,6 +253,35 @@ def plain_attention():
                                           bwd_plain(flash.flash_bwd_dkv_plain)))
     stack.enter_context(mock.patch.object(causal_lm, "decode_attention", decode_plain))
     stack.enter_context(mock.patch.object(causal_lm, "paged_attention", paged_plain))
+    return stack
+
+
+def plain_sparse():
+    """Context manager: block-sparse attention's three kernels go to their
+    plain versions on CUDA tensors too. Used only to make the reference run."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    import numpy as np
+    from deepspeed_tpu_torch.ops.attention import block_sparse as bs
+
+    def plain(fn, n_tensors):
+        # the wrapper's signature: n_tensors tensors (tables included), then
+        # block, softmax_scale, causal, n_heads
+        def run(*args, **kw):
+            opts = {"softmax_scale": None, "causal": False, "n_heads": 1,
+                    **dict(zip(("block", "softmax_scale", "causal", "n_heads"),
+                               args[n_tensors:])), **kw}
+            scale = opts["softmax_scale"] or 1.0 / float(np.sqrt(args[0].shape[-1]))
+            return fn(*args[:n_tensors], opts["block"], scale, opts["causal"],
+                      opts["n_heads"])
+        return run
+
+    stack = ExitStack()
+    for name, n_tensors in (("block_sparse_fwd", 5), ("block_sparse_bwd_dq", 8),
+                            ("block_sparse_bwd_dkv", 8)):
+        stack.enter_context(mock.patch.object(
+            bs, name, plain(getattr(bs, f"{name}_plain"), n_tensors)))
     return stack
 
 
@@ -553,16 +594,25 @@ def grads_of(engine, batch):
     return loss.detach(), dict(zip(names, grads))
 
 
-def train_path(device, smi: str):
+def train_run(device, smi: str, label: str, cfg, per_step: dict, plain, beside):
+    """``initialize`` on the GPT-2 ``cfg`` at ``bench.py``'s training
+    configuration (micro-batch 24, seq 1024, bf16 AdamW lr 2e-4, weight decay
+    0.01, ZeRO stage 1, clipping 1.0; seeded random weights, no remat), then 3
+    warm-up and 20 timed ``train_batch`` steps on one seeded batch. The launch
+    counts over the timed steps must be ``per_step`` (kernel -> launches a
+    step) times 20 and 0 for every other kernel; the losses finite and the last
+    below the first; the loss and every parameter's gradient of one
+    micro-batch of 4 within ``GRAD_RTOL`` of the same engine under ``plain()``
+    (the plain versions of the path's kernels); one more ``train_batch`` is
+    traced. Prints the step line, with ``beside(tokens_per_s)`` appended, and
+    returns the metrics."""
     import numpy as np
     import torch
 
     import deepspeed_tpu_torch as dst
-    from deepspeed_tpu_torch.models import GPT2Config, gpt2_model
+    from deepspeed_tpu_torch.models import gpt2_model
     from deepspeed_tpu_torch.ops import op_builder
 
-    cfg = GPT2Config(vocab_size=50304, n_positions=TRAIN_SEQ, n_embd=768, n_layer=12,
-                     n_head=12, dropout=0.0)
     config = {"train_batch_size": TRAIN_MICRO, "train_micro_batch_size_per_gpu": TRAIN_MICRO,
               "optimizer": {"type": "AdamW", "params": {"lr": 2e-4, "weight_decay": 0.01}},
               "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
@@ -570,7 +620,7 @@ def train_path(device, smi: str):
     t0 = time.perf_counter()
     engine, _, _, _ = dst.initialize(model=gpt2_model(cfg), config=config, device=device)
     torch.cuda.synchronize()
-    print(f"[train] initialize {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[{label}] initialize {time.perf_counter() - t0:.2f} s", flush=True)
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_MICRO, TRAIN_SEQ))
     batch = {"input_ids": ids}
 
@@ -585,56 +635,99 @@ def train_path(device, smi: str):
     dt = time.perf_counter() - t0
     launches = op_builder.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    per_attention = cfg.n_layer * TRAIN_STEPS
-    want = expect(flash_fwd=per_attention, flash_bwd_dq=per_attention,
-                  flash_bwd_dkv=per_attention)
-    print(f"[train] launches {launches} (expected {want})", flush=True)
+    want = expect(**{name: n * TRAIN_STEPS for name, n in per_step.items()})
+    print(f"[{label}] launches {launches} (expected {want})", flush=True)
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+        raise AssertionError(f"[{label}] launch counts {launches} != {want}")
     losses = [float(x) for x in losses]
-    print(f"[train] losses {losses[0]:.5f} -> {losses[-1]:.5f} over {TRAIN_STEPS} steps",
+    print(f"[{label}] losses {losses[0]:.5f} -> {losses[-1]:.5f} over {TRAIN_STEPS} steps",
           flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"losses not finite and falling: {losses}")
+        raise AssertionError(f"[{label}] losses not finite and falling: {losses}")
     step_ms = dt / TRAIN_STEPS * 1e3
     tokens_per_s = TRAIN_MICRO * TRAIN_SEQ * TRAIN_STEPS / dt
-    mfu = tokens_per_s * cfg.flops_per_token() / PEAK_BF16_FLOPS
-    print(f"[train] {smi}: step {step_ms:.2f} ms, {tokens_per_s:.1f} tokens/s, MFU {mfu:.4f} "
-          f"(6N + attention FLOPs against 989 TFLOP/s), peak memory "
-          f"{peak / 2**30:.2f} GiB (micro-batch {TRAIN_MICRO}, seq {TRAIN_SEQ})", flush=True)
+    print(f"[{label}] {smi}: step {step_ms:.2f} ms, {tokens_per_s:.1f} tokens/s"
+          f"{beside(tokens_per_s)}, peak "
+          f"memory {peak / 2**30:.2f} GiB (micro-batch {TRAIN_MICRO}, seq {TRAIN_SEQ})",
+          flush=True)
 
     # the whole model on one micro-batch of 4, same weights: kernels vs plain
-    # attention. bf16 activations through 12 layers, with P rounded at other
+    # versions. bf16 activations through 12 layers, with rounding at other
     # points in the kernels than in the plain versions, move each gradient by
     # about 1% of its norm; GRAD_RTOL = 5e-2 leaves room for that and fails on
     # any real disagreement (a dropped or misplaced attention gradient moves a
     # tensor's gradient by its whole norm).
     small = {"input_ids": torch.from_numpy(ids[:4]).to(device)}
     loss_k, grads_k = grads_of(engine, small)
-    with plain_attention():
+    with plain():
         loss_p, grads_p = grads_of(engine, small)
     loss_err = abs(float(loss_k) - float(loss_p))
     rel = {k: float((grads_k[k].float() - g.float()).norm() / g.float().norm())
            for k, g in grads_p.items()}
     worst = max(rel, key=rel.get)
-    print(f"[train] micro-batch 4, kernels vs plain attention: loss {float(loss_k):.6f} vs "
+    print(f"[{label}] micro-batch 4, kernels vs plain versions: loss {float(loss_k):.6f} vs "
           f"{float(loss_p):.6f} (|diff| {loss_err:.3e}); gradients, relative error "
           f"|g_k - g_p| / |g_p| per tensor: max {rel[worst]:.3e} ({worst}), median "
           f"{float(np.median(list(rel.values()))):.3e} over {len(rel)} tensors "
           f"(tol {GRAD_RTOL})", flush=True)
     if not loss_err <= 1e-2 or not rel[worst] <= GRAD_RTOL:
-        raise AssertionError(f"kernels vs plain: loss diff {loss_err}, gradient {worst} "
-                             f"{rel[worst]}")
+        raise AssertionError(f"[{label}] kernels vs plain: loss diff {loss_err}, gradient "
+                             f"{worst} {rel[worst]}")
     del grads_k, grads_p
 
     def traced_step():
         engine.train_batch(batch)
         torch.cuda.synchronize()
 
-    profile_call("train_batch", traced_step, top=30)
-    return {"step_ms": step_ms, "tokens_per_s": tokens_per_s, "mfu": mfu,
-            "peak_memory_bytes": peak, "first_loss": losses[0], "last_loss": losses[-1],
-            "grad_rel_err_max": rel[worst], "loss_err": loss_err, "launches": launches}
+    profile_call(f"{label} train_batch", traced_step, top=30)
+    return {"step_ms": step_ms, "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak,
+            "first_loss": losses[0], "last_loss": losses[-1], "grad_rel_err_max": rel[worst],
+            "loss_err": loss_err, "launches": launches}
+
+
+def gpt2_train_cfg(**kw):
+    """GPT-2 125M as ``bench.py`` trains it: vocab 50304, seq 1024, width 768,
+    12 layers, 12 heads, no dropout."""
+    from deepspeed_tpu_torch.models import GPT2Config
+    return GPT2Config(vocab_size=50304, n_positions=TRAIN_SEQ, n_embd=768, n_layer=12,
+                      n_head=12, dropout=0.0, **kw)
+
+
+def train_path(device, smi: str):
+    """``[train]``: dense attention, every layer in the flash kernels; MFU
+    counts 6N + the dense attention FLOPs (``flops_per_token``)."""
+    cfg = gpt2_train_cfg()
+    n = cfg.n_layer
+
+    def mfu(tokens_per_s):
+        return tokens_per_s * cfg.flops_per_token() / PEAK_BF16_FLOPS
+
+    out = train_run(device, smi, "train", cfg,
+                    {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}, plain_attention,
+                    lambda tps: f", MFU {mfu(tps):.4f} (6N + attention FLOPs against 989 "
+                                "TFLOP/s)")
+    out["mfu"] = mfu(out["tokens_per_s"])
+    return out
+
+
+def sparse_path(device, smi: str, dense_step_ms: float):
+    """``[sparse]``: the same training with block-sparse attention
+    (``kernel_checks.GPT2_SPARSE``), every layer in the three block-sparse
+    kernels and none in the flash kernels. No MFU: ``flops_per_token`` counts
+    dense attention."""
+    from deepspeed_tpu_torch.ops import sparse_attention
+    from deepspeed_tpu_torch.ops.attention import make_sparse_attention_impl
+    from deepspeed_tpu_torch.ops.kernel_checks import GPT2_SPARSE
+
+    name, kw = GPT2_SPARSE
+    cfg = gpt2_train_cfg(attention_impl=make_sparse_attention_impl(
+        getattr(sparse_attention, name)(**kw)))
+    n = cfg.n_layer
+    out = train_run(device, smi, "sparse", cfg,
+                    {"block_sparse_fwd": n, "block_sparse_bwd_dq": n, "block_sparse_bwd_dkv": n},
+                    plain_sparse, lambda _: f" (dense [train] step {dense_step_ms:.2f} ms)")
+    out["dense_step_ms"] = dense_step_ms
+    return out
 
 
 def wq_same_bytes(a, b) -> bool:
@@ -1073,6 +1166,8 @@ def main() -> int:
     gc.collect()
     train = train_path(device, smi)
     gc.collect()
+    sparse = sparse_path(device, smi, train["step_ms"])
+    gc.collect()
     torch.cuda.empty_cache()
     wq = wq_path(device, smi)
     gc.collect()
@@ -1083,12 +1178,14 @@ def main() -> int:
     # is shaped by): generate for the forward and decode kernels, the
     # scheduler for the paged kernel, training for the backward kernels, the
     # int8 lane's 64-token generate for the dequant-GEMM, the MoE lane's
-    # 64-token generate for the selected-expert FFN; the forward's serving and
+    # 64-token generate for the selected-expert FFN, block-sparse training for
+    # the three block-sparse kernels; the forward's serving and
     # training launches, the dequant-GEMM's in the int8 scheduler run and the
     # selected-expert FFN's in the MoE scheduler and top-2 runs ride beside
     kernels = []
     for name, res in rows.items():
         path = (train if name in kc.BWD_KERNELS else
+                sparse if name in kc.BS_KERNELS else
                 serve if name == "paged_decode_attention" else
                 {"launches": wq["int8"]["generate_launches"]} if name == "quantized_matmul" else
                 moe if name == "moe_decode_ffn" else
@@ -1122,7 +1219,8 @@ def main() -> int:
         "moe_serve": {k: v for k, v in moe["serve"].items() if k != "launches"},
         "train_path": {k: train[k] for k in ("step_ms", "tokens_per_s", "mfu",
                                              "peak_memory_bytes", "first_loss", "last_loss",
-                                             "grad_rel_err_max", "loss_err")}}))
+                                             "grad_rel_err_max", "loss_err")},
+        "sparse_train_path": {k: v for k, v in sparse.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

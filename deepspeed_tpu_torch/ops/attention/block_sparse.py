@@ -1,0 +1,460 @@
+"""Block-sparse attention: the hand-written Hopper kernels
+``csrc/block_sparse_fwd.cu``, ``csrc/block_sparse_bwd_dq.cu`` and
+``csrc/block_sparse_bwd_dkv.cu``, their plain PyTorch versions, the autograd
+Function that joins them, and the attention impl a model takes.
+
+Counterpart of ``deepspeed_tpu/ops/attention/block_sparse.py``
+(``build_tables``, ``_bs_fwd`` / ``_fwd_kernel``, ``_bs_bwd`` /
+``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``, the ``_bs_core`` custom VJP, public
+``block_sparse_attention``, ``block_sparse_attention_reference`` and
+``make_sparse_attention_impl``). A ``SparsityConfig``
+(``ops/sparse_attention``) gives an ``(H, nb, nb)`` block layout; the kernels
+compute attention over its active blocks only. Each (b*h, q-block) walks its
+row of the forward table (``fwd_idx``, ``fwd_cnt``) in ascending k-block order
+with an online softmax; the dk/dv kernel walks the transposed table
+(``bwd_idx``, ``bwd_cnt``: the q-blocks that attend to each k-block). The
+head of row block ``i`` is ``i % n_heads``. With ``causal`` the triangle
+applies inside the blocks.
+
+Masking follows the TPU kernel exactly, not the dense reference: the running
+max starts at -1e30 and masked scores are the finite -1e30, so a row whose
+active blocks all lie past the diagonal gets the mean of those blocks' V rows
+(p = exp(0) = 1) with an lse of about -1e30, and a row with no active block
+gets zeros and an lse of -1e30. The dense reference gives the mean of all V
+rows in both cases; every shipped config holds the diagonal block in every
+row, so only hand-made layouts meet them.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+for CPU tensors. The kernels take head_dim 64 or 128 and a layout block of 16,
+32, 64 or 128 (anything else raises ``ValueError``), in f32, fp16 or bf16
+with f32 sums. The forward kernel writes through raw pointers, so its output
+has no autograd history: :func:`block_sparse_fwd` refuses CUDA inputs that
+require grad while grad mode is on, and :class:`BlockSparseAttnFunction` is
+the differentiable way in.
+"""
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..op_builder import CudaKernel
+from ..sparse_attention.sparsity_config import SparsityConfig, layout_to_dense_mask
+from .flash import DTYPE_CODES, HEAD_DIMS, NEG_INF
+
+BLOCKS = (16, 32, 64, 128)
+TABLE_NAMES = ("fwd_idx", "fwd_cnt", "bwd_idx", "bwd_cnt")
+
+_vp, _int = ctypes.c_void_p, ctypes.c_int
+BLOCK_SPARSE_FWD = CudaKernel(
+    "block_sparse_fwd", "block_sparse_fwd.cu", "block_sparse_fwd",
+    [_vp, _vp, _vp, _vp, _vp, _vp, _vp,       # q, k, v, idx, cnt, o, lse
+     _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
+     ctypes.c_float, _int, _int, _vp])        # scale, causal, dtype, stream
+BLOCK_SPARSE_BWD_DQ = CudaKernel(
+    "block_sparse_bwd_dq", "block_sparse_bwd_dq.cu", "block_sparse_bwd_dq",
+    [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,  # q, k, v, do, lse, delta, idx, cnt
+     _vp,                                     # dq
+     _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
+     ctypes.c_float, _int, _int, _vp])        # scale, causal, dtype, stream
+BLOCK_SPARSE_BWD_DKV = CudaKernel(
+    "block_sparse_bwd_dkv", "block_sparse_bwd_dkv.cu", "block_sparse_bwd_dkv",
+    [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,  # q, k, v, do, lse, delta, idx, cnt
+     _vp, _vp,                                # dk, dv
+     _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
+     ctypes.c_float, _int, _int, _vp])        # scale, causal, dtype, stream
+
+
+# ------------------------------------------------------------------ layout tables
+def build_tables(layout: np.ndarray) -> Dict[str, np.ndarray]:
+    """Active-block index tables from a (H, nb, nb) 0/1 layout.
+
+    ``fwd_idx[h, qi, n]`` = n-th active k-block for q-block ``qi`` (pad 0),
+    ``fwd_cnt[h, qi]`` = number of active k-blocks; ``bwd_*`` the transpose
+    (q-blocks per k-block). All int32, as the JAX package builds them."""
+    layout = np.asarray(layout) != 0
+    h, nb, _ = layout.shape
+    fwd_cnt = layout.sum(axis=2).astype(np.int32)
+    bwd_cnt = layout.sum(axis=1).astype(np.int32)
+    max_f = max(1, int(fwd_cnt.max()))
+    max_b = max(1, int(bwd_cnt.max()))
+    fwd_idx = np.zeros((h, nb, max_f), np.int32)
+    bwd_idx = np.zeros((h, nb, max_b), np.int32)
+    for hi in range(h):
+        for qi in range(nb):
+            nz = np.nonzero(layout[hi, qi])[0]
+            fwd_idx[hi, qi, :len(nz)] = nz
+        for ki in range(nb):
+            nz = np.nonzero(layout[hi, :, ki])[0]
+            bwd_idx[hi, ki, :len(nz)] = nz
+    return {"fwd_idx": fwd_idx, "fwd_cnt": fwd_cnt,
+            "bwd_idx": bwd_idx, "bwd_cnt": bwd_cnt}
+
+
+def device_tables(tables: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """:func:`build_tables`' arrays as contiguous int32 tensors on ``device``."""
+    return {name: torch.from_numpy(np.ascontiguousarray(tables[name])).to(device)
+            for name in TABLE_NAMES}
+
+
+def table_layout(idx: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """The ``(H, nb, nb)`` bool layout a table walks: ``[h, i, idx[h, i, n]]``
+    for ``n < cnt[h, i]`` (a forward table gives the layout, a backward one
+    its transpose)."""
+    h, nb, max_n = idx.shape
+    walked = torch.arange(max_n, device=idx.device) < cnt[..., None].long()
+    hi, ri, ni = walked.nonzero(as_tuple=True)
+    out = torch.zeros(h, nb, nb, dtype=torch.bool, device=idx.device)
+    out[hi, ri, idx[hi, ri, ni].long()] = True
+    return out
+
+
+# ------------------------------------------------------------------ checks
+def _scale(q3: torch.Tensor, softmax_scale: Optional[float]) -> float:
+    return softmax_scale if softmax_scale is not None else 1.0 / float(np.sqrt(q3.shape[-1]))
+
+
+def _check(name, tensors, idx, cnt, block, n_heads) -> None:
+    """Shapes and types every caller must meet, on either device. ``tensors``
+    are the ``(b*h, t, d)`` inputs of one dtype; the table is ``(n_heads, t /
+    block, max_n)`` with its counts ``(n_heads, t / block)``, both int32."""
+    q3 = tensors[0]
+    if q3.ndim != 3 or any(x.shape != q3.shape for x in tensors):
+        raise ValueError(f"{name}: q/k/v/do must share one (b*h, t, d) shape, got "
+                         f"{[tuple(x.shape) for x in tensors]}")
+    if any(x.dtype != q3.dtype for x in tensors) or q3.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: q/k/v/do must share one of {list(DTYPE_CODES)}, got "
+                        f"{[x.dtype for x in tensors]}")
+    bh, t, _ = q3.shape
+    if n_heads <= 0 or bh % n_heads:
+        raise ValueError(f"{name}: b*h={bh} is not a multiple of n_heads={n_heads}")
+    if block <= 0 or t % block:
+        raise ValueError(f"{name}: the layout block {block} does not divide t={t}")
+    nb = t // block
+    if idx.ndim != 3 or tuple(idx.shape[:2]) != (n_heads, nb) or \
+            tuple(cnt.shape) != (n_heads, nb):
+        raise ValueError(f"{name}: tables must be ({n_heads}, {nb}, max_n) and "
+                         f"({n_heads}, {nb}), got {tuple(idx.shape)}, {tuple(cnt.shape)}")
+    if idx.dtype != torch.int32 or cnt.dtype != torch.int32:
+        raise TypeError(f"{name}: tables must be int32, got {idx.dtype}, {cnt.dtype}")
+    if q3.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {q3.device}")
+
+
+def _check_cuda(name, tensors, block) -> None:
+    """What the CUDA kernels take: head_dim 64 or 128, a layout block in
+    ``BLOCKS``, contiguous 16-byte-aligned tensors (tables included) on one
+    device."""
+    d = tensors[0].shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if block not in BLOCKS:
+        raise ValueError(f"{name} kernel takes a layout block in {BLOCKS}, got {block}")
+    device = tensors[0].device
+    if not all(x.device == device and x.is_contiguous() and x.data_ptr() % 16 == 0
+               for x in tensors):
+        raise ValueError(f"{name} kernel takes contiguous, 16-byte-aligned inputs and "
+                         f"tables on one device")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ------------------------------------------------------------------ kernels
+def block_sparse_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                     fwd_idx: torch.Tensor, fwd_cnt: torch.Tensor, block: int,
+                     softmax_scale: Optional[float] = None, causal: bool = False,
+                     n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q3/k3/v3 ``(b*h, t, d)`` → ``(o (b*h, t, d) in q's dtype, lse (b*h, t)
+    f32)`` over the active blocks of the forward table. The kernel
+    ``csrc/block_sparse_fwd.cu`` for CUDA tensors, :func:`block_sparse_fwd_plain`
+    for CPU tensors. The kernel's output has no autograd history, so CUDA
+    inputs that require grad are refused while grad mode is on."""
+    _check("block_sparse_fwd", (q3, k3, v3), fwd_idx, fwd_cnt, block, n_heads)
+    scale = _scale(q3, softmax_scale)
+    if q3.device.type == "cpu":
+        return block_sparse_fwd_plain(q3, k3, v3, fwd_idx, fwd_cnt, block, scale, causal,
+                                      n_heads)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q3, k3, v3)):
+        raise ValueError("block_sparse_fwd's kernel output carries no gradient: under "
+                         "autograd call block_sparse_attention (BlockSparseAttnFunction)")
+    _check_cuda("block_sparse_fwd", (q3, k3, v3, fwd_idx, fwd_cnt), block)
+    bh, t, d = q3.shape
+    o = torch.empty_like(q3)
+    lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
+    BLOCK_SPARSE_FWD.launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), fwd_idx.data_ptr(),
+                            fwd_cnt.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, t, d,
+                            n_heads, block, fwd_idx.shape[2], scale, int(causal),
+                            DTYPE_CODES[q3.dtype], _stream(q3))
+    return o, lse
+
+
+def _check_rows(name, q3, lse, delta) -> None:
+    rows = tuple(q3.shape[:2])
+    if tuple(lse.shape) != rows or tuple(delta.shape) != rows:
+        raise ValueError(f"{name}: lse and delta must be {rows}, got {tuple(lse.shape)}, "
+                         f"{tuple(delta.shape)}")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError(f"{name}: lse and delta must be float32, got {lse.dtype}, "
+                        f"{delta.dtype}")
+
+
+def block_sparse_bwd_dq(q3, k3, v3, do3, lse, delta, fwd_idx, fwd_cnt, block: int,
+                        softmax_scale: Optional[float] = None, causal: bool = False,
+                        n_heads: int = 1) -> torch.Tensor:
+    """dq in q's dtype over the forward table: the kernel
+    ``csrc/block_sparse_bwd_dq.cu`` for CUDA tensors,
+    :func:`block_sparse_bwd_dq_plain` for CPU tensors. ``delta`` ``(b*h, t)``
+    f32 is ``rowsum(do * o)``."""
+    name = "block_sparse_bwd_dq"
+    _check(name, (q3, k3, v3, do3), fwd_idx, fwd_cnt, block, n_heads)
+    _check_rows(name, q3, lse, delta)
+    scale = _scale(q3, softmax_scale)
+    if q3.device.type == "cpu":
+        return block_sparse_bwd_dq_plain(q3, k3, v3, do3, lse, delta, fwd_idx, fwd_cnt, block,
+                                         scale, causal, n_heads)
+    _check_cuda(name, (q3, k3, v3, do3, lse, delta, fwd_idx, fwd_cnt), block)
+    bh, t, d = q3.shape
+    dq = torch.empty_like(q3)
+    BLOCK_SPARSE_BWD_DQ.launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+                               lse.data_ptr(), delta.data_ptr(), fwd_idx.data_ptr(),
+                               fwd_cnt.data_ptr(), dq.data_ptr(), bh, t, d, n_heads, block,
+                               fwd_idx.shape[2], scale, int(causal), DTYPE_CODES[q3.dtype],
+                               _stream(q3))
+    return dq
+
+
+def block_sparse_bwd_dkv(q3, k3, v3, do3, lse, delta, bwd_idx, bwd_cnt, block: int,
+                         softmax_scale: Optional[float] = None, causal: bool = False,
+                         n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` in k's and v's dtype over the transposed table: the kernel
+    ``csrc/block_sparse_bwd_dkv.cu`` for CUDA tensors (one block per k-block,
+    no atomics), :func:`block_sparse_bwd_dkv_plain` for CPU tensors."""
+    name = "block_sparse_bwd_dkv"
+    _check(name, (q3, k3, v3, do3), bwd_idx, bwd_cnt, block, n_heads)
+    _check_rows(name, q3, lse, delta)
+    scale = _scale(q3, softmax_scale)
+    if q3.device.type == "cpu":
+        return block_sparse_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, bwd_idx, bwd_cnt,
+                                          block, scale, causal, n_heads)
+    _check_cuda(name, (q3, k3, v3, do3, lse, delta, bwd_idx, bwd_cnt), block)
+    bh, t, d = q3.shape
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    BLOCK_SPARSE_BWD_DKV.launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+                                lse.data_ptr(), delta.data_ptr(), bwd_idx.data_ptr(),
+                                bwd_cnt.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, d,
+                                n_heads, block, bwd_idx.shape[2], scale, int(causal),
+                                DTYPE_CODES[q3.dtype], _stream(q3))
+    return dk, dv
+
+
+def block_sparse_bwd(q3, k3, v3, o3, lse, do3, tables: Dict[str, torch.Tensor], block: int,
+                     softmax_scale: Optional[float] = None, causal: bool = False,
+                     n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients ``(dq, dk, dv)`` of :func:`block_sparse_fwd` for the output
+    gradient ``do3``, from the forward's ``o3`` and f32 ``lse``. ``delta =
+    rowsum(do * o)`` is formed here in f32, outside the kernels, as the JAX
+    package forms it; each kernel then recomputes p from ``lse``."""
+    if o3.shape != q3.shape:
+        raise ValueError(f"o must be {tuple(q3.shape)}, got {tuple(o3.shape)}")
+    delta = (do3.float() * o3.float()).sum(-1)
+    dq = block_sparse_bwd_dq(q3, k3, v3, do3, lse, delta, tables["fwd_idx"],
+                             tables["fwd_cnt"], block, softmax_scale, causal, n_heads)
+    dk, dv = block_sparse_bwd_dkv(q3, k3, v3, do3, lse, delta, tables["bwd_idx"],
+                                  tables["bwd_cnt"], block, softmax_scale, causal, n_heads)
+    return dq, dk, dv
+
+
+# ------------------------------------------------------------------ plain versions
+def _masked_scores(q3, k3, idx, cnt, block, scale, causal, n_heads, transposed=False):
+    """f32 scores ``(b, H, t, t)`` as the kernels form them (scaled, then the
+    -1e30 causal mask), and the walked entries ``(H, t, t)``: those in the
+    table's active blocks."""
+    bh, t, _ = q3.shape
+    s = torch.einsum("ntd,nsd->nts", q3.float(), k3.float()) * scale
+    if causal:
+        rows = torch.arange(t, device=q3.device)[:, None]
+        cols = torch.arange(t, device=q3.device)[None, :]
+        s = s.masked_fill(cols > rows, NEG_INF)
+    layout = table_layout(idx, cnt)
+    if transposed:
+        layout = layout.transpose(1, 2)
+    walked = layout.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    return s.view(bh // n_heads, n_heads, t, t), walked
+
+
+def block_sparse_fwd_plain(q3, k3, v3, fwd_idx, fwd_cnt, block: int, scale: float,
+                           causal: bool, n_heads: int = 1
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's function in plain tensor code, dense-masked: over
+    the walked entries, m = max(-1e30, max s), p = exp(s - m), l = sum p, o =
+    (p v) / l (l 0 → o 0), lse = m + log l (l 0 → -1e30); f32 throughout, o
+    rounded to q's dtype once."""
+    bh, t, d = q3.shape
+    s, walked = _masked_scores(q3, k3, fwd_idx, fwd_cnt, block, scale, causal, n_heads)
+    m = s.masked_fill(~walked, float("-inf")).amax(-1).clamp_min(NEG_INF)
+    p = torch.exp(s - m[..., None]).masked_fill(~walked, 0.0)
+    l = p.sum(-1)
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    o = torch.einsum("nts,nsd->ntd", p.view(bh, t, t), v3.float()) / l_safe.view(bh, t, 1)
+    lse = torch.where(l > 0, m + torch.log(l_safe), torch.full_like(m, NEG_INF))
+    return o.to(q3.dtype), lse.view(bh, t)
+
+
+def _probs_and_ds(q3, k3, v3, do3, lse, delta, idx, cnt, block, scale, causal, n_heads,
+                  transposed):
+    """The backward kernels' recompute, f32 ``(b*h, t, t)``: p = exp(s - lse)
+    on the walked entries (1 on a row whose walked entries are all masked,
+    whose lse is -1e30), ds = p (dp - delta) scale."""
+    bh, t, _ = q3.shape
+    s, walked = _masked_scores(q3, k3, idx, cnt, block, scale, causal, n_heads, transposed)
+    p = torch.exp(s - lse.view(s.shape[:3])[..., None]).masked_fill(~walked, 0.0)
+    p = p.view(bh, t, t)
+    dp = torch.einsum("ntd,nsd->nts", do3.float(), v3.float())
+    ds = p * (dp - delta.float()[..., None]) * scale
+    return p, ds
+
+
+def block_sparse_bwd_dq_plain(q3, k3, v3, do3, lse, delta, fwd_idx, fwd_cnt, block: int,
+                              scale: float, causal: bool, n_heads: int = 1) -> torch.Tensor:
+    """The dq kernel's function in plain tensor code: dq = ds k, f32 sums."""
+    _, ds = _probs_and_ds(q3, k3, v3, do3, lse, delta, fwd_idx, fwd_cnt, block, scale,
+                          causal, n_heads, transposed=False)
+    return torch.einsum("nts,nsd->ntd", ds, k3.float()).to(q3.dtype)
+
+
+def block_sparse_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, bwd_idx, bwd_cnt, block: int,
+                               scale: float, causal: bool, n_heads: int = 1
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's function in plain tensor code, from the transposed
+    table: dk = ds^T q, dv = p^T do, f32 sums."""
+    p, ds = _probs_and_ds(q3, k3, v3, do3, lse, delta, bwd_idx, bwd_cnt, block, scale,
+                          causal, n_heads, transposed=True)
+    dk = torch.einsum("nts,ntd->nsd", ds, q3.float()).to(k3.dtype)
+    dv = torch.einsum("nts,ntd->nsd", p, do3.float()).to(v3.dtype)
+    return dk, dv
+
+
+# ------------------------------------------------------------------ autograd
+class BlockSparseAttnFunction(torch.autograd.Function):
+    """``o = block-sparse attention(q3, k3, v3)`` through :func:`block_sparse_fwd`,
+    differentiated by :func:`block_sparse_bwd`; the port of the ``_bs_core``
+    custom VJP. It saves q, k, v, o, the f32 lse and the four tables; the
+    tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, fwd_idx, fwd_cnt, bwd_idx, bwd_cnt, block, softmax_scale,
+                causal, n_heads):
+        o3, lse = block_sparse_fwd(q3, k3, v3, fwd_idx, fwd_cnt, block, softmax_scale, causal,
+                                   n_heads)
+        ctx.save_for_backward(q3, k3, v3, o3, lse, fwd_idx, fwd_cnt, bwd_idx, bwd_cnt)
+        ctx.args = (block, softmax_scale, causal, n_heads)
+        return o3
+
+    @staticmethod
+    def backward(ctx, do3):
+        q3, k3, v3, o3, lse, *tables = ctx.saved_tensors
+        block, softmax_scale, causal, n_heads = ctx.args
+        dq, dk, dv = block_sparse_bwd(q3, k3, v3, o3, lse, do3.contiguous(),
+                                      dict(zip(TABLE_NAMES, tables)), block, softmax_scale,
+                                      causal, n_heads)
+        return (dq, dk, dv) + (None,) * 8
+
+
+# ------------------------------------------------------------------ public ops
+def _attend(q, k, v, tables: Dict[str, torch.Tensor], block: int, causal: bool,
+            softmax_scale: Optional[float]) -> torch.Tensor:
+    b, t, h, d = q.shape
+
+    def to3(x):
+        return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+    o3 = BlockSparseAttnFunction.apply(to3(q), to3(k), to3(v),
+                                       *(tables[n] for n in TABLE_NAMES), block,
+                                       softmax_scale, causal, h)
+    return o3.reshape(b, h, t, d).transpose(1, 2)
+
+
+def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           layout: np.ndarray, block: int, causal: bool = False,
+                           softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """q/k/v ``(b, t, h, d)`` with a (h, nb, nb) block ``layout`` → ``(b, t, h, d)``,
+    through :class:`BlockSparseAttnFunction`, so it is differentiable on the card
+    as on the CPU. ``causal`` applies the elementwise triangle on top of the
+    block mask (use with unidirectional layouts). Rows whose layout is empty
+    produce zeros. The tables are built on the host and copied to q's device
+    on every call; :func:`make_sparse_attention_impl` caches them."""
+    b, t, h, d = q.shape
+    if not (k.shape == q.shape and v.shape == q.shape):
+        raise AssertionError("self-attention only")
+    layout = np.asarray(layout)
+    if not (layout.shape[0] == h):
+        raise AssertionError((layout.shape, h))
+    if not (layout.shape[1] * block == t):
+        raise AssertionError(f"layout covers {layout.shape[1] * block} positions, inputs "
+                             f"have {t}")
+    return _attend(q, k, v, device_tables(build_tables(layout), q.device), block, causal,
+                   softmax_scale)
+
+
+def _layout_mask(layout: np.ndarray, block: int, device) -> torch.Tensor:
+    """``(1, H, t, t)`` bool: the layout expanded to a dense mask."""
+    return torch.from_numpy(layout_to_dense_mask(np.asarray(layout), block)).to(device)[None]
+
+
+def block_sparse_attention_reference(q, k, v, layout, block, causal=False,
+                                     softmax_scale=None):
+    """Dense-masked ground truth: the port's ``reference_attention`` with the
+    layout's dense mask (tests; differs from the kernels on rows with no
+    valid key, see the module docstring)."""
+    from ..transformer.attention import reference_attention
+    return reference_attention(q, k, v, causal=causal,
+                               mask=_layout_mask(layout, block, q.device),
+                               softmax_scale=softmax_scale)
+
+
+def make_sparse_attention_impl(config: SparsityConfig):
+    """Bind a :class:`SparsityConfig` into an attention impl of the
+    ``get_attention_impl`` signature (the ``SparseSelfAttention`` role): the
+    layout is built and cached per sequence length, and its tables are cached
+    as device tensors per (length, device), so a training step copies no table
+    from the host. A user ``mask`` or a q shorter than k keeps the sparsity
+    pattern on the masked dense path (``reference_attention`` with the
+    layout's dense mask), as the JAX impl does; attention dropout is not
+    ported and raises."""
+    layouts: Dict[int, np.ndarray] = {}
+    tables: Dict[Tuple[int, torch.device], Dict[str, torch.Tensor]] = {}
+
+    def layout_for(s: int) -> np.ndarray:
+        if s not in layouts:
+            layouts[s] = config.make_layout(s)
+        return layouts[s]
+
+    def impl(q, k, v, causal=True, mask=None, softmax_scale=None, dropout_rate=0.0,
+             dropout_rng=None):
+        from ..transformer.attention import reference_attention
+        if dropout_rate > 0.0:
+            raise NotImplementedError("attention dropout is not ported yet: ROADMAP.md "
+                                      "queue 1 item 5")
+        uni = getattr(config, "attention", "bidirectional") == "unidirectional"
+        if mask is not None or q.shape[1] != k.shape[1]:
+            # features the kernels do not cover: keep the sparsity pattern on the
+            # masked dense path (dense attention would change the architecture)
+            t, s = q.shape[1], k.shape[1]
+            lmask = _layout_mask(layout_for(s), config.block, q.device)
+            lmask = lmask[:, :, -t:, :]  # decode: q covers the cache tail
+            if mask is not None:
+                user = mask[:, None, None, :] if mask.ndim == 2 else mask
+                lmask = torch.logical_and(lmask, user.bool())
+            return reference_attention(q, k, v, causal=causal or uni, mask=lmask,
+                                       softmax_scale=softmax_scale)
+        t = q.shape[1]
+        key = (t, q.device)
+        if key not in tables:
+            tables[key] = device_tables(build_tables(layout_for(t)), q.device)
+        return _attend(q, k, v, tables[key], config.block, causal or uni, softmax_scale)
+
+    return impl

@@ -10,7 +10,9 @@ continuous-batching serving (GPT-2 125M, 16 slots, page 16, a 250-token
 shared prefix) for the paged decode kernel, training (GPT-2 125M,
 micro-batch 24, seq 1024) for the two backward kernels, weight-quantized
 serving (BLOOM-7B decode, batch 1) for the dequant-GEMM, MoE serving (GPT-2
-125M with 8 experts, decode at batch 1) for the selected-expert FFN.
+125M with 8 experts, decode at batch 1) for the selected-expert FFN,
+block-sparse training (GPT-2 125M, micro-batch 24, seq 1024, the Fixed layout
+of block 16 in ``GPT2_SPARSE``) for the three block-sparse kernels.
 
 Every kernel is held to its plain version elementwise: every element of
 every output must have |kernel - plain| <= atol + rtol * |plain|, with
@@ -70,19 +72,33 @@ kernel that is wrong by 20 % on most rows.
   on outputs of order 1 (x ~ N(0, 1), w1 ~ N(0, 1/d), biases ~ N(0, 1/4)).
   float32 (2e-5, 2e-5): h is not rounded; sums of up to 4,096 terms in
   other orders.
+- The block-sparse kernels reuse ``FWD_TOLERANCES`` (o), ``LSE_TOLERANCE``
+  and ``BWD_TOLERANCES`` (dq, dk, dv), which are looser than they need: as in
+  the TPU kernels, neither p nor ds is rounded to the input dtype, so both
+  sides compute in f32 and round each output once, at the end, and f32 sums
+  in another order can at most flip that rounding (one ulp, inside every
+  rtol above). The f32 cases sum fewer terms than the flash cases those
+  limits were set for (a row walks at most its active blocks). Rows whose
+  walked entries are all masked (an lse of -1e30, p = 1) and empty rows
+  (zeros) come out the same on both sides: the lse is -1e30 exactly.
 
 f32 matrix products of the plain versions run in full f32
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set here).
 """
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..models.causal_lm import alibi_slopes
+from . import sparse_attention
+from .attention.block_sparse import (block_sparse_bwd_dkv, block_sparse_bwd_dkv_plain,
+                                     block_sparse_bwd_dq, block_sparse_bwd_dq_plain,
+                                     block_sparse_fwd, block_sparse_fwd_plain, build_tables,
+                                     device_tables)
 from .attention.decode import decode_attention, decode_attention_plain
 from .attention.flash import (flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
                              flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
@@ -100,6 +116,8 @@ DECODE_TOLERANCES = {torch.bfloat16: (1e-5, 8e-3), torch.float16: (1e-5, 1e-3),
 BWD_TOLERANCES = {torch.bfloat16: (2e-3, 1.6e-2), torch.float16: (2.5e-4, 2e-3),
                   torch.float32: (2e-6, 2e-5)}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+BS_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
+FWD_KERNELS = ("flash_fwd", "block_sparse_fwd")      # (o, f32 lse)
 LSE_TOLERANCE = 1e-3        # f32 logsumexp; sums of exp in another order
 QMM_TOLERANCES = {torch.bfloat16: (1e-3, 8e-3), torch.float16: (1e-3, 1e-3),
                   torch.float32: (2e-5, 2e-5)}
@@ -129,7 +147,21 @@ KERNEL_INFO = {
                          "replaces": "deepspeed_tpu/ops/quantizer/fused_matmul.py:67"},
     "moe_decode_ffn": {"source": "deepspeed_tpu_torch/ops/csrc/moe_decode_ffn.cu",
                        "replaces": "deepspeed_tpu/ops/moe/decode_ffn.py:31"},
+    "block_sparse_fwd": {"source": "deepspeed_tpu_torch/ops/csrc/block_sparse_fwd.cu",
+                         "replaces": "deepspeed_tpu/ops/attention/block_sparse.py:69"},
+    "block_sparse_bwd_dq": {"source": "deepspeed_tpu_torch/ops/csrc/block_sparse_bwd_dq.cu",
+                            "replaces": "deepspeed_tpu/ops/attention/block_sparse.py:137"},
+    "block_sparse_bwd_dkv": {"source": "deepspeed_tpu_torch/ops/csrc/block_sparse_bwd_dkv.cu",
+                             "replaces": "deepspeed_tpu/ops/attention/block_sparse.py:170"},
 }
+
+#: the block-sparse training main path's layout: the ``fixed`` mode of
+#: DeepSpeed's sparse-attention tutorial (block 16, 4 local blocks, 1 global,
+#: 4 global patterns), unidirectional because GPT-2 is causal; at t 1024
+#: every head walks 640 of 4,096 blocks, and the heads' layouts differ
+GPT2_SPARSE = ("FixedSparsityConfig", dict(
+    num_heads=12, block=16, different_layout_per_head=True, num_local_blocks=4,
+    num_global_blocks=1, attention="unidirectional", num_different_global_patterns=4))
 
 
 @dataclasses.dataclass
@@ -139,7 +171,8 @@ class Case:
     # flash (fwd and bwd): b, t, h, d; decode: b, h, hk, T, d; paged: b, h,
     # hk, page, cap, d (max_pages = cdiv(cap, page)); dequant-GEMM: m, k, n,
     # group (requested; the quantizer may degrade it), bits; selected-expert
-    # FFN: n rows (tokens x k), e, d, f, k experts a token (distinct)
+    # FFN: n rows (tokens x k), e, d, f, k experts a token (distinct);
+    # block-sparse: b, t, h, d (the layout block is the config's)
     dims: Dict[str, int]
     dtype: torch.dtype
     causal: bool = True
@@ -147,11 +180,14 @@ class Case:
     lens: Optional[Tuple[int, ...]] = None      # decode and paged: valid rows per sequence
     main_path: bool = False
     activation: str = "gelu"                    # selected-expert FFN
+    # block-sparse: a SparsityConfig's class name in ops/sparse_attention and
+    # its arguments, or ("hand-made", {"block": ...}) for hand_made_layout()
+    layout: Optional[Tuple[str, Dict[str, Any]]] = None
 
     def tolerance(self) -> Tuple[float, float]:
-        if self.kernel in BWD_KERNELS:
+        if self.kernel in BWD_KERNELS or self.kernel in BS_KERNELS[1:]:
             return BWD_TOLERANCES[self.dtype]
-        if self.kernel == "flash_fwd":
+        if self.kernel in FWD_KERNELS:
             return FWD_TOLERANCES[self.dtype]
         if self.kernel == "quantized_matmul":
             return QMM_TOLERANCES[self.dtype]
@@ -254,7 +290,57 @@ CASES: List[Case] = [
          torch.bfloat16),
     Case("moe_decode_ffn", "dsmoe350m-e128-n16", dict(n=16, e=128, d=1024, f=4096, k=1),
          torch.bfloat16),
-]
+] + [c for kernel in BS_KERNELS for c in (
+    # block-sparse training: GPT-2 125M, micro-batch 24, seq 1024, GPT2_SPARSE
+    Case(kernel, "gpt2-train-fixed16", dict(b=24, t=1024, h=12, d=64), torch.bfloat16,
+         layout=GPT2_SPARSE, main_path=True),
+    # the JAX package's gate shape (ops/kernel_checks.py:check_block_sparse): a
+    # bidirectional layout under the causal triangle, so its global columns are
+    # walked wholly masked by the rows above them
+    Case(kernel, "gate-fixed128-d128", dict(b=2, t=1024, h=4, d=128), torch.bfloat16,
+         layout=("FixedSparsityConfig", dict(num_heads=4, block=128, num_local_blocks=2))),
+    # random blocks, a different layout per head
+    Case(kernel, "bigbird64-fp16-d128", dict(b=2, t=1024, h=4, d=128), torch.float16,
+         causal=False, layout=("BigBirdSparsityConfig", dict(
+             num_heads=4, block=64, different_layout_per_head=True, num_random_blocks=2,
+             num_sliding_window_blocks=3, num_global_blocks=1, seed=1))),
+    Case(kernel, "longformer32-fp32", dict(b=2, t=512, h=4, d=64), torch.float32,
+         causal=False, layout=("BSLongformerSparsityConfig", dict(
+             num_heads=4, block=32, num_sliding_window_blocks=3,
+             global_block_indices=[0, 7]))),
+    # an empty q-block and one whose only block lies past its diagonal
+    Case(kernel, "hand-made-empty-past-diagonal", dict(b=2, t=256, h=2, d=64),
+         torch.bfloat16, layout=("hand-made", dict(block=16))),
+)]
+
+
+def hand_made_layout(h: int, t: int, block: int) -> np.ndarray:
+    """A causal ``(h, t / block, t / block)`` layout with the rows no shipped
+    config makes: every head has its diagonal and the block below it, except
+    that q-block 2 has no active block and q-block 3 only k-block 5, which
+    lies past its diagonal; heads from 1 on also attend from the last q-block
+    to k-block 0, so the heads differ."""
+    nb = t // block
+    layout = np.zeros((h, nb, nb), np.int64)
+    for i in range(nb):
+        layout[:, i, max(i - 1, 0):i + 1] = 1
+    layout[:, 2] = 0
+    layout[:, 3] = 0
+    layout[:, 3, 5] = 1
+    layout[1:, nb - 1, 0] = 1
+    return layout
+
+
+def case_layout(case: Case) -> np.ndarray:
+    """A block-sparse case's ``(h, nb, nb)`` layout at its ``t``."""
+    name, kw = case.layout
+    if name == "hand-made":
+        return hand_made_layout(case.dims["h"], case.dims["t"], kw["block"])
+    return getattr(sparse_attention, name)(**kw).make_layout(case.dims["t"])
+
+
+def case_block(case: Case) -> int:
+    return case.layout[1]["block"]
 
 
 def max_pages(case: Case) -> int:
@@ -275,6 +361,8 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
 
     if case.kernel == "moe_decode_ffn":
         return moe_inputs(case, device, seed)
+    if case.kernel in BS_KERNELS:
+        return block_sparse_inputs(case, device, gen)
     if case.kernel == "quantized_matmul":
         m, k, n, bits = dims["m"], dims["k"], dims["n"], dims["bits"]
         w = torch.randn(k, n, generator=gen, device=device) / float(np.sqrt(k))
@@ -340,6 +428,44 @@ def moe_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
             "w2": randn(float(f) ** -0.5, e, f, d), "b2": randn(0.5, e, d)}
 
 
+def block_sparse_inputs(case: Case, device, gen) -> Dict[str, torch.Tensor]:
+    """q, k, v ~ N(0, 1) ``(b*h, t, d)`` and the layout's four tables on
+    ``device``; for the backward kernels also do ~ N(0, 1), and o and lse from
+    the plain forward (so their inputs do not depend on the forward kernel)
+    with delta = rowsum(do * o)."""
+    bh, t, d = case.dims["b"] * case.dims["h"], case.dims["t"], case.dims["d"]
+
+    def randn():
+        return torch.randn(bh, t, d, generator=gen, device=device).to(case.dtype)
+
+    inp = {"q": randn(), "k": randn(), "v": randn(),
+           **device_tables(build_tables(case_layout(case)), device)}
+    if case.kernel != "block_sparse_fwd":
+        inp["do"] = randn()
+        o, inp["lse"] = block_sparse_fwd_plain(inp["q"], inp["k"], inp["v"], inp["fwd_idx"],
+                                               inp["fwd_cnt"], case_block(case), _scale(case),
+                                               case.causal, case.dims["h"])
+        inp["delta"] = (inp["do"].float() * o.float()).sum(-1)
+    return inp
+
+
+def _bs_args(case: Case, inp):
+    """The block-sparse wrapper's arguments (the plain versions' are the same,
+    with the scale given)."""
+    if case.kernel == "block_sparse_fwd":
+        head = (inp["q"], inp["k"], inp["v"], inp["fwd_idx"], inp["fwd_cnt"])
+    else:
+        table = "fwd" if case.kernel == "block_sparse_bwd_dq" else "bwd"
+        head = (inp["q"], inp["k"], inp["v"], inp["do"], inp["lse"], inp["delta"],
+                inp[f"{table}_idx"], inp[f"{table}_cnt"])
+    return head + (case_block(case), _scale(case), case.causal, case.dims["h"])
+
+
+BS_FUNCTIONS = {"block_sparse_fwd": (block_sparse_fwd, block_sparse_fwd_plain),
+                "block_sparse_bwd_dq": (block_sparse_bwd_dq, block_sparse_bwd_dq_plain),
+                "block_sparse_bwd_dkv": (block_sparse_bwd_dkv, block_sparse_bwd_dkv_plain)}
+
+
 def _moe_args(case: Case, inp):
     return (inp["x"], inp["idx"], inp["w1"], inp["b1"], inp["w2"], inp["b2"], case.activation)
 
@@ -364,6 +490,9 @@ def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     selected-expert FFN ``(y,)``."""
     if case.kernel == "moe_decode_ffn":
         return (moe_decode_ffn(*_moe_args(case, inp)),)
+    if case.kernel in BS_KERNELS:
+        out = BS_FUNCTIONS[case.kernel][0](*_bs_args(case, inp))
+        return out if isinstance(out, tuple) else (out,)
     if case.kernel == "quantized_matmul":
         return (quantized_matmul(inp["x"], inp["q"], inp["scales"], bits=case.dims["bits"]),)
     if case.kernel == "flash_bwd_dq":
@@ -383,6 +512,9 @@ def run_plain(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     """The plain version on the same inputs, same outputs as :func:`run_kernel`."""
     if case.kernel == "moe_decode_ffn":
         return (moe_decode_ffn_plain(*_moe_args(case, inp)),)
+    if case.kernel in BS_KERNELS:
+        out = BS_FUNCTIONS[case.kernel][1](*_bs_args(case, inp))
+        return out if isinstance(out, tuple) else (out,)
     if case.kernel == "quantized_matmul":
         return (quantized_matmul_plain(inp["x"], inp["q"], inp["scales"],
                                        bits=case.dims["bits"]),)
@@ -422,10 +554,27 @@ def library_fn(case: Case, inp) -> Optional[Callable[[], torch.Tensor]]:
     :func:`moe_gather_fn`). The backward kernels' yardstick is SDPA's whole
     backward (dq, dk and dv in one call), run on a graph built once outside
     the timing. The dequant-GEMM's is the GEMM it replaces: ``torch.matmul``
-    (cuBLAS) of x by the weight dequantized to x's dtype beforehand."""
+    (cuBLAS) of x by the weight dequantized to x's dtype beforehand. The
+    block-sparse kernels' is SDPA with the layout's dense boolean mask (and
+    the triangle), forward or its whole backward: it does the dense t^2 work,
+    and a row with no valid key gives it NaN, which a timing does not see."""
     dims = case.dims
     if case.kernel == "moe_decode_ffn":
         return None
+    if case.kernel in BS_KERNELS:
+        b, t, h, d = dims["b"], dims["t"], dims["h"], dims["d"]
+        q, k, v = (inp[n].view(b, h, t, d) for n in ("q", "k", "v"))
+        mask = torch.from_numpy(sparse_attention.layout_to_dense_mask(
+            case_layout(case), case_block(case))).to(q.device)
+        if case.causal:
+            mask = mask.tril()
+        kw = {"attn_mask": mask[None]}
+        if case.kernel == "block_sparse_fwd":
+            return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v, **kw)
+        do = inp["do"].view(b, h, t, d)
+        return lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
     if case.kernel == "quantized_matmul":
         w = dequantize_to(inp["q"], inp["scales"], dims["bits"], case.dtype)
         return lambda: torch.matmul(inp["x"], w)
@@ -466,9 +615,12 @@ def work(case: Case) -> Tuple[float, float]:
     col <= row; the dequant-GEMM counts the payload, the scales, x and the
     output (in x's dtype), 2 m k n operations; the selected-expert FFN counts
     each distinct selected expert's w1, b1, w2 and b2 once, x, idx and the f32
-    output, 4 n d f operations."""
+    output, 4 n d f operations; block-sparse attention counts only the pairs
+    in active blocks (causal: with col <= row), and its int32 table."""
     dims = case.dims
     es = torch.tensor([], dtype=case.dtype).element_size()
+    if case.kernel in BS_KERNELS:
+        return block_sparse_work(case, es)
     if case.kernel == "moe_decode_ffn":
         n, d, f = dims["n"], dims["d"], dims["f"]
         distinct = len(set(moe_inputs_idx(case)))
@@ -500,6 +652,34 @@ def work(case: Case) -> Tuple[float, float]:
     if case.kernel == "paged_decode_attention":
         nbytes += 4.0 * sum(-(-min(n, cap) // dims["page"]) for n in case.lens)
     return ops, nbytes
+
+
+def block_sparse_work(case: Case, es: int) -> Tuple[float, float]:
+    """(operations, bytes) of a block-sparse case: 4 d (forward: s, o), 6 d
+    (dq: s, dp, dq) or 8 d (dk/dv: s, dp, dv, dk) operations for every pair
+    the layout makes active, causal pairs only under ``causal``; each of q,
+    k, v (and do) read once and each output written once, the f32 lse (and
+    delta), and the forward's table (dk/dv: the transposed one)."""
+    b, t, h, d = (case.dims[x] for x in ("b", "t", "h", "d"))
+    block = case_block(case)
+    layout = case_layout(case) != 0
+    qi, ki = np.meshgrid(np.arange(layout.shape[1]), np.arange(layout.shape[2]),
+                         indexing="ij")
+    if case.causal:     # below the diagonal every pair, on it the triangle, above none
+        per_block = np.where(ki < qi, block * block,
+                             np.where(ki == qi, block * (block + 1) // 2, 0))
+    else:
+        per_block = np.full(qi.shape, block * block)
+    pairs = float(b * (layout * per_block).sum())
+    bh = b * h
+    tables = build_tables(layout)
+    table = "bwd" if case.kernel == "block_sparse_bwd_dkv" else "fwd"
+    table_bytes = 4.0 * (tables[f"{table}_idx"].size + tables[f"{table}_cnt"].size)
+    if case.kernel == "block_sparse_fwd":
+        return 4.0 * d * pairs, 4.0 * bh * t * d * es + 4.0 * bh * t + table_bytes
+    if case.kernel == "block_sparse_bwd_dq":
+        return 6.0 * d * pairs, 5.0 * bh * t * d * es + 8.0 * bh * t + table_bytes
+    return 8.0 * d * pairs, 6.0 * bh * t * d * es + 8.0 * bh * t + table_bytes
 
 
 def moe_inputs_idx(case: Case, seed: int = 0) -> List[int]:
@@ -540,10 +720,10 @@ def check(case: Case, device, seed: int = 0) -> Dict[str, float]:
     out, ref = run_kernel(case, inp), run_plain(case, inp)
     atol, rtol = case.tolerance()
     # the forward's second output is the f32 lse, held to LSE_TOLERANCE below
-    pairs = list(zip(out, ref))[:1] if case.kernel == "flash_fwd" else list(zip(out, ref))
+    pairs = list(zip(out, ref))[:1] if case.kernel in FWD_KERNELS else list(zip(out, ref))
     result = {"max_abs_err": max(max_abs_err(a, b) for a, b in pairs), "atol": atol,
               "rtol": rtol, "err_ratio": max(err_ratio(a, b, atol, rtol) for a, b in pairs)}
-    if case.kernel == "flash_fwd":
+    if case.kernel in FWD_KERNELS:
         result["lse_err"] = max_abs_err(out[1], ref[1])
     name = f"{case.kernel}/{case.name}"
     if not all(bool(torch.isfinite(o.float()).all()) for o in out):

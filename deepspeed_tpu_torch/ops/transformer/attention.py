@@ -8,6 +8,10 @@ differentiable through ``FlashAttnFunction``); ``xla`` gives
 ``xla_attention`` (without attention dropout, which is not ported), in plain
 tensor code. The JAX package's ``flash_eligible`` length rule is a TPU tuning
 constant and is not carried over: ``auto`` sends every length to the kernels.
+A callable is taken as it is: block-sparse attention is the impl that
+``ops/attention/block_sparse.py:make_sparse_attention_impl`` binds from a
+``SparsityConfig`` (its kernels forward and backward), as in
+``GPT2Config(attention_impl=make_sparse_attention_impl(config))``.
 """
 
 from typing import Callable, Optional, Union
@@ -44,7 +48,8 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def get_attention_impl(name: Union[str, Callable] = "xla") -> Callable:
     """``auto`` | ``flash`` → the flash kernels; ``xla`` →
-    :func:`reference_attention`; a callable is returned as it is. ``ring`` and
+    :func:`reference_attention`; a callable, such as the block-sparse impl of
+    ``make_sparse_attention_impl(config)``, is returned as it is. ``ring`` and
     ``ulysses`` (sequence parallelism) are not ported yet."""
     if callable(name):
         return name

@@ -20,6 +20,7 @@ from deepspeed_tpu.ops.attention.flash import flash_attention as jax_flash_atten
 from deepspeed_tpu.ops.transformer.attention import xla_attention
 from deepspeed_tpu_torch.models.causal_lm import alibi_slopes
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.attention.block_sparse import block_sparse_attention
 from deepspeed_tpu_torch.ops.attention.decode import decode_attention
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention, flash_fwd
 from deepspeed_tpu_torch.ops.moe import moe_decode_ffn
@@ -127,10 +128,14 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     w1, w2 = torch.randn(3, 64, 32), torch.randn(3, 32, 64)
     moe_decode_ffn(q[0, :2, 0], torch.tensor([2, 0]), w1, torch.zeros(3, 32), w2,
                    torch.zeros(3, 64))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.autograd.grad(block_sparse_attention(*leaves, np.ones((2, 4, 4)), 16, causal=True)
+                        .sum(), leaves)
     assert op_builder.launch_counts() == {"flash_fwd": 0, "decode_attention": 0,
                                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                                           "paged_decode_attention": 0, "quantized_matmul": 0,
-                                          "moe_decode_ffn": 0}
+                                          "moe_decode_ffn": 0, "block_sparse_fwd": 0,
+                                          "block_sparse_bwd_dq": 0, "block_sparse_bwd_dkv": 0}
 
 
 def test_other_devices_raise():

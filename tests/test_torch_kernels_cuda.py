@@ -15,6 +15,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -224,6 +225,89 @@ def test_moe_decode_ffn_block_widths_launch_count_and_refusals():
                               torch.cuda.current_stream(device).cuda_stream)
 
 
+def _sparse_inputs(device, dtype, b=2, t=256, h=4, d=64, block=16):
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    gen = torch.Generator(device=device).manual_seed(0)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device=device).to(dtype)
+                   for _ in range(4))
+    layout = FixedSparsityConfig(h, block, different_layout_per_head=True, num_local_blocks=4,
+                                 attention="unidirectional",
+                                 num_different_global_patterns=4).make_layout(t)
+    return q, k, v, do, layout
+
+
+def test_block_sparse_attention_gradients_and_launches_on_card():
+    """block_sparse_attention on the card (the forward kernel, then both
+    backward kernels through BlockSparseAttnFunction): one launch of each, o
+    within the forward's bf16 limit of the plain forward, and dq, dk, dv
+    within the backward's of the plain backward fed with the forward kernel's
+    o and lse; the forward kernel refuses inputs that require grad under
+    grad mode."""
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.attention import block_sparse as bs
+    device = _card()
+    q, k, v, do, layout = _sparse_inputs(device, torch.bfloat16)
+    b, t, h, d = q.shape
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    op_builder.reset_launch_counts()
+    o = bs.block_sparse_attention(*leaves, layout, 16, causal=True)
+    got = torch.autograd.grad(o, leaves, do)
+    counts = op_builder.launch_counts()
+    assert [counts[n] for n in kernel_checks.BS_KERNELS] == [1, 1, 1]
+    assert counts["flash_fwd"] == 0
+
+    def to3(x):
+        return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+    q3, k3, v3, do3 = map(to3, (q, k, v, do))
+    tables = bs.device_tables(bs.build_tables(layout), device)
+    with torch.no_grad():
+        o3, lse = bs.block_sparse_fwd(q3, k3, v3, tables["fwd_idx"], tables["fwd_cnt"], 16,
+                                      causal=True, n_heads=h)
+    want_o, _ = bs.block_sparse_fwd_plain(q3, k3, v3, tables["fwd_idx"], tables["fwd_cnt"],
+                                          16, d ** -0.5, True, h)
+    assert kernel_checks.err_ratio(to3(o.detach()), want_o,
+                                   *kernel_checks.FWD_TOLERANCES[torch.bfloat16]) <= 1.0
+    delta = (do3.float() * o3.float()).sum(-1)
+    want = (bs.block_sparse_bwd_dq_plain(q3, k3, v3, do3, lse, delta, tables["fwd_idx"],
+                                         tables["fwd_cnt"], 16, d ** -0.5, True, h),
+            *bs.block_sparse_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, tables["bwd_idx"],
+                                           tables["bwd_cnt"], 16, d ** -0.5, True, h))
+    atol, rtol = kernel_checks.BWD_TOLERANCES[torch.bfloat16]
+    for g, w in zip(got, want):
+        assert kernel_checks.err_ratio(to3(g), w, atol, rtol) <= 1.0
+    with pytest.raises(ValueError, match="BlockSparseAttnFunction"):
+        bs.block_sparse_fwd(to3(leaves[0]), k3, v3, tables["fwd_idx"], tables["fwd_cnt"], 16,
+                            n_heads=h)
+
+
+def test_block_sparse_refuses_unsupported_shapes_on_card():
+    """A head_dim or layout block the kernels do not take raises ValueError
+    before any launch, and does not fall back; an argument the C entry
+    refuses comes back as a CUDA error, raised."""
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.attention import block_sparse as bs
+    from deepspeed_tpu_torch.ops.op_builder import KernelLaunchError
+    device = _card()
+    layout = np.ones((2, 8, 8), np.int64)
+    op_builder.reset_launch_counts()
+    for d, block in ((32, 16), (64, 8), (96, 16)):
+        t = 8 * block
+        q = torch.zeros(2, t, 2, d, device=device, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim|layout block"):
+            bs.block_sparse_attention(q, q, q, layout, block, causal=True)
+    assert not any(op_builder.launch_counts()[n] for n in kernel_checks.BS_KERNELS)
+    q3 = torch.zeros(4, 128, 64, device=device, dtype=torch.bfloat16)
+    tables = bs.device_tables(bs.build_tables(layout), device)
+    lse = torch.empty(4, 128, device=device)
+    with pytest.raises(KernelLaunchError, match="invalid argument"):
+        # n_heads 3 does not divide b*h 4
+        bs.BLOCK_SPARSE_FWD.launch(q3.data_ptr(), q3.data_ptr(), q3.data_ptr(),
+                                   tables["fwd_idx"].data_ptr(), tables["fwd_cnt"].data_ptr(),
+                                   q3.data_ptr(), lse.data_ptr(), 4, 128, 64, 3, 16, 8, 0.125,
+                                   1, 2, torch.cuda.current_stream(device).cuda_stream)
+
+
 #: faults planted in a copy of the package: name -> (source in csrc/, line as
 #: written, line as planted, the check cases the fault must fail: every case
 #: of a kernel named, or of "kernel:int4" its int4 cases only)
@@ -268,10 +352,25 @@ PLANTED_FAULTS = {
         "__device__ __forceinline__ int nib_hi(int b) { return b >> 4; }",
         "__device__ __forceinline__ int nib_hi(int b) { return (b & 0xFF) >> 4; }",
         ("quantized_matmul:int4",)),
+    "block-sparse-fwd-walk-stops-early": (
+        "block_sparse_fwd.cu",
+        "const int nnz = cnt[head * nb + qb];",
+        "const int nnz = cnt[head * nb + qb] - 1;",
+        ("block_sparse_fwd",)),
+    "block-sparse-dq-skips-first-k-block": (
+        "block_sparse_bwd_dq.cu",
+        "for (int n = 0; n < nnz; ++n) {",
+        "for (int n = 1; n < nnz; ++n) {",
+        ("block_sparse_bwd_dq",)),
+    "block-sparse-dkv-drops-last-q-block": (
+        "block_sparse_bwd_dkv.cu",
+        "const int nnz = cnt[head * nb + kb];",
+        "const int nnz = cnt[head * nb + kb] - 1;",
+        ("block_sparse_bwd_dkv",)),
 }
 
 # run inside the planted copy: which package it imported, then err/limit of
-# every check case of the named kernels (the forward's o only: its lse limit
+# every check case of the named kernels (a forward's o only: its lse limit
 # does not see a scaled o)
 _PLANTED_CHILD = """
 import json, sys, torch
@@ -284,7 +383,7 @@ for case in kc.CASES:
     inp = kc.make_inputs(case, dev)
     out, ref = kc.run_kernel(case, inp), kc.run_plain(case, inp)
     atol, rtol = case.tolerance()
-    pairs = list(zip(out, ref))[:1] if case.kernel == "flash_fwd" else list(zip(out, ref))
+    pairs = list(zip(out, ref))[:1] if case.kernel in kc.FWD_KERNELS else list(zip(out, ref))
     ratio = max(kc.err_ratio(a, b, atol, rtol) for a, b in pairs)
     print(json.dumps({"case": f"{case.kernel}/{case.name}", "err_ratio": ratio}), flush=True)
 """
