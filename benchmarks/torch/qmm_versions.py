@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Time two versions of the dequant-GEMM kernel on one NVIDIA card, in turns.
+"""Time two versions of one hand-written kernel on one NVIDIA card, in turns.
 
-    git show <commit>:deepspeed_tpu_torch/ops/csrc/quantized_matmul.cu > build/qmm_old.cu
-    python3 benchmarks/torch/qmm_versions.py build/qmm_old.cu
+    git show <commit>:deepspeed_tpu_torch/ops/csrc/<kernel>.cu > build/<kernel>_old.cu
+    python3 benchmarks/torch/qmm_versions.py <kernel> [build/<kernel>_old.cu]
 
-Builds the checkout's ``ops/csrc/quantized_matmul.cu`` (through its wrapper)
-and the old source (same flags and C interface, ``-I`` the checkout's
-``csrc/`` for its headers), prints each build's ptxas register and spill
-counts, then for every dequant-GEMM case of ``ops/kernel_checks.py``: both
-versions' err/limit against the plain version and their times (old, new,
-new, old; ``chip_smoke.time_ms``), beside cuBLAS bf16 and the bound.
-Exits non-zero if either version fails a case or a build.
+``<kernel>`` is ``quantized_matmul``, ``flash_fwd`` or ``flash_bwd_dkv``.
+Builds the checkout's ``ops/csrc/<kernel>.cu`` and the old source (same flags
+and C interface, ``-I`` the checkout's ``csrc/`` for its headers), prints each
+build's ptxas register and spill counts, then for every case of that kernel in
+``ops/kernel_checks.py``: both versions' err/limit against the plain version
+and their times (old, new, new, old; ``chip_smoke.time_ms``), beside the
+library yardstick and the bound. For the flash kernels it also builds the new
+source with each block tiling forced (``-DDS_FLASH_FWD_WG=1|2``,
+``-DDS_FLASH_DKV_WG=1|2``: one or two consumer warpgroups a block) and times
+each on the 16-bit cases, the sweep behind ``fwd_warpgroups`` and
+``dkv_warpgroups``, and once more without the producer/consumer register
+rebalancing (``-DDS_NO_SETMAXNREG``). Exits non-zero if a version fails a
+case or a build.
 """
 
 import ctypes
@@ -20,6 +26,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
+
+#: the build-time macro that forces a flash kernel's block tiling
+SWEEP_MACRO = {"flash_fwd": "DS_FLASH_FWD_WG", "flash_bwd_dkv": "DS_FLASH_DKV_WG"}
 
 
 def ptxas_report(nvcc_out: str):
@@ -31,69 +40,128 @@ def ptxas_report(nvcc_out: str):
             print(f"  {name}: {line.split(':', 1)[-1].strip()}")
 
 
-def main(old_source: str) -> int:
+def runner(kernel: str, fn):
+    """``run(case, inp)`` calling the C entry ``fn`` as the kernel's wrapper
+    would, returning the wrapper's outputs."""
     import torch
 
-    import chip_smoke
-    from deepspeed_tpu_torch.ops import kernel_checks as kc
-    from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.attention.flash import DTYPE_CODES
+    from deepspeed_tpu_torch.ops.kernel_checks import _scale
     from deepspeed_tpu_torch.ops.quantizer import fused_matmul as fm
 
-    if not torch.cuda.is_available():
-        print("qmm_versions: no CUDA card", file=sys.stderr)
-        return 2
-    os.makedirs(op_builder.build_dir(), exist_ok=True)
-    libs = {}
-    for tag, src, extra in (("old", old_source, ["-I", op_builder.CSRC_DIR]),
-                            ("new", os.path.join(op_builder.CSRC_DIR, "quantized_matmul.cu"), [])):
-        so = os.path.join(op_builder.build_dir(), f"qmm_versions_{tag}.so")
-        proc = subprocess.run([op_builder._nvcc(), *op_builder.NVCC_FLAGS, "-Xptxas", "-v", *extra,
-                               "-o", so, src], capture_output=True, text=True)
-        print(f"[versions] {tag} build rc {proc.returncode}: {src}")
-        if proc.returncode:
-            print(proc.stdout[-4000:] + proc.stderr[-4000:])
-            return 1
-        ptxas_report(proc.stdout + proc.stderr)
-        fn = getattr(ctypes.CDLL(so), "quantized_matmul")
-        fn.argtypes, fn.restype = fm.QUANTIZED_MATMUL.argtypes, ctypes.c_int
-        libs[tag] = fn
+    def check(code, name):
+        if code:
+            raise RuntimeError(f"{name}: CUDA error {code}")
 
-    def run(tag, case, inp):
+    def qmm(case, inp):
         x, q, s = inp["x"], inp["q"], inp["scales"]
         (m, k), (groups, n), bits = x.shape, s.shape, case.dims["bits"]
         out = torch.empty(m, n, dtype=torch.float32, device=x.device)
         chunk, splits = fm.skinny_split(m, k, n, bits)
         work = torch.empty(splits, m, n, dtype=torch.float32, device=x.device) \
             if splits > 1 else out
-        code = libs[tag](x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                         work.data_ptr(), m, k, n, k // groups, bits, chunk,
-                         DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
-        if code:
-            raise RuntimeError(f"{tag}: CUDA error {code}")
-        return out.to(x.dtype)
+        check(fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), work.data_ptr(), m,
+                 k, n, k // groups, bits, chunk, DTYPE_CODES[x.dtype],
+                 torch.cuda.current_stream().cuda_stream), kernel)
+        return (out.to(x.dtype),)
+
+    def flash(case, inp):
+        q, k, v = inp["q"], inp["k"], inp["v"]
+        bh, t, d = q.shape
+        slopes = inp.get("slopes")
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        tail = (bh, t, d, case.dims["h"], _scale(case), int(case.causal), DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        sp = None if slopes is None else slopes.data_ptr()
+        if kernel == "flash_fwd":
+            o = torch.empty_like(q)
+            lse = torch.empty(bh, t, dtype=torch.float32, device=q.device)
+            check(fn(*head, sp, o.data_ptr(), lse.data_ptr(), *tail), kernel)
+            return o, lse
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        check(fn(*head, inp["do"].data_ptr(), inp["lse"].data_ptr(), inp["delta"].data_ptr(), sp,
+                 dk.data_ptr(), dv.data_ptr(), *tail), kernel)
+        return dk, dv
+
+    return qmm if kernel == "quantized_matmul" else flash
+
+
+def err_ratio(kc, case, out, ref) -> float:
+    """The case's largest err/limit, as ``kernel_checks.check`` forms it (the
+    forward's o only, then its lse against ``LSE_TOLERANCE``)."""
+    atol, rtol = case.tolerance()
+    pairs = list(zip(out, ref))[:1] if case.kernel in kc.FWD_KERNELS else list(zip(out, ref))
+    ratio = max(kc.err_ratio(a, b, atol, rtol) for a, b in pairs)
+    if case.kernel in kc.FWD_KERNELS:
+        ratio = max(ratio, kc.max_abs_err(out[1], ref[1]) / kc.LSE_TOLERANCE)
+    return ratio
+
+
+def main(kernel: str, old_source: str) -> int:
+    import torch
+
+    import chip_smoke
+    from deepspeed_tpu_torch.ops import kernel_checks as kc
+    from deepspeed_tpu_torch.ops import op_builder
+
+    if not torch.cuda.is_available():
+        print("qmm_versions: no CUDA card", file=sys.stderr)
+        return 2
+    info = op_builder.KERNELS[kernel]
+    new_source = os.path.join(op_builder.CSRC_DIR, info.source)
+    builds = [("old", old_source, ["-I", op_builder.CSRC_DIR]), ("new", new_source, [])]
+    if kernel in SWEEP_MACRO:
+        builds += [(f"wg{n}", new_source, [f"-D{SWEEP_MACRO[kernel]}={n}"]) for n in (1, 2)]
+        builds.append(("no-setmaxnreg", new_source, ["-DDS_NO_SETMAXNREG"]))
+    os.makedirs(op_builder.build_dir(), exist_ok=True)
+    procs = []
+    for tag, src, extra in builds:       # one nvcc a build, all at once
+        so = os.path.join(op_builder.build_dir(), f"versions_{kernel}_{tag}.so")
+        procs.append((tag, src, so, subprocess.Popen(
+            [op_builder._nvcc(), *op_builder.NVCC_FLAGS, "-Xptxas", "-v", *extra, "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    runs = {}
+    for tag, src, so, proc in procs:
+        out, _ = proc.communicate()
+        print(f"[versions] {kernel} {tag} build rc {proc.returncode}: {src}")
+        if proc.returncode:
+            print(out[-4000:])
+            return 1
+        if tag not in ("wg1", "wg2"):
+            ptxas_report(out)
+        fn = getattr(ctypes.CDLL(so), info.symbol)
+        fn.argtypes, fn.restype = info.argtypes, ctypes.c_int
+        runs[tag] = runner(kernel, fn)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     print(f"[versions] {chip_smoke.nvidia_smi_line()}")
     failed = False
     for case in kc.CASES:
-        if case.kernel != "quantized_matmul":
+        if case.kernel != kernel:
             continue
         inp = kc.make_inputs(case, device)
-        ref = kc.run_plain(case, inp)[0]
-        ratio = {tag: kc.err_ratio(run(tag, case, inp), ref, *case.tolerance()) for tag in libs}
+        ref = kc.run_plain(case, inp)
+        tags = [tag for tag in runs if tag in ("old", "new") or case.dtype != torch.float32]
+        ratio = {tag: err_ratio(kc, case, runs[tag](case, inp), ref) for tag in tags}
         ms = {}
         for tag in ("old", "new", "new", "old"):
-            ms.setdefault(tag, []).append(chip_smoke.time_ms(lambda: run(tag, case, inp)))
-        lib = chip_smoke.time_ms(kc.library_fn(case, inp))
+            ms.setdefault(tag, []).append(chip_smoke.time_ms(lambda: runs[tag](case, inp)))
+        sweep = {tag: chip_smoke.time_ms(lambda: runs[tag](case, inp))
+                 for tag in tags if tag not in ("old", "new")}
+        lib = kc.library_fn(case, inp)
+        lib_ms = "null" if lib is None else f"{chip_smoke.time_ms(lib):.4f}"
         failed |= not all(r <= 1.0 for r in ratio.values())
-        print(f"[versions] {case.name}: err/limit old {ratio['old']:.3f} new {ratio['new']:.3f}; "
-              f"ms old {ms['old'][0]:.4f} / {ms['old'][1]:.4f}, new {ms['new'][0]:.4f} / "
-              f"{ms['new'][1]:.4f}; cuBLAS bf16 {lib:.4f}; bound {kc.bound_ms(case)[0]:.4f}",
-              flush=True)
+        print(f"[versions] {kernel}/{case.name} {case.dims} {str(case.dtype)[6:]}: err/limit "
+              + " ".join(f"{tag} {r:.3f}" for tag, r in ratio.items())
+              + f"; ms old {ms['old'][0]:.4f} / {ms['old'][1]:.4f}, new {ms['new'][0]:.4f} / "
+              f"{ms['new'][1]:.4f}" + "".join(f", {tag} {t:.4f}" for tag, t in sweep.items())
+              + f"; library {lib_ms}; bound {kc.bound_ms(case)[0]:.4f}", flush=True)
+        del inp, ref
     return 1 if failed else 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else os.path.join(ROOT, "build", "qmm_old.cu")))
+    name = sys.argv[1] if len(sys.argv) > 1 else "quantized_matmul"
+    sys.exit(main(name, sys.argv[2] if len(sys.argv) > 2 else
+                  os.path.join(ROOT, "build", f"{name}_old.cu")))

@@ -679,8 +679,9 @@ def train_run(device, smi: str, label: str, cfg, per_step: dict, plain, beside):
         engine.train_batch(batch)
         torch.cuda.synchronize()
 
-    profile_call(f"{label} train_batch", traced_step, top=30)
-    return {"step_ms": step_ms, "tokens_per_s": tokens_per_s, "peak_memory_bytes": peak,
+    trace = profile_call(f"{label} train_batch", traced_step, top=30)
+    return {"trace": trace, "step_ms": step_ms, "tokens_per_s": tokens_per_s,
+            "peak_memory_bytes": peak,
             "first_loss": losses[0], "last_loss": losses[-1], "grad_rel_err_max": rel[worst],
             "loss_err": loss_err, "launches": launches}
 
@@ -707,6 +708,17 @@ def train_path(device, smi: str):
                     lambda tps: f", MFU {mfu(tps):.4f} (6N + attention FLOPs against 989 "
                                 "TFLOP/s)")
     out["mfu"] = mfu(out["tokens_per_s"])
+    if out["trace"] is not None:
+        # the traced step's device time in K1 and K4 (their 16-bit kernels are
+        # wgmma_fwd and wgmma_dkv, the f32 ones flash_fwd_kernel and
+        # flash_bwd_dkv_kernel)
+        by_kernel = out["trace"]["by_kernel"]
+        ms = {name: sum(us for key, us in by_kernel.items() if any(k in key for k in keys)) / 1e3
+              for name, keys in (("flash_fwd", ("wgmma_fwd", "flash_fwd_kernel")),
+                                 ("flash_bwd_dkv", ("wgmma_dkv", "flash_bwd_dkv_kernel")))}
+        out["k1_k4_traced_ms"] = ms["flash_fwd"] + ms["flash_bwd_dkv"]
+        print(f"[train] traced step: K1 {ms['flash_fwd']:.3f} ms + K4 {ms['flash_bwd_dkv']:.3f} "
+              f"ms = {out['k1_k4_traced_ms']:.3f} ms of device time", flush=True)
     return out
 
 
@@ -1219,8 +1231,9 @@ def main() -> int:
         "moe_serve": {k: v for k, v in moe["serve"].items() if k != "launches"},
         "train_path": {k: train[k] for k in ("step_ms", "tokens_per_s", "mfu",
                                              "peak_memory_bytes", "first_loss", "last_loss",
-                                             "grad_rel_err_max", "loss_err")},
-        "sparse_train_path": {k: v for k, v in sparse.items() if k != "launches"}}))
+                                             "grad_rel_err_max", "loss_err",
+                                             "k1_k4_traced_ms") if k in train},
+        "sparse_train_path": {k: v for k, v in sparse.items() if k not in ("launches", "trace")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

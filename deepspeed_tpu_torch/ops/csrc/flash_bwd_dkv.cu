@@ -5,37 +5,63 @@
 // full attention over q/k/v/do (b*h, t, d), recomputing the probabilities tile
 // by tile from the forward's f32 logsumexp. The TPU grid walks q blocks as its
 // sequential last axis and carries dk/dv in VMEM scratch; here one block owns a
-// 64-row kv tile and walks the q tiles in a loop, from the first one that meets
-// the causal triangle (_causal_q_lo), with dk and dv in registers. dq is the
-// other kernel's (csrc/flash_bwd_dq.cu): two kernels, as in the JAX package, so
-// no block adds into another's output, no atomics are needed and the
-// gradients are the same on every run.
+// kv tile and walks the q tiles in a loop, from the first one that meets the
+// causal triangle (_causal_q_lo), with dk and dv in registers. dq is the other
+// kernel's (csrc/flash_bwd_dq.cu): two kernels, as in the JAX package, so no
+// block adds into another's output, no atomics are needed and the gradients
+// are the same on every run.
 //
 // What bounds it on this card: per causal (row, col) pair it does 8*d
 // operations (s = q.k, dp = do.v, dv += p.do, dk += ds.q) on 12*t*d bytes per
-// (batch, head) (bf16 q, k, v, do in, dk and dv out, plus f32 lse and delta),
-// about t/3 operations a byte: ~340 at the training main path's t = 1024,
-// just above the ~295 bf16 operations a byte where the H100's tensor cores
-// become the limit. This first version does its products on the CUDA cores in
-// f32, so it runs far from either bound; wgmma, TMA and warp specialisation
-// are later work. What the design does keep: the transposed score, p and ds
-// tiles stay on chip, a causal block skips the q tiles above the diagonal, and
-// the next q/do tile is fetched into registers while the current one computes.
+// (batch, head) (q, k, v, do in, dk and dv out, plus f32 lse and delta), about
+// t/3 operations a byte: ~340 at the training main path's t = 1024, just
+// above the ~295 bf16 operations a byte where the H100's tensor cores become
+// the limit. On the CUDA cores the products alone would take 1.16 ms at the
+// training shape, 2.6x SDPA's whole backward.
 //
-// Numerics follow the TPU kernel and the forward (csrc/flash_fwd.cu): s is
-// summed over d in the forward's order, scaled, biased and masked to -1e30 as
-// there, so p = exp(s - lse) is the forward's probability; p is rounded to do's
-// dtype before the product with do, ds = p*(dp - delta)*scale to q's dtype
-// before the product with q; dk and dv accumulate in f32. Rows and columns past
-// t (a ragged last tile) are masked, so any t works.
+// bf16 and fp16 (the kernel wgmma_dkv below) run all four products on the
+// tensor cores with f32 sums, as the TPU kernel runs them on its MXU:
+// - A block owns 64 kv rows per consumer warpgroup (one or two, picked by
+//   shape in dkv_warpgroups) of one (b*h), plus one producer warpgroup.
+//   K and V come in by TMA once and stay in shared memory.
+// - The producer's first warp streams each q tile's Q and dO by TMA, and its
+//   lse (times log2 e) and delta slices by plain loads, through a ring of
+//   stages with full and empty mbarriers; with two consumer warpgroups,
+//   setmaxnreg moves the producer's registers to the consumers.
+// - S^T = K Q^T and dP^T = V dO^T are wgmma chains from shared memory (Q's
+//   and dO's rows are K-major for the B operand). In registers, on the f32
+//   accumulator fragments: P^T = exp(S^T scale + bias - lse), masked to 0
+//   where the TPU kernel masks (only on tiles that meet the diagonal or t),
+//   and dS^T = P^T (dP^T - delta) scale.
+// - P^T is rounded to do's dtype and dS^T to q's dtype in registers (the TPU
+//   kernel's roundings) and each is the register A operand of dV += P^T dO
+//   and dK += dS^T Q, with dO and Q as MN-major B operands (the transpose
+//   bit): the p and ds tiles never touch shared memory.
+// - dk and dv stay in f32 registers for the block's life and are written
+//   once, up to t. Under `causal` the blocks of kv tile 0, which walk every q
+//   tile, start first, and a warpgroup skips tiles wholly above its rows.
+// - Tiles are 3-D TMA boxes of (d, t, b*h): a box past t is zero-filled and
+//   never reads the next head's rows.
 //
-// Layout of one block (256 threads, one 64-row kv tile of one (batch, head)):
-// thread (ty, tx) = (tid / 16, tid % 16) owns kv rows 4*ty .. 4*ty+3; of each
-// transposed 64-column score tile it computes q columns tx + 16*j, and of dk
-// and dv the columns tx + 16*c. Shared memory holds k, v, q, do as f32 tiles
-// with padded rows, the f32 p and ds tiles and the tile's lse and delta: 166 KB
-// at d = 128, so it is dynamic shared memory.
+// float32 keeps the first version's kernel (flash_bwd_dkv_kernel) on the CUDA
+// cores: wgmma's only f32 input type is TF32 (~10 mantissa bits), while the TPU
+// kernel takes f32 products in full f32. The choice is by dtype alone.
+//
+// Numerics of both kernels follow the TPU kernel and the forward
+// (csrc/flash_fwd.cu): s is scaled, biased and masked as there, so p =
+// exp(s - lse) is the forward's probability; p is rounded to do's dtype
+// before the product with do, ds = p*(dp - delta)*scale to q's dtype before
+// the product with q; dk and dv accumulate in f32. Rows and columns past t
+// are masked, so any t works.
+//
+// First version's layout (float32; 256 threads, one 64-row kv tile of one
+// (batch, head)): thread (ty, tx) = (tid / 16, tid % 16) owns kv rows 4*ty ..
+// 4*ty+3; of each transposed 64-column score tile it computes q columns
+// tx + 16*j, and of dk and dv the columns tx + 16*c. Shared memory holds k, v,
+// q, do as f32 tiles with padded rows, the f32 p and ds tiles and the tile's
+// lse and delta: 166 KB at d = 128, so it is dynamic shared memory.
 
+#include "hopper.cuh"
 #include "common.cuh"
 
 namespace {
@@ -243,17 +269,262 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     return cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16 / fp16: wgmma and TMA
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int BQ = 64;          // q rows per tile of the walk
+
+template <int D, int NWG>
+struct Cfg {
+    static constexpr int NP = D / PANEL;                   // 64-column panels of a row
+    static constexpr int NST = D == 64 ? 3 : 2;            // stages of the q/do ring
+    static constexpr int THREADS = 128 * (NWG + 1);
+    static constexpr int KV_BYTES = 2 * NWG * NP * PANEL_BYTES;    // K panels, then V panels
+    static constexpr int TILE_BYTES = 2 * NP * PANEL_BYTES;        // Q panels, then dO panels
+    // lse and delta (2 x 64 f32) after the tiles, padded so stages stay 1024-aligned
+    static constexpr int STAGE_BYTES = TILE_BYTES + 1024;
+    static constexpr size_t SMEM = 1024 + KV_BYTES + NST * STAGE_BYTES + 8 * (1 + 2 * NST);
+};
+
+template <typename T, int D, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          const float* __restrict__ slopes, T* __restrict__ dk, T* __restrict__ dv, int t,
+          int n_heads, float scale, int causal) {
+    using C = Cfg<D, NWG>;
+    constexpr int NP = C::NP, NST = C::NST;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t raw = smem_addr(smem_raw);
+    const uint32_t k_s = (raw + 1023) & ~1023u;
+    uint8_t* const gen = smem_raw + (k_s - raw);             // k_s as a generic pointer
+    const uint32_t v_s = k_s + NWG * NP * PANEL_BYTES;
+    const uint32_t ring = k_s + C::KV_BYTES;
+    const uint32_t kv_full = ring + NST * C::STAGE_BYTES;    // then full[NST], empty[NST]
+    auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+    auto empty = [&](int s) { return kv_full + 8 * (1 + NST + s); };
+    // a stage's lse (log2 units) and delta, as generic pointers
+    auto stage_rows = [&](int s) {
+        return reinterpret_cast<float*>(gen + C::KV_BYTES + s * C::STAGE_BYTES + C::TILE_BYTES);
+    };
+
+    const int bh = blockIdx.x;
+    const int k0 = blockIdx.y * 64 * NWG;      // tile 0, which walks every q tile, first
+    const int nq = (t + BQ - 1) / BQ;
+    const int q_lo = causal ? k0 / BQ : 0;     // first q tile meeting the triangle
+    const int q_end = nq;
+
+    if (threadIdx.x == 0) {
+        mbar_init(kv_full, 1);
+        for (int s = 0; s < NST; ++s) {
+            mbar_init(full(s), 32);
+            mbar_init(empty(s), 128 * NWG);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wgi = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+    if (wgi == NWG) {
+        // producer: its first warp loads; lane 0 issues the TMA copies
+        if constexpr (NWG == 2) setmaxnreg_dec<40>();
+        if (threadIdx.x / 32 == 4 * NWG) {
+            if (lane == 0) {
+                mbar_arrive_expect_tx(kv_full, C::KV_BYTES);
+                for (int w = 0; w < NWG; ++w)
+                    for (int p = 0; p < NP; ++p) {
+                        tma_load_3d(k_s + (w * NP + p) * PANEL_BYTES, &tm_k, kv_full,
+                                    PANEL * p, k0 + 64 * w, bh);
+                        tma_load_3d(v_s + (w * NP + p) * PANEL_BYTES, &tm_v, kv_full,
+                                    PANEL * p, k0 + 64 * w, bh);
+                    }
+            }
+            for (int qt = q_lo; qt < q_end; ++qt) {
+                const int it = qt - q_lo, s = it % NST, q0 = qt * BQ;
+                if (it >= NST) mbar_wait(empty(s), (it / NST - 1) & 1);
+                float* rows = stage_rows(s);
+                for (int r = lane; r < BQ; r += 32) {
+                    const bool ok = q0 + r < t;
+                    rows[r] = ok ? lse[(size_t)bh * t + q0 + r] * LOG2E : 0.f;
+                    rows[BQ + r] = ok ? delta[(size_t)bh * t + q0 + r] : 0.f;
+                }
+                if (lane == 0) {
+                    mbar_arrive_expect_tx(full(s), C::TILE_BYTES);
+                    const uint32_t st = ring + s * C::STAGE_BYTES;
+                    for (int p = 0; p < NP; ++p) {
+                        tma_load_3d(st + p * PANEL_BYTES, &tm_q, full(s), PANEL * p, q0, bh);
+                        tma_load_3d(st + (NP + p) * PANEL_BYTES, &tm_do, full(s), PANEL * p, q0,
+                                    bh);
+                    }
+                } else {
+                    mbar_arrive(full(s));
+                }
+            }
+        }
+    } else {
+        // consumer warpgroup wgi: kv rows kv0 .. kv0 + 63
+        if constexpr (NWG == 2) setmaxnreg_inc<232>();
+        const int warp = (threadIdx.x % 128) / 32;
+        const int kv0 = k0 + 64 * wgi;
+        const int ra = kv0 + 16 * warp + lane / 4;           // this thread's kv rows: ra, ra + 8
+        const float sl2 = scale * LOG2E;
+        const float slope2 = slopes != nullptr ? slopes[bh % n_heads] * LOG2E : 0.f;
+        const uint32_t kw = k_s + wgi * NP * PANEL_BYTES, vw = v_s + wgi * NP * PANEL_BYTES;
+
+        float dk_acc[NP][32], dv_acc[NP][32];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
+
+        mbar_wait(kv_full, 0);
+        for (int qt = q_lo; qt < q_end; ++qt) {
+            const int it = qt - q_lo, s = it % NST, q0 = qt * BQ;
+            mbar_wait(full(s), (it / NST) & 1);
+            if (!causal || q0 + BQ - 1 >= kv0) {
+                const uint32_t qs = ring + s * C::STAGE_BYTES, dos = qs + NP * PANEL_BYTES;
+                float sc[32], dp[32];
+#pragma unroll
+                for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+                wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk) {
+                    const uint32_t off = (kk / 4) * PANEL_BYTES + 32 * (kk % 4);
+                    mma_ss<T, 0>(sc, desc(kw + off), desc(qs + off), kk > 0);
+                    mma_ss<T, 0>(dp, desc(vw + off), desc(dos + off), kk > 0);
+                }
+                wg_commit();
+                wg_wait0();
+                reg_fence(sc);
+                reg_fence(dp);
+
+                const float* rows = stage_rows(s);
+                const bool mask_causal = causal && q0 < kv0 + 64;   // the tile meets the diagonal
+                const bool ragged = q0 + BQ > t || kv0 + 64 > t;
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int qi = 8 * j + 2 * (lane % 4) + (e & 1);
+                        const int row = q0 + qi;                 // the query's position
+                        const int col = ra + 8 * (e >> 1);       // the key's position
+                        float x = sc[4 * j + e] * sl2;
+                        if (slopes != nullptr) x += slope2 * (float)(col - row);
+                        bool valid = !ragged || (row < t && col < t);
+                        if (mask_causal) valid = valid && col <= row;
+                        const float p = valid ? exp2f(x - rows[qi]) : 0.f;
+                        sc[4 * j + e] = p;
+                        dp[4 * j + e] = p * (dp[4 * j + e] - rows[BQ + qi]) * scale;
+                    }
+                uint32_t pa[4][4], dsa[4][4];
+                acc_to_afrag<T>(sc, pa);           // p rounded to do's dtype
+                acc_to_afrag<T>(dp, dsa);          // ds rounded to q's dtype
+                wg_fence();
+#pragma unroll
+                for (int p = 0; p < NP; ++p)
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk) {
+                        mma_rs<T, 1>(dv_acc[p], pa[kk], desc(dos + p * PANEL_BYTES + 2048 * kk));
+                        mma_rs<T, 1>(dk_acc[p], dsa[kk], desc(qs + p * PANEL_BYTES + 2048 * kk));
+                    }
+                wg_commit();
+                wg_wait0();
+#pragma unroll
+                for (int p = 0; p < NP; ++p) {
+                    reg_fence(dv_acc[p]);
+                    reg_fence(dk_acc[p]);
+                }
+            }
+            mbar_arrive(empty(s));
+        }
+
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int row = ra + 8 * i;
+            if (row < t) {
+                const size_t off = ((size_t)bh * t + row) * D;
+#pragma unroll
+                for (int p = 0; p < NP; ++p)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        const int c = PANEL * p + 8 * j + 2 * (lane % 4), a = 4 * j + 2 * i;
+                        *reinterpret_cast<uint32_t*>(dk + off + c) =
+                            pack2<T>(dk_acc[p][a], dk_acc[p][a + 1]);
+                        *reinterpret_cast<uint32_t*>(dv + off + c) =
+                            pack2<T>(dv_acc[p][a], dv_acc[p][a + 1]);
+                    }
+            }
+        }
+    }
+}
+
+// consumer warpgroups a block: two (128 kv rows) where that still gives every
+// SM at least two blocks, else one, from the sweep in
+// benchmarks/torch/qmm_versions.py; DS_FLASH_DKV_WG=1|2 at build time
+// forces one, for that sweep
+inline int dkv_warpgroups(int bh, int t) {
+#ifdef DS_FLASH_DKV_WG
+    return DS_FLASH_DKV_WG;
+#else
+    return (long long)bh * ((t + 127) / 128) >= 2 * 132 ? 2 : 1;
+#endif
+}
+
+template <typename T, int D, int NWG>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, const void* slopes, void* dk, void* dv,
+                   int bh, int t, int n_heads, float scale, int causal, cudaStream_t stream) {
+    using C = Cfg<D, NWG>;
+    constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+    CUtensorMap mq, mk, mv, mdo;
+    cudaError_t err;
+    if ((err = make_map_3d(&mq, q, bh, t, D, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mk, k, bh, t, D, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mv, v, bh, t, D, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mdo, dout, bh, t, D, bf16)) != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(wgmma_dkv<T, D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(bh, (t + 64 * NWG - 1) / (64 * NWG));
+    wgmma_dkv<T, D, NWG><<<grid, C::THREADS, C::SMEM, stream>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const float*>(slopes), static_cast<T*>(dk), static_cast<T*>(dv), t, n_heads,
+        scale, causal);
+    return cudaGetLastError();
+}
+
+}  // namespace wg
+
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, const void* slopes, void* dk,
                        void* dv, int bh, int t, int d, int n_heads, float scale, int causal,
                        cudaStream_t stream) {
-    if (d == 64)
-        return launch<T, 64>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t, n_heads, scale,
-                             causal, stream);
-    if (d == 128)
-        return launch<T, 128>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t, n_heads,
-                              scale, causal, stream);
+    if constexpr (std::is_same<T, float>::value) {
+        if (d == 64)
+            return launch<T, 64>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t, n_heads,
+                                 scale, causal, stream);
+        if (d == 128)
+            return launch<T, 128>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t, n_heads,
+                                  scale, causal, stream);
+    } else {
+        const bool two = wg::dkv_warpgroups(bh, t) == 2;
+        if (d == 64)
+            return two ? wg::launch<T, 64, 2>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t,
+                                              n_heads, scale, causal, stream)
+                       : wg::launch<T, 64, 1>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t,
+                                              n_heads, scale, causal, stream);
+        if (d == 128)
+            return two ? wg::launch<T, 128, 2>(q, k, v, dout, lse, delta, slopes, dk, dv, bh,
+                                               t, n_heads, scale, causal, stream)
+                       : wg::launch<T, 128, 1>(q, k, v, dout, lse, delta, slopes, dk, dv, bh,
+                                               t, n_heads, scale, causal, stream);
+    }
     return cudaErrorInvalidValue;
 }
 

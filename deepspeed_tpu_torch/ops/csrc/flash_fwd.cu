@@ -6,27 +6,53 @@
 // slope[h] * (col - row), and the f32 logsumexp that the backward reuses. The
 // (t x t) score matrix never reaches device memory.
 //
-// What bounds it on this card: causal attention does about 2*t*t*d operations
-// on 8*t*d bytes (bf16 q, k, v in, o out) per (batch, head), t/4 operations a
-// byte. At the serving prefill's t = 512 that is 128, below the ~295 bf16
-// operations a byte where the H100's tensor cores become the limit, so
-// device-memory bytes bound it; from t of about 1200 up, the operations do.
-// This first version does its products on the CUDA cores in f32 (bf16 inputs
-// are widened as they are staged into shared memory), so it runs far from
-// either bound; wgmma, TMA and warp specialisation are later work. What the
-// design does keep: each block stages one q tile and streams K/V tiles
-// through shared memory, so the score matrix stays on chip, and under
-// `causal` a block stops at the diagonal tile, halving the work.
+// What bounds it on this card: causal attention does 4*d operations a causal
+// (row, col) pair on 8*t*d bytes (q, k, v in, o out) per (batch, head), about
+// t/4 operations a byte. At the serving prefill's t = 512 that is 128, below
+// the ~295 bf16 operations a byte where the H100's tensor cores become the
+// limit, so device-memory bytes bound it; from t of about 1200 up, the
+// operations do. Either bound is out of reach of the CUDA cores: at the
+// training shape the products alone take 0.58 ms at their 67 TFLOP/s.
 //
-// Layout of one block (256 threads, one 64-row q tile of one (batch, head)):
-// thread (ty, tx) = (tid / 16, tid % 16) owns rows 4*ty .. 4*ty+3 of the tile;
-// of each 64-column score tile it computes columns tx + 16*j, and of the
-// output columns tx + 16*c. The 16 threads of a row group sit in one half
-// warp, so row maxima and sums are shuffles. Numerics follow the TPU kernel:
-// scores in f32, masked entries set to -1e30, P rounded to the input dtype
-// before the PV product, f32 accumulator, a row with l == 0 divided by 1.
-// Rows and columns past t (a ragged last tile) are masked here, so any t works.
+// bf16 and fp16 (the kernel wgmma_fwd below) run both products on the tensor
+// cores, as the TPU kernel runs them on its MXU: 16-bit inputs, f32 sums.
+// - A block owns 64 q rows per consumer warpgroup (one or two, picked by
+//   shape in fwd_warpgroups) of one (b*h), plus one producer warpgroup.
+// - The producer's first thread loads the q tile once by TMA, then streams
+//   64-row K and V tiles by TMA through a ring of stages, each with a full and
+//   an empty mbarrier; with two consumer warpgroups at d 64, setmaxnreg
+//   moves the producer's registers to the consumers.
+// - S = Q K^T is one wgmma chain from shared memory (K's rows are K-major for
+//   the B operand). The online softmax runs on the f32 accumulator fragments
+//   in registers; a row's max and sum are reduced across the four lanes that
+//   share it. The scale, ALiBi bias and -1e30 mask are applied as in
+//   _fwd_kernel, the mask only on tiles that meet the diagonal or t.
+// - P is rounded to the input dtype in registers (the TPU kernel's rounding,
+//   flash.py:141) and is the register A operand of O += P V, V being the
+//   MN-major B operand (the transpose bit), so P never touches shared memory.
+// - The epilogue divides by l (a row with l == 0 by 1) and writes o and the
+//   f32 lse = m + log l. Under `causal` a block stops at its diagonal tile, a
+//   warpgroup skips tiles wholly right of its rows, and blocks start with
+//   the longest q tiles so the triangle's short tail fills the last wave.
+// - Tiles are 3-D TMA boxes of (d, t, b*h), so a box past t is zero-filled
+//   and never reads the next head's rows; o is stored row by row up to t.
+//
+// float32 keeps the first version's kernel (flash_fwd_kernel) on the CUDA
+// cores: wgmma's only f32 input type is TF32, which keeps ~10 mantissa bits,
+// while the TPU kernel takes f32 products in full f32. The choice between the
+// two is by dtype alone.
+//
+// First version's layout (float32; 256 threads, one 64-row q tile of one
+// (batch, head)): thread (ty, tx) = (tid / 16, tid % 16) owns rows 4*ty ..
+// 4*ty+3 of the tile; of each 64-column score tile it computes columns
+// tx + 16*j, and of the output columns tx + 16*c. The 16 threads of a row
+// group sit in one half warp, so row maxima and sums are shuffles. Numerics
+// of both kernels follow the TPU kernel: scores in f32, masked entries set to
+// -1e30, P rounded to the input dtype before the PV product, f32 accumulator,
+// a row with l == 0 divided by 1. Rows and columns past t are masked, so any
+// t works.
 
+#include "hopper.cuh"
 #include "common.cuh"
 
 namespace {
@@ -214,14 +240,248 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* slop
     return cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16 / fp16: wgmma and TMA
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int BK = 64;          // k/v rows per tile
+
+template <int D, int NWG>
+struct Cfg {
+    static constexpr int NP = D / PANEL;                      // 64-column panels of a row
+    static constexpr int NST = D == 64 ? 3 : 2;               // stages of the K/V ring
+    static constexpr int THREADS = 128 * (NWG + 1);
+    static constexpr int Q_BYTES = NWG * NP * PANEL_BYTES;
+    static constexpr int STAGE_BYTES = 2 * NP * PANEL_BYTES;  // K panels, then V panels
+    // 1024 bytes of slack to align the tiles, then q, the ring, the barriers
+    static constexpr size_t SMEM = 1024 + Q_BYTES + NST * STAGE_BYTES + 8 * (1 + 2 * NST);
+};
+
+template <typename T, int D, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), (NWG == 1 && D == 64) ? 2 : 1)
+wgmma_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ slopes,
+          T* __restrict__ o, float* __restrict__ lse, int t, int n_heads, float scale,
+          int causal) {
+    using C = Cfg<D, NWG>;
+    constexpr int NP = C::NP, NST = C::NST;
+    // setmaxnreg where it paid in the sweep: d 64 with two consumer warpgroups
+    // (3 % at the training shape); at d 128 it cost 5 %
+    constexpr bool REBALANCE = NWG == 2 && D == 64;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+    const uint32_t ring = q_s + C::Q_BYTES;
+    const uint32_t q_full = ring + NST * C::STAGE_BYTES;     // then full[NST], empty[NST]
+    auto full = [&](int s) { return q_full + 8 * (1 + s); };
+    auto empty = [&](int s) { return q_full + 8 * (1 + NST + s); };
+
+    const int bh = blockIdx.x;
+    const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;   // longest first
+    const int q0 = tile * 64 * NWG;
+    int nk = (t + BK - 1) / BK;
+    if (causal) nk = min(nk, (q0 + 64 * NWG - 1) / BK + 1);   // stop at the diagonal tile
+
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < NST; ++s) {
+            mbar_init(full(s), 1);
+            mbar_init(empty(s), 128 * NWG);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wgi = threadIdx.x / 128;
+    if (wgi == NWG) {
+        // producer: one thread issues every load
+        if constexpr (REBALANCE) setmaxnreg_dec<40>();
+        if (threadIdx.x == 128 * NWG) {
+            mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+            for (int w = 0; w < NWG; ++w)
+                for (int p = 0; p < NP; ++p)
+                    tma_load_3d(q_s + (w * NP + p) * PANEL_BYTES, &tm_q, q_full, PANEL * p,
+                                q0 + 64 * w, bh);
+            for (int kt = 0; kt < nk; ++kt) {
+                const int s = kt % NST;
+                if (kt >= NST) mbar_wait(empty(s), (kt / NST - 1) & 1);
+                mbar_arrive_expect_tx(full(s), C::STAGE_BYTES);
+                const uint32_t st = ring + s * C::STAGE_BYTES;
+                for (int p = 0; p < NP; ++p) {
+                    tma_load_3d(st + p * PANEL_BYTES, &tm_k, full(s), PANEL * p, kt * BK, bh);
+                    tma_load_3d(st + (NP + p) * PANEL_BYTES, &tm_v, full(s), PANEL * p, kt * BK,
+                                bh);
+                }
+            }
+        }
+    } else {
+        // consumer warpgroup wgi: q rows row0 .. row0 + 63
+        if constexpr (REBALANCE) setmaxnreg_inc<232>();
+        const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+        const int row0 = q0 + 64 * wgi;
+        const int ra = row0 + 16 * warp + lane / 4;          // this thread's rows: ra, ra + 8
+        const float sl2 = scale * LOG2E;                     // scores in log2 units
+        const float slope2 = slopes != nullptr ? slopes[bh % n_heads] * LOG2E : 0.f;
+        const uint32_t qw = q_s + wgi * NP * PANEL_BYTES;
+
+        float acc[NP][32];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+        float m[2] = {DS_NEG_INF, DS_NEG_INF}, l[2] = {0.f, 0.f};
+
+        mbar_wait(q_full, 0);
+        for (int kt = 0; kt < nk; ++kt) {
+            const int s = kt % NST;
+            const int k0 = kt * BK;
+            mbar_wait(full(s), (kt / NST) & 1);
+            if (!causal || k0 <= row0 + 63) {
+                const uint32_t ks = ring + s * C::STAGE_BYTES, vs = ks + NP * PANEL_BYTES;
+                float sc[32];
+#pragma unroll
+                for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+                wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk) {
+                    const uint32_t off = (kk / 4) * PANEL_BYTES + 32 * (kk % 4);
+                    mma_ss<T, 0>(sc, desc(qw + off), desc(ks + off), kk > 0);
+                }
+                wg_commit();
+                wg_wait0();
+                reg_fence(sc);
+
+                const bool need_mask = (causal && k0 + BK - 1 > row0) || k0 + BK > t;
+                float mx[2] = {DS_NEG_INF, DS_NEG_INF};
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int col = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+                        const int row = ra + 8 * (e >> 1);
+                        float x = sc[4 * j + e] * sl2;
+                        if (slopes != nullptr) x += slope2 * (float)(col - row);
+                        if (need_mask && (col >= t || (causal && col > row))) x = DS_NEG_INF;
+                        sc[4 * j + e] = x;
+                        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+                    }
+                float alpha[2];
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                    const float m_new = fmaxf(m[i], mx[i]);
+                    alpha[i] = exp2f(m[i] - m_new);
+                    m[i] = m_new;
+                    l[i] *= alpha[i];
+                }
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                    const float p = exp2f(sc[i] - m[(i >> 1) & 1]);
+                    l[(i >> 1) & 1] += p;          // this thread's share of the row sum
+                    sc[i] = p;
+                }
+                uint32_t pa[4][4];
+                acc_to_afrag<T>(sc, pa);           // P rounded to T
+#pragma unroll
+                for (int p = 0; p < NP; ++p)
+#pragma unroll
+                    for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
+                wg_fence();
+#pragma unroll
+                for (int p = 0; p < NP; ++p)
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk)
+                        mma_rs<T, 1>(acc[p], pa[kk], desc(vs + p * PANEL_BYTES + 2048 * kk));
+                wg_commit();
+                wg_wait0();
+#pragma unroll
+                for (int p = 0; p < NP; ++p) reg_fence(acc[p]);
+            }
+            mbar_arrive(empty(s));
+        }
+
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+            l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+            const int row = ra + 8 * i;
+            if (row < t) {
+                const float l_safe = l[i] > 0.f ? l[i] : 1.f;
+                T* orow = o + ((size_t)bh * t + row) * D;
+#pragma unroll
+                for (int p = 0; p < NP; ++p)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        const float lo = acc[p][4 * j + 2 * i] / l_safe;
+                        const float hi = acc[p][4 * j + 2 * i + 1] / l_safe;
+                        *reinterpret_cast<uint32_t*>(orow + PANEL * p + 8 * j + 2 * (lane % 4)) =
+                            pack2<T>(lo, hi);
+                    }
+                if (lane % 4 == 0) lse[(size_t)bh * t + row] = m[i] * LN2 + logf(l_safe);
+            }
+        }
+    }
+}
+
+// consumer warpgroups a block: two (128 q rows) where that leaves at least two
+// blocks an SM, else one (64 rows, two blocks an SM at d 64), from the sweep in
+// benchmarks/torch/qmm_versions.py; DS_FLASH_FWD_WG=1|2 at build time
+// forces one, for that sweep
+inline int fwd_warpgroups(int bh, int t) {
+#ifdef DS_FLASH_FWD_WG
+    return DS_FLASH_FWD_WG;
+#else
+    return (long long)bh * ((t + 127) / 128) >= 2 * 132 ? 2 : 1;
+#endif
+}
+
+template <typename T, int D, int NWG>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* slopes, void* o,
+                   void* lse, int bh, int t, int n_heads, float scale, int causal,
+                   cudaStream_t stream) {
+    using C = Cfg<D, NWG>;
+    constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+    CUtensorMap mq, mk, mv;
+    cudaError_t err;
+    if ((err = make_map_3d(&mq, q, bh, t, D, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mk, k, bh, t, D, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mv, v, bh, t, D, bf16)) != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(wgmma_fwd<T, D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(bh, (t + 64 * NWG - 1) / (64 * NWG));
+    wgmma_fwd<T, D, NWG><<<grid, C::THREADS, C::SMEM, stream>>>(
+        mq, mk, mv, static_cast<const float*>(slopes), static_cast<T*>(o),
+        static_cast<float*>(lse), t, n_heads, scale, causal);
+    return cudaGetLastError();
+}
+
+}  // namespace wg
+
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* slopes, void* o,
                        void* lse, int bh, int t, int d, int n_heads, float scale, int causal,
                        cudaStream_t stream) {
-    if (d == 64)
-        return launch<T, 64>(q, k, v, slopes, o, lse, bh, t, n_heads, scale, causal, stream);
-    if (d == 128)
-        return launch<T, 128>(q, k, v, slopes, o, lse, bh, t, n_heads, scale, causal, stream);
+    if constexpr (std::is_same<T, float>::value) {
+        if (d == 64)
+            return launch<T, 64>(q, k, v, slopes, o, lse, bh, t, n_heads, scale, causal, stream);
+        if (d == 128)
+            return launch<T, 128>(q, k, v, slopes, o, lse, bh, t, n_heads, scale, causal, stream);
+    } else {
+        const bool two = wg::fwd_warpgroups(bh, t) == 2;
+        if (d == 64)
+            return two ? wg::launch<T, 64, 2>(q, k, v, slopes, o, lse, bh, t, n_heads, scale,
+                                              causal, stream)
+                       : wg::launch<T, 64, 1>(q, k, v, slopes, o, lse, bh, t, n_heads, scale,
+                                              causal, stream);
+        if (d == 128)
+            return two ? wg::launch<T, 128, 2>(q, k, v, slopes, o, lse, bh, t, n_heads, scale,
+                                               causal, stream)
+                       : wg::launch<T, 128, 1>(q, k, v, slopes, o, lse, bh, t, n_heads, scale,
+                                               causal, stream);
+    }
     return cudaErrorInvalidValue;
 }
 

@@ -116,6 +116,8 @@ DECODE_TOLERANCES = {torch.bfloat16: (1e-5, 8e-3), torch.float16: (1e-5, 1e-3),
 BWD_TOLERANCES = {torch.bfloat16: (2e-3, 1.6e-2), torch.float16: (2.5e-4, 2e-3),
                   torch.float32: (2e-6, 2e-5)}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+#: the kernels whose bf16/fp16 paths run wgmma with TMA loads (f32: the CUDA cores)
+WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dkv")
 BS_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 FWD_KERNELS = ("flash_fwd", "block_sparse_fwd")      # (o, f32 lse)
 LSE_TOLERANCE = 1e-3        # f32 logsumexp; sums of exp in another order
@@ -240,6 +242,14 @@ CASES: List[Case] = [
     Case(kernel, "fp32", dict(b=2, t=1024, h=4, d=64), torch.float32),
     Case(kernel, "fp16-full-d128", dict(b=2, t=300, h=4, d=128), torch.float16,
          causal=False),
+)] + [c for kernel in WGMMA_KERNELS for c in (
+    # the wgmma kernels' tilings: 64-row tiles, blocks of 64 or 128 rows, a
+    # ring of K/V (q/do) stages. A t shorter than one tile, a t one tile and
+    # two rows long, a causal walk that wraps the ring many times, fp16 causal.
+    Case(kernel, "t40", dict(b=2, t=40, h=4, d=64), torch.bfloat16),
+    Case(kernel, "t130-d128", dict(b=2, t=130, h=4, d=128), torch.bfloat16),
+    Case(kernel, "long-t4096", dict(b=1, t=4096, h=4, d=64), torch.bfloat16),
+    Case(kernel, "fp16-causal", dict(b=2, t=1024, h=4, d=64), torch.float16),
 )] + [
     # weight-quantized serving: BLOOM-7B (n_embd 4096, ffn 16,384, group 128)
     # decode at batch 1 and prefill of 512 tokens, then GPT-2 125M decode over
@@ -312,6 +322,23 @@ CASES: List[Case] = [
     Case(kernel, "hand-made-empty-past-diagonal", dict(b=2, t=256, h=2, d=64),
          torch.bfloat16, layout=("hand-made", dict(block=16))),
 )]
+
+
+def case_tags(case: Case) -> set:
+    """The tags a selector ``"kernel:tag:..."`` can name: the case's dtype
+    (``bfloat16``, ``float16``, ``float32``), ``causal`` or ``full``, and
+    ``int8`` or ``int4`` for the dequant-GEMM."""
+    tags = {str(case.dtype).split(".")[-1], "causal" if case.causal else "full"}
+    if "bits" in case.dims:
+        tags.add(f"int{case.dims['bits']}")
+    return tags
+
+
+def selects(selector: str, case: Case) -> bool:
+    """``"kernel"`` selects every case of that kernel, ``"kernel:tag:..."``
+    those that carry every tag (:func:`case_tags`)."""
+    kernel, *tags = selector.split(":")
+    return case.kernel == kernel and set(tags) <= case_tags(case)
 
 
 def hand_made_layout(h: int, t: int, block: int) -> np.ndarray:

@@ -39,7 +39,7 @@ def _qkv(seed, b, t, h, d):
 @pytest.mark.parametrize("alibi", [False, True])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [16, 64])
-@pytest.mark.parametrize("t", [64, 100, 128])
+@pytest.mark.parametrize("t", [40, 64, 100, 128, 130])
 def test_flash_plain_matches_jax(t, d, causal, alibi):
     b, h = 2, 2
     q, k, v = _qkv(t * d, b, t, h, d)

@@ -56,7 +56,9 @@ def _from3(x: torch.Tensor, t: int) -> np.ndarray:
 # compile on each of 32
 CASES = [(128, 64, True, False, "float32"), (128, 64, True, False, "bfloat16"),
          (128, 128, False, True, "float32"), (200, 64, False, True, "float32"),
-         (200, 128, True, True, "bfloat16"), (200, 128, False, False, "bfloat16")]
+         (200, 128, True, True, "bfloat16"), (200, 128, False, False, "bfloat16"),
+         # shorter than one of the card kernels' 64-row tiles, and one tile and two rows
+         (40, 64, True, False, "bfloat16"), (130, 128, True, True, "bfloat16")]
 
 
 @pytest.mark.parametrize("t,d,causal,alibi,dtype", CASES)

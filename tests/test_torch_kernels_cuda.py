@@ -2,7 +2,8 @@
 
 Runs the cases of ``deepspeed_tpu_torch/ops/kernel_checks.py`` (shapes and
 tolerances shared with ``chip_smoke.py``). The kernels have no CPU mode, so
-without a CUDA card each case skips. This file imports no JAX, so it also
+without a CUDA card each case skips; only the registry of planted faults is
+checked against the sources everywhere. This file imports no JAX, so it also
 runs on the card's machine, which has none; there ``tests/conftest.py``
 (which imports JAX) is left out:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py``.
@@ -309,8 +310,10 @@ def test_block_sparse_refuses_unsupported_shapes_on_card():
 
 
 #: faults planted in a copy of the package: name -> (source in csrc/, line as
-#: written, line as planted, the check cases the fault must fail: every case
-#: of a kernel named, or of "kernel:int4" its int4 cases only)
+#: written, line as planted, the check cases the fault must fail, as
+#: selectors of ``kernel_checks.selects``: "kernel" every case of a kernel,
+#: "kernel:tag:..." its cases with every tag, e.g. "quantized_matmul:int4" or
+#: "flash_bwd_dkv:bfloat16:causal")
 PLANTED_FAULTS = {
     "decode-skips-last-tile": (
         "decode_attention.cu",
@@ -326,7 +329,22 @@ PLANTED_FAULTS = {
         "flash_fwd.cu",
         "o[off + tx + 16 * c] = from_f32<T>(acc[i][c] / l_safe);",
         "o[off + tx + 16 * c] = from_f32<T>(1.05f * acc[i][c] / l_safe);",
-        ("flash_fwd",)),
+        ("flash_fwd:float32",)),
+    "flash-fwd-wgmma-o-5pct-high": (
+        "flash_fwd.cu",
+        "pack2<T>(lo, hi);",
+        "pack2<T>(1.05f * lo, 1.05f * hi);",
+        ("flash_fwd:bfloat16", "flash_fwd:float16")),
+    "flash-dkv-drops-last-q-tile": (
+        "flash_bwd_dkv.cu",
+        "const int q_end = nq;",
+        "const int q_end = nq - 1;",
+        ("flash_bwd_dkv:bfloat16", "flash_bwd_dkv:float16")),
+    "flash-dkv-skips-diagonal-mask": (
+        "flash_bwd_dkv.cu",
+        "const bool mask_causal = causal && q0 < kv0 + 64;",
+        "const bool mask_causal = false;",
+        ("flash_bwd_dkv:bfloat16:causal", "flash_bwd_dkv:float16:causal")),
     "decode-o-5pct-high": (
         "decode_core.cuh",
         "out[e] = from_f32<T>(acc[e] / (lj > 0.f ? lj : 1.f));",
@@ -378,7 +396,7 @@ from deepspeed_tpu_torch.ops import kernel_checks as kc
 print(json.dumps({"module": kc.__file__}), flush=True)
 dev = torch.device("cuda", 0)
 for case in kc.CASES:
-    if not {case.kernel, f"{case.kernel}:int{case.dims.get('bits')}"} & set(sys.argv[1:]):
+    if not any(kc.selects(sel, case) for sel in sys.argv[1:]):
         continue
     inp = kc.make_inputs(case, dev)
     out, ref = kc.run_kernel(case, inp), kc.run_plain(case, inp)
@@ -419,3 +437,79 @@ def test_kernel_checks_fail_planted_fault(fault):
     for row in rows:
         print(f"[fault] {fault} {row['case']}: err/limit {row['err_ratio']:.4g}")
     assert all(row["err_ratio"] > 1.0 for row in rows), rows
+
+
+@pytest.mark.parametrize("fault", sorted(PLANTED_FAULTS))
+def test_planted_fault_line_and_cases(fault):
+    """Without a card: each planted fault's line stands exactly once in its
+    source, and its selectors name at least one check case each, so the card
+    test above plants what it says and checks something."""
+    source, line, _, selectors = PLANTED_FAULTS[fault]
+    with open(os.path.join(REPO, "deepspeed_tpu_torch", "ops", "csrc", source)) as f:
+        assert f.read().count(line) == 1, f"the line to plant is not once in {source}: {line}"
+    for sel in selectors:
+        assert any(kernel_checks.selects(sel, c) for c in kernel_checks.CASES), sel
+
+
+def test_case_selectors():
+    """``kernel_checks.selects`` picks by kernel and by every tag given."""
+    names = {sel: sorted(c.name for c in kernel_checks.CASES if kernel_checks.selects(sel, c))
+             for sel in ("flash_fwd:float32", "flash_bwd_dkv:float16:full",
+                         "quantized_matmul:int4:float32")}
+    assert names == {"flash_fwd:float32": ["fp32"],
+                     "flash_bwd_dkv:float16:full": ["fp16-full-d128"],
+                     "quantized_matmul:int4:float32": []}
+    every = [c for c in kernel_checks.CASES if kernel_checks.selects("flash_fwd", c)]
+    assert every and all(c.kernel == "flash_fwd" for c in every)
+
+
+def _wgmma_libraries():
+    """Builds K1's and K4's sources; their libraries' paths."""
+    from deepspeed_tpu_torch.ops import op_builder
+    sources = [op_builder.KERNELS[k].source for k in kernel_checks.WGMMA_KERNELS]
+    op_builder.build(sources)
+    return {src: op_builder._library_path(src) for src in sources}
+
+
+def test_wgmma_kernels_issue_hgmma_and_tma_loads():
+    """The bf16/fp16 kernels of K1 and K4 run on the tensor cores through
+    wgmma, fed by TMA: in the SASS of every ``wgmma_*`` function (2 dtypes x 2
+    head dims x 1 or 2 consumer warpgroups) stand HGMMA and UTMALDG; the
+    first version's f32 kernels, beside them, have neither."""
+    _card()
+    from deepspeed_tpu_torch.ops import op_builder
+    cuobjdump = os.path.join(os.path.dirname(op_builder._nvcc()), "cuobjdump")
+    for src, lib in _wgmma_libraries().items():
+        sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                              check=True).stdout
+        functions = sass.split("Function : ")[1:]
+        wgmma = [f for f in functions if "wgmma_" in f.splitlines()[0]]
+        others = [f for f in functions if "wgmma_" not in f.splitlines()[0]]
+        assert len(wgmma) == 8, (src, [f.splitlines()[0] for f in functions])
+        assert all("HGMMA" in f and "UTMALDG" in f for f in wgmma), src
+        assert others and not any("HGMMA" in f or "UTMALDG" in f for f in others), src
+
+
+def test_wgmma_main_path_instantiations_do_not_spill():
+    """``-Xptxas -v`` of K1 and K4: the instantiations the main paths run
+    (bf16, head dim 64, one and two consumer warpgroups) spill nothing."""
+    _card()
+    from deepspeed_tpu_torch.ops import op_builder
+    out_dir = os.path.join(REPO, "build", "ptxas_check")
+    os.makedirs(out_dir, exist_ok=True)
+    for src in _wgmma_libraries():
+        proc = subprocess.run([op_builder._nvcc(), *op_builder.NVCC_FLAGS, "-Xptxas", "-v",
+                               "-o", os.path.join(out_dir, src + ".so"),
+                               os.path.join(op_builder.CSRC_DIR, src)],
+                              capture_output=True, text=True, check=True)
+        spills, entry = {}, None
+        for line in (proc.stdout + proc.stderr).splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill stores" in line and entry is not None:
+                spills[entry] = line.split(":", 1)[-1].strip()
+        main = {e: v for e, v in spills.items() if "wgmma_" in e and "13__nv_bfloat16Li64E" in e}
+        assert len(main) == 2, (src, list(spills))
+        for e, v in main.items():
+            print(f"[ptxas] {src} {e[:90]}: {v}")
+            assert "0 bytes spill stores, 0 bytes spill loads" in v, (e, v)
