@@ -709,16 +709,19 @@ def train_path(device, smi: str):
                                 "TFLOP/s)")
     out["mfu"] = mfu(out["tokens_per_s"])
     if out["trace"] is not None:
-        # the traced step's device time in K1 and K4 (their 16-bit kernels are
-        # wgmma_fwd and wgmma_dkv, the f32 ones flash_fwd_kernel and
-        # flash_bwd_dkv_kernel)
+        # the traced step's device time in K1, K3 and K4 (their 16-bit kernels
+        # are wgmma_fwd, wgmma_dq and wgmma_dkv, the f32 ones flash_fwd_kernel,
+        # flash_bwd_dq_kernel and flash_bwd_dkv_kernel)
         by_kernel = out["trace"]["by_kernel"]
         ms = {name: sum(us for key, us in by_kernel.items() if any(k in key for k in keys)) / 1e3
               for name, keys in (("flash_fwd", ("wgmma_fwd", "flash_fwd_kernel")),
+                                 ("flash_bwd_dq", ("wgmma_dq", "flash_bwd_dq_kernel")),
                                  ("flash_bwd_dkv", ("wgmma_dkv", "flash_bwd_dkv_kernel")))}
         out["k1_k4_traced_ms"] = ms["flash_fwd"] + ms["flash_bwd_dkv"]
+        out["k3_traced_ms"] = ms["flash_bwd_dq"]
         print(f"[train] traced step: K1 {ms['flash_fwd']:.3f} ms + K4 {ms['flash_bwd_dkv']:.3f} "
-              f"ms = {out['k1_k4_traced_ms']:.3f} ms of device time", flush=True)
+              f"ms = {out['k1_k4_traced_ms']:.3f} ms; K3 {ms['flash_bwd_dq']:.3f} ms of device "
+              f"time", flush=True)
     return out
 
 
@@ -1232,7 +1235,8 @@ def main() -> int:
         "train_path": {k: train[k] for k in ("step_ms", "tokens_per_s", "mfu",
                                              "peak_memory_bytes", "first_loss", "last_loss",
                                              "grad_rel_err_max", "loss_err",
-                                             "k1_k4_traced_ms") if k in train},
+                                             "k1_k4_traced_ms", "k3_traced_ms")
+                       if k in train},
         "sparse_train_path": {k: v for k, v in sparse.items() if k not in ("launches", "trace")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -45,7 +45,13 @@ kernel that is wrong by 20 % on most rows.
   orders, and ds is rounded to the input dtype before its products, where a
   different f32 sum can flip that rounding by an ulp. bfloat16 (2e-3,
   1.6e-2): rtol is 2 bf16 ulps of the value; atol covers values near 0,
-  where a flipped ds rounding moves a sum by more than its own ulps.
+  where a flipped rounding of a small ds moves a sum by more than its own
+  ulps. It does not cover a flipped large ds: at the training shape one ds
+  of 0.13 lies within two f32 ulps of a bf16 halfway point, and its flip moves
+  dq by 2.8e-3 (|k| 2.8) where |dq| is 0.02. So the dq kernel's
+  tensor-core path rounds such a ds from its in-order f32 value
+  (``csrc/flash_bwd_dq.cu``), the value of the kernel's first version,
+  whose dq matched this plain version's bit for bit at d 64.
   float16 (2.5e-4, 2e-3): the same two ulps and atol at fp16's 11 bits.
   float32 (2e-6, 2e-5): f32 sums of up to t = 1024 terms in other orders,
   with p = exp(s - lse) moving with s's last bits.
@@ -117,7 +123,7 @@ BWD_TOLERANCES = {torch.bfloat16: (2e-3, 1.6e-2), torch.float16: (2.5e-4, 2e-3),
                   torch.float32: (2e-6, 2e-5)}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 #: the kernels whose bf16/fp16 paths run wgmma with TMA loads (f32: the CUDA cores)
-WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BS_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 FWD_KERNELS = ("flash_fwd", "block_sparse_fwd")      # (o, f32 lse)
 LSE_TOLERANCE = 1e-3        # f32 logsumexp; sums of exp in another order
@@ -244,7 +250,7 @@ CASES: List[Case] = [
          causal=False),
 )] + [c for kernel in WGMMA_KERNELS for c in (
     # the wgmma kernels' tilings: 64-row tiles, blocks of 64 or 128 rows, a
-    # ring of K/V (q/do) stages. A t shorter than one tile, a t one tile and
+    # ring of K/V (K1, K3) or q/do (K4) stages. A t shorter than one tile, a t one tile and
     # two rows long, a causal walk that wraps the ring many times, fp16 causal.
     Case(kernel, "t40", dict(b=2, t=40, h=4, d=64), torch.bfloat16),
     Case(kernel, "t130-d128", dict(b=2, t=130, h=4, d=128), torch.bfloat16),

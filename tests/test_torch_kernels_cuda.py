@@ -335,6 +335,26 @@ PLANTED_FAULTS = {
         "pack2<T>(lo, hi);",
         "pack2<T>(1.05f * lo, 1.05f * hi);",
         ("flash_fwd:bfloat16", "flash_fwd:float16")),
+    "flash-dq-f32-5pct-high": (
+        "flash_bwd_dq.cu",
+        "dq[off + tx + 16 * c] = from_f32<T>(acc[i][c]);",
+        "dq[off + tx + 16 * c] = from_f32<T>(1.05f * acc[i][c]);",
+        ("flash_bwd_dq:float32",)),
+    "flash-dq-wgmma-5pct-high": (
+        "flash_bwd_dq.cu",
+        "pack2<T>(acc[p][a], acc[p][a + 1]);",
+        "pack2<T>(1.05f * acc[p][a], 1.05f * acc[p][a + 1]);",
+        ("flash_bwd_dq:bfloat16", "flash_bwd_dq:float16")),
+    "flash-dq-drops-last-kv-tile": (
+        "flash_bwd_dq.cu",
+        "const int nk_all = (t + BK - 1) / BK;",
+        "const int nk_all = (t + BK - 1) / BK - 1;",
+        ("flash_bwd_dq:bfloat16", "flash_bwd_dq:float16")),
+    "flash-dq-skips-diagonal-mask": (
+        "flash_bwd_dq.cu",
+        "const bool mask_causal = causal && k0 + BK - 1 > row0;",
+        "const bool mask_causal = false;",
+        ("flash_bwd_dq:bfloat16:causal", "flash_bwd_dq:float16:causal")),
     "flash-dkv-drops-last-q-tile": (
         "flash_bwd_dkv.cu",
         "const int q_end = nq;",
@@ -464,7 +484,7 @@ def test_case_selectors():
 
 
 def _wgmma_libraries():
-    """Builds K1's and K4's sources; their libraries' paths."""
+    """Builds K1's, K3's and K4's sources; their libraries' paths."""
     from deepspeed_tpu_torch.ops import op_builder
     sources = [op_builder.KERNELS[k].source for k in kernel_checks.WGMMA_KERNELS]
     op_builder.build(sources)
@@ -472,7 +492,7 @@ def _wgmma_libraries():
 
 
 def test_wgmma_kernels_issue_hgmma_and_tma_loads():
-    """The bf16/fp16 kernels of K1 and K4 run on the tensor cores through
+    """The bf16/fp16 kernels of K1, K3 and K4 run on the tensor cores through
     wgmma, fed by TMA: in the SASS of every ``wgmma_*`` function (2 dtypes x 2
     head dims x 1 or 2 consumer warpgroups) stand HGMMA and UTMALDG; the
     first version's f32 kernels, beside them, have neither."""
@@ -491,7 +511,7 @@ def test_wgmma_kernels_issue_hgmma_and_tma_loads():
 
 
 def test_wgmma_main_path_instantiations_do_not_spill():
-    """``-Xptxas -v`` of K1 and K4: the instantiations the main paths run
+    """``-Xptxas -v`` of K1, K3 and K4: the instantiations the main paths run
     (bf16, head dim 64, one and two consumer warpgroups) spill nothing."""
     _card()
     from deepspeed_tpu_torch.ops import op_builder
