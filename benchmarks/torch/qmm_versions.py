@@ -4,19 +4,23 @@
     git show <commit>:deepspeed_tpu_torch/ops/csrc/<kernel>.cu > build/<kernel>_old.cu
     python3 benchmarks/torch/qmm_versions.py <kernel> [build/<kernel>_old.cu]
 
-``<kernel>`` is ``quantized_matmul``, ``flash_fwd``, ``flash_bwd_dq`` or
-``flash_bwd_dkv``.
+``<kernel>`` is ``quantized_matmul``, ``flash_fwd``, ``flash_bwd_dq``,
+``flash_bwd_dkv`` or ``block_sparse_fwd``.
 Builds the checkout's ``ops/csrc/<kernel>.cu`` and the old source (same flags
-and C interface, ``-I`` the checkout's ``csrc/`` for its headers), prints each
-build's ptxas register and spill counts, then for every case of that kernel in
-``ops/kernel_checks.py``: both versions' err/limit against the plain version
-and their times (old, new, new, old; ``chip_smoke.time_ms``), beside the
-library yardstick and the bound. For the flash kernels it also builds the new
-source with each block tiling forced (``-DDS_FLASH_FWD_WG=1|2``,
-``-DDS_FLASH_DQ_WG=1|2``, ``-DDS_FLASH_DKV_WG=1|2``: one or two consumer
-warpgroups a block) and times each on the 16-bit cases, the sweep behind
-``fwd_warpgroups``, ``dq_warpgroups`` and ``dkv_warpgroups``, and once more
-without the producer/consumer register rebalancing (``-DDS_NO_SETMAXNREG``).
+and C interface, ``-I`` the checkout's ``csrc/`` for its headers; for
+``block_sparse_fwd`` the old source's C entry is the first version's, without
+tile tables, ``OLD_ARGTYPES``), prints each build's ptxas register and spill
+counts, then for every case of that kernel in ``ops/kernel_checks.py``: both
+versions' err/limit against the plain version and their times (old, new, new,
+old; ``chip_smoke.time_ms``), beside the library yardstick and the bound. For
+the wgmma kernels it also builds the new source with each block tiling forced
+(``-DDS_FLASH_FWD_WG=1|2``, ``-DDS_FLASH_DQ_WG=1|2``, ``-DDS_FLASH_DKV_WG=1|2``,
+``-DDS_BS_FWD_WG=1|2``: one or two consumer warpgroups a block) and times each
+on the 16-bit cases, the sweep behind ``fwd_warpgroups``, ``dq_warpgroups``,
+``dkv_warpgroups`` and ``bs_fwd_warpgroups``, and once more without the
+producer/consumer register rebalancing (``-DDS_NO_SETMAXNREG``). A
+block-sparse build is given the tile tables its own rule asks for, built
+before the timing.
 For ``flash_bwd_dq`` it also builds the new source without its near-tie
 recompute of ds (``-DDS_FLASH_DQ_TIE_ULPS=0``), whose err/limit is printed
 and may exceed 1. Exits non-zero if another version fails a case, or a build
@@ -34,9 +38,16 @@ sys.path.insert(0, ROOT)
 #: builds that show what a part of the kernel buys: reported, not failed
 DIAGNOSTIC_BUILDS = {"flash_bwd_dq": [("no-tie-recompute", ["-DDS_FLASH_DQ_TIE_ULPS=0"])]}
 
-#: the build-time macro that forces a flash kernel's block tiling
+#: the build-time macro that forces a wgmma kernel's block tiling
 SWEEP_MACRO = {"flash_fwd": "DS_FLASH_FWD_WG", "flash_bwd_dq": "DS_FLASH_DQ_WG",
-               "flash_bwd_dkv": "DS_FLASH_DKV_WG"}
+               "flash_bwd_dkv": "DS_FLASH_DKV_WG", "block_sparse_fwd": "DS_BS_FWD_WG"}
+
+_vp, _int = ctypes.c_void_p, ctypes.c_int
+#: C entries whose argument list the current source changed: the old one
+OLD_ARGTYPES = {"block_sparse_fwd": [
+    _vp, _vp, _vp, _vp, _vp, _vp, _vp,       # q, k, v, idx, cnt, o, lse
+    _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
+    ctypes.c_float, _int, _int, _vp]}        # scale, causal, dtype, stream
 
 
 def ptxas_report(nvcc_out: str):
@@ -48,11 +59,14 @@ def ptxas_report(nvcc_out: str):
             print(f"  {name}: {line.split(':', 1)[-1].strip()}")
 
 
-def runner(kernel: str, fn):
-    """``run(case, inp)`` calling the C entry ``fn`` as the kernel's wrapper
-    would, returning the wrapper's outputs."""
+def runner(kernel: str, fn, lib, old: bool):
+    """``run(case, inp)`` calling the C entry ``fn`` of library ``lib`` as the
+    kernel's wrapper would (``old``: the old source's argument list),
+    returning the wrapper's outputs."""
     import torch
 
+    from deepspeed_tpu_torch.ops import kernel_checks as kc
+    from deepspeed_tpu_torch.ops.attention import block_sparse as bs
     from deepspeed_tpu_torch.ops.attention.flash import DTYPE_CODES
     from deepspeed_tpu_torch.ops.kernel_checks import _scale
     from deepspeed_tpu_torch.ops.quantizer import fused_matmul as fm
@@ -95,7 +109,37 @@ def runner(kernel: str, fn):
         check(fn(*head, *bwd, dk.data_ptr(), dv.data_ptr(), *tail), kernel)
         return dk, dv
 
-    return qmm if kernel == "quantized_matmul" else flash
+    tiles = {}      # by case: this build's tile tables, built at the first (untimed) call
+
+    def block_sparse(case, inp):
+        q, k, v = inp["q"], inp["k"], inp["v"]
+        bh, t, d = q.shape
+        block, h = kc.case_block(case), case.dims["h"]
+        o, lse = torch.empty_like(q), torch.empty(bh, t, dtype=torch.float32, device=q.device)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), inp["fwd_idx"].data_ptr(),
+                inp["fwd_cnt"].data_ptr())
+        tail = (_scale(case), int(case.causal), DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        max_n = inp["fwd_idx"].shape[2]
+        if old:
+            check(fn(*head, o.data_ptr(), lse.data_ptr(), bh, t, d, h, block, max_n, *tail),
+                  kernel)
+            return o, lse
+        if case.name not in tiles:
+            if q.dtype == torch.float32:
+                tiles[case.name] = (None, None, None), 0, 0
+            else:
+                query = lib.block_sparse_fwd_tile_rows
+                query.argtypes, query.restype = [], _int
+                tt = bs.build_tile_tables(kc.case_layout(case), block, query()).to(q.device)
+                tiles[case.name] = tuple(x.data_ptr() for x in tt[:3]), tt.rows, \
+                    tt.idx.shape[2], tt
+        ptrs, rows, max_slots = tiles[case.name][:3]
+        check(fn(*head, *ptrs, o.data_ptr(), lse.data_ptr(), bh, t, d, h, block, max_n, rows,
+                 max_slots, *tail), kernel)
+        return o, lse
+
+    return {"quantized_matmul": qmm, "block_sparse_fwd": block_sparse}.get(kernel, flash)
 
 
 def err_ratio(kc, case, out, ref) -> float:
@@ -143,9 +187,12 @@ def main(kernel: str, old_source: str) -> int:
             return 1
         if tag not in ("wg1", "wg2"):
             ptxas_report(out)
-        fn = getattr(ctypes.CDLL(so), info.symbol)
-        fn.argtypes, fn.restype = info.argtypes, ctypes.c_int
-        runs[tag] = runner(kernel, fn)
+        lib = ctypes.CDLL(so)
+        fn = getattr(lib, info.symbol)
+        old = tag == "old" and kernel in OLD_ARGTYPES
+        fn.argtypes = OLD_ARGTYPES[kernel] if old else info.argtypes
+        fn.restype = ctypes.c_int
+        runs[tag] = runner(kernel, fn, lib, old)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)

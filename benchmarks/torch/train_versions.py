@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s ``[train]`` phase of several checkouts on one card, in turns.
+"""Run one of ``chip_smoke.py``'s training phases of several checkouts on one card, in turns.
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
-    python3 benchmarks/torch/train_versions.py build/parent . . build/parent
+    python3 benchmarks/torch/train_versions.py [--sparse] build/parent . . build/parent
 
 Each argument is the root of a checkout. In the order given, each runs
-``chip_smoke.train_path`` from its own root in a process of its own, which
-builds that checkout's kernels into its own ``build/`` (``DS_TORCH_BUILD_DIR``
-is cleared). The host moves the step between runs of one code, so compare two
+``chip_smoke.train_path`` (``[train]``: dense attention) or, with
+``--sparse``, ``chip_smoke.sparse_path`` (``[sparse]``: block-sparse
+attention) from its own root in a process of its own, which builds that
+checkout's kernels into its own ``build/`` (``DS_TORCH_BUILD_DIR`` is
+cleared). The host moves the step between runs of one code, so compare two
 versions only in turns inside one call (parent, change, change, parent). The
-runs' own ``[train]`` lines are printed as they come; last, one
-``[train-versions]`` line a run: its checkout, step ms, MFU and the traced
-step's device time, whole and in K1, K3 and K4. Exits non-zero if a run fails.
+runs' own phase lines are printed as they come; last, one
+``[train-versions]`` line a run: its checkout, step ms, MFU (``[train]``
+only) and the traced step's device time, whole and in the phase's attention
+kernels (K1, K3, K4; or K8, K9, K10). Exits non-zero if a run fails.
 """
 
 import json
@@ -19,34 +22,42 @@ import os
 import subprocess
 import sys
 
-#: name fragments of each flash kernel's functions (16-bit wgmma, f32 first version)
-KERNEL_KEYS = {"K1": ("wgmma_fwd", "flash_fwd_kernel"),
-               "K3": ("wgmma_dq", "flash_bwd_dq_kernel"),
-               "K4": ("wgmma_dkv", "flash_bwd_dkv_kernel")}
+#: name fragments of each attention kernel's functions, by phase (16-bit
+#: wgmma kernel, f32 first version)
+KERNEL_KEYS = {
+    "train": {"K1": ("wgmma_fwd", "flash_fwd_kernel"),
+              "K3": ("wgmma_dq", "flash_bwd_dq_kernel"),
+              "K4": ("wgmma_dkv", "flash_bwd_dkv_kernel")},
+    "sparse": {"K8": ("wgmma_bs_fwd", "block_sparse_fwd_kernel"),
+               "K9": ("block_sparse_bwd_dq_kernel",),
+               "K10": ("block_sparse_bwd_dkv_kernel",)}}
 
 _CHILD = """
 import json, torch
 import chip_smoke
-out = chip_smoke.train_path(torch.device("cuda", 0), chip_smoke.nvidia_smi_line())
+phase, keys = json.loads(%r)
+dev, smi = torch.device("cuda", 0), chip_smoke.nvidia_smi_line()
+out = (chip_smoke.train_path(dev, smi) if phase == "train" else
+       chip_smoke.sparse_path(dev, smi, float("nan")))
 trace = out["trace"] or {"device_us": float("nan"), "by_kernel": {}}
-keys = json.loads(%r)
 print("[train-versions-result] " + json.dumps({
-    "step_ms": out["step_ms"], "mfu": out["mfu"], "device_ms": trace["device_us"] / 1e3,
+    "step_ms": out["step_ms"], "mfu": out.get("mfu"), "device_ms": trace["device_us"] / 1e3,
     **{k: sum(us for name, us in trace["by_kernel"].items() if any(f in name for f in frags))
           / 1e3 for k, frags in keys.items()}}), flush=True)
 """
 
 
-def main(roots) -> int:
+def main(roots, phase: str = "train") -> int:
     env = {k: v for k, v in os.environ.items() if k != "DS_TORCH_BUILD_DIR"}
+    keys = KERNEL_KEYS[phase]
     results = []
     for root in roots:
         root = os.path.abspath(root)
-        proc = subprocess.run([sys.executable, "-c", _CHILD % json.dumps(KERNEL_KEYS)],
+        proc = subprocess.run([sys.executable, "-c", _CHILD % json.dumps([phase, keys])],
                               cwd=root, env=env, capture_output=True, text=True, timeout=900)
         lines = proc.stdout.splitlines()
         for line in lines:
-            if line.startswith("[train]"):
+            if line.startswith(f"[{phase}]"):
                 print(f"  {os.path.basename(root) or root}: {line}", flush=True)
         found = [x for x in lines if x.startswith("[train-versions-result] ")]
         if proc.returncode or not found:
@@ -55,13 +66,17 @@ def main(roots) -> int:
             return 1
         results.append((root, json.loads(found[-1].split(" ", 1)[1])))
     for root, r in results:
-        print(f"[train-versions] {root}: step {r['step_ms']:.2f} ms, MFU {r['mfu']:.4f}, traced "
-              f"device {r['device_ms']:.2f} ms (K1 {r['K1']:.3f}, K3 {r['K3']:.3f}, K4 "
-              f"{r['K4']:.3f} ms)", flush=True)
+        mfu = "" if r["mfu"] is None else f", MFU {r['mfu']:.4f}"
+        print(f"[train-versions] [{phase}] {root}: step {r['step_ms']:.2f} ms{mfu}, traced "
+              f"device {r['device_ms']:.2f} ms ("
+              + ", ".join(f"{k} {r[k]:.3f}" for k in keys) + " ms)", flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) < 2:
+    args = sys.argv[1:]
+    sparse = "--sparse" in args
+    args = [a for a in args if a != "--sparse"]
+    if not args:
         sys.exit(__doc__)
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main(args, "sparse" if sparse else "train"))

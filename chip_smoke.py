@@ -55,7 +55,8 @@ non-zero:
    kernels (12 x 20 each) and none in the flash kernels; losses finite and
    falling; the loss and every gradient of a micro-batch of 4 against the
    plain block-sparse versions; step ms, tokens/s and peak memory beside
-   ``[train]``'s step; one traced ``train_batch``;
+   ``[train]``'s step; one traced ``train_batch`` with its device time in
+   the three block-sparse kernels;
 8. weight-quantized serving (``[wq]``): BLOOM-7B at full width and depth as
    ``bench.py --wq`` serves it on a TPU (vocab 250,880, n_embd 4,096, 30
    layers, 32 heads, ALiBi, tied head; seeded random weights, bf16), batch
@@ -742,6 +743,17 @@ def sparse_path(device, smi: str, dense_step_ms: float):
                     {"block_sparse_fwd": n, "block_sparse_bwd_dq": n, "block_sparse_bwd_dkv": n},
                     plain_sparse, lambda _: f" (dense [train] step {dense_step_ms:.2f} ms)")
     out["dense_step_ms"] = dense_step_ms
+    if out["trace"] is not None:
+        # the traced step's device time in K8, K9 and K10 (K8's 16-bit kernel
+        # is wgmma_bs_fwd, its f32 one block_sparse_fwd_kernel)
+        by_kernel = out["trace"]["by_kernel"]
+        ms = {name: sum(us for key, us in by_kernel.items() if any(k in key for k in keys)) / 1e3
+              for name, keys in (("k8", ("wgmma_bs_fwd", "block_sparse_fwd_kernel")),
+                                 ("k9", ("block_sparse_bwd_dq_kernel",)),
+                                 ("k10", ("block_sparse_bwd_dkv_kernel",)))}
+        out.update({f"{name}_traced_ms": v for name, v in ms.items()})
+        print(f"[sparse] traced step: K8 {ms['k8']:.3f} ms, K9 {ms['k9']:.3f} ms, K10 "
+              f"{ms['k10']:.3f} ms of device time", flush=True)
     return out
 
 

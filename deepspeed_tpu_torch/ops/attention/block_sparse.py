@@ -31,10 +31,16 @@ with f32 sums. The forward kernel writes through raw pointers, so its output
 has no autograd history: :func:`block_sparse_fwd` refuses CUDA inputs that
 require grad while grad mode is on, and :class:`BlockSparseAttnFunction` is
 the differentiable way in.
+
+The forward kernel's bf16/fp16 path walks tiles of 64 q rows a consumer
+warpgroup, not single q-blocks: it takes the tile tables of
+:func:`build_tile_tables` (the union of a tile's q-blocks' k-blocks, with a
+bitmask of the q-blocks that own each), built on the host once per length
+and cached on the device by :func:`make_sparse_attention_impl`.
 """
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,12 +51,16 @@ from .flash import DTYPE_CODES, HEAD_DIMS, NEG_INF
 
 BLOCKS = (16, 32, 64, 128)
 TABLE_NAMES = ("fwd_idx", "fwd_cnt", "bwd_idx", "bwd_cnt")
+#: q rows a tile of the forward kernel's bf16/fp16 path: 64 a consumer warpgroup
+TILE_ROWS = (64, 128)
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 BLOCK_SPARSE_FWD = CudaKernel(
     "block_sparse_fwd", "block_sparse_fwd.cu", "block_sparse_fwd",
-    [_vp, _vp, _vp, _vp, _vp, _vp, _vp,       # q, k, v, idx, cnt, o, lse
+    [_vp, _vp, _vp, _vp, _vp,                 # q, k, v, idx, cnt
+     _vp, _vp, _vp, _vp, _vp,                 # tile_idx, tile_cnt, tile_order, o, lse
      _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
+     _int, _int,                              # tile_rows, max_slots
      ctypes.c_float, _int, _int, _vp])        # scale, causal, dtype, stream
 BLOCK_SPARSE_BWD_DQ = CudaKernel(
     "block_sparse_bwd_dq", "block_sparse_bwd_dq.cu", "block_sparse_bwd_dq",
@@ -90,6 +100,78 @@ def build_tables(layout: np.ndarray) -> Dict[str, np.ndarray]:
             bwd_idx[hi, ki, :len(nz)] = nz
     return {"fwd_idx": fwd_idx, "fwd_cnt": fwd_cnt,
             "bwd_idx": bwd_idx, "bwd_cnt": bwd_cnt}
+
+
+class TileTables(NamedTuple):
+    """The forward kernel's tile tables (:func:`build_tile_tables`), numpy
+    arrays or, after :meth:`to`, int32 tensors on a device."""
+    idx: Any        # (H, n_tiles, max_slots): entries k_unit << 8 | owner bits
+    cnt: Any        # (H, n_tiles): union entries a tile
+    order: Any      # (H * n_tiles,): head * n_tiles + tile, the longest walks first
+    rows: int       # q rows a tile: 64 a consumer warpgroup
+
+    def to(self, device) -> "TileTables":
+        return TileTables(*(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                            for x in self[:3]), self.rows)
+
+
+def build_tile_tables(layout: np.ndarray, block: int, rows: int) -> TileTables:
+    """The walk of the forward kernel's bf16/fp16 path from a (H, nb, nb) 0/1
+    layout of block ``block``, for tiles of ``rows`` q rows (64 or 128).
+
+    The kernel works in units of ``unit = min(block, 64)`` rows; a layout of
+    block 128 is first expanded to 64-row units (each 128-block is 2 x 2 of
+    them). A tile is ``rows / unit`` consecutive q-units and a stage ``64 /
+    unit`` k-units (64 columns). For each (head, tile), ``idx`` holds the
+    ascending union of the k-units its q-units own, each entry ``k_unit << 8
+    | bits`` with bit g set where the tile's q-unit g owns it, padded to whole
+    stages with a repeat of the last real k-unit owned by no q-unit (so every
+    slot of a stage is loaded); ``cnt`` the union's size; ``order`` the
+    (head, tile) pairs by stage count, longest first (stable)."""
+    if block not in BLOCKS:
+        raise ValueError(f"the tile tables take a layout block in {BLOCKS}, got {block}")
+    if rows not in TILE_ROWS:
+        raise ValueError(f"a tile holds {TILE_ROWS} q rows, got {rows}")
+    layout = np.asarray(layout) != 0
+    unit = min(block, 64)
+    if block > unit:
+        layout = layout.repeat(block // unit, 1).repeat(block // unit, 2)
+    h, nu, _ = layout.shape
+    per_tile, slots = rows // unit, 64 // unit
+    n_tiles = -(-nu // per_tile)
+    owners = np.zeros((h, n_tiles * per_tile, nu), np.int64)
+    owners[:, :nu] = layout
+    owners = owners.reshape(h, n_tiles, per_tile, nu)
+    bits = (owners << np.arange(per_tile)[None, None, :, None]).sum(2)    # (h, n_tiles, nu)
+    cnt = (bits != 0).sum(-1)
+    stages = -(-cnt // slots)
+    idx = np.zeros((h, n_tiles, max(1, int(stages.max())) * slots), np.int32)
+    for hi in range(h):
+        for ti in range(n_tiles):
+            ks = np.nonzero(bits[hi, ti])[0]
+            if len(ks):
+                idx[hi, ti, :len(ks)] = ks << 8 | bits[hi, ti, ks]
+                idx[hi, ti, len(ks):stages[hi, ti] * slots] = ks[-1] << 8
+    order = np.argsort(-stages.reshape(-1), kind="stable").astype(np.int32)
+    return TileTables(idx, cnt.astype(np.int32), order, rows)
+
+
+def fwd_tile_rows() -> int:
+    """The q rows a tile of the forward kernel's bf16/fp16 path takes: the C
+    library's rule (``bs_fwd_warpgroups`` in ``csrc/block_sparse_fwd.cu``),
+    asked of the library (built at first use)."""
+    return BLOCK_SPARSE_FWD.function("block_sparse_fwd_tile_rows", [])()
+
+
+def kernel_tile_tables(layout: np.ndarray, block: int, q3: torch.Tensor
+                       ) -> Optional[TileTables]:
+    """The tile tables :func:`block_sparse_fwd`'s kernel takes for ``q3``
+    ``(b*h, t, d)``, on q3's device; None where it takes none (CPU tensors,
+    float32) or where the kernel refuses the shape (the wrapper says why)."""
+    if q3.device.type != "cuda" or q3.dtype == torch.float32 or block not in BLOCKS \
+            or q3.shape[-1] not in HEAD_DIMS:
+        return None
+    return build_tile_tables(layout, block, fwd_tile_rows()).to(q3.device)
 
 
 def device_tables(tables: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -163,15 +245,40 @@ def _stream(x: torch.Tensor) -> int:
 
 
 # ------------------------------------------------------------------ kernels
+def _check_tiles(tiles: Optional[TileTables], q3: torch.Tensor, block: int,
+                 n_heads: int) -> None:
+    """What the bf16/fp16 kernel needs of its tile tables (their size in
+    :func:`build_tile_tables`' terms)."""
+    if tiles is None:
+        raise ValueError("block_sparse_fwd's bf16/fp16 kernel walks tile tables: pass "
+                         "tiles=kernel_tile_tables(layout, block, q3)")
+    bh, t, _ = q3.shape
+    n_tiles = -(-t // tiles.rows) if tiles.rows in TILE_ROWS else -1
+    slots = 64 // min(block, 64)
+    if n_tiles < 0 or tuple(tiles.cnt.shape) != (n_heads, n_tiles) or \
+            tiles.idx.ndim != 3 or tuple(tiles.idx.shape[:2]) != (n_heads, n_tiles) or \
+            tiles.idx.shape[2] % slots or tuple(tiles.order.shape) != (n_heads * n_tiles,):
+        raise ValueError(f"block_sparse_fwd: tile tables of {tiles.rows} rows do not fit "
+                         f"{n_heads} heads, t={t}, block {block}: idx "
+                         f"{tuple(tiles.idx.shape)}, cnt {tuple(tiles.cnt.shape)}, order "
+                         f"{tuple(tiles.order.shape)}")
+    if any(x.dtype != torch.int32 for x in tiles[:3]):
+        raise TypeError("block_sparse_fwd: tile tables must be int32")
+
+
 def block_sparse_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                      fwd_idx: torch.Tensor, fwd_cnt: torch.Tensor, block: int,
                      softmax_scale: Optional[float] = None, causal: bool = False,
-                     n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                     n_heads: int = 1, tiles: Optional[TileTables] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q3/k3/v3 ``(b*h, t, d)`` → ``(o (b*h, t, d) in q's dtype, lse (b*h, t)
     f32)`` over the active blocks of the forward table. The kernel
     ``csrc/block_sparse_fwd.cu`` for CUDA tensors, :func:`block_sparse_fwd_plain`
-    for CPU tensors. The kernel's output has no autograd history, so CUDA
-    inputs that require grad are refused while grad mode is on."""
+    for CPU tensors. The kernel's float32 path walks the forward table; its
+    bf16/fp16 path walks ``tiles`` (:func:`kernel_tile_tables` of the same
+    layout; required there, ignored elsewhere). The kernel's output has no
+    autograd history, so CUDA inputs that require grad are refused while grad
+    mode is on."""
     _check("block_sparse_fwd", (q3, k3, v3), fwd_idx, fwd_cnt, block, n_heads)
     scale = _scale(q3, softmax_scale)
     if q3.device.type == "cpu":
@@ -181,13 +288,19 @@ def block_sparse_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
         raise ValueError("block_sparse_fwd's kernel output carries no gradient: under "
                          "autograd call block_sparse_attention (BlockSparseAttnFunction)")
     _check_cuda("block_sparse_fwd", (q3, k3, v3, fwd_idx, fwd_cnt), block)
+    tile_ptrs, tile_rows, max_slots = (None, None, None), 0, 0
+    if q3.dtype != torch.float32:
+        _check_tiles(tiles, q3, block, n_heads)
+        _check_cuda("block_sparse_fwd", (q3, *tiles[:3]), block)
+        tile_ptrs = tuple(x.data_ptr() for x in tiles[:3])
+        tile_rows, max_slots = tiles.rows, tiles.idx.shape[2]
     bh, t, d = q3.shape
     o = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
     BLOCK_SPARSE_FWD.launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), fwd_idx.data_ptr(),
-                            fwd_cnt.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, t, d,
-                            n_heads, block, fwd_idx.shape[2], scale, int(causal),
-                            DTYPE_CODES[q3.dtype], _stream(q3))
+                            fwd_cnt.data_ptr(), *tile_ptrs, o.data_ptr(), lse.data_ptr(), bh,
+                            t, d, n_heads, block, fwd_idx.shape[2], tile_rows, max_slots,
+                            scale, int(causal), DTYPE_CODES[q3.dtype], _stream(q3))
     return o, lse
 
 
@@ -343,13 +456,13 @@ class BlockSparseAttnFunction(torch.autograd.Function):
     """``o = block-sparse attention(q3, k3, v3)`` through :func:`block_sparse_fwd`,
     differentiated by :func:`block_sparse_bwd`; the port of the ``_bs_core``
     custom VJP. It saves q, k, v, o, the f32 lse and the four tables; the
-    tables get no gradient."""
+    tables and the forward's tile tables get no gradient."""
 
     @staticmethod
     def forward(ctx, q3, k3, v3, fwd_idx, fwd_cnt, bwd_idx, bwd_cnt, block, softmax_scale,
-                causal, n_heads):
+                causal, n_heads, tiles):
         o3, lse = block_sparse_fwd(q3, k3, v3, fwd_idx, fwd_cnt, block, softmax_scale, causal,
-                                   n_heads)
+                                   n_heads, tiles=tiles)
         ctx.save_for_backward(q3, k3, v3, o3, lse, fwd_idx, fwd_cnt, bwd_idx, bwd_cnt)
         ctx.args = (block, softmax_scale, causal, n_heads)
         return o3
@@ -361,20 +474,22 @@ class BlockSparseAttnFunction(torch.autograd.Function):
         dq, dk, dv = block_sparse_bwd(q3, k3, v3, o3, lse, do3.contiguous(),
                                       dict(zip(TABLE_NAMES, tables)), block, softmax_scale,
                                       causal, n_heads)
-        return (dq, dk, dv) + (None,) * 8
+        return (dq, dk, dv) + (None,) * 9
 
 
 # ------------------------------------------------------------------ public ops
-def _attend(q, k, v, tables: Dict[str, torch.Tensor], block: int, causal: bool,
+def _attend(q, k, v, tables: Dict[str, torch.Tensor], tiles_for, block: int, causal: bool,
             softmax_scale: Optional[float]) -> torch.Tensor:
+    """``tiles_for(q3)``: the forward kernel's tile tables for q3, or None."""
     b, t, h, d = q.shape
 
     def to3(x):
         return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
 
-    o3 = BlockSparseAttnFunction.apply(to3(q), to3(k), to3(v),
+    q3 = to3(q)
+    o3 = BlockSparseAttnFunction.apply(q3, to3(k), to3(v),
                                        *(tables[n] for n in TABLE_NAMES), block,
-                                       softmax_scale, causal, h)
+                                       softmax_scale, causal, h, tiles_for(q3))
     return o3.reshape(b, h, t, d).transpose(1, 2)
 
 
@@ -385,8 +500,9 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through :class:`BlockSparseAttnFunction`, so it is differentiable on the card
     as on the CPU. ``causal`` applies the elementwise triangle on top of the
     block mask (use with unidirectional layouts). Rows whose layout is empty
-    produce zeros. The tables are built on the host and copied to q's device
-    on every call; :func:`make_sparse_attention_impl` caches them."""
+    produce zeros. The tables (and the tile tables of the bf16/fp16 forward
+    kernel) are built on the host and copied to q's device on every call;
+    :func:`make_sparse_attention_impl` caches them."""
     b, t, h, d = q.shape
     if not (k.shape == q.shape and v.shape == q.shape):
         raise AssertionError("self-attention only")
@@ -396,7 +512,8 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (layout.shape[1] * block == t):
         raise AssertionError(f"layout covers {layout.shape[1] * block} positions, inputs "
                              f"have {t}")
-    return _attend(q, k, v, device_tables(build_tables(layout), q.device), block, causal,
+    return _attend(q, k, v, device_tables(build_tables(layout), q.device),
+                   lambda q3: kernel_tile_tables(layout, block, q3), block, causal,
                    softmax_scale)
 
 
@@ -419,14 +536,15 @@ def block_sparse_attention_reference(q, k, v, layout, block, causal=False,
 def make_sparse_attention_impl(config: SparsityConfig):
     """Bind a :class:`SparsityConfig` into an attention impl of the
     ``get_attention_impl`` signature (the ``SparseSelfAttention`` role): the
-    layout is built and cached per sequence length, and its tables are cached
-    as device tensors per (length, device), so a training step copies no table
-    from the host. A user ``mask`` or a q shorter than k keeps the sparsity
-    pattern on the masked dense path (``reference_attention`` with the
-    layout's dense mask), as the JAX impl does; attention dropout is not
-    ported and raises."""
+    layout is built and cached per sequence length, and its tables (with the
+    bf16/fp16 forward kernel's tile tables) as device tensors per (length,
+    device), so a training step builds and copies no table. A user ``mask``
+    or a q shorter than k keeps the sparsity pattern on the masked dense path
+    (``reference_attention`` with the layout's dense mask), as the JAX impl
+    does; attention dropout is not ported and raises."""
     layouts: Dict[int, np.ndarray] = {}
     tables: Dict[Tuple[int, torch.device], Dict[str, torch.Tensor]] = {}
+    tiles: Dict[Tuple[int, torch.device], Optional[TileTables]] = {}
 
     def layout_for(s: int) -> np.ndarray:
         if s not in layouts:
@@ -455,6 +573,15 @@ def make_sparse_attention_impl(config: SparsityConfig):
         key = (t, q.device)
         if key not in tables:
             tables[key] = device_tables(build_tables(layout_for(t)), q.device)
-        return _attend(q, k, v, tables[key], config.block, causal or uni, softmax_scale)
+        return _attend(q, k, v, tables[key], tiles_for, config.block, causal or uni,
+                       softmax_scale)
+
+    def tiles_for(q3):
+        if q3.device.type != "cuda" or q3.dtype == torch.float32:
+            return None
+        key = (q3.shape[1], q3.device)
+        if key not in tiles:
+            tiles[key] = kernel_tile_tables(layout_for(key[0]), config.block, q3)
+        return tiles[key]
 
     return impl

@@ -1,7 +1,8 @@
-// Shared by the three block-sparse attention kernels (block_sparse_fwd.cu,
-// block_sparse_bwd_dq.cu, block_sparse_bwd_dkv.cu): the geometry of a thread
-// block, the staging of row tiles into shared memory, the check of the C
-// entries' arguments and the dispatch over dtype, layout block and head_dim.
+// Shared by the block-sparse attention kernels on the CUDA cores
+// (block_sparse_fwd.cu's f32 path, block_sparse_bwd_dq.cu,
+// block_sparse_bwd_dkv.cu): the geometry of a thread block, the staging of
+// row tiles into shared memory, the check of the C entries' arguments and the
+// dispatch over dtype, layout block and head_dim.
 //
 // One thread block owns one layout block of B rows (B = 16, 32, 64 or 128):
 // a q-block in the forward and dq kernels, a k-block in the dk/dv kernel. It

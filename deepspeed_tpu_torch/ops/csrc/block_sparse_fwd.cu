@@ -2,37 +2,73 @@
 //
 // Replaces the TPU kernel deepspeed_tpu/ops/attention/block_sparse.py:_fwd_kernel
 // (launched by the pallas_call in _bs_fwd): attention of q/k/v (b*h, t, d)
-// over only the active blocks of a (H, nb, nb) block layout. One thread
-// block owns one (b*h, q-block) and walks its row of the forward table
-// (idx (H, nb, max_n), cnt (H, nb), int32, read from device memory; head
-// i % n_heads) in ascending k-block order with an online softmax. Under
+// over only the active blocks of a (H, nb, nb) block layout (head i % n_heads
+// of row block i), with an online softmax in ascending k order; under
 // `causal` the triangle applies inside the blocks. Returns o and the f32
-// logsumexp that the backward kernels reuse.
-//
-// Masking is the TPU kernel's exactly: the running max starts at -1e30 and a
-// masked score is the finite -1e30, so a row whose walked entries are all
-// masked (its active blocks lie past the diagonal) gets p = exp(0) = 1 on
-// each of them, the mean of those V rows, and an lse of about -1e30; a row
-// with no active block gets o = 0 and lse = -1e30. Blocks past the diagonal
-// are walked like any other: skipping them would change such rows.
+// logsumexp that the backward kernels (block_sparse_bwd_dq.cu,
+// block_sparse_bwd_dkv.cu) reuse.
 //
 // What bounds it on this card: per walked (row, col) pair 4*d operations (s =
 // q.k, o += p.v) on 8*t*d bytes per (batch, head) plus the table. The
 // training main path's layout (Fixed, block 16, 4 local blocks, 1 global, 4
-// patterns, t 1024) walks 15.6 % of the blocks, 156,160 causal pairs a head:
-// about 76 operations a byte, far below the ~295 bf16 operations a byte where
-// the tensor cores become the limit, so device-memory bytes bound it. This
-// first version does its products on the CUDA cores in f32 (inputs are widened
-// as they are staged into shared memory): each walked k-block costs a 16-row
-// tile a load of its k and v rows from L2 or memory, so it runs far from that
-// bound. wgmma over several q-blocks that share k-blocks, TMA and warp
-// specialisation are later work. What the design keeps: the score tile never
-// reaches device memory, and the work follows the layout's density, not t^2.
+// patterns, t 1024) holds 156,160 causal pairs a head: about 76 operations a
+// byte, far below the ~295 bf16 operations a byte where the tensor cores
+// become the limit, so device-memory bytes bound it (0.045 ms at (24, 12,
+// 1024, 64) at the H100's 3.35 TB/s). The work that reaches it is the tensor
+// cores' and TMA's: one k-block read once per tile of rows that needs it,
+// products at wgmma rate.
 //
-// Numerics follow the TPU kernel: scores in f32, f32 p (not rounded to the
-// input dtype) in the product with v, f32 accumulator, a row with l == 0
-// divided by 1, o rounded to the input dtype once.
+// bf16 and fp16 (the kernel wgmma_bs_fwd below): the pipeline of wgmma_fwd
+// (flash_fwd.cu) walking a table instead of a loop.
+// - Tiles. The kernel works in units of U = min(block, 64) rows. A consumer
+//   warpgroup owns 64 q rows: 64 / U consecutive q-blocks (4 at block 16, 2
+//   at 32), or a 64-row slice of one q-block at block 64 and 128. A block
+//   runs one consumer warpgroup (two where built with DS_BS_FWD_WG=2, see
+//   bs_fwd_warpgroups) and one producer warpgroup, and walks the UNION of its
+//   rows' k-units in ascending order:
+//   the tile table of ops/attention/block_sparse.py:build_tile_tables, built
+//   once on the host, gives each entry's k-unit and a bitmask of the tile's
+//   q-units that own it, and launches the longest walks first.
+// - A stage is 64 columns: 64 / U entries. The producer's first thread loads
+//   each entry's K and V rows as one TMA box of U rows into its place in a
+//   64-row 128-byte-swizzled panel (a box of 16 rows is 2 KB, so each lands on
+//   a swizzle boundary), through a ring of full/empty mbarrier stages. A
+//   tile's last stage is padded with a repeat of a real entry that no row
+//   owns: every slot is loaded, since shared memory never written may hold a
+//   NaN and 0 * NaN is NaN in P V.
+// - S = Q K^T is an mma_ss chain with q resident (loaded once by TMA); P is
+//   rounded to the input dtype in registers and is the register A operand of
+//   O += P V (V MN-major, the transpose bit), as in wgmma_fwd.
+// - Two masks on the f32 score fragments, because a union walk shows a row
+//   entries that the TPU kernel never walks for it:
+//   1. not the row's own block (its q-unit's bit clear, or padding): p = 0,
+//      and the entry takes no part in the row's max: the score is -inf, so m,
+//      l and acc stay exactly as they were, as if it were not walked;
+//   2. walked but causally masked (col > row): the finite -1e30 of
+//      _fwd_kernel, whose running max starts at -1e30 too. So a row whose
+//      walked entries are all masked gets p = 1 on each of them, the mean of
+//      those V rows and an lse of -1e30; a row that walks nothing gets o = 0
+//      and an lse of -1e30. Treating (2) as (1) would zero such rows; treating
+//      (1) as (2) would give a row real attention to blocks below its
+//      diagonal that it does not own.
+//   Taking the max over a 64-column stage at once is the same function:
+//   excluded entries never move m, and masked entries of a row with a valid
+//   key give exp(-1e30 - m) = 0 in either order. A stage whose every entry
+//   every row of the warpgroup owns, and that lies wholly at or below its
+//   first row, skips both masks; a stage no row of the warpgroup owns is
+//   skipped.
+// - The epilogue divides by l (a row with l == 0 by 1), writes o in T and
+//   the lse for rows < t. Maps are 3-D over (d, t, b*h), so a q box past t is
+//   zero-filled; those rows own nothing and are not written.
+//
+// float32 keeps the first version's kernel (block_sparse_fwd_kernel) on the
+// CUDA cores, chosen by dtype alone as in K1, K3 and K4: wgmma's only f32
+// input is TF32 (~10 mantissa bits), which would fail the f32 limits, while
+// the TPU kernel takes f32 products in full f32. That kernel: one block of
+// 4*B threads a (b*h, q-block) walking its row of the forward table, inputs
+// widened to f32 in shared memory, f32 p (not rounded) in the product with v.
 
+#include "hopper.cuh"
 #include "block_sparse_core.cuh"
 
 namespace {
@@ -183,17 +219,316 @@ struct Fwd {
     }
 };
 
+// ------------------------------------------------ bf16 / fp16: wgmma and TMA
+
+namespace wg {
+
+using namespace hopper;
+
+template <int D, int NWG>
+struct Cfg {
+    static constexpr int NP = D / PANEL;                      // 64-column panels of a row
+    static constexpr int NST = D == 64 ? 3 : 2;               // stages of the K/V ring
+    static constexpr int THREADS = 128 * (NWG + 1);
+    static constexpr int Q_BYTES = NWG * NP * PANEL_BYTES;
+    static constexpr int STAGE_BYTES = 2 * NP * PANEL_BYTES;  // K panels, then V panels
+    // 1024 bytes of slack to align the tiles, then q, the ring, the barriers
+    static constexpr size_t SMEM = 1024 + Q_BYTES + NST * STAGE_BYTES + 8 * (1 + 2 * NST);
+};
+
+// One block: tile `order[blockIdx.x / n_batch]` = head * n_tiles + tile of
+// batch blockIdx.x % n_batch; 64 * NWG q rows from tile * 64 * NWG. Units of
+// 2^log2u rows; an entry is k_unit << 8 | owner bits (bit g: the tile's q-unit
+// g owns it); a tile's entries are padded to whole stages of 64 >> log2u.
+template <typename T, int D, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), (NWG == 1 && D == 64) ? 2 : 1)
+wgmma_bs_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ tile_idx,
+             const int* __restrict__ tile_cnt, const int* __restrict__ tile_order,
+             T* __restrict__ o, float* __restrict__ lse, int t, int n_heads, int n_batch,
+             int n_tiles, int max_slots, int log2u, float scale, int causal) {
+    using C = Cfg<D, NWG>;
+    constexpr int NP = C::NP, NST = C::NST;
+    // setmaxnreg as in wgmma_fwd: two consumer warpgroups at d 64
+    constexpr bool REBALANCE = NWG == 2 && D == 64;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+    const uint32_t ring = q_s + C::Q_BYTES;
+    const uint32_t q_full = ring + NST * C::STAGE_BYTES;     // then full[NST], empty[NST]
+    auto full = [&](int s) { return q_full + 8 * (1 + s); };
+    auto empty = [&](int s) { return q_full + 8 * (1 + NST + s); };
+
+    const int ht = tile_order[blockIdx.x / n_batch];
+    const int head = ht / n_tiles, tile = ht % n_tiles;
+    const int bh = (int)(blockIdx.x % n_batch) * n_heads + head;
+    const int unit = 1 << log2u;
+    const int slots = 64 >> log2u;                           // entries a stage
+    const int* ents = tile_idx + (size_t)ht * max_slots;
+    const int n_st = (tile_cnt[ht] + slots - 1) / slots;
+    const int q0 = tile * 64 * NWG;
+
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < NST; ++s) {
+            mbar_init(full(s), 1);
+            mbar_init(empty(s), 128 * NWG);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wgi = threadIdx.x / 128;
+    if (wgi == NWG) {
+        // producer: one thread issues every load
+        if constexpr (REBALANCE) setmaxnreg_dec<40>();
+        if (threadIdx.x == 128 * NWG) {
+            mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+            for (int w = 0; w < NWG; ++w)
+                for (int p = 0; p < NP; ++p)
+                    tma_load_3d(q_s + (w * NP + p) * PANEL_BYTES, &tm_q, q_full, PANEL * p,
+                                q0 + 64 * w, bh);
+            for (int st = 0; st < n_st; ++st) {
+                const int s = st % NST;
+                if (st >= NST) mbar_wait(empty(s), (st / NST - 1) & 1);
+                mbar_arrive_expect_tx(full(s), C::STAGE_BYTES);
+                const uint32_t base = ring + s * C::STAGE_BYTES;
+                for (int slot = 0; slot < slots; ++slot) {
+                    const int k0 = (ents[st * slots + slot] >> 8) * unit;
+                    const uint32_t at = base + slot * unit * 128;    // unit rows of 128 bytes
+                    for (int p = 0; p < NP; ++p) {
+                        tma_load_3d(at + p * PANEL_BYTES, &tm_k, full(s), PANEL * p, k0, bh);
+                        tma_load_3d(at + (NP + p) * PANEL_BYTES, &tm_v, full(s), PANEL * p, k0,
+                                    bh);
+                    }
+                }
+            }
+        }
+    } else {
+        // consumer warpgroup wgi: q rows row0 .. row0 + 63
+        if constexpr (REBALANCE) setmaxnreg_inc<232>();
+        const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+        const int row0 = q0 + 64 * wgi;
+        const int ra = row0 + 16 * warp + lane / 4;          // this thread's rows: ra, ra + 8
+        const int g = (64 * wgi + 16 * warp) >> log2u;       // their q-unit in the tile
+        const int wg_bits = ((1 << slots) - 1) << ((64 * wgi) >> log2u);  // its q-units
+        const float sl2 = scale * LOG2E;                     // scores in log2 units
+        const float excluded = __int_as_float((int)0xff800000);   // -inf: not the row's entry
+        const uint32_t qw = q_s + wgi * NP * PANEL_BYTES;
+
+        float acc[NP][32];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+        float m[2] = {DS_NEG_INF, DS_NEG_INF}, l[2] = {0.f, 0.f};
+
+        mbar_wait(q_full, 0);
+        for (int st = 0; st < n_st; ++st) {
+            const int s = st % NST;
+            // the stage's entries (slots beyond `slots` repeat the first)
+            int e[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) e[i] = __ldg(ents + st * slots + (i < slots ? i : 0));
+            int all_own = 0xFF, any_own = 0;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                if (i < slots) {
+                    all_own &= e[i];
+                    any_own |= e[i];
+                }
+            const int e_last = slots == 1 ? e[0] : slots == 2 ? e[1] : e[3];
+            mbar_wait(full(s), (st / NST) & 1);
+            if (any_own & wg_bits) {
+                const uint32_t ks = ring + s * C::STAGE_BYTES, vs = ks + NP * PANEL_BYTES;
+                float sc[32];
+#pragma unroll
+                for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+                wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk) {
+                    const uint32_t off = (kk / 4) * PANEL_BYTES + 32 * (kk % 4);
+                    mma_ss<T, 0>(sc, desc(qw + off), desc(ks + off), kk > 0);
+                }
+                wg_commit();
+                wg_wait0();
+                reg_fence(sc);
+
+                const bool need_mask = (all_own & wg_bits) != wg_bits ||
+                                       (causal && ((e_last >> 8) + 1) * unit - 1 > row0);
+                float mx[2] = {DS_NEG_INF, DS_NEG_INF};
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    // columns 8j .. 8j+7 of the stage lie in one entry
+                    const int slot = (8 * j) >> log2u;
+                    const int ej = slot == 0 ? e[0] : slot == 1 ? e[1] : slot == 2 ? e[2] : e[3];
+                    const bool own = (ej >> g) & 1;
+                    const int col0 = (ej >> 8) * unit + ((8 * j) & (unit - 1)) + 2 * (lane % 4);
+#pragma unroll
+                    for (int f = 0; f < 4; ++f) {
+                        float x = sc[4 * j + f] * sl2;
+                        if (need_mask) {
+                            const int col = col0 + (f & 1), row = ra + 8 * (f >> 1);
+                            x = !own ? excluded : (causal && col > row) ? DS_NEG_INF : x;
+                        }
+                        sc[4 * j + f] = x;
+                        mx[f >> 1] = fmaxf(mx[f >> 1], x);
+                    }
+                }
+                float alpha[2];
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                    const float m_new = fmaxf(m[i], mx[i]);
+                    alpha[i] = exp2f(m[i] - m_new);
+                    m[i] = m_new;
+                    l[i] *= alpha[i];
+                }
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                    const float p = exp2f(sc[i] - m[(i >> 1) & 1]);
+                    l[(i >> 1) & 1] += p;          // this thread's share of the row sum
+                    sc[i] = p;
+                }
+                uint32_t pa[4][4];
+                acc_to_afrag<T>(sc, pa);           // P rounded to T
+#pragma unroll
+                for (int p = 0; p < NP; ++p)
+#pragma unroll
+                    for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
+                wg_fence();
+#pragma unroll
+                for (int p = 0; p < NP; ++p)
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk)
+                        mma_rs<T, 1>(acc[p], pa[kk], desc(vs + p * PANEL_BYTES + 2048 * kk));
+                wg_commit();
+                wg_wait0();
+#pragma unroll
+                for (int p = 0; p < NP; ++p) reg_fence(acc[p]);
+            }
+            mbar_arrive(empty(s));
+        }
+
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+            l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+            const int row = ra + 8 * i;
+            if (row < t) {
+                const float l_safe = l[i] > 0.f ? l[i] : 1.f;
+                T* orow = o + ((size_t)bh * t + row) * D;
+#pragma unroll
+                for (int p = 0; p < NP; ++p)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        const float lo = acc[p][4 * j + 2 * i] / l_safe;
+                        const float hi = acc[p][4 * j + 2 * i + 1] / l_safe;
+                        *reinterpret_cast<uint32_t*>(orow + PANEL * p + 8 * j + 2 * (lane % 4)) =
+                            pack2<T>(lo, hi);
+                    }
+                // -1e30 where nothing was walked or every walked entry was masked
+                // (m is then -1e30 exactly, and -1e30 + log l rounds to -1e30)
+                if (lane % 4 == 0)
+                    lse[(size_t)bh * t + row] =
+                        l[i] > 0.f && m[i] > DS_NEG_INF ? m[i] * LN2 + logf(l[i]) : DS_NEG_INF;
+            }
+        }
+    }
+}
+
+// consumer warpgroups a block: one (64 q rows, two blocks an SM at d 64).
+// In the sweep of benchmarks/torch/qmm_versions.py one beat two at every
+// check case, the training shape included, where two walk 32 stages of 128
+// rows a head against one's 52 of 64 rows; DS_BS_FWD_WG=2 at build time
+// forces two (one union for a pair of tiles sharing a ring), for that sweep
+inline int bs_fwd_warpgroups() {
+#ifdef DS_BS_FWD_WG
+    return DS_BS_FWD_WG;
+#else
+    return 1;
+#endif
+}
+
+template <typename T, int D, int NWG>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* tile_idx,
+                   const void* tile_cnt, const void* tile_order, void* o, void* lse, int bh,
+                   int t, int n_heads, int block, int max_slots, float scale, int causal,
+                   cudaStream_t stream) {
+    using C = Cfg<D, NWG>;
+    constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+    const int unit = block < 64 ? block : 64;
+    const int log2u = unit == 16 ? 4 : unit == 32 ? 5 : 6;
+    CUtensorMap mq, mk, mv;
+    cudaError_t err;
+    if ((err = make_map_3d(&mq, q, bh, t, D, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mk, k, bh, t, D, bf16, unit)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mv, v, bh, t, D, bf16, unit)) != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(wgmma_bs_fwd<T, D, NWG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    const int n_tiles = (t + 64 * NWG - 1) / (64 * NWG);
+    wgmma_bs_fwd<T, D, NWG><<<bh * n_tiles, C::THREADS, C::SMEM, stream>>>(
+        mq, mk, mv, static_cast<const int*>(tile_idx), static_cast<const int*>(tile_cnt),
+        static_cast<const int*>(tile_order), static_cast<T*>(o), static_cast<float*>(lse), t,
+        n_heads, bh / n_heads, n_tiles, max_slots, log2u, scale, causal);
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int d, int tile_rows, const void* q, const void* k, const void* v,
+                     const void* tile_idx, const void* tile_cnt, const void* tile_order,
+                     void* o, void* lse, int bh, int t, int n_heads, int block, int max_slots,
+                     float scale, int causal, cudaStream_t stream) {
+#define DS_BS_FWD_LAUNCH(D, NWG)                                                              \
+    return launch<T, D, NWG>(q, k, v, tile_idx, tile_cnt, tile_order, o, lse, bh, t, n_heads, \
+                             block, max_slots, scale, causal, stream)
+    if (d == 64) {
+        if (tile_rows == 128) DS_BS_FWD_LAUNCH(64, 2);
+        DS_BS_FWD_LAUNCH(64, 1);
+    }
+    if (tile_rows == 128) DS_BS_FWD_LAUNCH(128, 2);
+    DS_BS_FWD_LAUNCH(128, 1);
+#undef DS_BS_FWD_LAUNCH
+}
+
+}  // namespace wg
+
 }  // namespace
 
-// q, k, v, o: (bh, t, d) contiguous in `dtype`; idx: (n_heads, t / block, max_n)
-// and cnt: (n_heads, t / block) int32, the forward table; lse: (bh, t) f32.
-// The head of row block i is i % n_heads. Returns cudaGetLastError().
+// q, k, v, o: (bh, t, d) contiguous in `dtype`; lse: (bh, t) f32. The head of
+// row block i is i % n_heads. float32 walks the forward table idx (n_heads,
+// t / block, max_n) and cnt (n_heads, t / block); bf16 and fp16 walk the tile
+// tables of build_tile_tables for tiles of tile_rows (64 or 128) q rows:
+// tile_idx (n_heads, n_tiles, max_slots), tile_cnt (n_heads, n_tiles) and
+// tile_order (n_heads * n_tiles), n_tiles = ceil(t / tile_rows). All int32.
+// Returns cudaGetLastError().
 extern "C" int block_sparse_fwd(const void* q, const void* k, const void* v, const void* idx,
-                                const void* cnt, void* o, void* lse, int bh, int t, int d,
-                                int n_heads, int block, int max_n, float scale, int causal,
-                                int dtype, void* stream) {
+                                const void* cnt, const void* tile_idx, const void* tile_cnt,
+                                const void* tile_order, void* o, void* lse, int bh, int t,
+                                int d, int n_heads, int block, int max_n, int tile_rows,
+                                int max_slots, float scale, int causal, int dtype,
+                                void* stream) {
     if (block_sparse::bad_args(bh, t, n_heads, block, max_n)) return (int)cudaErrorInvalidValue;
-    return (int)block_sparse::dispatch<Fwd>(dtype, block, d, q, k, v, idx, cnt, o, lse, bh, t,
-                                            n_heads, max_n, scale, causal,
-                                            static_cast<cudaStream_t>(stream));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == DS_F32)
+        return (int)block_sparse::by_block<Fwd, float>(block, d, q, k, v, idx, cnt, o, lse, bh,
+                                                       t, n_heads, max_n, scale, causal, s);
+    const int slots = 64 / (block < 64 ? block : 64);
+    if ((dtype != DS_F16 && dtype != DS_BF16) || (d != 64 && d != 128) ||
+        (block != 16 && block != 32 && block != 64 && block != 128) ||
+        (tile_rows != 64 && tile_rows != 128) || max_slots <= 0 || max_slots % slots != 0 ||
+        tile_idx == nullptr || tile_cnt == nullptr || tile_order == nullptr)
+        return (int)cudaErrorInvalidValue;
+    if (dtype == DS_F16)
+        return (int)wg::dispatch<__half>(d, tile_rows, q, k, v, tile_idx, tile_cnt, tile_order,
+                                         o, lse, bh, t, n_heads, block, max_slots, scale, causal,
+                                         s);
+    return (int)wg::dispatch<__nv_bfloat16>(d, tile_rows, q, k, v, tile_idx, tile_cnt,
+                                            tile_order, o, lse, bh, t, n_heads, block,
+                                            max_slots, scale, causal, s);
 }
+
+// the q rows a tile of the bf16/fp16 path takes (64 a consumer warpgroup):
+// the wrappers build the tile tables for it
+extern "C" int block_sparse_fwd_tile_rows() { return 64 * wg::bs_fwd_warpgroups(); }

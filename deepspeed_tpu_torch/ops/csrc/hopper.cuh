@@ -48,16 +48,18 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 3-D map over a contiguous (bh, t, d) tensor of 16-bit values, boxes of
-// 64 rows x 64 columns of one (b*h). Rows past t lie outside the map, so a
-// box that reaches past t is zero-filled: a ragged last tile never reads the
-// next head's rows.
+// box_rows rows (64, or 16 or 32 for a block-sparse stage's part of a panel:
+// a multiple of 8 rows keeps each box on a 1024-byte swizzle boundary) x 64
+// columns of one (b*h). Rows past t lie outside the map, so a box that
+// reaches past t is zero-filled: a ragged last tile never reads the next
+// head's rows.
 inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, int bh, int t, int d,
-                               bool bf16) {
+                               bool bf16, int box_rows = PANEL) {
     EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return cudaErrorNotSupported;
     const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
     const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-    const cuuint32_t box[3] = {PANEL, PANEL, 1};
+    const cuuint32_t box[3] = {PANEL, (cuuint32_t)box_rows, 1};
     const cuuint32_t elem[3] = {1, 1, 1};
     const CUtensorMapDataType type =
         bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
@@ -104,7 +106,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     } while (!done);
 }
 
-// one 64 x 64 box at (column c0, row c1, head c2) into the panel at dst
+// one box of the map at (column c0, row c1, head c2) into shared memory at dst
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2) {
     asm volatile(

@@ -79,8 +79,11 @@ kernel that is wrong by 20 % on most rows.
   float32 (2e-5, 2e-5): h is not rounded; sums of up to 4,096 terms in
   other orders.
 - The block-sparse kernels reuse ``FWD_TOLERANCES`` (o), ``LSE_TOLERANCE``
-  and ``BWD_TOLERANCES`` (dq, dk, dv), which are looser than they need: as in
-  the TPU kernels, neither p nor ds is rounded to the input dtype, so both
+  and ``BWD_TOLERANCES`` (dq, dk, dv). The forward's bf16/fp16 path runs on
+  the tensor cores and rounds each unnormalised p to the input dtype before
+  its product with v, as the flash forward does, which is what
+  ``FWD_TOLERANCES`` was set for. The dq and dk/dv kernels and the
+  forward's f32 path round neither p nor ds, as the TPU kernels do: both
   sides compute in f32 and round each output once, at the end, and f32 sums
   in another order can at most flip that rounding (one ulp, inside every
   rtol above). The f32 cases sum fewer terms than the flash cases those
@@ -104,7 +107,7 @@ from . import sparse_attention
 from .attention.block_sparse import (block_sparse_bwd_dkv, block_sparse_bwd_dkv_plain,
                                      block_sparse_bwd_dq, block_sparse_bwd_dq_plain,
                                      block_sparse_fwd, block_sparse_fwd_plain, build_tables,
-                                     device_tables)
+                                     device_tables, kernel_tile_tables)
 from .attention.decode import decode_attention, decode_attention_plain
 from .attention.flash import (flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
                              flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
@@ -123,7 +126,7 @@ BWD_TOLERANCES = {torch.bfloat16: (2e-3, 1.6e-2), torch.float16: (2.5e-4, 2e-3),
                   torch.float32: (2e-6, 2e-5)}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 #: the kernels whose bf16/fp16 paths run wgmma with TMA loads (f32: the CUDA cores)
-WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_fwd")
 BS_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 FWD_KERNELS = ("flash_fwd", "block_sparse_fwd")      # (o, f32 lse)
 LSE_TOLERANCE = 1e-3        # f32 logsumexp; sums of exp in another order
@@ -248,8 +251,8 @@ CASES: List[Case] = [
     Case(kernel, "fp32", dict(b=2, t=1024, h=4, d=64), torch.float32),
     Case(kernel, "fp16-full-d128", dict(b=2, t=300, h=4, d=128), torch.float16,
          causal=False),
-)] + [c for kernel in WGMMA_KERNELS for c in (
-    # the wgmma kernels' tilings: 64-row tiles, blocks of 64 or 128 rows, a
+)] + [c for kernel in ("flash_fwd",) + BWD_KERNELS for c in (
+    # the flash wgmma kernels' tilings: 64-row tiles, blocks of 64 or 128 rows, a
     # ring of K/V (K1, K3) or q/do (K4) stages. A t shorter than one tile, a t one tile and
     # two rows long, a causal walk that wraps the ring many times, fp16 causal.
     Case(kernel, "t40", dict(b=2, t=40, h=4, d=64), torch.bfloat16),
@@ -327,14 +330,27 @@ CASES: List[Case] = [
     # an empty q-block and one whose only block lies past its diagonal
     Case(kernel, "hand-made-empty-past-diagonal", dict(b=2, t=256, h=2, d=64),
          torch.bfloat16, layout=("hand-made", dict(block=16))),
+    # 65 q-blocks: the forward's last 64-row tile holds one q-block
+    Case(kernel, "fixed16-t1040", dict(b=2, t=1040, h=12, d=64), torch.bfloat16,
+         layout=GPT2_SPARSE),
+    # a bidirectional layout under the triangle at block 16: a tile's union
+    # holds blocks below the diagonal of rows that do not own them
+    Case(kernel, "bigbird16-causal", dict(b=2, t=1024, h=4, d=64), torch.bfloat16,
+         layout=("BigBirdSparsityConfig", dict(
+             num_heads=4, block=16, different_layout_per_head=True, num_random_blocks=2,
+             num_sliding_window_blocks=3, num_global_blocks=1, seed=1))),
+    # block 32: a forward tile is 2 q-blocks
+    Case(kernel, "fixed32-fp16-d128", dict(b=2, t=1024, h=4, d=128), torch.float16,
+         layout=("FixedSparsityConfig", dict(num_heads=4, block=32, num_local_blocks=4,
+                                             attention="unidirectional"))),
 )]
 
 
 def case_tags(case: Case) -> set:
     """The tags a selector ``"kernel:tag:..."`` can name: the case's dtype
-    (``bfloat16``, ``float16``, ``float32``), ``causal`` or ``full``, and
-    ``int8`` or ``int4`` for the dequant-GEMM."""
-    tags = {str(case.dtype).split(".")[-1], "causal" if case.causal else "full"}
+    (``bfloat16``, ``float16``, ``float32``), ``causal`` or ``full``, its
+    name, and ``int8`` or ``int4`` for the dequant-GEMM."""
+    tags = {str(case.dtype).split(".")[-1], "causal" if case.causal else "full", case.name}
     if "bits" in case.dims:
         tags.add(f"int{case.dims['bits']}")
     return tags
@@ -463,17 +479,21 @@ def moe_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
 
 def block_sparse_inputs(case: Case, device, gen) -> Dict[str, torch.Tensor]:
     """q, k, v ~ N(0, 1) ``(b*h, t, d)`` and the layout's four tables on
-    ``device``; for the backward kernels also do ~ N(0, 1), and o and lse from
-    the plain forward (so their inputs do not depend on the forward kernel)
-    with delta = rowsum(do * o)."""
+    ``device``; for the forward kernel on a CUDA device in bf16/fp16 also its
+    tile tables (``tiles``), built here, outside any timing; for the backward
+    kernels also do ~ N(0, 1), and o and lse from the plain forward (so their
+    inputs do not depend on the forward kernel) with delta = rowsum(do * o)."""
     bh, t, d = case.dims["b"] * case.dims["h"], case.dims["t"], case.dims["d"]
 
     def randn():
         return torch.randn(bh, t, d, generator=gen, device=device).to(case.dtype)
 
+    layout = case_layout(case)
     inp = {"q": randn(), "k": randn(), "v": randn(),
-           **device_tables(build_tables(case_layout(case)), device)}
-    if case.kernel != "block_sparse_fwd":
+           **device_tables(build_tables(layout), device)}
+    if case.kernel == "block_sparse_fwd":
+        inp["tiles"] = kernel_tile_tables(layout, case_block(case), inp["q"])
+    else:
         inp["do"] = randn()
         o, inp["lse"] = block_sparse_fwd_plain(inp["q"], inp["k"], inp["v"], inp["fwd_idx"],
                                                inp["fwd_cnt"], case_block(case), _scale(case),
@@ -524,7 +544,8 @@ def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     if case.kernel == "moe_decode_ffn":
         return (moe_decode_ffn(*_moe_args(case, inp)),)
     if case.kernel in BS_KERNELS:
-        out = BS_FUNCTIONS[case.kernel][0](*_bs_args(case, inp))
+        kw = {"tiles": inp["tiles"]} if case.kernel == "block_sparse_fwd" else {}
+        out = BS_FUNCTIONS[case.kernel][0](*_bs_args(case, inp), **kw)
         return out if isinstance(out, tuple) else (out,)
     if case.kernel == "quantized_matmul":
         return (quantized_matmul(inp["x"], inp["q"], inp["scales"], bits=case.dims["bits"]),)

@@ -1,8 +1,8 @@
 """The port stands alone: it imports no JAX, flax, pydantic or ``deepspeed_tpu``.
 
 The card's machine has none of them, so any such import in
-``deepspeed_tpu_torch/``, ``chip_smoke.py``, the card-only test or
-``benchmarks/torch/qmm_versions.py`` would break them there.
+``deepspeed_tpu_torch/``, ``chip_smoke.py``, the card-only test or the
+timing scripts of ``benchmarks/torch/`` would break them there.
 """
 
 import ast
@@ -17,10 +17,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "pydantic", "deepspeed_tpu")
 
 
 def _port_files():
-    # the card-only test and the kernel timing script run on the card's machine too
+    # the card-only test and the timing scripts run on the card's machine too
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tests", "test_torch_kernels_cuda.py"),
-             os.path.join(REPO, "benchmarks", "torch", "qmm_versions.py")]
+             os.path.join(REPO, "tests", "test_torch_kernels_cuda.py")]
+    files += [os.path.join(REPO, "benchmarks", "torch", n)
+              for n in ("dq_ties.py", "qmm_versions.py", "train_versions.py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "deepspeed_tpu_torch")):
         dirs.sort()                     # one order for every xdist worker
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]

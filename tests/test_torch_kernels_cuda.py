@@ -243,7 +243,7 @@ def test_block_sparse_attention_gradients_and_launches_on_card():
     within the forward's bf16 limit of the plain forward, and dq, dk, dv
     within the backward's of the plain backward fed with the forward kernel's
     o and lse; the forward kernel refuses inputs that require grad under
-    grad mode."""
+    grad mode, and bf16 inputs without its tile tables."""
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.attention import block_sparse as bs
     device = _card()
@@ -262,9 +262,13 @@ def test_block_sparse_attention_gradients_and_launches_on_card():
 
     q3, k3, v3, do3 = map(to3, (q, k, v, do))
     tables = bs.device_tables(bs.build_tables(layout), device)
+    tiles = bs.kernel_tile_tables(layout, 16, q3)
     with torch.no_grad():
+        with pytest.raises(ValueError, match="tile tables"):
+            bs.block_sparse_fwd(q3, k3, v3, tables["fwd_idx"], tables["fwd_cnt"], 16,
+                                causal=True, n_heads=h)
         o3, lse = bs.block_sparse_fwd(q3, k3, v3, tables["fwd_idx"], tables["fwd_cnt"], 16,
-                                      causal=True, n_heads=h)
+                                      causal=True, n_heads=h, tiles=tiles)
     want_o, _ = bs.block_sparse_fwd_plain(q3, k3, v3, tables["fwd_idx"], tables["fwd_cnt"],
                                           16, d ** -0.5, True, h)
     assert kernel_checks.err_ratio(to3(o.detach()), want_o,
@@ -300,20 +304,24 @@ def test_block_sparse_refuses_unsupported_shapes_on_card():
     assert not any(op_builder.launch_counts()[n] for n in kernel_checks.BS_KERNELS)
     q3 = torch.zeros(4, 128, 64, device=device, dtype=torch.bfloat16)
     tables = bs.device_tables(bs.build_tables(layout), device)
+    tiles = bs.build_tile_tables(layout, 16, 64).to(device)
     lse = torch.empty(4, 128, device=device)
     with pytest.raises(KernelLaunchError, match="invalid argument"):
         # n_heads 3 does not divide b*h 4
         bs.BLOCK_SPARSE_FWD.launch(q3.data_ptr(), q3.data_ptr(), q3.data_ptr(),
                                    tables["fwd_idx"].data_ptr(), tables["fwd_cnt"].data_ptr(),
-                                   q3.data_ptr(), lse.data_ptr(), 4, 128, 64, 3, 16, 8, 0.125,
-                                   1, 2, torch.cuda.current_stream(device).cuda_stream)
+                                   *(x.data_ptr() for x in tiles[:3]), q3.data_ptr(),
+                                   lse.data_ptr(), 4, 128, 64, 3, 16, 8, 64,
+                                   tiles.idx.shape[2], 0.125, 1, 2,
+                                   torch.cuda.current_stream(device).cuda_stream)
 
 
 #: faults planted in a copy of the package: name -> (source in csrc/, line as
 #: written, line as planted, the check cases the fault must fail, as
 #: selectors of ``kernel_checks.selects``: "kernel" every case of a kernel,
-#: "kernel:tag:..." its cases with every tag, e.g. "quantized_matmul:int4" or
-#: "flash_bwd_dkv:bfloat16:causal")
+#: "kernel:tag:..." its cases with every tag, e.g. "quantized_matmul:int4",
+#: "flash_bwd_dkv:bfloat16:causal" or, by name,
+#: "block_sparse_fwd:bigbird16-causal")
 PLANTED_FAULTS = {
     "decode-skips-last-tile": (
         "decode_attention.cu",
@@ -394,7 +402,22 @@ PLANTED_FAULTS = {
         "block_sparse_fwd.cu",
         "const int nnz = cnt[head * nb + qb];",
         "const int nnz = cnt[head * nb + qb] - 1;",
-        ("block_sparse_fwd",)),
+        ("block_sparse_fwd:float32",)),
+    "block-sparse-fwd-wgmma-drops-ownership-mask": (
+        "block_sparse_fwd.cu",
+        "const bool own = (ej >> g) & 1;",
+        "const bool own = true;",
+        ("block_sparse_fwd:hand-made-empty-past-diagonal", "block_sparse_fwd:bigbird16-causal")),
+    "block-sparse-fwd-wgmma-walk-stops-a-stage-early": (
+        "block_sparse_fwd.cu",
+        "const int n_st = (tile_cnt[ht] + slots - 1) / slots;",
+        "const int n_st = (tile_cnt[ht] + slots - 1) / slots - 1;",
+        ("block_sparse_fwd:bfloat16", "block_sparse_fwd:float16")),
+    "block-sparse-fwd-wgmma-masked-as-excluded": (
+        "block_sparse_fwd.cu",
+        "x = !own ? excluded : (causal && col > row) ? DS_NEG_INF : x;",
+        "x = !own ? excluded : (causal && col > row) ? excluded : x;",
+        ("block_sparse_fwd:hand-made-empty-past-diagonal",)),
     "block-sparse-dq-skips-first-k-block": (
         "block_sparse_bwd_dq.cu",
         "for (int n = 0; n < nnz; ++n) {",
@@ -484,7 +507,7 @@ def test_case_selectors():
 
 
 def _wgmma_libraries():
-    """Builds K1's, K3's and K4's sources; their libraries' paths."""
+    """Builds K1's, K3's, K4's and K8's sources; their libraries' paths."""
     from deepspeed_tpu_torch.ops import op_builder
     sources = [op_builder.KERNELS[k].source for k in kernel_checks.WGMMA_KERNELS]
     op_builder.build(sources)
@@ -492,10 +515,10 @@ def _wgmma_libraries():
 
 
 def test_wgmma_kernels_issue_hgmma_and_tma_loads():
-    """The bf16/fp16 kernels of K1, K3 and K4 run on the tensor cores through
-    wgmma, fed by TMA: in the SASS of every ``wgmma_*`` function (2 dtypes x 2
-    head dims x 1 or 2 consumer warpgroups) stand HGMMA and UTMALDG; the
-    first version's f32 kernels, beside them, have neither."""
+    """The bf16/fp16 kernels of K1, K3, K4 and K8 run on the tensor cores
+    through wgmma, fed by TMA: in the SASS of every ``wgmma_*`` function (2
+    dtypes x 2 head dims x 1 or 2 consumer warpgroups) stand HGMMA and
+    UTMALDG; the first version's f32 kernels, beside them, have neither."""
     _card()
     from deepspeed_tpu_torch.ops import op_builder
     cuobjdump = os.path.join(os.path.dirname(op_builder._nvcc()), "cuobjdump")
@@ -511,8 +534,8 @@ def test_wgmma_kernels_issue_hgmma_and_tma_loads():
 
 
 def test_wgmma_main_path_instantiations_do_not_spill():
-    """``-Xptxas -v`` of K1, K3 and K4: the instantiations the main paths run
-    (bf16, head dim 64, one and two consumer warpgroups) spill nothing."""
+    """``-Xptxas -v`` of K1, K3, K4 and K8: the instantiations the main paths
+    run (bf16, head dim 64, one and two consumer warpgroups) spill nothing."""
     _card()
     from deepspeed_tpu_torch.ops import op_builder
     out_dir = os.path.join(REPO, "build", "ptxas_check")
