@@ -9,18 +9,17 @@
 Builds the checkout's ``ops/csrc/<kernel>.cu`` and the old source (same flags
 and C interface, ``-I`` the checkout's ``csrc/`` for its headers; for
 ``block_sparse_fwd`` the old source's C entry is the first version's, without
-tile tables, ``OLD_ARGTYPES``), prints each build's ptxas register and spill
-counts, then for every case of that kernel in ``ops/kernel_checks.py``: both
-versions' err/limit against the plain version and their times (old, new, new,
-old; ``chip_smoke.time_ms``), beside the library yardstick and the bound. For
-the wgmma kernels it also builds the new source with each block tiling forced
-(``-DDS_FLASH_FWD_WG=1|2``, ``-DDS_FLASH_DQ_WG=1|2``, ``-DDS_FLASH_DKV_WG=1|2``,
-``-DDS_BS_FWD_WG=1|2``: one or two consumer warpgroups a block) and times each
-on the 16-bit cases, the sweep behind ``fwd_warpgroups``, ``dq_warpgroups``,
-``dkv_warpgroups`` and ``bs_fwd_warpgroups``, and once more without the
-producer/consumer register rebalancing (``-DDS_NO_SETMAXNREG``). A
-block-sparse build is given the tile tables its own rule asks for, built
-before the timing.
+tile tables, ``OLD_ARGTYPES``; the new one takes the case's tile tables, built
+before the timing), prints each build's ptxas register and spill counts, then
+for every case of that kernel in ``ops/kernel_checks.py``: both versions'
+err/limit against the plain version and their times (old, new, new, old;
+``chip_smoke.time_ms``), beside the library yardstick and the bound. For the
+flash wgmma kernels it also builds the new source with each block tiling
+forced (``-DDS_FLASH_FWD_WG=1|2``, ``-DDS_FLASH_DQ_WG=1|2``,
+``-DDS_FLASH_DKV_WG=1|2``: one or two consumer warpgroups a block) and times
+each on the 16-bit cases, the sweep behind ``fwd_warpgroups``,
+``dq_warpgroups`` and ``dkv_warpgroups``, and once more without the
+producer/consumer register rebalancing (``-DDS_NO_SETMAXNREG``).
 For ``flash_bwd_dq`` it also builds the new source without its near-tie
 recompute of ds (``-DDS_FLASH_DQ_TIE_ULPS=0``), whose err/limit is printed
 and may exceed 1. Exits non-zero if another version fails a case, or a build
@@ -40,7 +39,7 @@ DIAGNOSTIC_BUILDS = {"flash_bwd_dq": [("no-tie-recompute", ["-DDS_FLASH_DQ_TIE_U
 
 #: the build-time macro that forces a wgmma kernel's block tiling
 SWEEP_MACRO = {"flash_fwd": "DS_FLASH_FWD_WG", "flash_bwd_dq": "DS_FLASH_DQ_WG",
-               "flash_bwd_dkv": "DS_FLASH_DKV_WG", "block_sparse_fwd": "DS_BS_FWD_WG"}
+               "flash_bwd_dkv": "DS_FLASH_DKV_WG"}
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 #: C entries whose argument list the current source changed: the old one
@@ -59,14 +58,13 @@ def ptxas_report(nvcc_out: str):
             print(f"  {name}: {line.split(':', 1)[-1].strip()}")
 
 
-def runner(kernel: str, fn, lib, old: bool):
-    """``run(case, inp)`` calling the C entry ``fn`` of library ``lib`` as the
-    kernel's wrapper would (``old``: the old source's argument list),
-    returning the wrapper's outputs."""
+def runner(kernel: str, fn, old: bool):
+    """``run(case, inp)`` calling the C entry ``fn`` as the kernel's wrapper
+    would (``old``: the old source's argument list), returning the wrapper's
+    outputs."""
     import torch
 
     from deepspeed_tpu_torch.ops import kernel_checks as kc
-    from deepspeed_tpu_torch.ops.attention import block_sparse as bs
     from deepspeed_tpu_torch.ops.attention.flash import DTYPE_CODES
     from deepspeed_tpu_torch.ops.kernel_checks import _scale
     from deepspeed_tpu_torch.ops.quantizer import fused_matmul as fm
@@ -109,8 +107,6 @@ def runner(kernel: str, fn, lib, old: bool):
         check(fn(*head, *bwd, dk.data_ptr(), dv.data_ptr(), *tail), kernel)
         return dk, dv
 
-    tiles = {}      # by case: this build's tile tables, built at the first (untimed) call
-
     def block_sparse(case, inp):
         q, k, v = inp["q"], inp["k"], inp["v"]
         bh, t, d = q.shape
@@ -125,18 +121,9 @@ def runner(kernel: str, fn, lib, old: bool):
             check(fn(*head, o.data_ptr(), lse.data_ptr(), bh, t, d, h, block, max_n, *tail),
                   kernel)
             return o, lse
-        if case.name not in tiles:
-            if q.dtype == torch.float32:
-                tiles[case.name] = (None, None, None), 0, 0
-            else:
-                query = lib.block_sparse_fwd_tile_rows
-                query.argtypes, query.restype = [], _int
-                tt = bs.build_tile_tables(kc.case_layout(case), block, query()).to(q.device)
-                tiles[case.name] = tuple(x.data_ptr() for x in tt[:3]), tt.rows, \
-                    tt.idx.shape[2], tt
-        ptrs, rows, max_slots = tiles[case.name][:3]
-        check(fn(*head, *ptrs, o.data_ptr(), lse.data_ptr(), bh, t, d, h, block, max_n, rows,
-                 max_slots, *tail), kernel)
+        tiles = inp["tiles"]
+        check(fn(*head, *(x.data_ptr() for x in tiles), o.data_ptr(), lse.data_ptr(), bh, t,
+                 d, h, block, max_n, tiles.idx.shape[2], *tail), kernel)
         return o, lse
 
     return {"quantized_matmul": qmm, "block_sparse_fwd": block_sparse}.get(kernel, flash)
@@ -192,7 +179,7 @@ def main(kernel: str, old_source: str) -> int:
         old = tag == "old" and kernel in OLD_ARGTYPES
         fn.argtypes = OLD_ARGTYPES[kernel] if old else info.argtypes
         fn.restype = ctypes.c_int
-        runs[tag] = runner(kernel, fn, lib, old)
+        runs[tag] = runner(kernel, fn, old)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)

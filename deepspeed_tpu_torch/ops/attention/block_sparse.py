@@ -44,6 +44,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..op_builder import CudaKernel
 from ..sparse_attention.sparsity_config import SparsityConfig, layout_to_dense_mask
@@ -51,8 +52,8 @@ from .flash import DTYPE_CODES, HEAD_DIMS, NEG_INF
 
 BLOCKS = (16, 32, 64, 128)
 TABLE_NAMES = ("fwd_idx", "fwd_cnt", "bwd_idx", "bwd_cnt")
-#: q rows a tile of the forward kernel's bf16/fp16 path: 64 a consumer warpgroup
-TILE_ROWS = (64, 128)
+#: q rows a tile of the forward kernel's bf16/fp16 path (one consumer warpgroup)
+TILE_ROWS = 64
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 BLOCK_SPARSE_FWD = CudaKernel(
@@ -60,7 +61,7 @@ BLOCK_SPARSE_FWD = CudaKernel(
     [_vp, _vp, _vp, _vp, _vp,                 # q, k, v, idx, cnt
      _vp, _vp, _vp, _vp, _vp,                 # tile_idx, tile_cnt, tile_order, o, lse
      _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
-     _int, _int,                              # tile_rows, max_slots
+     _int,                                    # max_slots
      ctypes.c_float, _int, _int, _vp])        # scale, causal, dtype, stream
 BLOCK_SPARSE_BWD_DQ = CudaKernel(
     "block_sparse_bwd_dq", "block_sparse_bwd_dq.cu", "block_sparse_bwd_dq",
@@ -108,20 +109,19 @@ class TileTables(NamedTuple):
     idx: Any        # (H, n_tiles, max_slots): entries k_unit << 8 | owner bits
     cnt: Any        # (H, n_tiles): union entries a tile
     order: Any      # (H * n_tiles,): head * n_tiles + tile, the longest walks first
-    rows: int       # q rows a tile: 64 a consumer warpgroup
 
     def to(self, device) -> "TileTables":
         return TileTables(*(torch.from_numpy(np.ascontiguousarray(x)).to(device)
-                            for x in self[:3]), self.rows)
+                            for x in self))
 
 
-def build_tile_tables(layout: np.ndarray, block: int, rows: int) -> TileTables:
+def build_tile_tables(layout: np.ndarray, block: int) -> TileTables:
     """The walk of the forward kernel's bf16/fp16 path from a (H, nb, nb) 0/1
-    layout of block ``block``, for tiles of ``rows`` q rows (64 or 128).
+    layout of block ``block``, for tiles of ``TILE_ROWS`` (64) q rows.
 
     The kernel works in units of ``unit = min(block, 64)`` rows; a layout of
     block 128 is first expanded to 64-row units (each 128-block is 2 x 2 of
-    them). A tile is ``rows / unit`` consecutive q-units and a stage ``64 /
+    them). A tile is ``64 / unit`` consecutive q-units and a stage ``64 /
     unit`` k-units (64 columns). For each (head, tile), ``idx`` holds the
     ascending union of the k-units its q-units own, each entry ``k_unit << 8
     | bits`` with bit g set where the tile's q-unit g owns it, padded to whole
@@ -130,14 +130,12 @@ def build_tile_tables(layout: np.ndarray, block: int, rows: int) -> TileTables:
     (head, tile) pairs by stage count, longest first (stable)."""
     if block not in BLOCKS:
         raise ValueError(f"the tile tables take a layout block in {BLOCKS}, got {block}")
-    if rows not in TILE_ROWS:
-        raise ValueError(f"a tile holds {TILE_ROWS} q rows, got {rows}")
     layout = np.asarray(layout) != 0
     unit = min(block, 64)
     if block > unit:
         layout = layout.repeat(block // unit, 1).repeat(block // unit, 2)
     h, nu, _ = layout.shape
-    per_tile, slots = rows // unit, 64 // unit
+    per_tile = slots = TILE_ROWS // unit
     n_tiles = -(-nu // per_tile)
     owners = np.zeros((h, n_tiles * per_tile, nu), np.int64)
     owners[:, :nu] = layout
@@ -153,25 +151,16 @@ def build_tile_tables(layout: np.ndarray, block: int, rows: int) -> TileTables:
                 idx[hi, ti, :len(ks)] = ks << 8 | bits[hi, ti, ks]
                 idx[hi, ti, len(ks):stages[hi, ti] * slots] = ks[-1] << 8
     order = np.argsort(-stages.reshape(-1), kind="stable").astype(np.int32)
-    return TileTables(idx, cnt.astype(np.int32), order, rows)
+    return TileTables(idx, cnt.astype(np.int32), order)
 
 
-def fwd_tile_rows() -> int:
-    """The q rows a tile of the forward kernel's bf16/fp16 path takes: the C
-    library's rule (``bs_fwd_warpgroups`` in ``csrc/block_sparse_fwd.cu``),
-    asked of the library (built at first use)."""
-    return BLOCK_SPARSE_FWD.function("block_sparse_fwd_tile_rows", [])()
-
-
-def kernel_tile_tables(layout: np.ndarray, block: int, q3: torch.Tensor
-                       ) -> Optional[TileTables]:
-    """The tile tables :func:`block_sparse_fwd`'s kernel takes for ``q3``
-    ``(b*h, t, d)``, on q3's device; None where it takes none (CPU tensors,
-    float32) or where the kernel refuses the shape (the wrapper says why)."""
-    if q3.device.type != "cuda" or q3.dtype == torch.float32 or block not in BLOCKS \
-            or q3.shape[-1] not in HEAD_DIMS:
+def kernel_tile_tables(layout: np.ndarray, block: int, device) -> Optional[TileTables]:
+    """:func:`build_tile_tables` on ``device`` for :func:`block_sparse_fwd`'s
+    kernel; None on the CPU, where no kernel runs, and for a block the kernel
+    refuses (the wrapper says why). The kernel's float32 path ignores them."""
+    if torch.device(device).type != "cuda" or block not in BLOCKS:
         return None
-    return build_tile_tables(layout, block, fwd_tile_rows()).to(q3.device)
+    return build_tile_tables(layout, block).to(device)
 
 
 def device_tables(tables: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -245,25 +234,66 @@ def _stream(x: torch.Tensor) -> int:
 
 
 # ------------------------------------------------------------------ kernels
-def _check_tiles(tiles: Optional[TileTables], q3: torch.Tensor, block: int,
-                 n_heads: int) -> None:
-    """What the bf16/fp16 kernel needs of its tile tables (their size in
-    :func:`build_tile_tables`' terms)."""
-    if tiles is None:
-        raise ValueError("block_sparse_fwd's bf16/fp16 kernel walks tile tables: pass "
-                         "tiles=kernel_tile_tables(layout, block, q3)")
+#: tile tables found to walk a forward table: tiles.idx -> (fwd_idx, fwd_cnt)
+_TILES_MATCHED = WeakIdKeyDictionary()
+
+
+def _tiles_walk_table(tiles: TileTables, fwd_idx: torch.Tensor, fwd_cnt: torch.Tensor,
+                      block: int) -> bool:
+    """Whether the stages the kernel walks of ``tiles`` own each (q-unit,
+    k-unit) pair of the forward table's layout exactly once and nothing
+    else (units of ``min(block, 64)`` rows), on the tables' device."""
+    unit = min(block, 64)
+    per_tile = slots = TILE_ROWS // unit
+    rep = block // unit
+    h, n_tiles, max_slots = tiles.idx.shape
+    nu = fwd_cnt.shape[1] * rep
+    dev = tiles.idx.device
+    walked_slots = -(-tiles.cnt.long() // slots) * slots
+    live = torch.arange(max_slots, device=dev) < walked_slots[..., None]
+    ents = tiles.idx.long() * live
+    owns = (ents[..., None] >> torch.arange(per_tile, device=dev)) & 1
+    hi, ti, si, g = owns.nonzero(as_tuple=True)
+    k_unit = ents[hi, ti, si] >> 8
+    if bool((k_unit >= nu).any()):
+        return False
+    walked = torch.zeros(h, n_tiles * per_tile, nu, dtype=torch.long, device=dev)
+    walked.index_put_((hi, ti * per_tile + g, k_unit), torch.ones_like(k_unit),
+                      accumulate=True)
+    want = table_layout(fwd_idx, fwd_cnt).to(dev)
+    want = want.repeat_interleave(rep, 1).repeat_interleave(rep, 2).long()
+    return torch.equal(walked[:, :nu], want) and not bool(walked[:, nu:].any())
+
+
+def _check_tiles(tiles: TileTables, q3: torch.Tensor, fwd_idx: torch.Tensor,
+                 fwd_cnt: torch.Tensor, block: int, n_heads: int) -> None:
+    """Tile tables must fit the kernel (:func:`build_tile_tables`' sizes) and
+    walk the layout of the forward table the backward kernels walk. That walk
+    is compared once per pair of tables (one read back to the host), so later
+    calls with the same tensors read nothing back."""
+    if block not in BLOCKS:
+        raise ValueError(f"block_sparse_fwd kernel takes a layout block in {BLOCKS}, got "
+                         f"{block}")
     bh, t, _ = q3.shape
-    n_tiles = -(-t // tiles.rows) if tiles.rows in TILE_ROWS else -1
-    slots = 64 // min(block, 64)
-    if n_tiles < 0 or tuple(tiles.cnt.shape) != (n_heads, n_tiles) or \
-            tiles.idx.ndim != 3 or tuple(tiles.idx.shape[:2]) != (n_heads, n_tiles) or \
-            tiles.idx.shape[2] % slots or tuple(tiles.order.shape) != (n_heads * n_tiles,):
-        raise ValueError(f"block_sparse_fwd: tile tables of {tiles.rows} rows do not fit "
-                         f"{n_heads} heads, t={t}, block {block}: idx "
-                         f"{tuple(tiles.idx.shape)}, cnt {tuple(tiles.cnt.shape)}, order "
-                         f"{tuple(tiles.order.shape)}")
-    if any(x.dtype != torch.int32 for x in tiles[:3]):
+    n_tiles = -(-t // TILE_ROWS)
+    slots = TILE_ROWS // min(block, 64)
+    if tuple(tiles.cnt.shape) != (n_heads, n_tiles) or tiles.idx.ndim != 3 or \
+            tuple(tiles.idx.shape[:2]) != (n_heads, n_tiles) or tiles.idx.shape[2] % slots or \
+            tuple(tiles.order.shape) != (n_heads * n_tiles,):
+        raise ValueError(f"block_sparse_fwd: tile tables do not fit {n_heads} heads, t={t}, "
+                         f"block {block}: idx {tuple(tiles.idx.shape)}, cnt "
+                         f"{tuple(tiles.cnt.shape)}, order {tuple(tiles.order.shape)}")
+    if any(x.dtype != torch.int32 for x in tiles):
         raise TypeError("block_sparse_fwd: tile tables must be int32")
+    if any(x.device != q3.device for x in tiles):
+        raise ValueError(f"block_sparse_fwd: tile tables must be on {q3.device}")
+    seen = _TILES_MATCHED.get(tiles.idx)
+    if seen is not None and seen[0] is fwd_idx and seen[1] is fwd_cnt:
+        return
+    if not _tiles_walk_table(tiles, fwd_idx, fwd_cnt, block):
+        raise ValueError("block_sparse_fwd: the tile tables do not walk the layout of the "
+                         "forward table (build both from one layout)")
+    _TILES_MATCHED[tiles.idx] = (fwd_idx, fwd_cnt)
 
 
 def block_sparse_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
@@ -276,10 +306,12 @@ def block_sparse_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     ``csrc/block_sparse_fwd.cu`` for CUDA tensors, :func:`block_sparse_fwd_plain`
     for CPU tensors. The kernel's float32 path walks the forward table; its
     bf16/fp16 path walks ``tiles`` (:func:`kernel_tile_tables` of the same
-    layout; required there, ignored elsewhere). The kernel's output has no
-    autograd history, so CUDA inputs that require grad are refused while grad
-    mode is on."""
+    layout; required there). Tiles given on either device must walk the
+    forward table's layout. The kernel's output has no autograd history, so
+    CUDA inputs that require grad are refused while grad mode is on."""
     _check("block_sparse_fwd", (q3, k3, v3), fwd_idx, fwd_cnt, block, n_heads)
+    if tiles is not None:
+        _check_tiles(tiles, q3, fwd_idx, fwd_cnt, block, n_heads)
     scale = _scale(q3, softmax_scale)
     if q3.device.type == "cpu":
         return block_sparse_fwd_plain(q3, k3, v3, fwd_idx, fwd_cnt, block, scale, causal,
@@ -288,19 +320,20 @@ def block_sparse_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
         raise ValueError("block_sparse_fwd's kernel output carries no gradient: under "
                          "autograd call block_sparse_attention (BlockSparseAttnFunction)")
     _check_cuda("block_sparse_fwd", (q3, k3, v3, fwd_idx, fwd_cnt), block)
-    tile_ptrs, tile_rows, max_slots = (None, None, None), 0, 0
+    tile_ptrs, max_slots = (None, None, None), 0
     if q3.dtype != torch.float32:
-        _check_tiles(tiles, q3, block, n_heads)
-        _check_cuda("block_sparse_fwd", (q3, *tiles[:3]), block)
-        tile_ptrs = tuple(x.data_ptr() for x in tiles[:3])
-        tile_rows, max_slots = tiles.rows, tiles.idx.shape[2]
+        if tiles is None:
+            raise ValueError("block_sparse_fwd's bf16/fp16 kernel walks tile tables: pass "
+                             "tiles=kernel_tile_tables(layout, block, q3.device)")
+        _check_cuda("block_sparse_fwd", (q3, *tiles), block)
+        tile_ptrs, max_slots = tuple(x.data_ptr() for x in tiles), tiles.idx.shape[2]
     bh, t, d = q3.shape
     o = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
     BLOCK_SPARSE_FWD.launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), fwd_idx.data_ptr(),
                             fwd_cnt.data_ptr(), *tile_ptrs, o.data_ptr(), lse.data_ptr(), bh,
-                            t, d, n_heads, block, fwd_idx.shape[2], tile_rows, max_slots,
-                            scale, int(causal), DTYPE_CODES[q3.dtype], _stream(q3))
+                            t, d, n_heads, block, fwd_idx.shape[2], max_slots, scale,
+                            int(causal), DTYPE_CODES[q3.dtype], _stream(q3))
     return o, lse
 
 
@@ -478,18 +511,16 @@ class BlockSparseAttnFunction(torch.autograd.Function):
 
 
 # ------------------------------------------------------------------ public ops
-def _attend(q, k, v, tables: Dict[str, torch.Tensor], tiles_for, block: int, causal: bool,
-            softmax_scale: Optional[float]) -> torch.Tensor:
-    """``tiles_for(q3)``: the forward kernel's tile tables for q3, or None."""
+def _attend(q, k, v, tables: Dict[str, torch.Tensor], tiles: Optional[TileTables],
+            block: int, causal: bool, softmax_scale: Optional[float]) -> torch.Tensor:
     b, t, h, d = q.shape
 
     def to3(x):
         return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
 
-    q3 = to3(q)
-    o3 = BlockSparseAttnFunction.apply(q3, to3(k), to3(v),
+    o3 = BlockSparseAttnFunction.apply(to3(q), to3(k), to3(v),
                                        *(tables[n] for n in TABLE_NAMES), block,
-                                       softmax_scale, causal, h, tiles_for(q3))
+                                       softmax_scale, causal, h, tiles)
     return o3.reshape(b, h, t, d).transpose(1, 2)
 
 
@@ -513,8 +544,7 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise AssertionError(f"layout covers {layout.shape[1] * block} positions, inputs "
                              f"have {t}")
     return _attend(q, k, v, device_tables(build_tables(layout), q.device),
-                   lambda q3: kernel_tile_tables(layout, block, q3), block, causal,
-                   softmax_scale)
+                   kernel_tile_tables(layout, block, q.device), block, causal, softmax_scale)
 
 
 def _layout_mask(layout: np.ndarray, block: int, device) -> torch.Tensor:
@@ -536,15 +566,15 @@ def block_sparse_attention_reference(q, k, v, layout, block, causal=False,
 def make_sparse_attention_impl(config: SparsityConfig):
     """Bind a :class:`SparsityConfig` into an attention impl of the
     ``get_attention_impl`` signature (the ``SparseSelfAttention`` role): the
-    layout is built and cached per sequence length, and its tables (with the
-    bf16/fp16 forward kernel's tile tables) as device tensors per (length,
-    device), so a training step builds and copies no table. A user ``mask``
+    layout is built and cached per sequence length, and its tables with the
+    bf16/fp16 forward kernel's tile tables as device tensors, one entry per
+    (length, device), so a training step builds and copies no table. A user ``mask``
     or a q shorter than k keeps the sparsity pattern on the masked dense path
     (``reference_attention`` with the layout's dense mask), as the JAX impl
     does; attention dropout is not ported and raises."""
     layouts: Dict[int, np.ndarray] = {}
-    tables: Dict[Tuple[int, torch.device], Dict[str, torch.Tensor]] = {}
-    tiles: Dict[Tuple[int, torch.device], Optional[TileTables]] = {}
+    tables: Dict[Tuple[int, torch.device],
+                 Tuple[Dict[str, torch.Tensor], Optional[TileTables]]] = {}
 
     def layout_for(s: int) -> np.ndarray:
         if s not in layouts:
@@ -572,16 +602,9 @@ def make_sparse_attention_impl(config: SparsityConfig):
         t = q.shape[1]
         key = (t, q.device)
         if key not in tables:
-            tables[key] = device_tables(build_tables(layout_for(t)), q.device)
-        return _attend(q, k, v, tables[key], tiles_for, config.block, causal or uni,
-                       softmax_scale)
-
-    def tiles_for(q3):
-        if q3.device.type != "cuda" or q3.dtype == torch.float32:
-            return None
-        key = (q3.shape[1], q3.device)
-        if key not in tiles:
-            tiles[key] = kernel_tile_tables(layout_for(key[0]), config.block, q3)
-        return tiles[key]
+            layout = layout_for(t)
+            tables[key] = (device_tables(build_tables(layout), q.device),
+                           kernel_tile_tables(layout, config.block, q.device))
+        return _attend(q, k, v, *tables[key], config.block, causal or uni, softmax_scale)
 
     return impl

@@ -23,12 +23,13 @@
 // - Tiles. The kernel works in units of U = min(block, 64) rows. A consumer
 //   warpgroup owns 64 q rows: 64 / U consecutive q-blocks (4 at block 16, 2
 //   at 32), or a 64-row slice of one q-block at block 64 and 128. A block
-//   runs one consumer warpgroup (two where built with DS_BS_FWD_WG=2, see
-//   bs_fwd_warpgroups) and one producer warpgroup, and walks the UNION of its
-//   rows' k-units in ascending order:
-//   the tile table of ops/attention/block_sparse.py:build_tile_tables, built
-//   once on the host, gives each entry's k-unit and a bitmask of the tile's
-//   q-units that own it, and launches the longest walks first.
+//   runs one consumer warpgroup and one producer warpgroup (two consumers
+//   sharing one ring, a union over 128 rows, were slower at every check case;
+//   see PERF.md's K8 findings), and walks the UNION of its rows' k-units in
+//   ascending order: the tile table of
+//   ops/attention/block_sparse.py:build_tile_tables, built once on the host,
+//   gives each entry's k-unit and a bitmask of the tile's q-units that own
+//   it, and launches the longest walks first.
 // - A stage is 64 columns: 64 / U entries. The producer's first thread loads
 //   each entry's K and V rows as one TMA box of U rows into its place in a
 //   64-row 128-byte-swizzled panel (a box of 16 rows is 2 KB, so each lands on
@@ -225,32 +226,30 @@ namespace wg {
 
 using namespace hopper;
 
-template <int D, int NWG>
+template <int D>
 struct Cfg {
     static constexpr int NP = D / PANEL;                      // 64-column panels of a row
     static constexpr int NST = D == 64 ? 3 : 2;               // stages of the K/V ring
-    static constexpr int THREADS = 128 * (NWG + 1);
-    static constexpr int Q_BYTES = NWG * NP * PANEL_BYTES;
+    static constexpr int THREADS = 256;                       // a consumer, a producer
+    static constexpr int Q_BYTES = NP * PANEL_BYTES;
     static constexpr int STAGE_BYTES = 2 * NP * PANEL_BYTES;  // K panels, then V panels
     // 1024 bytes of slack to align the tiles, then q, the ring, the barriers
     static constexpr size_t SMEM = 1024 + Q_BYTES + NST * STAGE_BYTES + 8 * (1 + 2 * NST);
 };
 
 // One block: tile `order[blockIdx.x / n_batch]` = head * n_tiles + tile of
-// batch blockIdx.x % n_batch; 64 * NWG q rows from tile * 64 * NWG. Units of
+// batch blockIdx.x % n_batch; 64 q rows from tile * 64. Units of
 // 2^log2u rows; an entry is k_unit << 8 | owner bits (bit g: the tile's q-unit
 // g owns it); a tile's entries are padded to whole stages of 64 >> log2u.
-template <typename T, int D, int NWG>
-__global__ void __launch_bounds__(128 * (NWG + 1), (NWG == 1 && D == 64) ? 2 : 1)
+template <typename T, int D>
+__global__ void __launch_bounds__(256, D == 64 ? 2 : 1)
 wgmma_bs_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ tile_idx,
              const int* __restrict__ tile_cnt, const int* __restrict__ tile_order,
              T* __restrict__ o, float* __restrict__ lse, int t, int n_heads, int n_batch,
              int n_tiles, int max_slots, int log2u, float scale, int causal) {
-    using C = Cfg<D, NWG>;
+    using C = Cfg<D>;
     constexpr int NP = C::NP, NST = C::NST;
-    // setmaxnreg as in wgmma_fwd: two consumer warpgroups at d 64
-    constexpr bool REBALANCE = NWG == 2 && D == 64;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
     const uint32_t ring = q_s + C::Q_BYTES;
@@ -265,28 +264,24 @@ wgmma_bs_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     const int slots = 64 >> log2u;                           // entries a stage
     const int* ents = tile_idx + (size_t)ht * max_slots;
     const int n_st = (tile_cnt[ht] + slots - 1) / slots;
-    const int q0 = tile * 64 * NWG;
+    const int q0 = tile * 64;
 
     if (threadIdx.x == 0) {
         mbar_init(q_full, 1);
         for (int s = 0; s < NST; ++s) {
             mbar_init(full(s), 1);
-            mbar_init(empty(s), 128 * NWG);
+            mbar_init(empty(s), 128);
         }
         mbar_fence_init();
     }
     __syncthreads();
 
-    const int wgi = threadIdx.x / 128;
-    if (wgi == NWG) {
+    if (threadIdx.x >= 128) {
         // producer: one thread issues every load
-        if constexpr (REBALANCE) setmaxnreg_dec<40>();
-        if (threadIdx.x == 128 * NWG) {
+        if (threadIdx.x == 128) {
             mbar_arrive_expect_tx(q_full, C::Q_BYTES);
-            for (int w = 0; w < NWG; ++w)
-                for (int p = 0; p < NP; ++p)
-                    tma_load_3d(q_s + (w * NP + p) * PANEL_BYTES, &tm_q, q_full, PANEL * p,
-                                q0 + 64 * w, bh);
+            for (int p = 0; p < NP; ++p)
+                tma_load_3d(q_s + p * PANEL_BYTES, &tm_q, q_full, PANEL * p, q0, bh);
             for (int st = 0; st < n_st; ++st) {
                 const int s = st % NST;
                 if (st >= NST) mbar_wait(empty(s), (st / NST - 1) & 1);
@@ -304,16 +299,13 @@ wgmma_bs_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
             }
         }
     } else {
-        // consumer warpgroup wgi: q rows row0 .. row0 + 63
-        if constexpr (REBALANCE) setmaxnreg_inc<232>();
-        const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-        const int row0 = q0 + 64 * wgi;
-        const int ra = row0 + 16 * warp + lane / 4;          // this thread's rows: ra, ra + 8
-        const int g = (64 * wgi + 16 * warp) >> log2u;       // their q-unit in the tile
-        const int wg_bits = ((1 << slots) - 1) << ((64 * wgi) >> log2u);  // its q-units
+        // consumer warpgroup: q rows q0 .. q0 + 63
+        const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+        const int ra = q0 + 16 * warp + lane / 4;            // this thread's rows: ra, ra + 8
+        const int g = (16 * warp) >> log2u;                  // their q-unit in the tile
+        const int wg_bits = (1 << slots) - 1;                // the tile's q-units
         const float sl2 = scale * LOG2E;                     // scores in log2 units
         const float excluded = __int_as_float((int)0xff800000);   // -inf: not the row's entry
-        const uint32_t qw = q_s + wgi * NP * PANEL_BYTES;
 
         float acc[NP][32];
 #pragma unroll
@@ -347,14 +339,14 @@ wgmma_bs_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
 #pragma unroll
                 for (int kk = 0; kk < D / 16; ++kk) {
                     const uint32_t off = (kk / 4) * PANEL_BYTES + 32 * (kk % 4);
-                    mma_ss<T, 0>(sc, desc(qw + off), desc(ks + off), kk > 0);
+                    mma_ss<T, 0>(sc, desc(q_s + off), desc(ks + off), kk > 0);
                 }
                 wg_commit();
                 wg_wait0();
                 reg_fence(sc);
 
                 const bool need_mask = (all_own & wg_bits) != wg_bits ||
-                                       (causal && ((e_last >> 8) + 1) * unit - 1 > row0);
+                                       (causal && ((e_last >> 8) + 1) * unit - 1 > q0);
                 float mx[2] = {DS_NEG_INF, DS_NEG_INF};
 #pragma unroll
                 for (int j = 0; j < 8; ++j) {
@@ -437,25 +429,12 @@ wgmma_bs_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     }
 }
 
-// consumer warpgroups a block: one (64 q rows, two blocks an SM at d 64).
-// In the sweep of benchmarks/torch/qmm_versions.py one beat two at every
-// check case, the training shape included, where two walk 32 stages of 128
-// rows a head against one's 52 of 64 rows; DS_BS_FWD_WG=2 at build time
-// forces two (one union for a pair of tiles sharing a ring), for that sweep
-inline int bs_fwd_warpgroups() {
-#ifdef DS_BS_FWD_WG
-    return DS_BS_FWD_WG;
-#else
-    return 1;
-#endif
-}
-
-template <typename T, int D, int NWG>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* tile_idx,
                    const void* tile_cnt, const void* tile_order, void* o, void* lse, int bh,
                    int t, int n_heads, int block, int max_slots, float scale, int causal,
                    cudaStream_t stream) {
-    using C = Cfg<D, NWG>;
+    using C = Cfg<D>;
     constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
     const int unit = block < 64 ? block : 64;
     const int log2u = unit == 16 ? 4 : unit == 32 ? 5 : 6;
@@ -464,11 +443,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tile
     if ((err = make_map_3d(&mq, q, bh, t, D, bf16)) != cudaSuccess) return err;
     if ((err = make_map_3d(&mk, k, bh, t, D, bf16, unit)) != cudaSuccess) return err;
     if ((err = make_map_3d(&mv, v, bh, t, D, bf16, unit)) != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(wgmma_bs_fwd<T, D, NWG>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    err = cudaFuncSetAttribute(wgmma_bs_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::SMEM);
     if (err != cudaSuccess) return err;
-    const int n_tiles = (t + 64 * NWG - 1) / (64 * NWG);
-    wgmma_bs_fwd<T, D, NWG><<<bh * n_tiles, C::THREADS, C::SMEM, stream>>>(
+    const int n_tiles = (t + 63) / 64;
+    wgmma_bs_fwd<T, D><<<bh * n_tiles, C::THREADS, C::SMEM, stream>>>(
         mq, mk, mv, static_cast<const int*>(tile_idx), static_cast<const int*>(tile_cnt),
         static_cast<const int*>(tile_order), static_cast<T*>(o), static_cast<float*>(lse), t,
         n_heads, bh / n_heads, n_tiles, max_slots, log2u, scale, causal);
@@ -476,20 +455,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tile
 }
 
 template <typename T>
-cudaError_t dispatch(int d, int tile_rows, const void* q, const void* k, const void* v,
-                     const void* tile_idx, const void* tile_cnt, const void* tile_order,
-                     void* o, void* lse, int bh, int t, int n_heads, int block, int max_slots,
-                     float scale, int causal, cudaStream_t stream) {
-#define DS_BS_FWD_LAUNCH(D, NWG)                                                              \
-    return launch<T, D, NWG>(q, k, v, tile_idx, tile_cnt, tile_order, o, lse, bh, t, n_heads, \
-                             block, max_slots, scale, causal, stream)
-    if (d == 64) {
-        if (tile_rows == 128) DS_BS_FWD_LAUNCH(64, 2);
-        DS_BS_FWD_LAUNCH(64, 1);
-    }
-    if (tile_rows == 128) DS_BS_FWD_LAUNCH(128, 2);
-    DS_BS_FWD_LAUNCH(128, 1);
-#undef DS_BS_FWD_LAUNCH
+cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const void* tile_idx,
+                     const void* tile_cnt, const void* tile_order, void* o, void* lse, int bh,
+                     int t, int n_heads, int block, int max_slots, float scale, int causal,
+                     cudaStream_t stream) {
+    if (d == 64)
+        return launch<T, 64>(q, k, v, tile_idx, tile_cnt, tile_order, o, lse, bh, t, n_heads,
+                             block, max_slots, scale, causal, stream);
+    return launch<T, 128>(q, k, v, tile_idx, tile_cnt, tile_order, o, lse, bh, t, n_heads,
+                          block, max_slots, scale, causal, stream);
 }
 
 }  // namespace wg
@@ -499,16 +473,14 @@ cudaError_t dispatch(int d, int tile_rows, const void* q, const void* k, const v
 // q, k, v, o: (bh, t, d) contiguous in `dtype`; lse: (bh, t) f32. The head of
 // row block i is i % n_heads. float32 walks the forward table idx (n_heads,
 // t / block, max_n) and cnt (n_heads, t / block); bf16 and fp16 walk the tile
-// tables of build_tile_tables for tiles of tile_rows (64 or 128) q rows:
-// tile_idx (n_heads, n_tiles, max_slots), tile_cnt (n_heads, n_tiles) and
-// tile_order (n_heads * n_tiles), n_tiles = ceil(t / tile_rows). All int32.
-// Returns cudaGetLastError().
+// tables of build_tile_tables (tiles of 64 q rows): tile_idx (n_heads, n_tiles,
+// max_slots), tile_cnt (n_heads, n_tiles) and tile_order (n_heads * n_tiles),
+// n_tiles = ceil(t / 64). All int32. Returns cudaGetLastError().
 extern "C" int block_sparse_fwd(const void* q, const void* k, const void* v, const void* idx,
                                 const void* cnt, const void* tile_idx, const void* tile_cnt,
                                 const void* tile_order, void* o, void* lse, int bh, int t,
-                                int d, int n_heads, int block, int max_n, int tile_rows,
-                                int max_slots, float scale, int causal, int dtype,
-                                void* stream) {
+                                int d, int n_heads, int block, int max_n, int max_slots,
+                                float scale, int causal, int dtype, void* stream) {
     if (block_sparse::bad_args(bh, t, n_heads, block, max_n)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == DS_F32)
@@ -516,19 +488,13 @@ extern "C" int block_sparse_fwd(const void* q, const void* k, const void* v, con
                                                        t, n_heads, max_n, scale, causal, s);
     const int slots = 64 / (block < 64 ? block : 64);
     if ((dtype != DS_F16 && dtype != DS_BF16) || (d != 64 && d != 128) ||
-        (block != 16 && block != 32 && block != 64 && block != 128) ||
-        (tile_rows != 64 && tile_rows != 128) || max_slots <= 0 || max_slots % slots != 0 ||
-        tile_idx == nullptr || tile_cnt == nullptr || tile_order == nullptr)
+        (block != 16 && block != 32 && block != 64 && block != 128) || max_slots <= 0 ||
+        max_slots % slots != 0 || tile_idx == nullptr || tile_cnt == nullptr ||
+        tile_order == nullptr)
         return (int)cudaErrorInvalidValue;
     if (dtype == DS_F16)
-        return (int)wg::dispatch<__half>(d, tile_rows, q, k, v, tile_idx, tile_cnt, tile_order,
-                                         o, lse, bh, t, n_heads, block, max_slots, scale, causal,
-                                         s);
-    return (int)wg::dispatch<__nv_bfloat16>(d, tile_rows, q, k, v, tile_idx, tile_cnt,
-                                            tile_order, o, lse, bh, t, n_heads, block,
-                                            max_slots, scale, causal, s);
+        return (int)wg::dispatch<__half>(d, q, k, v, tile_idx, tile_cnt, tile_order, o, lse, bh,
+                                         t, n_heads, block, max_slots, scale, causal, s);
+    return (int)wg::dispatch<__nv_bfloat16>(d, q, k, v, tile_idx, tile_cnt, tile_order, o, lse,
+                                            bh, t, n_heads, block, max_slots, scale, causal, s);
 }
-
-// the q rows a tile of the bf16/fp16 path takes (64 a consumer warpgroup):
-// the wrappers build the tile tables for it
-extern "C" int block_sparse_fwd_tile_rows() { return 64 * wg::bs_fwd_warpgroups(); }

@@ -479,8 +479,9 @@ def moe_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
 
 def block_sparse_inputs(case: Case, device, gen) -> Dict[str, torch.Tensor]:
     """q, k, v ~ N(0, 1) ``(b*h, t, d)`` and the layout's four tables on
-    ``device``; for the forward kernel on a CUDA device in bf16/fp16 also its
-    tile tables (``tiles``), built here, outside any timing; for the backward
+    ``device``; for the forward kernel on a CUDA device also its tile tables
+    (``tiles``, which its float32 path ignores), built here, outside any
+    timing; for the backward
     kernels also do ~ N(0, 1), and o and lse from the plain forward (so their
     inputs do not depend on the forward kernel) with delta = rowsum(do * o)."""
     bh, t, d = case.dims["b"] * case.dims["h"], case.dims["t"], case.dims["d"]
@@ -492,7 +493,7 @@ def block_sparse_inputs(case: Case, device, gen) -> Dict[str, torch.Tensor]:
     inp = {"q": randn(), "k": randn(), "v": randn(),
            **device_tables(build_tables(layout), device)}
     if case.kernel == "block_sparse_fwd":
-        inp["tiles"] = kernel_tile_tables(layout, case_block(case), inp["q"])
+        inp["tiles"] = kernel_tile_tables(layout, case_block(case), device)
     else:
         inp["do"] = randn()
         o, inp["lse"] = block_sparse_fwd_plain(inp["q"], inp["k"], inp["v"], inp["fwd_idx"],

@@ -115,9 +115,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
-        self._lib = None
         self._error_string = None
-        self._functions = {}
         KERNELS[name] = self
 
     def _load(self):
@@ -125,7 +123,6 @@ class CudaKernel:
             if self._fn is None:
                 build([self.source])
                 lib = ctypes.CDLL(_library_path(self.source))
-                self._lib = lib
                 fn = getattr(lib, self.symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
@@ -135,16 +132,6 @@ class CudaKernel:
                 self._error_string = err
                 self._fn = fn
         return self._fn
-
-    def function(self, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
-        """Another C function of this kernel's library (built at first use),
-        such as a query of the launch geometry; calling it counts no launch."""
-        if symbol not in self._functions:
-            self._fn or self._load()
-            fn = getattr(self._lib, symbol)
-            fn.argtypes, fn.restype = list(argtypes), restype
-            self._functions[symbol] = fn
-        return self._functions[symbol]
 
     def launch(self, *args) -> None:
         fn = self._fn or self._load()

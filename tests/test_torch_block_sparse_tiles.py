@@ -4,22 +4,23 @@ The bf16/fp16 forward kernel (``csrc/block_sparse_fwd.cu``, ``wgmma_bs_fwd``)
 runs only on the card, but the rule it follows runs here:
 
 - ``build_tile_tables`` reproduces the layout of every block-sparse check case
-  of ``ops/kernel_checks.py`` at layout blocks 16, 32, 64 and 128 and tiles of
-  64 and 128 rows: each (row unit, k unit) the layout holds is walked once, in
+  of ``ops/kernel_checks.py`` at layout blocks 16, 32, 64 and 128 (tiles of 64
+  rows): each (row unit, k unit) the layout holds is walked once, in
   ascending order, by the tile that holds the row; each entry a row does not
   own has its bit clear; padding repeats a real entry and is owned by no row;
   the launch order puts the longest walks first;
 - ``emulate_tile_walk`` below, a plain f32 emulation of the kernel's walk
   (stage by stage, 64 columns a stage, with its two masks: an entry the row
   does not own is excluded, p = 0 and no part in the max; a causally masked
-  entry scores -1e30), equals ``block_sparse_fwd_plain`` on each check case's
-  layout, and JAX's ``_bs_fwd`` (its Pallas kernel in interpret mode) on the
-  hand-made layout, whose q-block 2 is empty and whose q-block 3 walks only
-  k-block 5, past its diagonal (zeros, the mean of block 5's V rows, lse
-  -1e30);
-- the same emulation with either mask wrong (every union entry treated as
-  owned, or masked entries treated as excluded) fails on the hand-made
-  layout.
+  entry scores -1e30), equals ``block_sparse_fwd_plain`` on each check case
+  whose tiles hold entries that some of their rows do not own, and JAX's
+  ``_bs_fwd`` (its Pallas kernel in interpret mode) on the hand-made layout,
+  whose q-block 2 is empty and whose q-block 3 walks only k-block 5, past its
+  diagonal (zeros, the mean of block 5's V rows, lse -1e30);
+- ``block_sparse_fwd`` takes tile tables built from the forward table's
+  layout, for every check case's layout, and refuses tile tables that walk
+  another layout, miss an owner bit or a stage, or give a row an entry it
+  does not own.
 
 Tolerances: the emulation and the plain version both compute in f32, in
 other orders (online over stages against one softmax over the row), so (atol
@@ -58,23 +59,20 @@ def _table_cases():
             if case.dims["t"] % block:
                 continue            # t 1040 takes block 16 only
             t = max(case.dims["t"], 8 * block)      # at least 8 blocks (hand-made needs 6)
-            for rows in tbs.TILE_ROWS:
-                yield pytest.param(case, block, t, rows,
-                                   id=f"{case.name}-block{block}-t{t}-rows{rows}")
+            yield pytest.param(case, block, t, id=f"{case.name}-block{block}-t{t}")
 
 
-@pytest.mark.parametrize("case,block,t,rows", list(_table_cases()))
-def test_tile_tables_walk_the_layout(case, block, t, rows):
+@pytest.mark.parametrize("case,block,t", list(_table_cases()))
+def test_tile_tables_walk_the_layout(case, block, t):
     layout = _layout(case, block, t) != 0
-    tiles = tbs.build_tile_tables(layout, block, rows)
+    tiles = tbs.build_tile_tables(layout, block)
     unit = min(block, 64)
     if block > unit:
         layout = layout.repeat(block // unit, 1).repeat(block // unit, 2)
     h, nu, _ = layout.shape
-    per_tile, slots = rows // unit, 64 // unit
-    n_tiles = -(-t // rows)
-    assert tiles.rows == rows
-    assert all(x.dtype == np.int32 for x in tiles[:3])
+    per_tile = slots = tbs.TILE_ROWS // unit
+    n_tiles = -(-t // tbs.TILE_ROWS)
+    assert all(x.dtype == np.int32 for x in tiles)
     assert tiles.idx.shape[:2] == tiles.cnt.shape == (h, n_tiles)
     assert tiles.idx.shape[2] % slots == 0
     walked = np.zeros((h, n_tiles * per_tile, nu), np.int64)
@@ -99,17 +97,15 @@ def test_tile_tables_walk_the_layout(case, block, t, rows):
 
 
 # ------------------------------------------------------------------ the walk
-def emulate_tile_walk(q3, k3, v3, tiles, block, scale, causal, n_heads, own_mask=True,
-                      masked=NEG_INF):
+def emulate_tile_walk(q3, k3, v3, tiles, block, scale, causal, n_heads):
     """The bf16/fp16 forward kernel's walk in plain f32 tensor code: each tile
-    of ``tiles.rows`` q rows walks its union stage by stage (64 columns), an
-    entry a row does not own scores -inf (p = 0, no part in the max), a
-    causally masked one ``masked`` (-1e30); online softmax from m = -1e30;
-    o = acc / l (l 0 → 1), lse = m + log l, -1e30 where l is 0 or m -1e30.
-    ``own_mask=False`` treats every union entry as owned (a wrong kernel)."""
+    of 64 q rows walks its union stage by stage (64 columns), an entry a row
+    does not own scores -inf (p = 0, no part in the max), a causally masked
+    one -1e30; online softmax from m = -1e30; o = acc / l (l 0 → 1), lse =
+    m + log l, -1e30 where l is 0 or m -1e30."""
     bh, t, d = q3.shape
-    unit, rows = min(block, 64), tiles.rows
-    slots = 64 // unit
+    unit, rows = min(block, 64), tbs.TILE_ROWS
+    slots = rows // unit
     o = torch.zeros(bh, t, d)
     lse = torch.full((bh, t), NEG_INF)
     for head in range(n_heads):
@@ -130,10 +126,10 @@ def emulate_tile_walk(q3, k3, v3, tiles, block, scale, causal, n_heads, own_mask
                 ents = tiles.idx[head, tile, st * slots:(st + 1) * slots].astype(np.int64)
                 cols = torch.from_numpy((ents[:, None] >> 8) * unit + np.arange(unit)).reshape(-1)
                 own = torch.from_numpy((ents[None, :] & 0xFF) >> unit_of_row & 1 == 1)
-                own = own.repeat_interleave(unit, 1) | (not own_mask)
+                own = own.repeat_interleave(unit, 1)
                 s = qt @ k[:, cols].transpose(1, 2) * scale
                 if causal:
-                    s = s.masked_fill(cols[None, None, :] > r[None, :, None], masked)
+                    s = s.masked_fill(cols[None, None, :] > r[None, :, None], NEG_INF)
                 s = s.masked_fill(~own[None], float("-inf"))
                 m_new = torch.maximum(m, s.amax(-1))
                 alpha = torch.exp(m - m_new)
@@ -165,17 +161,31 @@ def _plain(case, q3, k3, v3, layout):
                                       case.dims["h"])
 
 
-def _emulate(case, q3, k3, v3, layout, rows, **kw):
+def _emulate(case, q3, k3, v3, layout):
     block = kc.case_block(case)
-    return emulate_tile_walk(q3, k3, v3, tbs.build_tile_tables(layout, block, rows), block,
-                             D ** -0.5, case.causal, case.dims["h"], **kw)
+    return emulate_tile_walk(q3, k3, v3, tbs.build_tile_tables(layout, block), block,
+                             D ** -0.5, case.causal, case.dims["h"])
 
 
-@pytest.mark.parametrize("rows", tbs.TILE_ROWS)
-@pytest.mark.parametrize("case", CHECK_CASES, ids=lambda c: c.name)
-def test_tile_walk_equals_plain(case, rows):
+def _partly_owned(case) -> bool:
+    """Whether some tile of the case walks an entry that one of its rows
+    does not own, so that the ownership mask matters."""
+    block = kc.case_block(case)
+    tiles = tbs.build_tile_tables(kc.case_layout(case), block)
+    per_tile = tbs.TILE_ROWS // min(block, 64)
+    n_units = case.dims["t"] // min(block, 64)
+    for (hi, ti), cnt in np.ndenumerate(tiles.cnt):
+        live = min(per_tile, n_units - ti * per_tile)
+        if np.any(tiles.idx[hi, ti, :cnt] & 0xFF != (1 << live) - 1):
+            return True
+    return False
+
+
+@pytest.mark.parametrize("case", [c for c in CHECK_CASES if _partly_owned(c)],
+                         ids=lambda c: c.name)
+def test_tile_walk_equals_plain(case):
     q3, k3, v3, layout = _inputs(case)
-    o, lse = _emulate(case, q3, k3, v3, layout, rows)
+    o, lse = _emulate(case, q3, k3, v3, layout)
     want_o, want_lse = _plain(case, q3, k3, v3, layout)
     np.testing.assert_allclose(o.numpy(), want_o.numpy(), atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=ATOL, rtol=RTOL)
@@ -188,12 +198,11 @@ def test_tile_walk_equals_plain(case, rows):
                                    mean.expand(-1, block, -1).numpy(), atol=2e-6, rtol=1e-5)
 
 
-@pytest.mark.parametrize("rows", tbs.TILE_ROWS)
-def test_tile_walk_matches_jax_kernel_on_hand_made(rows):
+def test_tile_walk_matches_jax_kernel_on_hand_made():
     """The emulated walk against the TPU kernel itself (``_bs_fwd`` in
     interpret mode), two batches of the hand-made layout."""
     q3, k3, v3, layout = _inputs(HAND_MADE, seed=1, b=2)
-    o, lse = _emulate(HAND_MADE, q3, k3, v3, layout, rows)
+    o, lse = _emulate(HAND_MADE, q3, k3, v3, layout)
     tables = jbs.build_tables(layout)
     want_o, want_lse = jbs._bs_fwd(*(jnp.asarray(x.numpy()) for x in (q3, k3, v3)),
                                    jnp.asarray(tables["fwd_idx"]), jnp.asarray(tables["fwd_cnt"]),
@@ -203,17 +212,58 @@ def test_tile_walk_matches_jax_kernel_on_hand_made(rows):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("fault", ["no-ownership-mask", "masked-as-excluded"])
-def test_wrong_mask_fails_on_hand_made(fault):
-    """Either mask done wrong changes the hand-made layout's rows: without
-    the ownership mask, empty q-block 2 attends to the union's blocks 0 and 1
-    below its diagonal; with masked entries excluded, q-block 3 gives zeros
-    where the TPU kernel gives the mean of block 5's V rows."""
-    q3, k3, v3, layout = _inputs(HAND_MADE)
-    kw = {"own_mask": False} if fault == "no-ownership-mask" else {"masked": float("-inf")}
-    o, _ = _emulate(HAND_MADE, q3, k3, v3, layout, 64, **kw)
-    want_o, _ = _plain(HAND_MADE, q3, k3, v3, layout)
-    block = kc.case_block(HAND_MADE)
-    rows = slice(2 * block, 3 * block) if fault == "no-ownership-mask" else \
-        slice(3 * block, 4 * block)
-    assert float((o[:, rows] - want_o[:, rows]).abs().max()) > 0.1
+# ------------------------------------------------------------------ the wrapper's check
+def _fwd(case, layout, tiles):
+    q3, k3, v3, _ = _inputs(case)
+    tables = tbs.device_tables(tbs.build_tables(layout), "cpu")
+    return tbs.block_sparse_fwd(q3, k3, v3, tables["fwd_idx"], tables["fwd_cnt"],
+                                kc.case_block(case), causal=case.causal,
+                                n_heads=case.dims["h"], tiles=tiles.to("cpu"))
+
+
+@pytest.mark.parametrize("case", CHECK_CASES, ids=lambda c: c.name)
+def test_fwd_takes_tile_tables_of_its_layout(case):
+    layout = kc.case_layout(case)
+    o, lse = _fwd(case, layout, tbs.build_tile_tables(layout, kc.case_block(case)))
+    q3, k3, v3, _ = _inputs(case)
+    want_o, want_lse = _plain(case, q3, k3, v3, layout)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+
+
+def _other_layout(tiles, layout):
+    """Tile tables of another layout of the same shape: the hand-made
+    layout with its one block of q-block 3 moved from k-block 5 to 4."""
+    other = layout.copy()
+    other[:, 3, 5], other[:, 3, 4] = 0, 1
+    return tbs.build_tile_tables(other, kc.case_block(HAND_MADE))
+
+
+def _bit_cleared(tiles, layout):
+    idx = tiles.idx.copy()
+    idx[0, 0, 0] &= ~(idx[0, 0, 0] & -idx[0, 0, 0] & 0xFF)      # its lowest owner bit
+    return tiles._replace(idx=idx)
+
+
+def _stage_dropped(tiles, layout):
+    slots = tbs.TILE_ROWS // kc.case_block(HAND_MADE)
+    cnt = tiles.cnt.copy()
+    cnt[0, 0] = (cnt[0, 0] - 1) // slots * slots
+    return tiles._replace(cnt=cnt)
+
+
+def _owner_added(tiles, layout):
+    idx = tiles.idx.copy()
+    idx[0, 0, 0] |= 0xF                                          # every q-block of the tile
+    return tiles._replace(idx=idx)
+
+
+@pytest.mark.parametrize("fault", [_other_layout, _bit_cleared, _stage_dropped, _owner_added],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_fwd_refuses_tile_tables_of_another_walk(fault):
+    """Tile tables that do not walk the forward table's layout raise, as the
+    backward kernels walk that table: the forward would otherwise use one
+    layout and the gradients another."""
+    layout = kc.case_layout(HAND_MADE)
+    tiles = fault(tbs.build_tile_tables(layout, kc.case_block(HAND_MADE)), layout)
+    with pytest.raises(ValueError, match="do not walk the layout"):
+        _fwd(HAND_MADE, layout, tiles)
