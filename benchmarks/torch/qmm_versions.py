@@ -6,11 +6,16 @@
 
 ``<kernel>`` is ``quantized_matmul``, ``flash_fwd``, ``flash_bwd_dq``,
 ``flash_bwd_dkv`` or ``block_sparse_fwd``.
-Builds the checkout's ``ops/csrc/<kernel>.cu`` and the old source (same flags
-and C interface, ``-I`` the checkout's ``csrc/`` for its headers; for
-``block_sparse_fwd`` the old source's C entry is the first version's, without
-tile tables, ``OLD_ARGTYPES``; the new one takes the case's tile tables, built
-before the timing), prints each build's ptxas register and spill counts, then
+Builds the checkout's ``ops/csrc/<kernel>.cu`` and the old source (same flags,
+``-I`` the checkout's ``csrc/`` for its headers; where the C entry changed,
+the old source is called with its own argument list, ``OLD_ARGTYPES``: for
+``block_sparse_fwd`` the first version's, without tile tables, the new one
+taking the case's tile tables, built before the timing; for
+``quantized_matmul`` the version without bias or tiling, called with the
+skinny split of its own wrapper, ``old_skinny_split``, and cast to x's dtype
+as that wrapper did, so at m = 1 the old build is the CUDA-core
+``qmm_skinny<T, 1>`` and the two m = 1 cases are the sweep of the wgmma
+kernel against it), prints each build's ptxas register and spill counts, then
 for every case of that kernel in ``ops/kernel_checks.py``: both versions'
 err/limit against the plain version and their times (old, new, new, old;
 ``chip_smoke.time_ms``), beside the library yardstick and the bound. For the
@@ -20,6 +25,11 @@ forced (``-DDS_FLASH_FWD_WG=1|2``, ``-DDS_FLASH_DQ_WG=1|2``,
 each on the 16-bit cases, the sweep behind ``fwd_warpgroups``,
 ``dq_warpgroups`` and ``dkv_warpgroups``, and once more without the
 producer/consumer register rebalancing (``-DDS_NO_SETMAXNREG``).
+For ``quantized_matmul`` it then times the new build at every bf16 tiling
+(wgmma N of 8, 16 and 128 rows of x, forced through the C entry's
+``tile_m``, each with its split from ``qmm_split``) at m from 1 to 64 on
+BLOOM-7B's q_proj (int8) and fc_out (int4) shapes: the regime switch of
+``qmm_plan`` (``[switch]`` lines).
 For ``flash_bwd_dq`` it also builds the new source without its near-tie
 recompute of ds (``-DDS_FLASH_DQ_TIE_ULPS=0``), whose err/limit is printed
 and may exceed 1. Exits non-zero if another version fails a case, or a build
@@ -46,7 +56,23 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 OLD_ARGTYPES = {"block_sparse_fwd": [
     _vp, _vp, _vp, _vp, _vp, _vp, _vp,       # q, k, v, idx, cnt, o, lse
     _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
-    ctypes.c_float, _int, _int, _vp]}        # scale, causal, dtype, stream
+    ctypes.c_float, _int, _int, _vp],        # scale, causal, dtype, stream
+    "quantized_matmul": [
+    _vp, _vp, _vp, _vp, _vp,                 # x, q, scales, out (f32), work
+    _int, _int, _int, _int, _int, _int,      # m, k, n, group, bits, chunk
+    _int, _vp]}                              # dtype, stream
+
+
+def old_skinny_split(m: int, k: int, n: int, bits: int):
+    """``(chunk, splits)`` of the old wrapper: at m <= 16 a skinny pass split
+    along the payload rows in chunks of 8, else the tiled pass, ``(0, 1)``."""
+    if m > 16:
+        return 0, 1
+    prow = k if bits == 8 else k // 2
+    cols = -(-(-(-n // 4)) // 128)
+    splits = max(1, min(-(-4 * 132 // cols), prow // (8 * m), -(-prow // 32)))
+    chunk = -(-(-(-prow // splits)) // 8) * 8
+    return chunk, -(-prow // chunk)
 
 
 def ptxas_report(nvcc_out: str):
@@ -76,14 +102,24 @@ def runner(kernel: str, fn, old: bool):
     def qmm(case, inp):
         x, q, s = inp["x"], inp["q"], inp["scales"]
         (m, k), (groups, n), bits = x.shape, s.shape, case.dims["bits"]
-        out = torch.empty(m, n, dtype=torch.float32, device=x.device)
-        chunk, splits = fm.skinny_split(m, k, n, bits)
-        work = torch.empty(splits, m, n, dtype=torch.float32, device=x.device) \
-            if splits > 1 else out
-        check(fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), work.data_ptr(), m,
-                 k, n, k // groups, bits, chunk, DTYPE_CODES[x.dtype],
-                 torch.cuda.current_stream().cuda_stream), kernel)
-        return (out.to(x.dtype),)
+        stream = torch.cuda.current_stream().cuda_stream
+        if old:
+            out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+            chunk, splits = old_skinny_split(m, k, n, bits)
+            work = torch.empty(splits, m, n, dtype=torch.float32, device=x.device) \
+                if splits > 1 else out
+            check(fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                     work.data_ptr(), m, k, n, k // groups, bits, chunk, DTYPE_CODES[x.dtype],
+                     stream), kernel)
+            return (out.to(x.dtype),)
+        out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+        plan = fm.qmm_plan(m, k, n, k // groups, bits, x.dtype)
+        work = torch.empty(plan.splits, m, n, dtype=torch.float32, device=x.device) \
+            if plan.splits > 1 else out
+        check(fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), None, out.data_ptr(),
+                 work.data_ptr(), m, k, n, k // groups, bits, plan.tile_m, plan.chunk,
+                 DTYPE_CODES[x.dtype], int(x.dtype == torch.float32), stream), kernel)
+        return (out,)
 
     def flash(case, inp):
         q, k, v = inp["q"], inp["k"], inp["v"]
@@ -165,7 +201,7 @@ def main(kernel: str, old_source: str) -> int:
         procs.append((tag, src, so, subprocess.Popen(
             [op_builder._nvcc(), *op_builder.NVCC_FLAGS, "-Xptxas", "-v", *extra, "-o", so, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    runs = {}
+    runs, fns = {}, {}
     for tag, src, so, proc in procs:
         out, _ = proc.communicate()
         print(f"[versions] {kernel} {tag} build rc {proc.returncode}: {src}")
@@ -179,7 +215,7 @@ def main(kernel: str, old_source: str) -> int:
         old = tag == "old" and kernel in OLD_ARGTYPES
         fn.argtypes = OLD_ARGTYPES[kernel] if old else info.argtypes
         fn.restype = ctypes.c_int
-        runs[tag] = runner(kernel, fn, old)
+        runs[tag], fns[tag] = runner(kernel, fn, old), fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -207,7 +243,51 @@ def main(kernel: str, old_source: str) -> int:
               f"{ms['new'][1]:.4f}" + "".join(f", {tag} {t:.4f}" for tag, t in sweep.items())
               + f"; library {lib_ms}; bound {kc.bound_ms(case)[0]:.4f}", flush=True)
         del inp, ref
+    if kernel == "quantized_matmul":
+        regime_switch(fns["new"], device)
     return 1 if failed else 0
+
+
+#: the rows of x at which the regime switch is timed, and its shapes (k, n, bits)
+SWITCH_M = (1, 4, 8, 9, 12, 16, 17, 24, 32, 48, 64)
+SWITCH_SHAPES = {"bloom7b-q_proj-int8": (4096, 4096, 8), "bloom7b-fc_out-int4": (16384, 4096, 4)}
+
+
+def regime_switch(fn, device) -> None:
+    """Times the new kernel at every bf16 tiling for each m of ``SWITCH_M``:
+    ``[switch]`` lines with the tiling ``qmm_plan`` picks."""
+    import torch
+
+    import chip_smoke
+    from deepspeed_tpu_torch.ops.attention.flash import DTYPE_CODES
+    from deepspeed_tpu_torch.ops.quantizer import fused_matmul as fm
+    from deepspeed_tpu_torch.ops.quantizer import pack_int4, quantize_grouped
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    for name, (k, n, bits) in SWITCH_SHAPES.items():
+        w = torch.randn(k, n, generator=gen, device=device) / float(k) ** 0.5
+        q, s = quantize_grouped(w, 128, bits=bits)
+        if bits == 4:
+            q = pack_int4(q, s.shape[0])
+        del w
+        for m in SWITCH_M:
+            x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+            out = torch.empty(m, n, dtype=torch.bfloat16, device=device)
+            ms = {}
+            for tile in fm.QMM_TILES:
+                plan = fm.qmm_split(m, k, n, 128, bits, tile)
+                work = torch.empty(plan.splits, m, n, device=device) if plan.splits > 1 else out
+
+                def call():
+                    fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), None, out.data_ptr(),
+                       work.data_ptr(), m, k, n, 128, bits, plan.tile_m, plan.chunk,
+                       DTYPE_CODES[torch.bfloat16], 0, torch.cuda.current_stream().cuda_stream)
+
+                ms[tile] = chip_smoke.time_ms(call)
+            pick = fm.qmm_plan(m, k, n, 128, bits, torch.bfloat16).tile_m
+            print(f"[switch] {name} m {m}: " + ", ".join(f"tile {t} {v:.4f} ms"
+                                                     for t, v in ms.items())
+                  + f"; qmm_plan picks {pick}", flush=True)
 
 
 if __name__ == "__main__":

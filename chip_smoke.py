@@ -35,7 +35,9 @@ non-zero:
    on an int8 weight-quantized engine of the same model: every request must
    finish with its budget, the dequant-GEMM must launch exactly 72 times (12
    layers x 6 projections) per forward pass the scheduler's telemetry counts
-   (prefills and decode steps), the paged kernel as in the bf16 run;
+   (prefills and decode steps), the paged kernel as in the bf16 run; one
+   chunk of a second int8 run is traced (the dequant-GEMM's device time and
+   the launches of a decode step);
 6. training path: ``initialize`` on GPT-2 125M at ``bench.py``'s training
    configuration (vocab 50304, seq 1024, micro-batch 24, bf16 AdamW lr 2e-4,
    weight decay 0.01, ZeRO stage 1, clipping 1.0; seeded random weights, no
@@ -69,7 +71,8 @@ non-zero:
    parity of int8 (>= 0.98) and int4 (reported) against bf16, teacher-forced
    on the bf16 lane's own tokens; 180 matrices quantized; modeled weight
    bytes reduced >= 1.9x (int8) and >= 3.5x (int4) on the quantized
-   matrices; peak memory; one traced decode step. The bf16 lane also
+   matrices; peak memory; one traced decode step (the dequant-GEMM's device
+   time and the step's launches). The bf16 lane also
    quantizes layer 0's fc_in on the card and on the CPU, which must agree
    byte for byte, and with the quantized lanes' own;
 9. MoE serving (``[moe]``): GPT-2 125M with every 2nd FFN a top-1 mixture of
@@ -291,7 +294,7 @@ def profile_call(label: str, fn, top: int = 12):
     call, and the device's busy share of the call's wall time (kernels run on
     one stream, so their times do not overlap). The call must end in a
     synchronise. The tracer slows the host, so the busy share reads low
-    against an untraced run. Returns ``{"wall_us", "device_us",
+    against an untraced run. Returns ``{"wall_us", "device_us", "launches",
     "by_kernel"}`` (device microseconds by kernel name), or None when the
     tracer recorded no device time."""
     from torch.autograd import DeviceType
@@ -318,7 +321,7 @@ def profile_call(label: str, fn, top: int = 12):
     for e in sorted(events, key=device_us, reverse=True)[:top]:
         print(f"[profile]   {device_us(e) / 1e3:8.3f} ms  {e.count:6d} calls  {e.key[:90]}",
               flush=True)
-    return {"wall_us": wall_us, "device_us": total,
+    return {"wall_us": wall_us, "device_us": total, "launches": sum(e.count for e in events),
             "by_kernel": {e.key: device_us(e) for e in events}}
 
 
@@ -579,7 +582,29 @@ def serve_int8(device, smi: str, cfg, config, requests, bf16):
           f"p95 {out['tpot_ms_p95']:.3f} ms (bf16 {bf16['tpot_ms_p50']:.3f} / "
           f"{bf16['tpot_ms_p95']:.3f}); mean chunk {out['chunk_ms_mean']:.3f} ms over {chunks} "
           f"chunks", flush=True)
-    del sched, engine
+
+    # one chunk of a second run, 16 requests in flight, traced: the
+    # dequant-GEMM's device time and the launches of a decode step
+    sched2 = ContinuousBatchingScheduler(engine, config)
+    for p, m in requests[:SERVE_SLOTS]:
+        sched2.submit(p, max_new_tokens=max(m, 2 * SERVE_CHUNK + 1))
+    sched2.step()
+
+    def traced_chunk():
+        sched2.step()
+        torch.cuda.synchronize()
+
+    prof = profile_call(f"int8 serve chunk ({SERVE_SLOTS} slots, {SERVE_CHUNK} steps)",
+                        traced_chunk, top=15)
+    sched2.run()
+    if prof is not None:
+        out["chunk_qmm_ms"] = sum(v for key, v in prof["by_kernel"].items()
+                                  if "qmm" in key) / 1e3
+        out["step_launches"] = prof["launches"] / SERVE_CHUNK
+        print(f"[serve] int8 traced chunk: dequant-GEMM {out['chunk_qmm_ms']:.3f} ms of "
+              f"{prof['device_us'] / 1e3:.3f} ms device, {out['step_launches']:.1f} launches a "
+              f"decode step", flush=True)
+    del sched, sched2, engine
     gc.collect()
     return out
 
@@ -899,7 +924,8 @@ def wq_path(device, smi: str):
             # lanes only the tied head's product is left)
             by = prof["by_kernel"]
             lane["decode_step_device_ms"] = prof["device_us"] / 1e3
-            lane["decode_step_qmm_ms"] = sum(v for key, v in by.items() if "qmm_" in key) / 1e3
+            lane["decode_step_qmm_ms"] = sum(v for key, v in by.items() if "qmm" in key) / 1e3
+            lane["decode_step_launches"] = prof["launches"]
             lane["decode_step_library_gemm_ms"] = sum(
                 v for key, v in by.items()
                 if any(t in key.lower() for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
@@ -914,7 +940,8 @@ def wq_path(device, smi: str):
               + (f"; traced decode step: device {lane['decode_step_device_ms']:.3f} ms, "
                  f"dequant-GEMM {lane['decode_step_qmm_ms']:.3f} ms, library GEMMs "
                  f"{lane['decode_step_library_gemm_ms']:.3f} ms, busy share "
-                 f"{lane['decode_step_busy_share']:.3f}" if prof else ""), flush=True)
+                 f"{lane['decode_step_busy_share']:.3f}, {lane['decode_step_launches']} "
+                 f"launches" if prof else ""), flush=True)
         out[name] = lane
         del engine
     gc.collect()

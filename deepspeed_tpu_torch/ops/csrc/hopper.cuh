@@ -209,6 +209,61 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], u
     }
 }
 
+// The dequant-GEMM's shapes: m64nNk16 with A from registers (the m16n8k16
+// A-fragment order, as mma_rs) and B K-major in shared memory, N = 8 or 16
+// (decode) or 128 (prefill); D is N / 2 f32 fragments, element 4j + e at row
+// 16w + l/4 + 8*(e >= 2), column 8j + 2*(l%4) + (e & 1).
+#define DS_WG_D4 "{%0, %1, %2, %3}"
+#define DS_WG_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define DS_WG_D64                                                                             \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+    "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+    "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "   \
+    "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define DS_WG_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define DS_WG_F8(d, i) DS_WG_F4(d, i), DS_WG_F4(d, i + 4)
+#define DS_WG_F64(d)                                                                          \
+    DS_WG_F8(d, 0), DS_WG_F8(d, 8), DS_WG_F8(d, 16), DS_WG_F8(d, 24), DS_WG_F8(d, 32),        \
+        DS_WG_F8(d, 40), DS_WG_F8(d, 48), DS_WG_F8(d, 56)
+// A's registers are operands A0..A3, B's descriptor B, the accumulate flag P
+#define DS_WG_RS_K(SHAPE, TY, DSTR, A0, A1, A2, A3, B, P, OUTS)                                \
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, " P ", 0;\n"                             \
+                 "wgmma.mma_async.sync.aligned." SHAPE ".f32." TY "." TY " " DSTR ", {" A0     \
+                 ", " A1 ", " A2 ", " A3 "}, " B ", p, 1, 1, 0;\n}"                           \
+                 : OUTS                                                                        \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"((int)acc))
+
+// D (64 x N f32) += A (64 x 16, registers) * B (16 x N, shared, K-major);
+// D = A * B where !acc
+template <typename T, int N>
+__device__ __forceinline__ void mma_rs_k(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                         bool acc) {
+    static_assert(N == 8 || N == 16 || N == 128, "m64nNk16 with N 8, 16 or 128");
+    constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+    if constexpr (N == 8) {
+        if constexpr (BF)
+            DS_WG_RS_K("m64n8k16", "bf16", DS_WG_D4, "%4", "%5", "%6", "%7", "%8", "%9",
+                       DS_WG_F4(d, 0));
+        else
+            DS_WG_RS_K("m64n8k16", "f16", DS_WG_D4, "%4", "%5", "%6", "%7", "%8", "%9",
+                       DS_WG_F4(d, 0));
+    } else if constexpr (N == 16) {
+        if constexpr (BF)
+            DS_WG_RS_K("m64n16k16", "bf16", DS_WG_D8, "%8", "%9", "%10", "%11", "%12", "%13",
+                       DS_WG_F8(d, 0));
+        else
+            DS_WG_RS_K("m64n16k16", "f16", DS_WG_D8, "%8", "%9", "%10", "%11", "%12", "%13",
+                       DS_WG_F8(d, 0));
+    } else {
+        if constexpr (BF)
+            DS_WG_RS_K("m64n128k16", "bf16", DS_WG_D64, "%64", "%65", "%66", "%67", "%68", "%69",
+                       DS_WG_F64(d));
+        else
+            DS_WG_RS_K("m64n128k16", "f16", DS_WG_D64, "%64", "%65", "%66", "%67", "%68", "%69",
+                       DS_WG_F64(d));
+    }
+}
+
 // two f32 values rounded to T and packed low-first: one 32-bit A-fragment
 // register, or one store of two neighbouring columns
 template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);

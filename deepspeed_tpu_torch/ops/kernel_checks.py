@@ -58,8 +58,9 @@ kernel that is wrong by 20 % on most rows.
 - The dequant-GEMM, ``QMM_TOLERANCES``: both sides dequantize each weight
   element in f32 and round it to x's dtype, so every product is the same
   (exact in f32 for 16-bit inputs); only the f32 sum differs: the kernel's
-  order (mma.sync's internal accumulation in the tiled bf16/fp16 regime, a
-  split-k sum in the skinny one) against cuBLAS's f32 GEMM. The inputs give
+  order (wgmma's internal accumulation and, at decode, f32 partials of
+  k-splits added in order; the f32 path's split-k sum) against cuBLAS's f32
+  GEMM. The inputs give
   outputs of order 1 (w ~ N(0, 1/k) before quantization, x ~ N(0, 1)), where
   that noise is at most ~1e-4 at k = 16,384. Both round the f32 result to
   the output dtype once, which can flip by one ulp. bfloat16 (1e-3, 8e-3)
@@ -126,7 +127,8 @@ BWD_TOLERANCES = {torch.bfloat16: (2e-3, 1.6e-2), torch.float16: (2.5e-4, 2e-3),
                   torch.float32: (2e-6, 2e-5)}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 #: the kernels whose bf16/fp16 paths run wgmma with TMA loads (f32: the CUDA cores)
-WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_fwd")
+WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_fwd",
+                 "quantized_matmul")
 BS_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 FWD_KERNELS = ("flash_fwd", "block_sparse_fwd")      # (o, f32 lse)
 LSE_TOLERANCE = 1e-3        # f32 logsumexp; sums of exp in another order
@@ -280,12 +282,26 @@ CASES: List[Case] = [
     # k 200: a requested group of 128 degrades to 8
     Case("quantized_matmul", "k200-g8-int4", dict(m=37, k=200, n=96, group=128, bits=4),
          torch.bfloat16),
-    # the same at decode: 4 payload rows a group, fewer than a skinny batch
+    # the same at decode: 4 payload rows a group, fewer than a k-step
     Case("quantized_matmul", "k200-g8-int4-decode", dict(m=2, k=200, n=96, group=128, bits=4),
          torch.bfloat16),
     # k 13: group 1, and n not a multiple of 4
     Case("quantized_matmul", "fp32-k13-g1-n70-int8", dict(m=4, k=13, n=70, group=8, bits=8),
          torch.float32),
+    # the wgmma kernel's tile edges: GPT-2's fc_out at the scheduler's 16
+    # slots (12 column tiles, so k-splits); 3 m tiles of 128, the last of 44
+    # rows, and 320 columns, so the last block's second warpgroup lies wholly
+    # past n; n 200 (not a multiple of 64, nor of 16: the payload by plain
+    # loads); an int4 prefill at group 8 (x gathered: a stage's low rows span
+    # 16 groups)
+    Case("quantized_matmul", "gpt2-serve-decode-fc_out-int8",
+         dict(m=16, k=3072, n=768, group=128, bits=8), torch.bfloat16),
+    Case("quantized_matmul", "m300-n320-int8", dict(m=300, k=512, n=320, group=128, bits=8),
+         torch.bfloat16),
+    Case("quantized_matmul", "n200-int4", dict(m=5, k=1024, n=200, group=128, bits=4),
+         torch.bfloat16),
+    Case("quantized_matmul", "prefill-g8-int4", dict(m=160, k=1024, n=256, group=8, bits=4),
+         torch.bfloat16),
     # MoE serving: GPT-2 125M with 8 experts (d 768, f 3072) decode at batch 1
     # (generate), the scheduler's 16 slots, top-2 at batch 1
     Case("moe_decode_ffn", "gpt2moe-decode-n1", dict(n=1, e=8, d=768, f=3072, k=1),

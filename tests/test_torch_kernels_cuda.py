@@ -153,8 +153,11 @@ def test_quantization_on_card_equals_cpu(bits):
 
 def test_quantized_matmul_launch_count_and_refusals():
     """Each call of the dequant-GEMM wrapper on the card is one launch, in
-    either regime and width; a shape it refuses raises before launching, and
-    an argument the C entry refuses comes back as a CUDA error, raised."""
+    every tiling and width, with or without a bias, in x's dtype or f32, and
+    with a payload that is a view at an odd offset (no TMA map: plain loads);
+    each matches the plain version; a shape it refuses raises before
+    launching, and an argument the C entry refuses comes back as a CUDA error,
+    raised."""
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.op_builder import KernelLaunchError
     from deepspeed_tpu_torch.ops.quantizer import (pack_int4, quantize_grouped,
@@ -166,12 +169,19 @@ def test_quantized_matmul_launch_count_and_refusals():
     w = torch.randn(256, 96, generator=gen, device=device) / 16
     q8, s = quantize_grouped(w, 64)
     q4 = pack_int4(quantize_grouped(w, 64, bits=4)[0], s.shape[0])
+    bias = torch.randn(96, generator=gen, device=device)
+    odd = torch.empty(q8.numel() + 1, dtype=torch.int8, device=device)[1:].view_as(q8)
+    odd.copy_(q8)
     op_builder.reset_launch_counts()
-    calls = [(x[:1], q8, 8), (x[:16], q8, 8), (x, q8, 8), (x[:3], q4, 4), (x, q4, 4)]
-    for i, (xi, q, bits) in enumerate(calls):
-        y = quantized_matmul(xi, q, s, bits=bits)
+    calls = [(x[:1], q8, 8, {}), (x[:16], q8, 8, {}), (x, q8, 8, {}), (x[:3], q4, 4, {}),
+             (x, q4, 4, {}), (x[:1], q8, 8, {"_bias": bias}), (x, q4, 4, {"_bias": bias}),
+             (x[:9], q8, 8, {"out_dtype": torch.float32, "_bias": bias}),
+             (x[:2], odd, 8, {}), (x, odd, 8, {"_bias": bias})]
+    for i, (xi, q, bits, kw) in enumerate(calls):
+        y = quantized_matmul(xi, q, s, bits=bits, **kw)
         assert op_builder.launch_counts()["quantized_matmul"] == i + 1
-        ref = quantized_matmul_plain(xi, q, s, bits=bits)
+        ref = quantized_matmul_plain(xi, q, s, bits=bits, **kw)
+        assert y.dtype == ref.dtype
         assert kernel_checks.err_ratio(y, ref, *kernel_checks.QMM_TOLERANCES[x.dtype]) <= 1.0
     with pytest.raises(ValueError, match="payload"):
         quantized_matmul(x, q8[:128], s, bits=8)
@@ -181,9 +191,9 @@ def test_quantized_matmul_launch_count_and_refusals():
     assert op_builder.launch_counts()["quantized_matmul"] == len(calls)
     out = torch.empty(17, 96, device=device)
     with pytest.raises(KernelLaunchError, match="invalid argument"):
-        # the skinny regime (chunk > 0) at 17 rows, past SKINNY_M
-        QUANTIZED_MATMUL.launch(x.data_ptr(), q8.data_ptr(), s.data_ptr(), out.data_ptr(),
-                                out.data_ptr(), 17, 256, 96, 64, 8, 8, 2,
+        # a bf16 tiling of 17 rows, which the kernel does not have
+        QUANTIZED_MATMUL.launch(x.data_ptr(), q8.data_ptr(), s.data_ptr(), None, out.data_ptr(),
+                                out.data_ptr(), 17, 256, 96, 64, 8, 17, 0, 2, 0,
                                 torch.cuda.current_stream(device).cuda_stream)
 
 
@@ -393,6 +403,11 @@ PLANTED_FAULTS = {
         "float t = to_f32(b2[(size_t)expert_of(idx, i, e) * d + col]);",
         "float t = 2.f * to_f32(b2[(size_t)expert_of(idx, i, e) * d + col]);",
         ("moe_decode_ffn",)),
+    "qmm-wgmma-drops-a-stage": (
+        "quantized_matmul.cu",
+        "const int n_st = max(p_end - p_begin + PR - 1, 0) / PR;",
+        "const int n_st = max(p_end - p_begin + PR - 1, 0) / PR - 1;",
+        ("quantized_matmul:bfloat16", "quantized_matmul:float16")),
     "qmm-high-nibble-unsigned": (
         "quantized_matmul.cu",
         "__device__ __forceinline__ int nib_hi(int b) { return b >> 4; }",
@@ -507,12 +522,17 @@ def test_case_selectors():
 
 
 #: consumer warpgroup tilings a block of each wgmma source's kernels: K1, K3
-#: and K4 have one and two, K8 one
-WGMMA_TILINGS = {"block_sparse_fwd.cu": 1}
+#: and K4 have one and two, K8 one; K6 has one for each wgmma N (8, 16, 128),
+#: and its wgmma functions are 2 dtypes x 2 bit widths x those
+WGMMA_TILINGS = {"block_sparse_fwd.cu": 1, "quantized_matmul.cu": 3}
+#: the mangled-name mark of each wgmma source's main-path instantiations
+#: (bf16; the flash kernels at head dim 64), and how many there are: K6's
+#: main paths run every bf16 tiling at int8 and int4
+MAIN_PATH = {"quantized_matmul.cu": ("13__nv_bfloat16L", 6)}
 
 
 def _wgmma_libraries():
-    """Builds K1's, K3's, K4's and K8's sources; their libraries' paths."""
+    """Builds K1's, K3's, K4's, K6's and K8's sources; their libraries' paths."""
     from deepspeed_tpu_torch.ops import op_builder
     sources = [op_builder.KERNELS[k].source for k in kernel_checks.WGMMA_KERNELS]
     op_builder.build(sources)
@@ -520,10 +540,11 @@ def _wgmma_libraries():
 
 
 def test_wgmma_kernels_issue_hgmma_and_tma_loads():
-    """The bf16/fp16 kernels of K1, K3, K4 and K8 run on the tensor cores
-    through wgmma, fed by TMA: in the SASS of every ``wgmma_*`` function (2
-    dtypes x 2 head dims x ``WGMMA_TILINGS``) stand HGMMA and
-    UTMALDG; the first version's f32 kernels, beside them, have neither."""
+    """The bf16/fp16 kernels of K1, K3, K4, K6 and K8 run on the tensor
+    cores through wgmma, fed by TMA: in the SASS of every ``wgmma_*`` function
+    (2 dtypes x 2 head dims, or K6's 2 bit widths, x ``WGMMA_TILINGS``) stand
+    HGMMA and UTMALDG; the first version's f32 kernels (and K6's split-k
+    reduction), beside them, have neither."""
     _card()
     from deepspeed_tpu_torch.ops import op_builder
     cuobjdump = os.path.join(os.path.dirname(op_builder._nvcc()), "cuobjdump")
@@ -540,8 +561,9 @@ def test_wgmma_kernels_issue_hgmma_and_tma_loads():
 
 
 def test_wgmma_main_path_instantiations_do_not_spill():
-    """``-Xptxas -v`` of K1, K3, K4 and K8: the instantiations the main paths
-    run (bf16, head dim 64, each tiling of ``WGMMA_TILINGS``) spill nothing."""
+    """``-Xptxas -v`` of K1, K3, K4, K6 and K8: the instantiations the main
+    paths run (bf16; head dim 64, each tiling of ``WGMMA_TILINGS``; K6 every
+    tiling at int8 and int4, ``MAIN_PATH``) spill nothing."""
     _card()
     from deepspeed_tpu_torch.ops import op_builder
     out_dir = os.path.join(REPO, "build", "ptxas_check")
@@ -557,8 +579,9 @@ def test_wgmma_main_path_instantiations_do_not_spill():
                 entry = line.split("'")[1]
             elif "spill stores" in line and entry is not None:
                 spills[entry] = line.split(":", 1)[-1].strip()
-        main = {e: v for e, v in spills.items() if "wgmma_" in e and "13__nv_bfloat16Li64E" in e}
-        assert len(main) == WGMMA_TILINGS.get(src, 2), (src, list(spills))
+        mark, count = MAIN_PATH.get(src, ("13__nv_bfloat16Li64E", WGMMA_TILINGS.get(src, 2)))
+        main = {e: v for e, v in spills.items() if "wgmma_" in e and mark in e}
+        assert len(main) == count, (src, list(spills))
         for e, v in main.items():
             print(f"[ptxas] {src} {e[:90]}: {v}")
             assert "0 bytes spill stores, 0 bytes spill loads" in v, (e, v)

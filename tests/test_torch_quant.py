@@ -222,17 +222,82 @@ def test_quantized_matmul_refuses_bad_operands():
         tfm.quantized_matmul(x, q8, s, bits=2)
 
 
-@pytest.mark.parametrize("m,k,n,bits", [(1, 4096, 16384, 8), (1, 16384, 4096, 4),
-                                        (16, 768, 3072, 8), (3, 512, 72, 4), (4, 13, 70, 8),
-                                        (17, 4096, 4096, 8)])
-def test_skinny_split_covers_the_payload(m, k, n, bits):
-    """The skinny regime's split-k plan: chunks of whole 8-row steps that
-    cover every payload row once, with partials under half the payload's
-    bytes; the tiled regime above ``SKINNY_M`` rows."""
-    chunk, splits = tfm.skinny_split(m, k, n, bits)
-    if m > tfm.SKINNY_M:
-        assert (chunk, splits) == (0, 1)
-        return
+# (m, k, n, group, bits, dtype): the main paths' decode and prefill shapes,
+# GPT-2's fc_out at 16 slots, int4 groups of 16 and 8 (a group is g/2 byte
+# rows), int8 group 1, a ragged k, and the f32 path's skinny and tiled regimes
+PLAN_CASES = [(1, 4096, 16384, 128, 8, torch.bfloat16), (1, 16384, 4096, 128, 4, torch.bfloat16),
+              (16, 768, 3072, 128, 8, torch.bfloat16), (16, 3072, 768, 128, 8, torch.bfloat16),
+              (512, 4096, 16384, 128, 4, torch.bfloat16), (3, 512, 72, 32, 4, torch.float16),
+              (2, 200, 96, 8, 4, torch.bfloat16), (4, 8192, 256, 1, 8, torch.bfloat16),
+              (37, 1000, 96, 200, 8, torch.float16), (1, 4096, 64, 256, 4, torch.bfloat16),
+              (4, 13, 70, 13, 8, torch.float32), (300, 256, 200, 64, 8, torch.float32)]
+
+
+@pytest.mark.parametrize("m,k,n,group,bits,dtype", PLAN_CASES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_qmm_plan_covers_the_payload(m, k, n, group, bits, dtype):
+    """The kernel's split-k plan: the splits cover every payload row once;
+    bf16/fp16 splits walk whole stages, and whole groups where a group spans
+    stages (int4: g/2 byte rows, each holding the rows j and j + g/2 of its
+    group, so a split holds both halves of each of its groups' rows); the f32
+    partials (written and read back) stay within the payload's bytes; the
+    tile is the smallest of ``QMM_TILES`` that holds m. f32: the first
+    version's skinny chunks of 8 rows at m <= ``SKINNY_M``, one tiled pass
+    above."""
+    plan = tfm.qmm_plan(m, k, n, group, bits, dtype)
     rows = k if bits == 8 else k // 2
-    assert chunk % 8 == 0 and (splits - 1) * chunk < rows <= splits * chunk
-    assert splits == 1 or splits * m * n * 4 * 2 <= rows * n
+    chunk = plan.chunk or rows
+    assert plan.splits == -(-rows // chunk)
+    spans = [(i * chunk, min((i + 1) * chunk, rows)) for i in range(plan.splits)]
+    covered = np.zeros(rows, np.int64)
+    for a, b in spans:
+        assert a < b
+        covered[a:b] += 1
+    assert (covered == 1).all()
+    assert plan.splits == 1 or 8 * plan.splits * m * n <= rows * n
+    if dtype == torch.float32:
+        assert plan.tile_m == 0
+        if m > tfm.SKINNY_M:
+            assert (plan.chunk, plan.splits) == (0, 1)
+        else:
+            assert plan.chunk % 8 == 0 and plan.chunk > 0
+        return
+    assert plan.tile_m == next(t for t in tfm.QMM_TILES if m <= t or t == tfm.QMM_WIDE)
+    stage = tfm.QMM_STAGE_ROWS[bits]
+    group_rows = group if bits == 8 else group // 2
+    if plan.splits > 1:
+        assert plan.chunk % stage == 0
+        if group_rows % stage == 0:
+            assert plan.chunk % group_rows == 0
+    # the logical rows of each split: int4 byte row j of group G holds rows
+    # G g + j and G g + j + g/2; a split holds a row iff it holds its partner
+    for a, b in spans:
+        byte_rows = np.arange(a, b)
+        if bits == 8:
+            continue
+        G, j = byte_rows // group_rows, byte_rows % group_rows
+        lo = set((G * group + j).tolist())
+        hi = set((G * group + j + group_rows).tolist())
+        assert {r + group_rows for r in lo} == hi
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=lambda d: str(d).replace("torch.", ""))
+def test_quantized_matmul_plain_bias_is_cast_then_added(bits, dtype):
+    """The bias keyword: ``(x @ w).to(dtype) + bias.to(dtype)`` bit for bit,
+    with an f32 bias (the model's) cast to the output dtype, as the kernel's
+    epilogue computes it."""
+    m, k, n = 6, 256, 40
+    x, pj, sj = _operands(bits, 64, m, k, n, seed=11)
+    bias = torch.from_numpy(np.random.default_rng(12).standard_normal(n).astype(np.float32))
+    xt = torch.from_numpy(x).to(dtype)
+    y = tfm.quantized_matmul(xt, _t(pj), _t(sj), bits=bits, _bias=bias)
+    want = tfm.quantized_matmul(xt, _t(pj), _t(sj), bits=bits) + bias.to(dtype)
+    assert y.dtype == dtype and torch.equal(y, want)
+    y32 = tfm.quantized_matmul_plain(xt, _t(pj), _t(sj), bits=bits, out_dtype=torch.float32,
+                                     _bias=bias)
+    assert torch.equal(y32, tfm.quantized_matmul_plain(xt, _t(pj), _t(sj), bits=bits,
+                                                       out_dtype=torch.float32) + bias)
+    with pytest.raises(ValueError, match="bias"):
+        tfm.quantized_matmul(xt, _t(pj), _t(sj), bits=bits, _bias=bias[:-1])

@@ -23,13 +23,16 @@ from deepspeed_tpu.inference.serving import ContinuousBatchingScheduler as JaxSc
 from deepspeed_tpu.inference.serving import PrefixCacheConfig as JaxPrefixCacheConfig
 from deepspeed_tpu.inference.serving import ServingConfig as JaxServingConfig
 from deepspeed_tpu.models import causal_lm as jax_lm
+from deepspeed_tpu.ops.quantizer import fused_matmul as jfm
+from deepspeed_tpu.ops.quantizer import quant as jq
 import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.inference.serving import (ContinuousBatchingScheduler,
                                                    PrefixCacheConfig, ServingConfig)
 from deepspeed_tpu_torch.models import causal_lm as torch_lm
 from deepspeed_tpu_torch.models.convert import causal_lm_params_from_jax
 from deepspeed_tpu_torch.ops import op_builder
-from deepspeed_tpu_torch.ops.quantizer import is_quant_node
+from deepspeed_tpu_torch.ops.kernel_checks import QMM_TOLERANCES
+from deepspeed_tpu_torch.ops.quantizer import is_quant_node, quant_dense_apply
 
 TINY = dict(vocab_size=96, max_seq_len=64, n_embd=32, n_layer=2, n_head=4)
 CAP = 48
@@ -229,3 +232,39 @@ def test_int8_scheduler_matches_jax_and_generate(force_fused):
         np.testing.assert_array_equal(h.result(), j.result())
         np.testing.assert_array_equal(h.result(),
                                       teng.generate(p[None], max_new_tokens=m)[0, p.size:])
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_quant_dense_apply_matches_jax(bits, dtype, with_bias, force_fused):
+    """``quant_dense_apply`` (the port's projection, which hands its bias to
+    the dequant-GEMM's epilogue on the card) against the JAX package's, on one
+    seeded numpy weight, activation and f32 bias, (b, t, k) activations, group
+    64 (two groups). Both round each dequantized weight to the dtype, take f32
+    products, round the product to the dtype and add the bias rounded to the
+    dtype; they differ only in the f32 sum's order. f32: atol 1e-4, rtol 1e-5
+    (sums of 128 terms in other orders). bf16: the product's limit, one ulp of
+    the value plus 1e-3 (``QMM_TOLERANCES``), taken of |product| + |bias|,
+    since one ulp of the product before the bias is added is the most a flip of
+    its rounding moves the sum."""
+    rng = np.random.default_rng(21 + bits)
+    k, n = 128, 48
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    x = rng.standard_normal((2, 5, k)).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32) if with_bias else None
+    node_j, _ = jq.quantize_with_audit(w, bits=bits, group_size=64, threshold=1.0, name="w")
+    node_t = {key: torch.from_numpy(np.array(v)) for key, v in node_j.items()}
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    y_j = jfm.quant_dense_apply(jnp.asarray(x, jdt), node_j,
+                                None if bias is None else jnp.asarray(bias), jdt)
+    y_t = quant_dense_apply(torch.from_numpy(x).to(tdt), node_t,
+                            None if bias is None else torch.from_numpy(bias), tdt)
+    assert y_t.dtype == tdt and tuple(y_t.shape) == (2, 5, n)
+    ref = np.asarray(y_j.astype(jnp.float32))
+    prod = np.asarray(jfm.quant_dense_apply(jnp.asarray(x, jdt), node_j, None, jdt)
+                      .astype(jnp.float32))
+    atol, rtol = (1e-4, 1e-5) if dtype == "float32" else QMM_TOLERANCES[torch.bfloat16]
+    scale = np.abs(prod) + (0 if bias is None else np.abs(bias))
+    err = np.abs(y_t.float().numpy() - ref)
+    assert (err <= atol + rtol * scale).all(), float((err / (atol + rtol * scale)).max())
