@@ -5,12 +5,13 @@
     python3 benchmarks/torch/qmm_versions.py <kernel> [build/<kernel>_old.cu]
 
 ``<kernel>`` is ``quantized_matmul``, ``flash_fwd``, ``flash_bwd_dq``,
-``flash_bwd_dkv`` or ``block_sparse_fwd``.
+``flash_bwd_dkv``, ``block_sparse_fwd`` or ``block_sparse_bwd_dkv``.
 Builds the checkout's ``ops/csrc/<kernel>.cu`` and the old source (same flags,
 ``-I`` the checkout's ``csrc/`` for its headers; where the C entry changed,
 the old source is called with its own argument list, ``OLD_ARGTYPES``: for
-``block_sparse_fwd`` the first version's, without tile tables, the new one
-taking the case's tile tables, built before the timing; for
+``block_sparse_fwd`` and ``block_sparse_bwd_dkv`` the first version's,
+without tile tables, the new one taking the case's tile tables, built before
+the timing; for
 ``quantized_matmul`` the version without bias or tiling, called with the
 skinny split of its own wrapper, ``old_skinny_split``, and cast to x's dtype
 as that wrapper did, so at m = 1 the old build is the CUDA-core
@@ -30,6 +31,8 @@ For ``quantized_matmul`` it then times the new build at every bf16 tiling
 ``tile_m``, each with its split from ``qmm_split``) at m from 1 to 64 on
 BLOOM-7B's q_proj (int8) and fc_out (int4) shapes: the regime switch of
 ``qmm_plan`` (``[switch]`` lines).
+For ``block_sparse_bwd_dkv`` it also times, on each 16-bit case, the new
+build with every walk but the longest emptied (``[tail]`` lines, ``walk_tail``).
 For ``flash_bwd_dq`` it also builds the new source without its near-tie
 recompute of ds (``-DDS_FLASH_DQ_TIE_ULPS=0``), whose err/limit is printed
 and may exceed 1. Exits non-zero if another version fails a case, or a build
@@ -55,6 +58,11 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 #: C entries whose argument list the current source changed: the old one
 OLD_ARGTYPES = {"block_sparse_fwd": [
     _vp, _vp, _vp, _vp, _vp, _vp, _vp,       # q, k, v, idx, cnt, o, lse
+    _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
+    ctypes.c_float, _int, _int, _vp],        # scale, causal, dtype, stream
+    "block_sparse_bwd_dkv": [
+    _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,  # q, k, v, do, lse, delta, idx, cnt
+    _vp, _vp,                                # dk, dv
     _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
     ctypes.c_float, _int, _int, _vp],        # scale, causal, dtype, stream
     "quantized_matmul": [
@@ -147,22 +155,29 @@ def runner(kernel: str, fn, old: bool):
         q, k, v = inp["q"], inp["k"], inp["v"]
         bh, t, d = q.shape
         block, h = kc.case_block(case), case.dims["h"]
-        o, lse = torch.empty_like(q), torch.empty(bh, t, dtype=torch.float32, device=q.device)
-        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), inp["fwd_idx"].data_ptr(),
-                inp["fwd_cnt"].data_ptr())
+        if kernel == "block_sparse_fwd":
+            table = "fwd"
+            outs = (torch.empty_like(q), torch.empty(bh, t, dtype=torch.float32, device=q.device))
+            head = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        else:
+            table = "bwd"
+            outs = (torch.empty_like(k), torch.empty_like(v))
+            head = tuple(inp[n].data_ptr() for n in ("q", "k", "v", "do", "lse", "delta"))
+        head += (inp[f"{table}_idx"].data_ptr(), inp[f"{table}_cnt"].data_ptr())
         tail = (_scale(case), int(case.causal), DTYPE_CODES[q.dtype],
                 torch.cuda.current_stream().cuda_stream)
-        max_n = inp["fwd_idx"].shape[2]
+        max_n = inp[f"{table}_idx"].shape[2]
+        out_ptrs = tuple(x.data_ptr() for x in outs)
         if old:
-            check(fn(*head, o.data_ptr(), lse.data_ptr(), bh, t, d, h, block, max_n, *tail),
-                  kernel)
-            return o, lse
+            check(fn(*head, *out_ptrs, bh, t, d, h, block, max_n, *tail), kernel)
+            return outs
         tiles = inp["tiles"]
-        check(fn(*head, *(x.data_ptr() for x in tiles), o.data_ptr(), lse.data_ptr(), bh, t,
-                 d, h, block, max_n, tiles.idx.shape[2], *tail), kernel)
-        return o, lse
+        check(fn(*head, *(x.data_ptr() for x in tiles), *out_ptrs, bh, t, d, h, block, max_n,
+                 tiles.idx.shape[2], *tail), kernel)
+        return outs
 
-    return {"quantized_matmul": qmm, "block_sparse_fwd": block_sparse}.get(kernel, flash)
+    return {"quantized_matmul": qmm, "block_sparse_fwd": block_sparse,
+            "block_sparse_bwd_dkv": block_sparse}.get(kernel, flash)
 
 
 def err_ratio(kc, case, out, ref) -> float:
@@ -242,10 +257,37 @@ def main(kernel: str, old_source: str) -> int:
               + f"; ms old {ms['old'][0]:.4f} / {ms['old'][1]:.4f}, new {ms['new'][0]:.4f} / "
               f"{ms['new'][1]:.4f}" + "".join(f", {tag} {t:.4f}" for tag, t in sweep.items())
               + f"; library {lib_ms}; bound {kc.bound_ms(case)[0]:.4f}", flush=True)
+        if kernel == "block_sparse_bwd_dkv" and case.dtype != torch.float32:
+            walk_tail(runs["new"], case, inp)
         del inp, ref
     if kernel == "quantized_matmul":
         regime_switch(fns["new"], device)
     return 1 if failed else 0
+
+
+def walk_tail(run, case, inp) -> None:
+    """The new K10 build on the case's tile tables, then on the same tables
+    with every walk but the first launched (the longest) emptied: a
+    ``[tail]`` line with the blocks, the stages of the longest and of the
+    mean walk, and both times. Where the two times are close, the longest
+    walk sets the kernel's time."""
+    import chip_smoke
+
+    tiles = inp["tiles"]
+    slots = tiles.members.shape[2]
+    stages = (tiles.cnt.long() + slots - 1) // slots
+    first = int(tiles.order[0])
+    alone = tiles.cnt.clone().view(-1)
+    keep = int(alone[first])
+    alone.zero_()
+    alone[first] = keep
+    n_batch = case.dims["b"]
+    full_ms = chip_smoke.time_ms(lambda: run(case, inp))
+    solo = dict(inp, tiles=tiles._replace(cnt=alone.view_as(tiles.cnt)))
+    solo_ms = chip_smoke.time_ms(lambda: run(case, solo))
+    print(f"[tail] {case.name}: {stages.numel() * n_batch} blocks, stages a block max "
+          f"{int(stages.max())} mean {float(stages.float().mean()):.2f}; kernel {full_ms:.4f} "
+          f"ms, the longest walk alone ({n_batch} blocks) {solo_ms:.4f} ms", flush=True)
 
 
 #: the rows of x at which the regime switch is timed, and its shapes (k, n, bits)

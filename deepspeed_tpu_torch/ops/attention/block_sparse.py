@@ -35,8 +35,11 @@ the differentiable way in.
 The forward kernel's bf16/fp16 path walks tiles of 64 q rows a consumer
 warpgroup, not single q-blocks: it takes the tile tables of
 :func:`build_tile_tables` (the union of a tile's q-blocks' k-blocks, with a
-bitmask of the q-blocks that own each), built on the host once per length
-and cached on the device by :func:`make_sparse_attention_impl`.
+bitmask of the q-blocks that own each). The dk/dv kernel's bf16/fp16 path
+walks tiles of 64 k rows the same way over the transposed layout, whose
+k-blocks :func:`build_bwd_tile_tables` groups by their walks. Both are built
+on the host once per length and cached on the device by
+:func:`make_sparse_attention_impl`.
 """
 
 import ctypes
@@ -72,8 +75,10 @@ BLOCK_SPARSE_BWD_DQ = CudaKernel(
 BLOCK_SPARSE_BWD_DKV = CudaKernel(
     "block_sparse_bwd_dkv", "block_sparse_bwd_dkv.cu", "block_sparse_bwd_dkv",
     [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,  # q, k, v, do, lse, delta, idx, cnt
+     _vp, _vp, _vp, _vp,                      # members, tile_idx, tile_cnt, tile_order
      _vp, _vp,                                # dk, dv
      _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
+     _int,                                    # max_slots
      ctypes.c_float, _int, _int, _vp])        # scale, causal, dtype, stream
 
 
@@ -111,8 +116,58 @@ class TileTables(NamedTuple):
     order: Any      # (H * n_tiles,): head * n_tiles + tile, the longest walks first
 
     def to(self, device) -> "TileTables":
-        return TileTables(*(torch.from_numpy(np.ascontiguousarray(x)).to(device)
-                            for x in self))
+        return TileTables(*_on_device(self, device))
+
+
+class BwdTileTables(NamedTuple):
+    """The dk/dv kernel's tile tables (:func:`build_bwd_tile_tables`): the
+    forward's entry format over the transposed layout, with each tile's
+    member k-units."""
+    members: Any    # (H, n_tiles, 64 / unit): the tile's k-units, -1 past the last
+    idx: Any        # (H, n_tiles, max_slots): entries q_unit << 8 | member bits
+    cnt: Any        # (H, n_tiles): union entries a tile
+    order: Any      # (H * n_tiles,): head * n_tiles + tile, the longest walks first
+
+    def to(self, device) -> "BwdTileTables":
+        return BwdTileTables(*_on_device(self, device))
+
+
+def _on_device(arrays, device):
+    return (torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in arrays)
+
+
+def _units(layout: np.ndarray, block: int) -> Tuple[np.ndarray, int]:
+    """The 0/1 layout as bool in units of ``min(block, 64)`` rows (a layout
+    of block 128 expanded: each 128-block is 2 x 2 of them), and the unit."""
+    if block not in BLOCKS:
+        raise ValueError(f"the tile tables take a layout block in {BLOCKS}, got {block}")
+    layout = np.asarray(layout) != 0
+    unit = min(block, 64)
+    if block > unit:
+        layout = layout.repeat(block // unit, 1).repeat(block // unit, 2)
+    return layout, unit
+
+
+def _tile_walks(owners: np.ndarray, slots: int):
+    """``(idx, cnt, order)`` of tiles whose rows own ``owners`` ``(H,
+    n_tiles, rows, nu)`` bool: each tile's ascending union of owned units,
+    entries ``unit << 8 | bits`` (bit g: the tile's row g owns it), padded to
+    whole stages of ``slots`` with a repeat of the last real unit owned by no
+    row; the union's size; the (head, tile) pairs by stage count, longest
+    first (stable)."""
+    h, n_tiles, rows, _ = owners.shape
+    bits = (owners.astype(np.int64) << np.arange(rows)[None, None, :, None]).sum(2)
+    cnt = (bits != 0).sum(-1)
+    stages = -(-cnt // slots)
+    idx = np.zeros((h, n_tiles, max(1, int(stages.max())) * slots), np.int32)
+    for hi in range(h):
+        for ti in range(n_tiles):
+            units = np.nonzero(bits[hi, ti])[0]
+            if len(units):
+                idx[hi, ti, :len(units)] = units << 8 | bits[hi, ti, units]
+                idx[hi, ti, len(units):stages[hi, ti] * slots] = units[-1] << 8
+    order = np.argsort(-stages.reshape(-1), kind="stable").astype(np.int32)
+    return idx, cnt.astype(np.int32), order
 
 
 def build_tile_tables(layout: np.ndarray, block: int) -> TileTables:
@@ -128,39 +183,70 @@ def build_tile_tables(layout: np.ndarray, block: int) -> TileTables:
     stages with a repeat of the last real k-unit owned by no q-unit (so every
     slot of a stage is loaded); ``cnt`` the union's size; ``order`` the
     (head, tile) pairs by stage count, longest first (stable)."""
-    if block not in BLOCKS:
-        raise ValueError(f"the tile tables take a layout block in {BLOCKS}, got {block}")
-    layout = np.asarray(layout) != 0
-    unit = min(block, 64)
-    if block > unit:
-        layout = layout.repeat(block // unit, 1).repeat(block // unit, 2)
+    layout, unit = _units(layout, block)
     h, nu, _ = layout.shape
+    per_tile = TILE_ROWS // unit
+    n_tiles = -(-nu // per_tile)
+    owners = np.zeros((h, n_tiles * per_tile, nu), bool)
+    owners[:, :nu] = layout
+    return TileTables(*_tile_walks(owners.reshape(h, n_tiles, per_tile, nu), per_tile))
+
+
+def _member_owners(lt: np.ndarray, members: np.ndarray) -> np.ndarray:
+    """``(n_tiles, rows, nq)``: the q-units that attend to each member k-unit
+    of one head's transposed layout ``lt`` ``(nk, nq)``; none for a -1."""
+    return np.where(members[..., None] >= 0, lt[members.clip(0)], False)
+
+
+def build_bwd_tile_tables(layout: np.ndarray, block: int) -> BwdTileTables:
+    """The walk of the dk/dv kernel's bf16/fp16 path from a (H, nb, nb) 0/1
+    layout of block ``block``, for tiles of ``TILE_ROWS`` (64) k rows.
+
+    The layout is transposed (row k-unit, column the q-units that attend to
+    it) and taken in units as :func:`build_tile_tables` takes it. A tile is
+    ``64 / unit`` k-units of one head, not necessarily consecutive: of two
+    groupings, each head takes the one whose tiles walk fewer stages (the
+    first on a tie): consecutive k-units, or the k-units sorted by how many
+    q-units attend to them (most first), then by the first that does, then
+    by position. At block 16 under a Fixed layout that puts the global
+    columns, which every later q-unit attends to, into tiles of their own
+    instead of into every window's union. ``members`` lists each tile's
+    k-units (-1 where the last tile holds fewer); ``idx``, ``cnt`` and
+    ``order`` are :func:`build_tile_tables`' over the members, each entry
+    ``q_unit << 8 | bits`` with bit g set where member g is attended by that
+    q-unit."""
+    layout, unit = _units(layout, block)
+    lt = layout.transpose(0, 2, 1)
+    h, nu, _ = lt.shape
     per_tile = slots = TILE_ROWS // unit
     n_tiles = -(-nu // per_tile)
-    owners = np.zeros((h, n_tiles * per_tile, nu), np.int64)
-    owners[:, :nu] = layout
-    owners = owners.reshape(h, n_tiles, per_tile, nu)
-    bits = (owners << np.arange(per_tile)[None, None, :, None]).sum(2)    # (h, n_tiles, nu)
-    cnt = (bits != 0).sum(-1)
-    stages = -(-cnt // slots)
-    idx = np.zeros((h, n_tiles, max(1, int(stages.max())) * slots), np.int32)
+    walk = lt.sum(2)
+    first = np.where(walk > 0, lt.argmax(2), nu)
+    members = np.full((h, n_tiles, per_tile), -1, np.int64)
     for hi in range(h):
-        for ti in range(n_tiles):
-            ks = np.nonzero(bits[hi, ti])[0]
-            if len(ks):
-                idx[hi, ti, :len(ks)] = ks << 8 | bits[hi, ti, ks]
-                idx[hi, ti, len(ks):stages[hi, ti] * slots] = ks[-1] << 8
-    order = np.argsort(-stages.reshape(-1), kind="stable").astype(np.int32)
-    return TileTables(idx, cnt.astype(np.int32), order)
+        best = None
+        for units in (np.arange(nu), np.lexsort((np.arange(nu), first[hi], -walk[hi]))):
+            m = np.full(n_tiles * per_tile, -1, np.int64)
+            m[:nu] = units
+            m = m.reshape(n_tiles, per_tile)
+            stages = int((-(-_member_owners(lt[hi], m).any(1).sum(-1) // slots)).sum())
+            if best is None or stages < best[0]:
+                best = (stages, m)
+        members[hi] = best[1]
+    owners = np.stack([_member_owners(lt[hi], members[hi]) for hi in range(h)])
+    return BwdTileTables(members.astype(np.int32), *_tile_walks(owners, slots))
 
 
-def kernel_tile_tables(layout: np.ndarray, block: int, device) -> Optional[TileTables]:
-    """:func:`build_tile_tables` on ``device`` for :func:`block_sparse_fwd`'s
-    kernel; None on the CPU, where no kernel runs, and for a block the kernel
-    refuses (the wrapper says why). The kernel's float32 path ignores them."""
+def kernel_tile_tables(layout: np.ndarray, block: int, device, backward: bool = False):
+    """:func:`build_tile_tables` (``backward``: :func:`build_bwd_tile_tables`)
+    on ``device`` for the kernel of :func:`block_sparse_fwd` (of
+    :func:`block_sparse_bwd_dkv`); None on the CPU, where no kernel runs, and
+    for a block the kernel refuses (the wrapper says why). The kernels'
+    float32 paths ignore them."""
     if torch.device(device).type != "cuda" or block not in BLOCKS:
         return None
-    return build_tile_tables(layout, block).to(device)
+    build = build_bwd_tile_tables if backward else build_tile_tables
+    return build(layout, block).to(device)
 
 
 def device_tables(tables: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -234,8 +320,32 @@ def _stream(x: torch.Tensor) -> int:
 
 
 # ------------------------------------------------------------------ kernels
-#: tile tables found to walk a forward table: tiles.idx -> (fwd_idx, fwd_cnt)
+#: tile tables found to walk a table: tiles.idx -> (idx, cnt)
 _TILES_MATCHED = WeakIdKeyDictionary()
+
+
+def _walked(tiles, block: int):
+    """``(hi, ti, si, g, unit)``: every (head, tile, slot, row g) of the
+    stages the kernel walks whose entry has bit g set, and the entry's unit;
+    None if a walked entry is negative."""
+    slots = TILE_ROWS // min(block, 64)
+    _, _, max_slots = tiles.idx.shape
+    dev = tiles.idx.device
+    walked_slots = -(-tiles.cnt.long() // slots) * slots
+    live = torch.arange(max_slots, device=dev) < walked_slots[..., None]
+    if bool((walked_slots > max_slots).any()) or bool(((tiles.idx < 0) & live).any()):
+        return None
+    ents = tiles.idx.long() * live
+    owns = (ents[..., None] >> torch.arange(slots, device=dev)) & 1
+    hi, ti, si, g = owns.nonzero(as_tuple=True)
+    return hi, ti, si, g, ents[hi, ti, si] >> 8
+
+
+def _want(idx: torch.Tensor, cnt: torch.Tensor, block: int, device) -> torch.Tensor:
+    """The layout a table walks, in units of ``min(block, 64)`` rows."""
+    rep = block // min(block, 64)
+    want = table_layout(idx, cnt).to(device)
+    return want.repeat_interleave(rep, 1).repeat_interleave(rep, 2).long()
 
 
 def _tiles_walk_table(tiles: TileTables, fwd_idx: torch.Tensor, fwd_cnt: torch.Tensor,
@@ -243,57 +353,78 @@ def _tiles_walk_table(tiles: TileTables, fwd_idx: torch.Tensor, fwd_cnt: torch.T
     """Whether the stages the kernel walks of ``tiles`` own each (q-unit,
     k-unit) pair of the forward table's layout exactly once and nothing
     else (units of ``min(block, 64)`` rows), on the tables' device."""
-    unit = min(block, 64)
-    per_tile = slots = TILE_ROWS // unit
-    rep = block // unit
-    h, n_tiles, max_slots = tiles.idx.shape
-    nu = fwd_cnt.shape[1] * rep
-    dev = tiles.idx.device
-    walked_slots = -(-tiles.cnt.long() // slots) * slots
-    live = torch.arange(max_slots, device=dev) < walked_slots[..., None]
-    ents = tiles.idx.long() * live
-    owns = (ents[..., None] >> torch.arange(per_tile, device=dev)) & 1
-    hi, ti, si, g = owns.nonzero(as_tuple=True)
-    k_unit = ents[hi, ti, si] >> 8
-    if bool((k_unit >= nu).any()):
+    per_tile = TILE_ROWS // min(block, 64)
+    h, n_tiles, _ = tiles.idx.shape
+    want = _want(fwd_idx, fwd_cnt, block, tiles.idx.device)
+    nu = want.shape[1]
+    found = _walked(tiles, block)
+    if found is None or bool((found[4] >= nu).any()):
         return False
-    walked = torch.zeros(h, n_tiles * per_tile, nu, dtype=torch.long, device=dev)
-    walked.index_put_((hi, ti * per_tile + g, k_unit), torch.ones_like(k_unit),
-                      accumulate=True)
-    want = table_layout(fwd_idx, fwd_cnt).to(dev)
-    want = want.repeat_interleave(rep, 1).repeat_interleave(rep, 2).long()
+    hi, ti, _, g, k_unit = found
+    walked = torch.zeros(h, n_tiles * per_tile, nu, dtype=torch.long, device=want.device)
+    walked.index_put_((hi, ti * per_tile + g, k_unit), torch.ones_like(k_unit), accumulate=True)
     return torch.equal(walked[:, :nu], want) and not bool(walked[:, nu:].any())
 
 
-def _check_tiles(tiles: TileTables, q3: torch.Tensor, fwd_idx: torch.Tensor,
-                 fwd_cnt: torch.Tensor, block: int, n_heads: int) -> None:
-    """Tile tables must fit the kernel (:func:`build_tile_tables`' sizes) and
-    walk the layout of the forward table the backward kernels walk. That walk
-    is compared once per pair of tables (one read back to the host), so later
-    calls with the same tensors read nothing back."""
+def _bwd_tiles_walk_table(tiles: BwdTileTables, bwd_idx: torch.Tensor, bwd_cnt: torch.Tensor,
+                          block: int) -> bool:
+    """Whether ``tiles``' members hold each k-unit of a head once, and the
+    stages the kernel walks attend each (k-unit, q-unit) pair of the
+    transposed table's layout to its member exactly once and nothing else
+    (units of ``min(block, 64)`` rows), on the tables' device."""
+    want = _want(bwd_idx, bwd_cnt, block, tiles.idx.device)
+    h, nu, _ = want.shape
+    members = tiles.members.long().reshape(h, -1)
+    if bool((members < -1).any()) or bool((members >= nu).any()):
+        return False
+    held = torch.zeros(h, nu + 1, dtype=torch.long, device=want.device)
+    held.scatter_add_(1, members % (nu + 1), torch.ones_like(members))
+    found = _walked(tiles, block)
+    if not bool((held[:, :nu] == 1).all()) or found is None or bool((found[4] >= nu).any()):
+        return False
+    hi, ti, _, g, q_unit = found
+    k_unit = tiles.members.long()[hi, ti, g]
+    if bool((k_unit < 0).any()):
+        return False
+    walked = torch.zeros(h, nu, nu, dtype=torch.long, device=want.device)
+    walked.index_put_((hi, k_unit, q_unit), torch.ones_like(k_unit), accumulate=True)
+    return torch.equal(walked, want)
+
+
+def _check_tiles(name: str, tiles, q3: torch.Tensor, idx: torch.Tensor, cnt: torch.Tensor,
+                 block: int, n_heads: int) -> None:
+    """Tile tables must fit the kernel (:func:`build_tile_tables`' or
+    :func:`build_bwd_tile_tables`' sizes) and walk the layout of the table
+    the kernel's float32 path walks (the forward's, or the transposed one of
+    the dk/dv kernel). That walk is compared once per pair of tables (one
+    read back to the host), so later calls with the same tensors read
+    nothing back."""
     if block not in BLOCKS:
-        raise ValueError(f"block_sparse_fwd kernel takes a layout block in {BLOCKS}, got "
-                         f"{block}")
+        raise ValueError(f"{name} kernel takes a layout block in {BLOCKS}, got {block}")
     bh, t, _ = q3.shape
     n_tiles = -(-t // TILE_ROWS)
     slots = TILE_ROWS // min(block, 64)
+    backward = isinstance(tiles, BwdTileTables)
     if tuple(tiles.cnt.shape) != (n_heads, n_tiles) or tiles.idx.ndim != 3 or \
             tuple(tiles.idx.shape[:2]) != (n_heads, n_tiles) or tiles.idx.shape[2] % slots or \
-            tuple(tiles.order.shape) != (n_heads * n_tiles,):
-        raise ValueError(f"block_sparse_fwd: tile tables do not fit {n_heads} heads, t={t}, "
-                         f"block {block}: idx {tuple(tiles.idx.shape)}, cnt "
-                         f"{tuple(tiles.cnt.shape)}, order {tuple(tiles.order.shape)}")
+            tuple(tiles.order.shape) != (n_heads * n_tiles,) or \
+            backward and tuple(tiles.members.shape) != (n_heads, n_tiles, slots):
+        raise ValueError(f"{name}: tile tables do not fit {n_heads} heads, t={t}, "
+                         f"block {block}: " + ", ".join(f"{k} {tuple(x.shape)}"
+                                                       for k, x in tiles._asdict().items()))
     if any(x.dtype != torch.int32 for x in tiles):
-        raise TypeError("block_sparse_fwd: tile tables must be int32")
+        raise TypeError(f"{name}: tile tables must be int32")
     if any(x.device != q3.device for x in tiles):
-        raise ValueError(f"block_sparse_fwd: tile tables must be on {q3.device}")
+        raise ValueError(f"{name}: tile tables must be on {q3.device}")
     seen = _TILES_MATCHED.get(tiles.idx)
-    if seen is not None and seen[0] is fwd_idx and seen[1] is fwd_cnt:
+    if seen is not None and seen[0] is idx and seen[1] is cnt:
         return
-    if not _tiles_walk_table(tiles, fwd_idx, fwd_cnt, block):
-        raise ValueError("block_sparse_fwd: the tile tables do not walk the layout of the "
-                         "forward table (build both from one layout)")
-    _TILES_MATCHED[tiles.idx] = (fwd_idx, fwd_cnt)
+    walks = _bwd_tiles_walk_table if backward else _tiles_walk_table
+    if not walks(tiles, idx, cnt, block):
+        table = "transposed" if backward else "forward"
+        raise ValueError(f"{name}: the tile tables do not walk the layout of the {table} "
+                         f"table (build both from one layout)")
+    _TILES_MATCHED[tiles.idx] = (idx, cnt)
 
 
 def block_sparse_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
@@ -311,7 +442,7 @@ def block_sparse_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     CUDA inputs that require grad are refused while grad mode is on."""
     _check("block_sparse_fwd", (q3, k3, v3), fwd_idx, fwd_cnt, block, n_heads)
     if tiles is not None:
-        _check_tiles(tiles, q3, fwd_idx, fwd_cnt, block, n_heads)
+        _check_tiles("block_sparse_fwd", tiles, q3, fwd_idx, fwd_cnt, block, n_heads)
     scale = _scale(q3, softmax_scale)
     if q3.device.type == "cpu":
         return block_sparse_fwd_plain(q3, k3, v3, fwd_idx, fwd_cnt, block, scale, causal,
@@ -374,43 +505,60 @@ def block_sparse_bwd_dq(q3, k3, v3, do3, lse, delta, fwd_idx, fwd_cnt, block: in
 
 def block_sparse_bwd_dkv(q3, k3, v3, do3, lse, delta, bwd_idx, bwd_cnt, block: int,
                          softmax_scale: Optional[float] = None, causal: bool = False,
-                         n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                         n_heads: int = 1, tiles: Optional[BwdTileTables] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` in k's and v's dtype over the transposed table: the kernel
-    ``csrc/block_sparse_bwd_dkv.cu`` for CUDA tensors (one block per k-block,
-    no atomics), :func:`block_sparse_bwd_dkv_plain` for CPU tensors."""
+    ``csrc/block_sparse_bwd_dkv.cu`` for CUDA tensors (no atomics),
+    :func:`block_sparse_bwd_dkv_plain` for CPU tensors. The kernel's float32
+    path walks the transposed table; its bf16/fp16 path walks ``tiles``
+    (:func:`kernel_tile_tables` of the same layout with ``backward=True``;
+    required there). Tiles given on either device must walk the transposed
+    table's layout."""
     name = "block_sparse_bwd_dkv"
     _check(name, (q3, k3, v3, do3), bwd_idx, bwd_cnt, block, n_heads)
     _check_rows(name, q3, lse, delta)
+    if tiles is not None:
+        _check_tiles(name, tiles, q3, bwd_idx, bwd_cnt, block, n_heads)
     scale = _scale(q3, softmax_scale)
     if q3.device.type == "cpu":
         return block_sparse_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, bwd_idx, bwd_cnt,
                                           block, scale, causal, n_heads)
     _check_cuda(name, (q3, k3, v3, do3, lse, delta, bwd_idx, bwd_cnt), block)
+    tile_ptrs, max_slots = (None,) * 4, 0
+    if q3.dtype != torch.float32:
+        if tiles is None:
+            raise ValueError(f"{name}'s bf16/fp16 kernel walks tile tables: pass tiles="
+                             f"kernel_tile_tables(layout, block, q3.device, backward=True)")
+        _check_cuda(name, (q3, *tiles), block)
+        tile_ptrs, max_slots = tuple(x.data_ptr() for x in tiles), tiles.idx.shape[2]
     bh, t, d = q3.shape
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
     BLOCK_SPARSE_BWD_DKV.launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
                                 lse.data_ptr(), delta.data_ptr(), bwd_idx.data_ptr(),
-                                bwd_cnt.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, d,
-                                n_heads, block, bwd_idx.shape[2], scale, int(causal),
-                                DTYPE_CODES[q3.dtype], _stream(q3))
+                                bwd_cnt.data_ptr(), *tile_ptrs, dk.data_ptr(), dv.data_ptr(),
+                                bh, t, d, n_heads, block, bwd_idx.shape[2], max_slots, scale,
+                                int(causal), DTYPE_CODES[q3.dtype], _stream(q3))
     return dk, dv
 
 
 def block_sparse_bwd(q3, k3, v3, o3, lse, do3, tables: Dict[str, torch.Tensor], block: int,
                      softmax_scale: Optional[float] = None, causal: bool = False,
-                     n_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     n_heads: int = 1, bwd_tiles: Optional[BwdTileTables] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients ``(dq, dk, dv)`` of :func:`block_sparse_fwd` for the output
     gradient ``do3``, from the forward's ``o3`` and f32 ``lse``. ``delta =
     rowsum(do * o)`` is formed here in f32, outside the kernels, as the JAX
-    package forms it; each kernel then recomputes p from ``lse``."""
+    package forms it; each kernel then recomputes p from ``lse``.
+    ``bwd_tiles`` go to :func:`block_sparse_bwd_dkv`."""
     if o3.shape != q3.shape:
         raise ValueError(f"o must be {tuple(q3.shape)}, got {tuple(o3.shape)}")
     delta = (do3.float() * o3.float()).sum(-1)
     dq = block_sparse_bwd_dq(q3, k3, v3, do3, lse, delta, tables["fwd_idx"],
                              tables["fwd_cnt"], block, softmax_scale, causal, n_heads)
     dk, dv = block_sparse_bwd_dkv(q3, k3, v3, do3, lse, delta, tables["bwd_idx"],
-                                  tables["bwd_cnt"], block, softmax_scale, causal, n_heads)
+                                  tables["bwd_cnt"], block, softmax_scale, causal, n_heads,
+                                  tiles=bwd_tiles)
     return dq, dk, dv
 
 
@@ -488,31 +636,33 @@ def block_sparse_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, bwd_idx, bwd_cnt, bl
 class BlockSparseAttnFunction(torch.autograd.Function):
     """``o = block-sparse attention(q3, k3, v3)`` through :func:`block_sparse_fwd`,
     differentiated by :func:`block_sparse_bwd`; the port of the ``_bs_core``
-    custom VJP. It saves q, k, v, o, the f32 lse and the four tables; the
-    tables and the forward's tile tables get no gradient."""
+    custom VJP. It saves q, k, v, o, the f32 lse and the four tables, and
+    keeps the dk/dv kernel's tile tables; the tables and both kernels' tile
+    tables get no gradient."""
 
     @staticmethod
     def forward(ctx, q3, k3, v3, fwd_idx, fwd_cnt, bwd_idx, bwd_cnt, block, softmax_scale,
-                causal, n_heads, tiles):
+                causal, n_heads, tiles, bwd_tiles):
         o3, lse = block_sparse_fwd(q3, k3, v3, fwd_idx, fwd_cnt, block, softmax_scale, causal,
                                    n_heads, tiles=tiles)
         ctx.save_for_backward(q3, k3, v3, o3, lse, fwd_idx, fwd_cnt, bwd_idx, bwd_cnt)
-        ctx.args = (block, softmax_scale, causal, n_heads)
+        ctx.args = (block, softmax_scale, causal, n_heads, bwd_tiles)
         return o3
 
     @staticmethod
     def backward(ctx, do3):
         q3, k3, v3, o3, lse, *tables = ctx.saved_tensors
-        block, softmax_scale, causal, n_heads = ctx.args
+        block, softmax_scale, causal, n_heads, bwd_tiles = ctx.args
         dq, dk, dv = block_sparse_bwd(q3, k3, v3, o3, lse, do3.contiguous(),
                                       dict(zip(TABLE_NAMES, tables)), block, softmax_scale,
-                                      causal, n_heads)
-        return (dq, dk, dv) + (None,) * 9
+                                      causal, n_heads, bwd_tiles)
+        return (dq, dk, dv) + (None,) * 10
 
 
 # ------------------------------------------------------------------ public ops
 def _attend(q, k, v, tables: Dict[str, torch.Tensor], tiles: Optional[TileTables],
-            block: int, causal: bool, softmax_scale: Optional[float]) -> torch.Tensor:
+            bwd_tiles: Optional[BwdTileTables], block: int, causal: bool,
+            softmax_scale: Optional[float]) -> torch.Tensor:
     b, t, h, d = q.shape
 
     def to3(x):
@@ -520,7 +670,7 @@ def _attend(q, k, v, tables: Dict[str, torch.Tensor], tiles: Optional[TileTables
 
     o3 = BlockSparseAttnFunction.apply(to3(q), to3(k), to3(v),
                                        *(tables[n] for n in TABLE_NAMES), block,
-                                       softmax_scale, causal, h, tiles)
+                                       softmax_scale, causal, h, tiles, bwd_tiles)
     return o3.reshape(b, h, t, d).transpose(1, 2)
 
 
@@ -532,8 +682,8 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as on the CPU. ``causal`` applies the elementwise triangle on top of the
     block mask (use with unidirectional layouts). Rows whose layout is empty
     produce zeros. The tables (and the tile tables of the bf16/fp16 forward
-    kernel) are built on the host and copied to q's device on every call;
-    :func:`make_sparse_attention_impl` caches them."""
+    and dk/dv kernels) are built on the host and copied to q's device on
+    every call; :func:`make_sparse_attention_impl` caches them."""
     b, t, h, d = q.shape
     if not (k.shape == q.shape and v.shape == q.shape):
         raise AssertionError("self-attention only")
@@ -544,7 +694,9 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise AssertionError(f"layout covers {layout.shape[1] * block} positions, inputs "
                              f"have {t}")
     return _attend(q, k, v, device_tables(build_tables(layout), q.device),
-                   kernel_tile_tables(layout, block, q.device), block, causal, softmax_scale)
+                   kernel_tile_tables(layout, block, q.device),
+                   kernel_tile_tables(layout, block, q.device, backward=True), block, causal,
+                   softmax_scale)
 
 
 def _layout_mask(layout: np.ndarray, block: int, device) -> torch.Tensor:
@@ -567,14 +719,14 @@ def make_sparse_attention_impl(config: SparsityConfig):
     """Bind a :class:`SparsityConfig` into an attention impl of the
     ``get_attention_impl`` signature (the ``SparseSelfAttention`` role): the
     layout is built and cached per sequence length, and its tables with the
-    bf16/fp16 forward kernel's tile tables as device tensors, one entry per
-    (length, device), so a training step builds and copies no table. A user ``mask``
+    bf16/fp16 forward and dk/dv kernels' tile tables as device tensors, one
+    entry per (length, device), so a training step builds and copies no table. A user ``mask``
     or a q shorter than k keeps the sparsity pattern on the masked dense path
     (``reference_attention`` with the layout's dense mask), as the JAX impl
     does; attention dropout is not ported and raises."""
     layouts: Dict[int, np.ndarray] = {}
-    tables: Dict[Tuple[int, torch.device],
-                 Tuple[Dict[str, torch.Tensor], Optional[TileTables]]] = {}
+    tables: Dict[Tuple[int, torch.device], Tuple[Dict[str, torch.Tensor], Optional[TileTables],
+                                                 Optional[BwdTileTables]]] = {}
 
     def layout_for(s: int) -> np.ndarray:
         if s not in layouts:
@@ -604,7 +756,8 @@ def make_sparse_attention_impl(config: SparsityConfig):
         if key not in tables:
             layout = layout_for(t)
             tables[key] = (device_tables(build_tables(layout), q.device),
-                           kernel_tile_tables(layout, config.block, q.device))
+                           kernel_tile_tables(layout, config.block, q.device),
+                           kernel_tile_tables(layout, config.block, q.device, backward=True))
         return _attend(q, k, v, *tables[key], config.block, causal or uni, softmax_scale)
 
     return impl

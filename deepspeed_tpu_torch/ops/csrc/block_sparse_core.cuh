@@ -1,6 +1,6 @@
 // Shared by the block-sparse attention kernels on the CUDA cores
-// (block_sparse_fwd.cu's f32 path, block_sparse_bwd_dq.cu,
-// block_sparse_bwd_dkv.cu): the geometry of a thread block, the staging of
+// (block_sparse_fwd.cu's and block_sparse_bwd_dkv.cu's f32 paths,
+// block_sparse_bwd_dq.cu): the geometry of a thread block, the staging of
 // row tiles into shared memory, the check of the C entries' arguments and the
 // dispatch over dtype, layout block and head_dim.
 //

@@ -276,6 +276,15 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// two packed T values (low first) back in f32
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t v);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t v) {
+    return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t v) {
+    return __half22float2(*reinterpret_cast<__half2*>(&v));
+}
+
 // The accumulator fragment of m64nNk16, thread (warp w, lane l) of the
 // warpgroup: element 4j + e sits at row 16w + l/4 + 8*(e >= 2), column
 // 8j + 2*(l%4) + (e & 1). Columns 16kk .. 16kk+15 of it, rounded to T, are
@@ -289,6 +298,24 @@ __device__ __forceinline__ void acc_to_afrag(const float (&d)[32], uint32_t (&a)
         a[kk][2] = pack2<T>(d[8 * kk + 4], d[8 * kk + 5]);
         a[kk][3] = pack2<T>(d[8 * kk + 6], d[8 * kk + 7]);
     }
+}
+
+// acc_to_afrag without losing the f32 value: hi holds each element rounded
+// to T, lo the rest (x - hi, exact in f32) rounded to T, so the two A
+// operands' products summed into one f32 accumulator keep ~16 (bf16) or ~22
+// (fp16) bits of each element
+template <typename T>
+__device__ __forceinline__ void acc_to_afrag_split(const float (&d)[32], uint32_t (&hi)[4][4],
+                                                   uint32_t (&lo)[4][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const float a = d[8 * kk + 2 * r], b = d[8 * kk + 2 * r + 1];
+            hi[kk][r] = pack2<T>(a, b);
+            const float2 h = unpack2<T>(hi[kk][r]);
+            lo[kk][r] = pack2<T>(a - h.x, b - h.y);
+        }
 }
 
 }  // namespace hopper

@@ -253,7 +253,8 @@ def test_block_sparse_attention_gradients_and_launches_on_card():
     within the forward's bf16 limit of the plain forward, and dq, dk, dv
     within the backward's of the plain backward fed with the forward kernel's
     o and lse; the forward kernel refuses inputs that require grad under
-    grad mode, and bf16 inputs without its tile tables."""
+    grad mode, and the forward and dk/dv kernels bf16 inputs without their
+    tile tables."""
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.attention import block_sparse as bs
     device = _card()
@@ -291,6 +292,9 @@ def test_block_sparse_attention_gradients_and_launches_on_card():
     atol, rtol = kernel_checks.BWD_TOLERANCES[torch.bfloat16]
     for g, w in zip(got, want):
         assert kernel_checks.err_ratio(to3(g), w, atol, rtol) <= 1.0
+    with pytest.raises(ValueError, match="tile tables"):
+        bs.block_sparse_bwd_dkv(q3, k3, v3, do3, lse, delta, tables["bwd_idx"],
+                                tables["bwd_cnt"], 16, causal=True, n_heads=h)
     with pytest.raises(ValueError, match="BlockSparseAttnFunction"):
         bs.block_sparse_fwd(to3(leaves[0]), k3, v3, tables["fwd_idx"], tables["fwd_cnt"], 16,
                             n_heads=h)
@@ -442,7 +446,29 @@ PLANTED_FAULTS = {
         "block_sparse_bwd_dkv.cu",
         "const int nnz = cnt[head * nb + kb];",
         "const int nnz = cnt[head * nb + kb] - 1;",
-        ("block_sparse_bwd_dkv",)),
+        ("block_sparse_bwd_dkv:float32",)),
+    "block-sparse-dkv-wgmma-walk-stops-a-stage-early": (
+        "block_sparse_bwd_dkv.cu",
+        "const int n_st = (tile_cnt[ht] + slots - 1) / slots;",
+        "const int n_st = (tile_cnt[ht] + slots - 1) / slots - 1;",
+        ("block_sparse_bwd_dkv:bfloat16", "block_sparse_bwd_dkv:float16")),
+    "block-sparse-dkv-wgmma-drops-ownership-mask": (
+        "block_sparse_bwd_dkv.cu",
+        "const bool own = (ej >> g) & 1;",
+        "const bool own = true;",
+        ("block_sparse_bwd_dkv:bigbird16-causal",
+         "block_sparse_bwd_dkv:hand-made-empty-past-diagonal",
+         "block_sparse_bwd_dkv:gpt2-train-fixed16")),
+    "block-sparse-dkv-wgmma-masked-as-excluded": (
+        "block_sparse_bwd_dkv.cu",
+        "x = !own ? excluded : (causal && col > row) ? masked : x;",
+        "x = !own ? excluded : (causal && col > row) ? excluded : x;",
+        ("block_sparse_bwd_dkv:hand-made-empty-past-diagonal",)),
+    "block-sparse-dkv-wgmma-empty-tile-skips-zero-write": (
+        "block_sparse_bwd_dkv.cu",
+        "if (my_unit >= 0) {",
+        "if (my_unit >= 0 && n_st > 0) {",
+        ("block_sparse_bwd_dkv:hand-made-block64",)),
 }
 
 # run inside the planted copy: which package it imported, then err/limit of
@@ -522,9 +548,10 @@ def test_case_selectors():
 
 
 #: consumer warpgroup tilings a block of each wgmma source's kernels: K1, K3
-#: and K4 have one and two, K8 one; K6 has one for each wgmma N (8, 16, 128),
-#: and its wgmma functions are 2 dtypes x 2 bit widths x those
-WGMMA_TILINGS = {"block_sparse_fwd.cu": 1, "quantized_matmul.cu": 3}
+#: and K4 have one and two, K8 and K10 one; K6 has one for each wgmma N (8,
+#: 16, 128), and its wgmma functions are 2 dtypes x 2 bit widths x those
+WGMMA_TILINGS = {"block_sparse_fwd.cu": 1, "block_sparse_bwd_dkv.cu": 1,
+                 "quantized_matmul.cu": 3}
 #: the mangled-name mark of each wgmma source's main-path instantiations
 #: (bf16; the flash kernels at head dim 64), and how many there are: K6's
 #: main paths run every bf16 tiling at int8 and int4
@@ -532,7 +559,8 @@ MAIN_PATH = {"quantized_matmul.cu": ("13__nv_bfloat16L", 6)}
 
 
 def _wgmma_libraries():
-    """Builds K1's, K3's, K4's, K6's and K8's sources; their libraries' paths."""
+    """Builds K1's, K3's, K4's, K6's, K8's and K10's sources; their libraries'
+    paths."""
     from deepspeed_tpu_torch.ops import op_builder
     sources = [op_builder.KERNELS[k].source for k in kernel_checks.WGMMA_KERNELS]
     op_builder.build(sources)
@@ -540,7 +568,7 @@ def _wgmma_libraries():
 
 
 def test_wgmma_kernels_issue_hgmma_and_tma_loads():
-    """The bf16/fp16 kernels of K1, K3, K4, K6 and K8 run on the tensor
+    """The bf16/fp16 kernels of K1, K3, K4, K6, K8 and K10 run on the tensor
     cores through wgmma, fed by TMA: in the SASS of every ``wgmma_*`` function
     (2 dtypes x 2 head dims, or K6's 2 bit widths, x ``WGMMA_TILINGS``) stand
     HGMMA and UTMALDG; the first version's f32 kernels (and K6's split-k
@@ -561,7 +589,7 @@ def test_wgmma_kernels_issue_hgmma_and_tma_loads():
 
 
 def test_wgmma_main_path_instantiations_do_not_spill():
-    """``-Xptxas -v`` of K1, K3, K4, K6 and K8: the instantiations the main
+    """``-Xptxas -v`` of K1, K3, K4, K6, K8 and K10: the instantiations the main
     paths run (bf16; head dim 64, each tiling of ``WGMMA_TILINGS``; K6 every
     tiling at int8 and int4, ``MAIN_PATH``) spill nothing."""
     _card()
