@@ -5,13 +5,16 @@
     python3 benchmarks/torch/qmm_versions.py <kernel> [build/<kernel>_old.cu]
 
 ``<kernel>`` is ``quantized_matmul``, ``flash_fwd``, ``flash_bwd_dq``,
-``flash_bwd_dkv``, ``block_sparse_fwd`` or ``block_sparse_bwd_dkv``.
+``flash_bwd_dkv``, ``block_sparse_fwd``, ``block_sparse_bwd_dq`` or
+``block_sparse_bwd_dkv``.
 Builds the checkout's ``ops/csrc/<kernel>.cu`` and the old source (same flags,
-``-I`` the checkout's ``csrc/`` for its headers; where the C entry changed,
+``-I`` the checkout's ``csrc/`` for its headers; a header the old source
+needs as it was goes beside it, ``git show <commit>:.../csrc/<header>.cuh >
+build/<header>.cuh``, and is found first; where the C entry changed,
 the old source is called with its own argument list, ``OLD_ARGTYPES``: for
-``block_sparse_fwd`` and ``block_sparse_bwd_dkv`` the first version's,
-without tile tables, the new one taking the case's tile tables, built before
-the timing; for
+``block_sparse_fwd``, ``block_sparse_bwd_dq`` and ``block_sparse_bwd_dkv``
+the first version's, without tile tables, the new one taking the case's tile
+tables, built before the timing; for
 ``quantized_matmul`` the version without bias or tiling, called with the
 skinny split of its own wrapper, ``old_skinny_split``, and cast to x's dtype
 as that wrapper did, so at m = 1 the old build is the CUDA-core
@@ -31,8 +34,9 @@ For ``quantized_matmul`` it then times the new build at every bf16 tiling
 ``tile_m``, each with its split from ``qmm_split``) at m from 1 to 64 on
 BLOOM-7B's q_proj (int8) and fc_out (int4) shapes: the regime switch of
 ``qmm_plan`` (``[switch]`` lines).
-For ``block_sparse_bwd_dkv`` it also times, on each 16-bit case, the new
-build with every walk but the longest emptied (``[tail]`` lines, ``walk_tail``).
+For ``block_sparse_bwd_dq`` and ``block_sparse_bwd_dkv`` it also times, on
+each 16-bit case, the new build with every walk but the longest emptied
+(``[tail]`` lines, ``walk_tail``).
 For ``flash_bwd_dq`` it also builds the new source without its near-tie
 recompute of ds (``-DDS_FLASH_DQ_TIE_ULPS=0``), whose err/limit is printed
 and may exceed 1. Exits non-zero if another version fails a case, or a build
@@ -58,6 +62,11 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 #: C entries whose argument list the current source changed: the old one
 OLD_ARGTYPES = {"block_sparse_fwd": [
     _vp, _vp, _vp, _vp, _vp, _vp, _vp,       # q, k, v, idx, cnt, o, lse
+    _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
+    ctypes.c_float, _int, _int, _vp],        # scale, causal, dtype, stream
+    "block_sparse_bwd_dq": [
+    _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,  # q, k, v, do, lse, delta, idx, cnt
+    _vp,                                     # dq
     _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
     ctypes.c_float, _int, _int, _vp],        # scale, causal, dtype, stream
     "block_sparse_bwd_dkv": [
@@ -160,8 +169,9 @@ def runner(kernel: str, fn, old: bool):
             outs = (torch.empty_like(q), torch.empty(bh, t, dtype=torch.float32, device=q.device))
             head = (q.data_ptr(), k.data_ptr(), v.data_ptr())
         else:
-            table = "bwd"
-            outs = (torch.empty_like(k), torch.empty_like(v))
+            table = "fwd" if kernel == "block_sparse_bwd_dq" else "bwd"
+            outs = ((torch.empty_like(q),) if table == "fwd" else
+                    (torch.empty_like(k), torch.empty_like(v)))
             head = tuple(inp[n].data_ptr() for n in ("q", "k", "v", "do", "lse", "delta"))
         head += (inp[f"{table}_idx"].data_ptr(), inp[f"{table}_cnt"].data_ptr())
         tail = (_scale(case), int(case.causal), DTYPE_CODES[q.dtype],
@@ -177,6 +187,7 @@ def runner(kernel: str, fn, old: bool):
         return outs
 
     return {"quantized_matmul": qmm, "block_sparse_fwd": block_sparse,
+            "block_sparse_bwd_dq": block_sparse,
             "block_sparse_bwd_dkv": block_sparse}.get(kernel, flash)
 
 
@@ -257,7 +268,8 @@ def main(kernel: str, old_source: str) -> int:
               + f"; ms old {ms['old'][0]:.4f} / {ms['old'][1]:.4f}, new {ms['new'][0]:.4f} / "
               f"{ms['new'][1]:.4f}" + "".join(f", {tag} {t:.4f}" for tag, t in sweep.items())
               + f"; library {lib_ms}; bound {kc.bound_ms(case)[0]:.4f}", flush=True)
-        if kernel == "block_sparse_bwd_dkv" and case.dtype != torch.float32:
+        if kernel in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv") and (
+                case.dtype != torch.float32):
             walk_tail(runs["new"], case, inp)
         del inp, ref
     if kernel == "quantized_matmul":
@@ -266,15 +278,16 @@ def main(kernel: str, old_source: str) -> int:
 
 
 def walk_tail(run, case, inp) -> None:
-    """The new K10 build on the case's tile tables, then on the same tables
-    with every walk but the first launched (the longest) emptied: a
+    """The new K9 or K10 build on the case's tile tables, then on the same
+    tables with every walk but the first launched (the longest) emptied: a
     ``[tail]`` line with the blocks, the stages of the longest and of the
     mean walk, and both times. Where the two times are close, the longest
     walk sets the kernel's time."""
     import chip_smoke
+    from deepspeed_tpu_torch.ops.kernel_checks import case_block
 
     tiles = inp["tiles"]
-    slots = tiles.members.shape[2]
+    slots = 64 // min(case_block(case), 64)
     stages = (tiles.cnt.long() + slots - 1) // slots
     first = int(tiles.order[0])
     alone = tiles.cnt.clone().view(-1)

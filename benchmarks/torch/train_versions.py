@@ -29,7 +29,7 @@ KERNEL_KEYS = {
               "K3": ("wgmma_dq", "flash_bwd_dq_kernel"),
               "K4": ("wgmma_dkv", "flash_bwd_dkv_kernel")},
     "sparse": {"K8": ("wgmma_bs_fwd", "block_sparse_fwd_kernel"),
-               "K9": ("block_sparse_bwd_dq_kernel",),
+               "K9": ("wgmma_bs_dq", "block_sparse_bwd_dq_kernel"),
                "K10": ("wgmma_bs_dkv", "block_sparse_bwd_dkv_kernel")}}
 
 _CHILD = """

@@ -769,13 +769,14 @@ def sparse_path(device, smi: str, dense_step_ms: float):
                     plain_sparse, lambda _: f" (dense [train] step {dense_step_ms:.2f} ms)")
     out["dense_step_ms"] = dense_step_ms
     if out["trace"] is not None:
-        # the traced step's device time in K8, K9 and K10 (K8's and K10's
-        # 16-bit kernels are wgmma_bs_fwd and wgmma_bs_dkv, their f32 ones
-        # block_sparse_fwd_kernel and block_sparse_bwd_dkv_kernel)
+        # the traced step's device time in K8, K9 and K10 (their 16-bit
+        # kernels are wgmma_bs_fwd, wgmma_bs_dq and wgmma_bs_dkv, their f32
+        # ones block_sparse_fwd_kernel, block_sparse_bwd_dq_kernel and
+        # block_sparse_bwd_dkv_kernel)
         by_kernel = out["trace"]["by_kernel"]
         ms = {name: sum(us for key, us in by_kernel.items() if any(k in key for k in keys)) / 1e3
               for name, keys in (("k8", ("wgmma_bs_fwd", "block_sparse_fwd_kernel")),
-                                 ("k9", ("block_sparse_bwd_dq_kernel",)),
+                                 ("k9", ("wgmma_bs_dq", "block_sparse_bwd_dq_kernel")),
                                  ("k10", ("wgmma_bs_dkv", "block_sparse_bwd_dkv_kernel")))}
         out.update({f"{name}_traced_ms": v for name, v in ms.items()})
         print(f"[sparse] traced step: K8 {ms['k8']:.3f} ms, K9 {ms['k9']:.3f} ms, K10 "

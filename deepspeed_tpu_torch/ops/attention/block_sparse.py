@@ -32,8 +32,8 @@ has no autograd history: :func:`block_sparse_fwd` refuses CUDA inputs that
 require grad while grad mode is on, and :class:`BlockSparseAttnFunction` is
 the differentiable way in.
 
-The forward kernel's bf16/fp16 path walks tiles of 64 q rows a consumer
-warpgroup, not single q-blocks: it takes the tile tables of
+The forward and dq kernels' bf16/fp16 paths walk tiles of 64 q rows a
+consumer warpgroup, not single q-blocks: they take the tile tables of
 :func:`build_tile_tables` (the union of a tile's q-blocks' k-blocks, with a
 bitmask of the q-blocks that own each). The dk/dv kernel's bf16/fp16 path
 walks tiles of 64 k rows the same way over the transposed layout, whose
@@ -69,8 +69,9 @@ BLOCK_SPARSE_FWD = CudaKernel(
 BLOCK_SPARSE_BWD_DQ = CudaKernel(
     "block_sparse_bwd_dq", "block_sparse_bwd_dq.cu", "block_sparse_bwd_dq",
     [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,  # q, k, v, do, lse, delta, idx, cnt
-     _vp,                                     # dq
+     _vp, _vp, _vp, _vp,                      # tile_idx, tile_cnt, tile_order, dq
      _int, _int, _int, _int, _int, _int,      # bh, t, d, n_heads, block, max_n
+     _int,                                    # max_slots
      ctypes.c_float, _int, _int, _vp])        # scale, causal, dtype, stream
 BLOCK_SPARSE_BWD_DKV = CudaKernel(
     "block_sparse_bwd_dkv", "block_sparse_bwd_dkv.cu", "block_sparse_bwd_dkv",
@@ -239,10 +240,10 @@ def build_bwd_tile_tables(layout: np.ndarray, block: int) -> BwdTileTables:
 
 def kernel_tile_tables(layout: np.ndarray, block: int, device, backward: bool = False):
     """:func:`build_tile_tables` (``backward``: :func:`build_bwd_tile_tables`)
-    on ``device`` for the kernel of :func:`block_sparse_fwd` (of
-    :func:`block_sparse_bwd_dkv`); None on the CPU, where no kernel runs, and
-    for a block the kernel refuses (the wrapper says why). The kernels'
-    float32 paths ignore them."""
+    on ``device`` for the kernels of :func:`block_sparse_fwd` and
+    :func:`block_sparse_bwd_dq` (of :func:`block_sparse_bwd_dkv`); None on the
+    CPU, where no kernel runs, and for a block the kernel refuses (the wrapper
+    says why). The kernels' float32 paths ignore them."""
     if torch.device(device).type != "cuda" or block not in BLOCKS:
         return None
     build = build_bwd_tile_tables if backward else build_tile_tables
@@ -480,26 +481,38 @@ def _check_rows(name, q3, lse, delta) -> None:
 
 def block_sparse_bwd_dq(q3, k3, v3, do3, lse, delta, fwd_idx, fwd_cnt, block: int,
                         softmax_scale: Optional[float] = None, causal: bool = False,
-                        n_heads: int = 1) -> torch.Tensor:
+                        n_heads: int = 1, tiles: Optional[TileTables] = None) -> torch.Tensor:
     """dq in q's dtype over the forward table: the kernel
     ``csrc/block_sparse_bwd_dq.cu`` for CUDA tensors,
     :func:`block_sparse_bwd_dq_plain` for CPU tensors. ``delta`` ``(b*h, t)``
-    f32 is ``rowsum(do * o)``."""
+    f32 is ``rowsum(do * o)``. The kernel's float32 path walks the forward
+    table; its bf16/fp16 path walks ``tiles``, the forward kernel's
+    (:func:`kernel_tile_tables` of the same layout; required there). Tiles
+    given on either device must walk the forward table's layout."""
     name = "block_sparse_bwd_dq"
     _check(name, (q3, k3, v3, do3), fwd_idx, fwd_cnt, block, n_heads)
     _check_rows(name, q3, lse, delta)
+    if tiles is not None:
+        _check_tiles(name, tiles, q3, fwd_idx, fwd_cnt, block, n_heads)
     scale = _scale(q3, softmax_scale)
     if q3.device.type == "cpu":
         return block_sparse_bwd_dq_plain(q3, k3, v3, do3, lse, delta, fwd_idx, fwd_cnt, block,
                                          scale, causal, n_heads)
     _check_cuda(name, (q3, k3, v3, do3, lse, delta, fwd_idx, fwd_cnt), block)
+    tile_ptrs, max_slots = (None,) * 3, 0
+    if q3.dtype != torch.float32:
+        if tiles is None:
+            raise ValueError(f"{name}'s bf16/fp16 kernel walks tile tables: pass tiles="
+                             f"kernel_tile_tables(layout, block, q3.device)")
+        _check_cuda(name, (q3, *tiles), block)
+        tile_ptrs, max_slots = tuple(x.data_ptr() for x in tiles), tiles.idx.shape[2]
     bh, t, d = q3.shape
     dq = torch.empty_like(q3)
     BLOCK_SPARSE_BWD_DQ.launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
                                lse.data_ptr(), delta.data_ptr(), fwd_idx.data_ptr(),
-                               fwd_cnt.data_ptr(), dq.data_ptr(), bh, t, d, n_heads, block,
-                               fwd_idx.shape[2], scale, int(causal), DTYPE_CODES[q3.dtype],
-                               _stream(q3))
+                               fwd_cnt.data_ptr(), *tile_ptrs, dq.data_ptr(), bh, t, d,
+                               n_heads, block, fwd_idx.shape[2], max_slots, scale, int(causal),
+                               DTYPE_CODES[q3.dtype], _stream(q3))
     return dq
 
 
@@ -544,18 +557,21 @@ def block_sparse_bwd_dkv(q3, k3, v3, do3, lse, delta, bwd_idx, bwd_cnt, block: i
 
 def block_sparse_bwd(q3, k3, v3, o3, lse, do3, tables: Dict[str, torch.Tensor], block: int,
                      softmax_scale: Optional[float] = None, causal: bool = False,
-                     n_heads: int = 1, bwd_tiles: Optional[BwdTileTables] = None
+                     n_heads: int = 1, tiles: Optional[TileTables] = None,
+                     bwd_tiles: Optional[BwdTileTables] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients ``(dq, dk, dv)`` of :func:`block_sparse_fwd` for the output
     gradient ``do3``, from the forward's ``o3`` and f32 ``lse``. ``delta =
     rowsum(do * o)`` is formed here in f32, outside the kernels, as the JAX
-    package forms it; each kernel then recomputes p from ``lse``.
-    ``bwd_tiles`` go to :func:`block_sparse_bwd_dkv`."""
+    package forms it; each kernel then recomputes p from ``lse``. ``tiles``
+    (the forward kernel's) go to :func:`block_sparse_bwd_dq`, ``bwd_tiles``
+    to :func:`block_sparse_bwd_dkv`."""
     if o3.shape != q3.shape:
         raise ValueError(f"o must be {tuple(q3.shape)}, got {tuple(o3.shape)}")
     delta = (do3.float() * o3.float()).sum(-1)
     dq = block_sparse_bwd_dq(q3, k3, v3, do3, lse, delta, tables["fwd_idx"],
-                             tables["fwd_cnt"], block, softmax_scale, causal, n_heads)
+                             tables["fwd_cnt"], block, softmax_scale, causal, n_heads,
+                             tiles=tiles)
     dk, dv = block_sparse_bwd_dkv(q3, k3, v3, do3, lse, delta, tables["bwd_idx"],
                                   tables["bwd_cnt"], block, softmax_scale, causal, n_heads,
                                   tiles=bwd_tiles)
@@ -637,8 +653,9 @@ class BlockSparseAttnFunction(torch.autograd.Function):
     """``o = block-sparse attention(q3, k3, v3)`` through :func:`block_sparse_fwd`,
     differentiated by :func:`block_sparse_bwd`; the port of the ``_bs_core``
     custom VJP. It saves q, k, v, o, the f32 lse and the four tables, and
-    keeps the dk/dv kernel's tile tables; the tables and both kernels' tile
-    tables get no gradient."""
+    keeps both kinds of tile tables for the backward (the forward's for dq,
+    the transposed layout's for dk/dv); the tables and the tile tables get
+    no gradient."""
 
     @staticmethod
     def forward(ctx, q3, k3, v3, fwd_idx, fwd_cnt, bwd_idx, bwd_cnt, block, softmax_scale,
@@ -646,16 +663,16 @@ class BlockSparseAttnFunction(torch.autograd.Function):
         o3, lse = block_sparse_fwd(q3, k3, v3, fwd_idx, fwd_cnt, block, softmax_scale, causal,
                                    n_heads, tiles=tiles)
         ctx.save_for_backward(q3, k3, v3, o3, lse, fwd_idx, fwd_cnt, bwd_idx, bwd_cnt)
-        ctx.args = (block, softmax_scale, causal, n_heads, bwd_tiles)
+        ctx.args = (block, softmax_scale, causal, n_heads, tiles, bwd_tiles)
         return o3
 
     @staticmethod
     def backward(ctx, do3):
         q3, k3, v3, o3, lse, *tables = ctx.saved_tensors
-        block, softmax_scale, causal, n_heads, bwd_tiles = ctx.args
+        block, softmax_scale, causal, n_heads, tiles, bwd_tiles = ctx.args
         dq, dk, dv = block_sparse_bwd(q3, k3, v3, o3, lse, do3.contiguous(),
                                       dict(zip(TABLE_NAMES, tables)), block, softmax_scale,
-                                      causal, n_heads, bwd_tiles)
+                                      causal, n_heads, tiles=tiles, bwd_tiles=bwd_tiles)
         return (dq, dk, dv) + (None,) * 10
 
 
@@ -681,9 +698,10 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through :class:`BlockSparseAttnFunction`, so it is differentiable on the card
     as on the CPU. ``causal`` applies the elementwise triangle on top of the
     block mask (use with unidirectional layouts). Rows whose layout is empty
-    produce zeros. The tables (and the tile tables of the bf16/fp16 forward
-    and dk/dv kernels) are built on the host and copied to q's device on
-    every call; :func:`make_sparse_attention_impl` caches them."""
+    produce zeros. The tables (and the tile tables of the bf16/fp16 kernels:
+    the forward's, which dq walks too, and dk/dv's) are built on the host and
+    copied to q's device on every call; :func:`make_sparse_attention_impl`
+    caches them."""
     b, t, h, d = q.shape
     if not (k.shape == q.shape and v.shape == q.shape):
         raise AssertionError("self-attention only")
@@ -719,11 +737,11 @@ def make_sparse_attention_impl(config: SparsityConfig):
     """Bind a :class:`SparsityConfig` into an attention impl of the
     ``get_attention_impl`` signature (the ``SparseSelfAttention`` role): the
     layout is built and cached per sequence length, and its tables with the
-    bf16/fp16 forward and dk/dv kernels' tile tables as device tensors, one
-    entry per (length, device), so a training step builds and copies no table. A user ``mask``
-    or a q shorter than k keeps the sparsity pattern on the masked dense path
-    (``reference_attention`` with the layout's dense mask), as the JAX impl
-    does; attention dropout is not ported and raises."""
+    bf16/fp16 kernels' tile tables (forward and dq; dk/dv) as device tensors,
+    one entry per (length, device), so a training step builds and copies no
+    table. A user ``mask`` or a q shorter than k keeps the sparsity pattern on
+    the masked dense path (``reference_attention`` with the layout's dense
+    mask), as the JAX impl does; attention dropout is not ported and raises."""
     layouts: Dict[int, np.ndarray] = {}
     tables: Dict[Tuple[int, torch.device], Tuple[Dict[str, torch.Tensor], Optional[TileTables],
                                                  Optional[BwdTileTables]]] = {}

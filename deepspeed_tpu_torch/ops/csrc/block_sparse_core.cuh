@@ -1,8 +1,8 @@
-// Shared by the block-sparse attention kernels on the CUDA cores
-// (block_sparse_fwd.cu's and block_sparse_bwd_dkv.cu's f32 paths,
-// block_sparse_bwd_dq.cu): the geometry of a thread block, the staging of
+// Shared by the block-sparse attention kernels on the CUDA cores (the f32
+// paths of block_sparse_fwd.cu, block_sparse_bwd_dq.cu and
+// block_sparse_bwd_dkv.cu): the geometry of a thread block, the staging of
 // row tiles into shared memory, the check of the C entries' arguments and the
-// dispatch over dtype, layout block and head_dim.
+// dispatch over layout block and head_dim.
 //
 // One thread block owns one layout block of B rows (B = 16, 32, 64 or 128):
 // a q-block in the forward and dq kernels, a k-block in the dk/dv kernel. It
@@ -49,7 +49,7 @@ inline bool bad_args(int bh, int t, int n_heads, int block, int max_n) {
            block <= 0 || t % block != 0 || max_n <= 0;
 }
 
-// F::run<T, B, D>(args...) for the runtime dtype code, layout block and head_dim
+// F::run<T, B, D>(args...) for the runtime layout block and head_dim
 template <typename F, typename T, int B, typename... A>
 cudaError_t by_d(int d, A... args) {
     if (d == 64) return F::template run<T, B, 64>(args...);
@@ -64,16 +64,6 @@ cudaError_t by_block(int block, int d, A... args) {
         case 32: return by_d<F, T, 32>(d, args...);
         case 64: return by_d<F, T, 64>(d, args...);
         case 128: return by_d<F, T, 128>(d, args...);
-        default: return cudaErrorInvalidValue;
-    }
-}
-
-template <typename F, typename... A>
-cudaError_t dispatch(int dtype, int block, int d, A... args) {
-    switch (dtype) {
-        case DS_F32: return by_block<F, float>(block, d, args...);
-        case DS_F16: return by_block<F, __half>(block, d, args...);
-        case DS_BF16: return by_block<F, __nv_bfloat16>(block, d, args...);
         default: return cudaErrorInvalidValue;
     }
 }

@@ -83,18 +83,18 @@ kernel that is wrong by 20 % on most rows.
   and ``BWD_TOLERANCES`` (dq, dk, dv). The forward's bf16/fp16 path runs on
   the tensor cores and rounds each unnormalised p to the input dtype before
   its product with v, as the flash forward does, which is what
-  ``FWD_TOLERANCES`` was set for. The dq kernel and the forward's and dk/dv
-  kernel's f32 paths round neither p nor ds, as the TPU kernels do: both
-  sides compute in f32 and round each output once, at the end, and f32 sums
-  in another order can at most flip that rounding (one ulp, inside every
-  rtol above). The dk/dv kernel's bf16/fp16 path keeps that f32 p and ds on
-  the tensor cores by splitting each into hi = p rounded to the input dtype
-  and lo = (p - hi) rounded to it, both products summed into one f32
-  accumulator (dv += hi^T do + lo^T do, dk likewise with ds and q): q and do
-  are exact in their dtype, so each product keeps ~16 (bf16) or ~22 (fp16)
-  bits of p and ds, a relative error of at most 2^-16 or 2^-22 a term (fp16
-  subnormals add at most 6e-8 absolute a term), far inside the same limits,
-  and no rounding can flip at a halfway point. The f32 cases sum fewer
+  ``FWD_TOLERANCES`` was set for. The backward kernels' f32 paths round
+  neither p nor ds, as the TPU kernels do: both sides compute in f32 and
+  round each output once, at the end, and f32 sums in another order can at
+  most flip that rounding (one ulp, inside every rtol above). The dq and
+  dk/dv kernels' bf16/fp16 paths keep that f32 ds (and p) on the tensor
+  cores by splitting each into hi = ds rounded to the input dtype and lo =
+  (ds - hi) rounded to it, both products summed into one f32 accumulator
+  (dq += hi k + lo k; dk likewise with ds and q, dv with p and do): k, q and
+  do are exact in their dtype, so each product keeps ~16 (bf16) or ~22
+  (fp16) bits of p and ds, a relative error of at most 2^-16 or 2^-22 a term
+  (fp16 subnormals add at most 6e-8 absolute a term), far inside the same
+  limits, and no rounding can flip at a halfway point. The f32 cases sum fewer
   terms than the flash cases those limits were set for (a row walks at most
   its active blocks). Rows whose walked entries are all masked (an lse of
   -1e30, p = 1) and empty rows (zeros) come out the same on both sides: the
@@ -136,7 +136,7 @@ BWD_TOLERANCES = {torch.bfloat16: (2e-3, 1.6e-2), torch.float16: (2.5e-4, 2e-3),
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 #: the kernels whose bf16/fp16 paths run wgmma with TMA loads (f32: the CUDA cores)
 WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_fwd",
-                 "block_sparse_bwd_dkv", "quantized_matmul")
+                 "block_sparse_bwd_dq", "block_sparse_bwd_dkv", "quantized_matmul")
 BS_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 FWD_KERNELS = ("flash_fwd", "block_sparse_fwd")      # (o, f32 lse)
 LSE_TOLERANCE = 1e-3        # f32 logsumexp; sums of exp in another order
@@ -507,11 +507,14 @@ def moe_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
 
 def block_sparse_inputs(case: Case, device, gen) -> Dict[str, torch.Tensor]:
     """q, k, v ~ N(0, 1) ``(b*h, t, d)`` and the layout's four tables on
-    ``device``; for the forward and dk/dv kernels on a CUDA device also their
-    tile tables (``tiles``, which their float32 paths ignore), built here,
-    outside any timing; for the backward
-    kernels also do ~ N(0, 1), and o and lse from the plain forward (so their
-    inputs do not depend on the forward kernel) with delta = rowsum(do * o)."""
+    ``device``; on a CUDA device also the kernel's tile tables (``tiles``:
+    the forward's for the forward and dq kernels, the transposed layout's for
+    dk/dv; their float32 paths ignore them), built here, outside any timing;
+    for the backward kernels also do ~ N(0, 1), and o and lse from the plain
+    forward (so their inputs do not depend on the forward kernel) with delta
+    = rowsum(do * o). o is dropped holding 1e4: the allocator may give its
+    memory to the kernel's output, where o's zero rows (a q-block with no
+    active block) would hide rows that the kernel leaves unwritten."""
     bh, t, d = case.dims["b"] * case.dims["h"], case.dims["t"], case.dims["d"]
 
     def randn():
@@ -520,15 +523,15 @@ def block_sparse_inputs(case: Case, device, gen) -> Dict[str, torch.Tensor]:
     layout = case_layout(case)
     inp = {"q": randn(), "k": randn(), "v": randn(),
            **device_tables(build_tables(layout), device)}
-    if case.kernel != "block_sparse_bwd_dq":
-        inp["tiles"] = kernel_tile_tables(layout, case_block(case), device,
-                                          backward=case.kernel == "block_sparse_bwd_dkv")
+    inp["tiles"] = kernel_tile_tables(layout, case_block(case), device,
+                                      backward=case.kernel == "block_sparse_bwd_dkv")
     if case.kernel != "block_sparse_fwd":
         inp["do"] = randn()
         o, inp["lse"] = block_sparse_fwd_plain(inp["q"], inp["k"], inp["v"], inp["fwd_idx"],
                                                inp["fwd_cnt"], case_block(case), _scale(case),
                                                case.causal, case.dims["h"])
         inp["delta"] = (inp["do"].float() * o.float()).sum(-1)
+        o.fill_(1e4)
     return inp
 
 
@@ -574,8 +577,7 @@ def run_kernel(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     if case.kernel == "moe_decode_ffn":
         return (moe_decode_ffn(*_moe_args(case, inp)),)
     if case.kernel in BS_KERNELS:
-        kw = {"tiles": inp["tiles"]} if "tiles" in inp else {}
-        out = BS_FUNCTIONS[case.kernel][0](*_bs_args(case, inp), **kw)
+        out = BS_FUNCTIONS[case.kernel][0](*_bs_args(case, inp), tiles=inp["tiles"])
         return out if isinstance(out, tuple) else (out,)
     if case.kernel == "quantized_matmul":
         return (quantized_matmul(inp["x"], inp["q"], inp["scales"], bits=case.dims["bits"]),)

@@ -253,8 +253,8 @@ def test_block_sparse_attention_gradients_and_launches_on_card():
     within the forward's bf16 limit of the plain forward, and dq, dk, dv
     within the backward's of the plain backward fed with the forward kernel's
     o and lse; the forward kernel refuses inputs that require grad under
-    grad mode, and the forward and dk/dv kernels bf16 inputs without their
-    tile tables."""
+    grad mode, and all three kernels bf16 inputs without their tile
+    tables."""
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.attention import block_sparse as bs
     device = _card()
@@ -292,6 +292,9 @@ def test_block_sparse_attention_gradients_and_launches_on_card():
     atol, rtol = kernel_checks.BWD_TOLERANCES[torch.bfloat16]
     for g, w in zip(got, want):
         assert kernel_checks.err_ratio(to3(g), w, atol, rtol) <= 1.0
+    with pytest.raises(ValueError, match="tile tables"):
+        bs.block_sparse_bwd_dq(q3, k3, v3, do3, lse, delta, tables["fwd_idx"],
+                               tables["fwd_cnt"], 16, causal=True, n_heads=h)
     with pytest.raises(ValueError, match="tile tables"):
         bs.block_sparse_bwd_dkv(q3, k3, v3, do3, lse, delta, tables["bwd_idx"],
                                 tables["bwd_cnt"], 16, causal=True, n_heads=h)
@@ -441,7 +444,34 @@ PLANTED_FAULTS = {
         "block_sparse_bwd_dq.cu",
         "for (int n = 0; n < nnz; ++n) {",
         "for (int n = 1; n < nnz; ++n) {",
-        ("block_sparse_bwd_dq",)),
+        ("block_sparse_bwd_dq:float32",)),
+    "block-sparse-dq-wgmma-walk-stops-a-stage-early": (
+        "block_sparse_bwd_dq.cu",
+        "const int n_st = (tile_cnt[ht] + slots - 1) / slots;",
+        "const int n_st = (tile_cnt[ht] + slots - 1) / slots - 1;",
+        ("block_sparse_bwd_dq:bfloat16", "block_sparse_bwd_dq:float16")),
+    "block-sparse-dq-wgmma-drops-ownership-mask": (
+        "block_sparse_bwd_dq.cu",
+        "const bool own = (ej >> g) & 1;",
+        "const bool own = true;",
+        ("block_sparse_bwd_dq:gpt2-train-fixed16", "block_sparse_bwd_dq:bigbird16-causal")),
+    "block-sparse-dq-wgmma-masked-as-excluded": (
+        "block_sparse_bwd_dq.cu",
+        "x = !own ? excluded : (causal && col > row) ? masked : x;",
+        "x = !own ? excluded : (causal && col > row) ? excluded : x;",
+        ("block_sparse_bwd_dq:hand-made-empty-past-diagonal",
+         "block_sparse_bwd_dq:hand-made-block64")),
+    "block-sparse-dq-wgmma-drops-lo-of-ds": (
+        "block_sparse_bwd_dq.cu",
+        "mma_rs<T, 1>(acc[p], ds_lo[kk], bk);",
+        "(void)ds_lo;",
+        ("block_sparse_bwd_dq:hand-made-empty-past-diagonal",
+         "block_sparse_bwd_dq:hand-made-block64")),
+    "block-sparse-dq-wgmma-empty-tile-skips-zero-write": (
+        "block_sparse_bwd_dq.cu",
+        "if (row < t) {",
+        "if (row < t && n_st > 0) {",
+        ("block_sparse_bwd_dq:hand-made-block64",)),
     "block-sparse-dkv-drops-last-q-block": (
         "block_sparse_bwd_dkv.cu",
         "const int nnz = cnt[head * nb + kb];",
@@ -548,10 +578,10 @@ def test_case_selectors():
 
 
 #: consumer warpgroup tilings a block of each wgmma source's kernels: K1, K3
-#: and K4 have one and two, K8 and K10 one; K6 has one for each wgmma N (8,
-#: 16, 128), and its wgmma functions are 2 dtypes x 2 bit widths x those
-WGMMA_TILINGS = {"block_sparse_fwd.cu": 1, "block_sparse_bwd_dkv.cu": 1,
-                 "quantized_matmul.cu": 3}
+#: and K4 have one and two, K8, K9 and K10 one; K6 has one for each wgmma N
+#: (8, 16, 128), and its wgmma functions are 2 dtypes x 2 bit widths x those
+WGMMA_TILINGS = {"block_sparse_fwd.cu": 1, "block_sparse_bwd_dq.cu": 1,
+                 "block_sparse_bwd_dkv.cu": 1, "quantized_matmul.cu": 3}
 #: the mangled-name mark of each wgmma source's main-path instantiations
 #: (bf16; the flash kernels at head dim 64), and how many there are: K6's
 #: main paths run every bf16 tiling at int8 and int4
@@ -559,8 +589,8 @@ MAIN_PATH = {"quantized_matmul.cu": ("13__nv_bfloat16L", 6)}
 
 
 def _wgmma_libraries():
-    """Builds K1's, K3's, K4's, K6's, K8's and K10's sources; their libraries'
-    paths."""
+    """Builds K1's, K3's, K4's, K6's, K8's, K9's and K10's sources; their
+    libraries' paths."""
     from deepspeed_tpu_torch.ops import op_builder
     sources = [op_builder.KERNELS[k].source for k in kernel_checks.WGMMA_KERNELS]
     op_builder.build(sources)
@@ -568,8 +598,8 @@ def _wgmma_libraries():
 
 
 def test_wgmma_kernels_issue_hgmma_and_tma_loads():
-    """The bf16/fp16 kernels of K1, K3, K4, K6, K8 and K10 run on the tensor
-    cores through wgmma, fed by TMA: in the SASS of every ``wgmma_*`` function
+    """The bf16/fp16 kernels of K1, K3, K4, K6, K8, K9 and K10 run on the
+    tensor cores through wgmma, fed by TMA: in the SASS of every ``wgmma_*`` function
     (2 dtypes x 2 head dims, or K6's 2 bit widths, x ``WGMMA_TILINGS``) stand
     HGMMA and UTMALDG; the first version's f32 kernels (and K6's split-k
     reduction), beside them, have neither."""
@@ -589,7 +619,7 @@ def test_wgmma_kernels_issue_hgmma_and_tma_loads():
 
 
 def test_wgmma_main_path_instantiations_do_not_spill():
-    """``-Xptxas -v`` of K1, K3, K4, K6, K8 and K10: the instantiations the main
+    """``-Xptxas -v`` of K1, K3, K4, K6, K8, K9 and K10: the instantiations the main
     paths run (bf16; head dim 64, each tiling of ``WGMMA_TILINGS``; K6 every
     tiling at int8 and int4, ``MAIN_PATH``) spill nothing."""
     _card()
