@@ -5,8 +5,8 @@
     python3 benchmarks/torch/qmm_versions.py <kernel> [build/<kernel>_old.cu]
 
 ``<kernel>`` is ``quantized_matmul``, ``flash_fwd``, ``flash_bwd_dq``,
-``flash_bwd_dkv``, ``block_sparse_fwd``, ``block_sparse_bwd_dq`` or
-``block_sparse_bwd_dkv``.
+``flash_bwd_dkv``, ``block_sparse_fwd``, ``block_sparse_bwd_dq``,
+``block_sparse_bwd_dkv`` or ``paged_decode_attention``.
 Builds the checkout's ``ops/csrc/<kernel>.cu`` and the old source (same flags,
 ``-I`` the checkout's ``csrc/`` for its headers; a header the old source
 needs as it was goes beside it, ``git show <commit>:.../csrc/<header>.cuh >
@@ -37,6 +37,12 @@ BLOOM-7B's q_proj (int8) and fc_out (int4) shapes: the regime switch of
 For ``block_sparse_bwd_dq`` and ``block_sparse_bwd_dkv`` it also times, on
 each 16-bit case, the new build with every walk but the longest emptied
 (``[tail]`` lines, ``walk_tail``).
+For ``paged_decode_attention`` the old source is the first version's (one
+block a (slot, kv head), its body in the checkout's unchanged
+``decode_core.cuh``), called without ``splits``; each case's line also
+times K2 on the same rows laid out densely (``kernel_checks.dense_decode_fn``),
+and each 16-bit case is timed at every split S of ``SPLITS`` forced through
+the C entry, beside ``paged_split``'s pick (``[split]`` lines).
 For ``flash_bwd_dq`` it also builds the new source without its near-tie
 recompute of ds (``-DDS_FLASH_DQ_TIE_ULPS=0``), whose err/limit is printed
 and may exceed 1. Exits non-zero if another version fails a case, or a build
@@ -77,7 +83,11 @@ OLD_ARGTYPES = {"block_sparse_fwd": [
     "quantized_matmul": [
     _vp, _vp, _vp, _vp, _vp,                 # x, q, scales, out (f32), work
     _int, _int, _int, _int, _int, _int,      # m, k, n, group, bits, chunk
-    _int, _vp]}                              # dtype, stream
+    _int, _vp],                              # dtype, stream
+    "paged_decode_attention": [
+    _vp, _vp, _vp, _vp, _vp, _vp,            # q, k_pages, v_pages, table, lens, out
+    _int, _int, _int, _int, _int, _int,      # b, h_kv, g, page, max_pages, d
+    ctypes.c_float, _int, _vp]}              # scale, dtype, stream
 
 
 def old_skinny_split(m: int, k: int, n: int, bits: int):
@@ -186,9 +196,24 @@ def runner(kernel: str, fn, old: bool):
                  tiles.idx.shape[2], *tail), kernel)
         return outs
 
+    def paged(case, inp, splits=None):
+        from deepspeed_tpu_torch.ops.paged_attention import paged_split
+        q = inp["q"]
+        b, h, d = q.shape
+        hk, page, mp = inp["k"].shape[1], inp["k"].shape[2], inp["table"].shape[1]
+        out = torch.empty_like(q)
+        head = (q.data_ptr(), inp["k"].data_ptr(), inp["v"].data_ptr(), inp["table"].data_ptr(),
+                inp["lens"].data_ptr(), out.data_ptr(), b, hk, h // hk, page, mp, d, _scale(case))
+        tail = (DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+        if old:
+            check(fn(*head, *tail), kernel)
+        else:
+            check(fn(*head, splits or paged_split(b, hk, mp, page, d), *tail), kernel)
+        return (out,)
+
     return {"quantized_matmul": qmm, "block_sparse_fwd": block_sparse,
-            "block_sparse_bwd_dq": block_sparse,
-            "block_sparse_bwd_dkv": block_sparse}.get(kernel, flash)
+            "block_sparse_bwd_dq": block_sparse, "block_sparse_bwd_dkv": block_sparse,
+            "paged_decode_attention": paged}.get(kernel, flash)
 
 
 def err_ratio(kc, case, out, ref) -> float:
@@ -261,6 +286,8 @@ def main(kernel: str, old_source: str) -> int:
                  for tag in tags if tag not in ("old", "new")}
         lib = kc.library_fn(case, inp)
         lib_ms = "null" if lib is None else f"{chip_smoke.time_ms(lib):.4f}"
+        if kernel == "paged_decode_attention":
+            lib_ms += f"; K2 dense {chip_smoke.time_ms(kc.dense_decode_fn(case, inp)):.4f}"
         failed |= not all(r <= 1.0 for tag, r in ratio.items()
                           if tag not in dict(diagnostic))
         print(f"[versions] {kernel}/{case.name} {case.dims} {str(case.dtype)[6:]}: err/limit "
@@ -271,6 +298,8 @@ def main(kernel: str, old_source: str) -> int:
         if kernel in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv") and (
                 case.dtype != torch.float32):
             walk_tail(runs["new"], case, inp)
+        if kernel == "paged_decode_attention" and case.dtype != torch.float32:
+            failed |= not split_sweep(runs["new"], case, inp, ref)
         del inp, ref
     if kernel == "quantized_matmul":
         regime_switch(fns["new"], device)
@@ -301,6 +330,26 @@ def walk_tail(run, case, inp) -> None:
     print(f"[tail] {case.name}: {stages.numel() * n_batch} blocks, stages a block max "
           f"{int(stages.max())} mean {float(stages.float().mean()):.2f}; kernel {full_ms:.4f} "
           f"ms, the longest walk alone ({n_batch} blocks) {solo_ms:.4f} ms", flush=True)
+
+
+def split_sweep(run, case, inp, ref) -> bool:
+    """The new K5 build at every split S of ``SPLITS`` on one case's inputs:
+    a ``[split]`` line with each S's time and err/limit, and the S that
+    ``paged_split`` picks. Returns whether every S passed the case's limit."""
+    import chip_smoke
+    from deepspeed_tpu_torch.ops import kernel_checks as kc
+    from deepspeed_tpu_torch.ops.paged_attention import SPLITS, paged_split
+
+    d = case.dims
+    ms, ratio = {}, {}
+    for s in SPLITS:
+        ratio[s] = err_ratio(kc, case, run(case, inp, splits=s), ref)
+        ms[s] = chip_smoke.time_ms(lambda: run(case, inp, splits=s))
+    pick = paged_split(d["b"], d["hk"], kc.max_pages(case), d["page"], d["d"])
+    print(f"[split] {case.name}: " + ", ".join(f"S {s} {t:.4f} ms (err/limit {ratio[s]:.3f})"
+                                             for s, t in ms.items())
+          + f"; paged_split picks {pick}", flush=True)
+    return all(r <= 1.0 for r in ratio.values())
 
 
 #: the rows of x at which the regime switch is timed, and its shapes (k, n, bits)

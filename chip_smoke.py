@@ -11,7 +11,8 @@ non-zero:
    all at once;
 3. kernel checks (``deepspeed_tpu_torch/ops/kernel_checks.py``): each kernel
    against its plain version on the card, with its time, the plain version's,
-   one PyTorch library call's as a yardstick, and the bound;
+   one PyTorch library call's as a yardstick, and the bound (the paged kernel
+   also with the splits ``paged_split`` picks, and K2 on the same rows);
 4. main path: ``init_inference`` on GPT-2 125M (``bench.py``'s serving
    configuration, seeded random weights, bf16) and ``generate`` on 4 prompts
    of 512 tokens (one shortened to 384), 64 new tokens, greedy. The launch
@@ -31,13 +32,14 @@ non-zero:
    misses); there must be prefix hits and copy-on-write copies; one mid-run
    decode step of the whole slot-batch, from a copy of the pool, must give
    logits within 0.1 of the same step on the plain versions on every live
-   slot; one chunk of a second run is traced. Then the same 48 requests run
+   slot; one chunk of a second run is traced (the paged kernel's device time
+   and launches). Then the same 48 requests run
    on an int8 weight-quantized engine of the same model: every request must
    finish with its budget, the dequant-GEMM must launch exactly 72 times (12
    layers x 6 projections) per forward pass the scheduler's telemetry counts
    (prefills and decode steps), the paged kernel as in the bf16 run; one
-   chunk of a second int8 run is traced (the dequant-GEMM's device time and
-   the launches of a decode step);
+   chunk of a second int8 run is traced (the dequant-GEMM's and the paged
+   kernel's device time and the launches of a decode step);
 6. training path: ``initialize`` on GPT-2 125M at ``bench.py``'s training
    configuration (vocab 50304, seq 1024, micro-batch 24, bf16 AdamW lr 2e-4,
    weight decay 0.01, ZeRO stage 1, clipping 1.0; seeded random weights, no
@@ -161,6 +163,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def kernel_checks(device):
     from deepspeed_tpu_torch.ops import kernel_checks as kc
+    from deepspeed_tpu_torch.ops.paged_attention import paged_split
     rows = {}
     for case in kc.CASES:
         res = kc.check(case, device, SEED)
@@ -172,6 +175,8 @@ def kernel_checks(device):
         if case.kernel == "paged_decode_attention":
             # for comparison only: K2 on the same rows laid out densely
             res["dense_decode_ms"] = time_ms(kc.dense_decode_fn(case, inp))
+            res["splits"] = paged_split(case.dims["b"], case.dims["hk"], kc.max_pages(case),
+                                        case.dims["page"], case.dims["d"])
         if case.kernel == "moe_decode_ffn":
             # for comparison only: the gather path (w[idx] copies, cuBLAS bmm)
             res["gather_ms"] = time_ms(kc.moe_gather_fn(case, inp))
@@ -189,8 +194,8 @@ def kernel_checks(device):
               + f" | ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} library_ms="
               + ("null" if res["library_ms"] is None else f"{res['library_ms']:.4f}")
               + f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']})"
-              + (f" dense_decode_ms={res['dense_decode_ms']:.4f}" if "dense_decode_ms" in res
-                 else "")
+              + (f" dense_decode_ms={res['dense_decode_ms']:.4f} splits={res['splits']}"
+                 if "dense_decode_ms" in res else "")
               + (f" gather_ms={res['gather_ms']:.4f}" if "gather_ms" in res else "")
               + (" block_f_ms={" + ", ".join(f"{bf}: {t:.4f}" for bf, t in
                                              res["block_f_ms"].items()) + "}"
@@ -322,7 +327,20 @@ def profile_call(label: str, fn, top: int = 12):
         print(f"[profile]   {device_us(e) / 1e3:8.3f} ms  {e.count:6d} calls  {e.key[:90]}",
               flush=True)
     return {"wall_us": wall_us, "device_us": total, "launches": sum(e.count for e in events),
-            "by_kernel": {e.key: device_us(e) for e in events}}
+            "by_kernel": {e.key: device_us(e) for e in events},
+            "count_by_kernel": {e.key: e.count for e in events}}
+
+
+def print_traced_k5(label: str, trace, out: dict) -> None:
+    """K5's share of a ``profile_call`` trace of a serving chunk (its kernels
+    are ``paged_decode_split<T, D, G>``), into ``out`` and printed."""
+    keys = [k for k in trace["by_kernel"] if "paged_decode_split" in k]
+    ms = sum(trace["by_kernel"][k] for k in keys) / 1e3
+    n = sum(trace["count_by_kernel"][k] for k in keys)
+    out["chunk_k5_ms"], out["chunk_k5_launches"] = ms, n
+    print(f"[serve] {label} traced chunk: K5 paged_decode_split {ms:.3f} ms in {n} launches "
+          f"({1e3 * ms / max(n, 1):.2f} us a launch) of {trace['device_us'] / 1e3:.3f} ms "
+          f"device", flush=True)
 
 
 def main_path(device):
@@ -522,8 +540,10 @@ def serve_path(device, smi: str):
         sched2.step()
         torch.cuda.synchronize()
 
-    profile_call(f"serve chunk ({SERVE_SLOTS} slots, {SERVE_CHUNK} steps)", traced_chunk,
-                 top=15)
+    trace = profile_call(f"serve chunk ({SERVE_SLOTS} slots, {SERVE_CHUNK} steps)",
+                         traced_chunk, top=15)
+    if trace is not None:
+        print_traced_k5("bf16", trace, out)
     sched2.run()
     del sched, sched2, engine
     gc.collect()
@@ -598,6 +618,7 @@ def serve_int8(device, smi: str, cfg, config, requests, bf16):
                         traced_chunk, top=15)
     sched2.run()
     if prof is not None:
+        print_traced_k5("int8", prof, out)
         out["chunk_qmm_ms"] = sum(v for key, v in prof["by_kernel"].items()
                                   if "qmm" in key) / 1e3
         out["step_launches"] = prof["launches"] / SERVE_CHUNK

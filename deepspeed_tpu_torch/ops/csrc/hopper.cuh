@@ -116,6 +116,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
         : "memory");
 }
 
+// one contiguous run of `bytes` bytes from global memory at src into shared
+// memory at dst, completing on the mbarrier at bar: a bulk copy, no tensor
+// map. bytes is a multiple of 16 and both addresses are 16-byte aligned.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
 // register rebalancing between producer and consumer warpgroups;
 // -DDS_NO_SETMAXNREG builds without it, to time what it buys
 template <int N> __device__ __forceinline__ void setmaxnreg_inc() {

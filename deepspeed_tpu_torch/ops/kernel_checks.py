@@ -27,8 +27,13 @@ kernel that is wrong by 20 % on most rows.
   order can at most flip that last rounding; rtol is one ulp of the value.
   bfloat16 (1e-5, 8e-3): 8 significant bits, an ulp is at most 2**-7 of the
   value. float16 (1e-5, 1e-3): 11 bits, 2**-10. float32 (2e-5, 2e-5): sums
-  of up to 2,048 terms of size ~1 in another order, and expf against
-  torch's exp. atol covers values near 0, where f32 noise exceeds an ulp.
+  of up to 2,048 terms of size ~1 in another order, and expf (K5: exp2f of
+  scores scaled by log2 e) against torch's exp. atol covers values near 0, where f32 noise exceeds an ulp.
+  A paged slot with cache_len 0 gets zeros, as the TPU kernel gives it (its
+  l_safe); the plain version, as ``paged_attention_xla``, averages that
+  slot's masked rows instead, so the paged reference is zeroed there
+  (``run_plain``), and the kernel's output memory holds 1e4 before the
+  launch (``make_inputs``), so an unwritten row shows.
 - The flash forward's o, ``FWD_TOLERANCES``: the kernel rounds each
   unnormalised probability (relative to the running max) to the input dtype
   before its product with v, the plain version rounds the normalised one,
@@ -251,6 +256,10 @@ CASES: List[Case] = [
          torch.float16, lens=(200, 37)),
     Case("paged_decode_attention", "bf16-page5-d128",
          dict(b=3, h=8, hk=8, page=5, cap=512, d=128), torch.bfloat16, lens=(512, 333, 6)),
+    # a slot with cache_len 0 (zeros), and one of 17 rows split 8 ways: six of
+    # its eight blocks walk nothing
+    Case("paged_decode_attention", "bf16-gqa-empty-slot",
+         dict(b=4, h=8, hk=2, page=16, cap=512, d=128), torch.bfloat16, lens=(300, 0, 17, 512)),
 ] + [c for kernel in BWD_KERNELS for c in (
     # the training main path: GPT-2 125M, micro-batch 24, seq 1024
     Case(kernel, "gpt2-train", dict(b=24, t=1024, h=12, d=64), torch.bfloat16,
@@ -429,7 +438,9 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
     sequence's length, so a kernel that read them would show it. Paged inputs
     put each slot's live pages at shuffled physical indices, and hold 1e4 in
     the null page 0 (every table pad points at it) and in the rows past each
-    slot's length."""
+    slot's length; a tensor of q's shape holding 1e4 is dropped last, so the
+    allocator gives its memory to the kernel's output and a row the kernel
+    leaves unwritten shows."""
     gen = torch.Generator(device=device).manual_seed(seed)
     dims = case.dims
 
@@ -485,6 +496,8 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
     for name in ("k", "v"):
         inp[name][0] = 1e4
     inp["table"] = torch.from_numpy(table).to(device)
+    poison = torch.full_like(inp["q"], 1e4)
+    del poison      # its memory goes to the kernel's output
     return inp
 
 
@@ -613,8 +626,9 @@ def run_plain(case: Case, inp) -> Tuple[torch.Tensor, ...]:
         return flash_fwd_plain(inp["q"], inp["k"], inp["v"], inp.get("slopes"), scale,
                                case.causal, case.dims["h"])
     if case.kernel == "paged_decode_attention":
-        return (paged_attention_plain(inp["q"], inp["k"], inp["v"], inp["table"], inp["lens"],
-                                      case.dims["cap"], scale),)
+        o = paged_attention_plain(inp["q"], inp["k"], inp["v"], inp["table"], inp["lens"],
+                                  case.dims["cap"], scale)
+        return (o.masked_fill((inp["lens"] <= 0)[:, None, None], 0),)
     return (decode_attention_plain(inp["q"], inp["k"], inp["v"], inp["lens"], scale),)
 
 

@@ -10,10 +10,12 @@ live slot reads. :func:`paged_attention` launches the kernel for CUDA tensors
 and runs :func:`paged_attention_plain` (the dense gather, then the slot-row
 decode math, as ``paged_attention_xla``) for CPU tensors only. The JAX
 package's ``fused_paged_for`` and ``DS_TPU_PAGED_FORCE_FUSED`` have no
-counterpart: on the card the kernel always runs.
+counterpart: on the card the kernel always runs, splitting each (slot, kv
+head) over the :func:`paged_split` blocks of a thread-block cluster.
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -29,7 +31,33 @@ PAGED_DECODE_ATTENTION = CudaKernel(
     "paged_decode_attention", "paged_decode_attention.cu", "paged_decode_attention",
     [_vp, _vp, _vp, _vp, _vp, _vp,            # q, k_pages, v_pages, table, lens, out
      _int, _int, _int, _int, _int, _int,      # b, h_kv, g, page, max_pages, d
-     ctypes.c_float, _int, _vp])              # scale, dtype, stream
+     ctypes.c_float, _int, _int, _vp])        # scale, splits, dtype, stream
+
+#: the kernel's cluster sizes: the blocks that share one (slot, kv head)
+SPLITS = (1, 2, 4, 8)
+#: SMs of an H100 SXM
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=256)
+def paged_split(b: int, hk: int, max_pages: int, page: int, d: int) -> int:
+    """The blocks of a cluster that split one (slot, kv head)'s live pages in
+    the kernel, from shapes alone: ``cache_len`` lives on the device, and
+    reading it would cost a host sync (and a CUDA graph could not replay the
+    choice). The largest of :data:`SPLITS` whose ``b * hk * S`` blocks the
+    card holds at once, three an SM at d 64 and two at d 128 (their 16-bit
+    rings of stages fill shared memory), and no more than the table's pages;
+    so S grows as ``b * hk`` falls. ``page`` does not enter: a split of a
+    short slot walks nothing and costs little, while a block that waits for
+    a second wave costs a whole walk (``benchmarks/torch/qmm_versions.py
+    paged_decode_attention``, ``[split]`` lines)."""
+    resident = H100_SMS * (3 if d <= 64 else 2)
+    s = SPLITS[0]
+    for nxt in SPLITS[1:]:
+        if b * hk * nxt > resident or nxt > max_pages:
+            break
+        s = nxt
+    return s
 
 
 def gather_kv_dense(k_pages: torch.Tensor, v_pages: torch.Tensor, page_table: torch.Tensor,
@@ -99,7 +127,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     """One decode step of paged attention: q ``(b, h, d)`` over rows
     ``[0, cache_len[i])`` of slot ``i`` → ``(b, h, d)`` in q's dtype. ``cap`` is
     the slot capacity of the dense view the plain version gathers; the kernel
-    reads the table and ``cache_len`` from device memory and needs no view."""
+    reads the table and ``cache_len`` from device memory and needs no view;
+    it splits each (slot, kv head) over :func:`paged_split` blocks."""
     _check(q, k_pages, v_pages, page_table, cache_len)
     b, h, d = q.shape
     hk, ps = k_pages.shape[1], k_pages.shape[2]
@@ -124,7 +153,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     PAGED_DECODE_ATTENTION.launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
         cache_len.data_ptr(), out.data_ptr(), b, hk, h // hk, ps, page_table.shape[1], d,
-        scale, DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        scale, paged_split(b, hk, page_table.shape[1], ps, d), DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
 

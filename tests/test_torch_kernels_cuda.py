@@ -116,6 +116,19 @@ def test_paged_kernel_zero_length_slot_and_launch_count():
     assert kernel_checks.err_ratio(out[:1], ref[:1], atol, rtol) <= 1.0
 
 
+def test_paged_kernel_repeats_bit_identical():
+    """The paged kernel merges its partials in a fixed order (lane groups,
+    warps, then the cluster's blocks by rank) with no atomics, so two calls
+    on the same inputs give the same bits, at every case's split."""
+    device = _card()
+    for case in kernel_checks.CASES:
+        if case.kernel != "paged_decode_attention":
+            continue
+        inp = kernel_checks.make_inputs(case, device)
+        first = kernel_checks.run_kernel(case, inp)[0]
+        assert torch.equal(first, kernel_checks.run_kernel(case, inp)[0]), case.name
+
+
 def test_paged_kernel_page_one_long_cap():
     """Page size 1 under a 60000-entry table: the kernel reads only a slot's
     live entries and its shared memory does not grow with the table, so it
@@ -347,9 +360,32 @@ PLANTED_FAULTS = {
         ("decode_attention",)),
     "paged-skips-last-live-page": (
         "paged_decode_attention.cu",
-        "const int len = min(max(lens[bi], 0), max_pages * page);",
-        "const int len = (min(max(lens[bi], 0), max_pages * page) - 1) / page * page;",
+        "const int last = npg > 0 ? (len - (npg - 1) * page + STAGE_ROWS - 1) / STAGE_ROWS : 0;",
+        "const int last = 0;",
         ("paged_decode_attention",)),
+    "paged-o-5pct-high": (
+        "decode_split.cuh",
+        "out[e] = from_f32<T>(ls > 0.f ? a / ls : 0.f);",
+        "out[e] = from_f32<T>(ls > 0.f ? 1.05f * a / ls : 0.f);",
+        ("paged_decode_attention",)),
+    "paged-merge-drops-a-split": (
+        "decode_split.cuh",
+        "if (r < splits) {",
+        "if (r < splits - 1) {",
+        ("paged_decode_attention",)),
+    "paged-rows-past-len-unmasked": (
+        "decode_split.cuh",
+        "const int nvalid = min(stage_rows(s), len - first);",
+        "const int nvalid = stage_rows(s);",
+        # every case with a slot whose last live page is partly past its length
+        ("paged_decode_attention:gpt2-serve", "paged_decode_attention:gqa-d128",
+         "paged_decode_attention:fp32-gqa-page8-cap300", "paged_decode_attention:bf16-page5-d128",
+         "paged_decode_attention:bf16-gqa-empty-slot")),
+    "paged-empty-slot-skips-zero-write": (
+        "decode_split.cuh",
+        "out[e] = from_f32<T>(ls > 0.f ? a / ls : 0.f);",
+        "if (ls > 0.f) out[e] = from_f32<T>(a / ls);",
+        ("paged_decode_attention:bf16-gqa-empty-slot",)),
     "flash-fwd-o-5pct-high": (
         "flash_fwd.cu",
         "o[off + tx + 16 * c] = from_f32<T>(acc[i][c] / l_safe);",
@@ -394,7 +430,7 @@ PLANTED_FAULTS = {
         "decode_core.cuh",
         "out[e] = from_f32<T>(acc[e] / (lj > 0.f ? lj : 1.f));",
         "out[e] = from_f32<T>(1.05f * acc[e] / (lj > 0.f ? lj : 1.f));",
-        ("decode_attention", "paged_decode_attention")),
+        ("decode_attention",)),
     "qmm-skips-last-group": (
         "quantized_matmul.cu",
         "const int k_used = k;",
@@ -643,3 +679,39 @@ def test_wgmma_main_path_instantiations_do_not_spill():
         for e, v in main.items():
             print(f"[ptxas] {src} {e[:90]}: {v}")
             assert "0 bytes spill stores, 0 bytes spill loads" in v, (e, v)
+
+
+def test_paged_kernel_issues_bulk_copies_and_does_not_spill():
+    """K5 loads its pages by bulk copies (no tensor map): UBLKCP stands in the
+    SASS of every instantiation (3 dtypes x 2 head dims x 3 head blocks) and
+    UTMALDG in none; ``-Xptxas -v`` shows no spills and no stack frame (no
+    register array indexed at run time) in any of them."""
+    _card()
+    from deepspeed_tpu_torch.ops import op_builder
+    src = op_builder.KERNELS["paged_decode_attention"].source
+    op_builder.build([src])
+    cuobjdump = os.path.join(os.path.dirname(op_builder._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", op_builder._library_path(src)],
+                          capture_output=True, text=True, check=True).stdout
+    functions = [f for f in sass.split("Function : ")[1:]
+                 if "paged_decode_split" in f.splitlines()[0]]
+    assert len(functions) == 18, [f.splitlines()[0] for f in functions]
+    for f in functions:
+        ops = sorted({w.split(".")[0] for w in f.split() if w.startswith(("UBLK", "UTMA"))})
+        assert "UBLKCP" in f and "UTMALDG" not in f, (f.splitlines()[0], ops)
+    out_dir = os.path.join(REPO, "build", "ptxas_check")
+    os.makedirs(out_dir, exist_ok=True)
+    proc = subprocess.run([op_builder._nvcc(), *op_builder.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                           os.path.join(out_dir, src + ".so"),
+                           os.path.join(op_builder.CSRC_DIR, src)],
+                          capture_output=True, text=True, check=True)
+    spills, entry = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry is not None:
+            spills[entry] = line.split(":", 1)[-1].strip()
+    assert len(spills) == 18, list(spills)
+    for e, v in spills.items():
+        print(f"[ptxas] {src} {e[:90]}: {v}")
+        assert v == "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", (e, v)
