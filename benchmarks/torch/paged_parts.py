@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where the paged decode kernel's (K5) time goes, on one NVIDIA card.
+"""Where the split decode kernels' time goes (K5, paged, or K2, dense), on one
+NVIDIA card.
 
-    python3 benchmarks/torch/paged_parts.py
+    python3 benchmarks/torch/paged_parts.py [paged_decode_attention|decode_attention]
 
-Builds the checkout's ``ops/csrc/paged_decode_attention.cu`` as it is and
-three more times from copies of ``ops/csrc/`` under ``build/paged_parts/``
-whose ``decode_split.cuh`` has one part of the walk taken out:
+Builds the checkout's ``ops/csrc/paged_decode_attention.cu`` (the default) or
+``ops/csrc/decode_attention.cu`` as it is and three more times from copies of
+``ops/csrc/`` under ``build/paged_parts/`` whose ``decode_split.cuh`` has one
+part of the walk taken out:
 
 - ``no-compute``: the consumer warps wait for each stage and release it
   without computing on it (the copy pipeline, the merge and the launch);
@@ -14,7 +16,7 @@ whose ``decode_split.cuh`` has one part of the walk taken out:
 - ``neither``: both (the launch, the ``cache_len`` and table reads, the
   barriers and the merge).
 
-For every K5 case of ``ops/kernel_checks.py`` it times the four builds at
+For every case of the kernel in ``ops/kernel_checks.py`` it times the four builds at
 every split S (``chip_smoke.time_ms``: L2 flushed, median of 20), and first
 the harness's own floor: one launch of a one-element ``add_``. Only the
 intact build's output is a result; the others are timings of parts. Prints
@@ -42,8 +44,9 @@ BUILDS = {"kernel": [], "no-compute": _SKIP_COMPUTE, "no-copies": _SKIP_COPIES,
           "neither": _SKIP_COMPUTE + _SKIP_COPIES}
 
 
-def build_all(op_builder):
+def build_all(op_builder, kernel: str):
     """One nvcc a build, all at once; the C entry of each, with argtypes."""
+    info = op_builder.KERNELS[kernel]
     procs = {}
     for name, subs in BUILDS.items():
         work = os.path.join(ROOT, "build", "paged_parts", name)
@@ -58,12 +61,11 @@ def build_all(op_builder):
             text = text.replace(line, built)
         with open(path, "w") as f:
             f.write(text)
-        so = os.path.join(work, "paged_decode_attention.so")
+        so = os.path.join(work, f"{kernel}.so")
         procs[name] = (so, subprocess.Popen(
             [op_builder._nvcc(), *op_builder.NVCC_FLAGS, "-o", so,
-             os.path.join(work, "paged_decode_attention.cu")],
+             os.path.join(work, info.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    info = op_builder.KERNELS["paged_decode_attention"]
     fns = {}
     for name, (so, proc) in procs.items():
         out, _ = proc.communicate()
@@ -75,20 +77,20 @@ def build_all(op_builder):
     return fns
 
 
-def main() -> int:
+def main(kernel: str) -> int:
     import torch
 
     import chip_smoke
     import qmm_versions
     from deepspeed_tpu_torch.ops import kernel_checks as kc
     from deepspeed_tpu_torch.ops import op_builder
-    from deepspeed_tpu_torch.ops.paged_attention import SPLITS, paged_split
+    from deepspeed_tpu_torch.ops.attention.decode import SPLITS
 
     if not torch.cuda.is_available():
         print("paged_parts: no CUDA card", file=sys.stderr)
         return 2
-    runs = {name: qmm_versions.runner("paged_decode_attention", fn, False)
-            for name, fn in build_all(op_builder).items()}
+    runs = {name: qmm_versions.runner(kernel, fn, False)
+            for name, fn in build_all(op_builder, kernel).items()}
     device = torch.device("cuda", 0)
     print(f"[parts] {chip_smoke.nvidia_smi_line()}", flush=True)
     one = torch.zeros(1, device=device)
@@ -96,10 +98,9 @@ def main() -> int:
           flush=True)
     failed = False
     for case in kc.CASES:
-        if case.kernel != "paged_decode_attention":
+        if case.kernel != kernel:
             continue
-        d = case.dims
-        pick = paged_split(d["b"], d["hk"], kc.max_pages(case), d["page"], d["d"])
+        pick = kc.case_splits(case)
         inp = kc.make_inputs(case, device)
         ref = kc.run_plain(case, inp)
         for s in SPLITS:
@@ -107,7 +108,7 @@ def main() -> int:
             failed |= not ratio <= 1.0
             ms = {name: chip_smoke.time_ms(lambda: run(case, inp, splits=s))
                   for name, run in runs.items()}
-            print(f"[parts] {case.name} S {s}{' (paged_split)' if s == pick else ''}: "
+            print(f"[parts] {kernel}/{case.name} S {s}{' (picked)' if s == pick else ''}: "
                   + ", ".join(f"{name} {t:.4f}" for name, t in ms.items())
                   + f" ms; err/limit {ratio:.3f}", flush=True)
         del inp, ref
@@ -115,4 +116,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "paged_decode_attention"))

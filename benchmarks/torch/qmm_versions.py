@@ -3,14 +3,19 @@
 
     git show <commit>:deepspeed_tpu_torch/ops/csrc/<kernel>.cu > build/<kernel>_old.cu
     python3 benchmarks/torch/qmm_versions.py <kernel> [build/<kernel>_old.cu]
+or, with the old source's own headers, from its whole tree:
+    git archive <commit> | tar -x -C build/parent
+    python3 benchmarks/torch/qmm_versions.py <kernel> build/parent
 
 ``<kernel>`` is ``quantized_matmul``, ``flash_fwd``, ``flash_bwd_dq``,
 ``flash_bwd_dkv``, ``block_sparse_fwd``, ``block_sparse_bwd_dq``,
-``block_sparse_bwd_dkv`` or ``paged_decode_attention``.
-Builds the checkout's ``ops/csrc/<kernel>.cu`` and the old source (same flags,
-``-I`` the checkout's ``csrc/`` for its headers; a header the old source
-needs as it was goes beside it, ``git show <commit>:.../csrc/<header>.cuh >
-build/<header>.cuh``, and is found first; where the C entry changed,
+``block_sparse_bwd_dkv``, ``paged_decode_attention`` or ``decode_attention``.
+Builds the checkout's ``ops/csrc/<kernel>.cu`` and the old source (same flags).
+Given a tree, the old source is its ``deepspeed_tpu_torch/ops/csrc/<kernel>.cu``
+and ``-I`` that ``csrc/``, so every header is the old tree's; given a file,
+``-I`` the checkout's ``csrc/`` (a header the old source needs as it was
+goes beside it, ``git show <commit>:.../csrc/<header>.cuh >
+build/<header>.cuh``, and is found first). Where the C entry changed,
 the old source is called with its own argument list, ``OLD_ARGTYPES``: for
 ``block_sparse_fwd``, ``block_sparse_bwd_dq`` and ``block_sparse_bwd_dkv``
 the first version's, without tile tables, the new one taking the case's tile
@@ -38,11 +43,14 @@ For ``block_sparse_bwd_dq`` and ``block_sparse_bwd_dkv`` it also times, on
 each 16-bit case, the new build with every walk but the longest emptied
 (``[tail]`` lines, ``walk_tail``).
 For ``paged_decode_attention`` the old source is the first version's (one
-block a (slot, kv head), its body in the checkout's unchanged
-``decode_core.cuh``), called without ``splits``; each case's line also
-times K2 on the same rows laid out densely (``kernel_checks.dense_decode_fn``),
-and each 16-bit case is timed at every split S of ``SPLITS`` forced through
-the C entry, beside ``paged_split``'s pick (``[split]`` lines).
+block a (slot, kv head), over that tree's own headers: pass the tree of a
+commit before the cluster split), called without ``splits``;
+each case's line also times K2 on the same rows laid out densely
+(``kernel_checks.dense_decode_fn``). For ``decode_attention`` the old source
+is likewise the first version's (pass the tree of a commit before K2 took
+the split body), called without ``splits``. For both, each 16-bit case is
+timed at every split S of ``SPLITS`` forced through the C entry, beside the
+S the wrapper picks (``kernel_checks.case_splits``; ``[split]`` lines).
 For ``flash_bwd_dq`` it also builds the new source without its near-tie
 recompute of ds (``-DDS_FLASH_DQ_TIE_ULPS=0``), whose err/limit is printed
 and may exceed 1. Exits non-zero if another version fails a case, or a build
@@ -87,6 +95,10 @@ OLD_ARGTYPES = {"block_sparse_fwd": [
     "paged_decode_attention": [
     _vp, _vp, _vp, _vp, _vp, _vp,            # q, k_pages, v_pages, table, lens, out
     _int, _int, _int, _int, _int, _int,      # b, h_kv, g, page, max_pages, d
+    ctypes.c_float, _int, _vp],              # scale, dtype, stream
+    "decode_attention": [
+    _vp, _vp, _vp, _vp, _vp,                 # q, k_cache, v_cache, lens, out
+    _int, _int, _int, _int, _int,            # b, h_kv, g, T, d
     ctypes.c_float, _int, _vp]}              # scale, dtype, stream
 
 
@@ -196,24 +208,28 @@ def runner(kernel: str, fn, old: bool):
                  tiles.idx.shape[2], *tail), kernel)
         return outs
 
-    def paged(case, inp, splits=None):
-        from deepspeed_tpu_torch.ops.paged_attention import paged_split
+    def decode(case, inp, splits=None):
         q = inp["q"]
         b, h, d = q.shape
-        hk, page, mp = inp["k"].shape[1], inp["k"].shape[2], inp["table"].shape[1]
+        hk = inp["k"].shape[1]
         out = torch.empty_like(q)
-        head = (q.data_ptr(), inp["k"].data_ptr(), inp["v"].data_ptr(), inp["table"].data_ptr(),
-                inp["lens"].data_ptr(), out.data_ptr(), b, hk, h // hk, page, mp, d, _scale(case))
+        head = (q.data_ptr(), inp["k"].data_ptr(), inp["v"].data_ptr())
+        if kernel == "paged_decode_attention":
+            head += (inp["table"].data_ptr(), inp["lens"].data_ptr(), out.data_ptr(), b, hk,
+                     h // hk, inp["k"].shape[2], inp["table"].shape[1], d, _scale(case))
+        else:
+            head += (inp["lens"].data_ptr(), out.data_ptr(), b, hk, h // hk,
+                     inp["k"].shape[2], d, _scale(case))
         tail = (DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
         if old:
             check(fn(*head, *tail), kernel)
         else:
-            check(fn(*head, splits or paged_split(b, hk, mp, page, d), *tail), kernel)
+            check(fn(*head, splits or kc.case_splits(case), *tail), kernel)
         return (out,)
 
     return {"quantized_matmul": qmm, "block_sparse_fwd": block_sparse,
             "block_sparse_bwd_dq": block_sparse, "block_sparse_bwd_dkv": block_sparse,
-            "paged_decode_attention": paged}.get(kernel, flash)
+            "paged_decode_attention": decode, "decode_attention": decode}.get(kernel, flash)
 
 
 def err_ratio(kc, case, out, ref) -> float:
@@ -239,7 +255,11 @@ def main(kernel: str, old_source: str) -> int:
         return 2
     info = op_builder.KERNELS[kernel]
     new_source = os.path.join(op_builder.CSRC_DIR, info.source)
-    builds = [("old", old_source, ["-I", op_builder.CSRC_DIR]), ("new", new_source, [])]
+    old_include = op_builder.CSRC_DIR
+    if os.path.isdir(old_source):        # a tree: its own source and headers
+        old_include = os.path.join(old_source, "deepspeed_tpu_torch", "ops", "csrc")
+        old_source = os.path.join(old_include, info.source)
+    builds = [("old", old_source, ["-I", old_include]), ("new", new_source, [])]
     if kernel in SWEEP_MACRO:
         builds += [(f"wg{n}", new_source, [f"-D{SWEEP_MACRO[kernel]}={n}"]) for n in (1, 2)]
         builds.append(("no-setmaxnreg", new_source, ["-DDS_NO_SETMAXNREG"]))
@@ -298,7 +318,8 @@ def main(kernel: str, old_source: str) -> int:
         if kernel in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv") and (
                 case.dtype != torch.float32):
             walk_tail(runs["new"], case, inp)
-        if kernel == "paged_decode_attention" and case.dtype != torch.float32:
+        if kernel in ("paged_decode_attention", "decode_attention") and (
+                case.dtype != torch.float32):
             failed |= not split_sweep(runs["new"], case, inp, ref)
         del inp, ref
     if kernel == "quantized_matmul":
@@ -333,22 +354,21 @@ def walk_tail(run, case, inp) -> None:
 
 
 def split_sweep(run, case, inp, ref) -> bool:
-    """The new K5 build at every split S of ``SPLITS`` on one case's inputs:
-    a ``[split]`` line with each S's time and err/limit, and the S that
-    ``paged_split`` picks. Returns whether every S passed the case's limit."""
+    """The new K5 or K2 build at every split S of ``SPLITS`` on one case's
+    inputs: a ``[split]`` line with each S's time and err/limit, and the S
+    that the wrapper's rule picks (``cluster_split``). Returns whether every
+    S passed the case's limit."""
     import chip_smoke
     from deepspeed_tpu_torch.ops import kernel_checks as kc
-    from deepspeed_tpu_torch.ops.paged_attention import SPLITS, paged_split
+    from deepspeed_tpu_torch.ops.attention.decode import SPLITS
 
-    d = case.dims
     ms, ratio = {}, {}
     for s in SPLITS:
         ratio[s] = err_ratio(kc, case, run(case, inp, splits=s), ref)
         ms[s] = chip_smoke.time_ms(lambda: run(case, inp, splits=s))
-    pick = paged_split(d["b"], d["hk"], kc.max_pages(case), d["page"], d["d"])
-    print(f"[split] {case.name}: " + ", ".join(f"S {s} {t:.4f} ms (err/limit {ratio[s]:.3f})"
-                                             for s, t in ms.items())
-          + f"; paged_split picks {pick}", flush=True)
+    print(f"[split] {case.kernel}/{case.name}: "
+          + ", ".join(f"S {s} {t:.4f} ms (err/limit {ratio[s]:.3f})" for s, t in ms.items())
+          + f"; the rule picks {kc.case_splits(case)}", flush=True)
     return all(r <= 1.0 for r in ratio.values())
 
 

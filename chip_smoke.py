@@ -11,15 +11,17 @@ non-zero:
    all at once;
 3. kernel checks (``deepspeed_tpu_torch/ops/kernel_checks.py``): each kernel
    against its plain version on the card, with its time, the plain version's,
-   one PyTorch library call's as a yardstick, and the bound (the paged kernel
-   also with the splits ``paged_split`` picks, and K2 on the same rows);
+   one PyTorch library call's as a yardstick, and the bound (the dense and
+   paged decode kernels also with the cluster size S their wrappers pick,
+   and the paged kernel with K2 on the same rows);
 4. main path: ``init_inference`` on GPT-2 125M (``bench.py``'s serving
    configuration, seeded random weights, bf16) and ``generate`` on 4 prompts
    of 512 tokens (one shortened to 384), 64 new tokens, greedy. The launch
    counts must show every prefill attention in the flash kernel and every
    decode attention in the decode kernel; the prefill logits must agree with
    the same engine run on the plain versions; one more ``generate`` is traced
-   with torch.profiler to show where its device time goes;
+   with torch.profiler to show where its device time goes, and K2's share
+   of it (``dense_decode_split``);
 5. serving path: ``ContinuousBatchingScheduler`` on the same GPT-2 125M
    engine, 16 slots, chunks of 8 steps, the paged KV pool (page 16, cap
    1024) with the prefix cache inserting at prefill, and 48 greedy requests
@@ -85,7 +87,7 @@ non-zero:
    every call (selected-expert FFN 6 x (new - 1), flash forward 12, dense
    decode 12 x (new - 1)); one decode step's logits on the kernel within 0.1
    of the plain FFN's, greedy agreement over 64 tokens; one traced decode
-   step; ``[serve]``'s 48 requests through the scheduler (every request
+   step (with K2's share); ``[serve]``'s 48 requests through the scheduler (every request
    finishes with its budget, selected-expert FFN 6 x 8 x chunks); the dense
    twin (no experts) on the same seed and traffic; a top-2 engine (16 new
    tokens); an int8 engine whose 12 expert stacks are quantized (the
@@ -163,7 +165,6 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def kernel_checks(device):
     from deepspeed_tpu_torch.ops import kernel_checks as kc
-    from deepspeed_tpu_torch.ops.paged_attention import paged_split
     rows = {}
     for case in kc.CASES:
         res = kc.check(case, device, SEED)
@@ -172,11 +173,11 @@ def kernel_checks(device):
         res.update(ms=time_ms(lambda: kc.run_kernel(case, inp)),
                    plain_ms=time_ms(lambda: kc.run_plain(case, inp), reps=5),
                    library_ms=None if lib is None else time_ms(lib))
+        if case.kernel in ("decode_attention", "paged_decode_attention"):
+            res["splits"] = kc.case_splits(case)
         if case.kernel == "paged_decode_attention":
             # for comparison only: K2 on the same rows laid out densely
             res["dense_decode_ms"] = time_ms(kc.dense_decode_fn(case, inp))
-            res["splits"] = paged_split(case.dims["b"], case.dims["hk"], kc.max_pages(case),
-                                        case.dims["page"], case.dims["d"])
         if case.kernel == "moe_decode_ffn":
             # for comparison only: the gather path (w[idx] copies, cuBLAS bmm)
             res["gather_ms"] = time_ms(kc.moe_gather_fn(case, inp))
@@ -194,8 +195,9 @@ def kernel_checks(device):
               + f" | ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} library_ms="
               + ("null" if res["library_ms"] is None else f"{res['library_ms']:.4f}")
               + f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']})"
-              + (f" dense_decode_ms={res['dense_decode_ms']:.4f} splits={res['splits']}"
+              + (f" dense_decode_ms={res['dense_decode_ms']:.4f}"
                  if "dense_decode_ms" in res else "")
+              + (f" splits={res['splits']}" if "splits" in res else "")
               + (f" gather_ms={res['gather_ms']:.4f}" if "gather_ms" in res else "")
               + (" block_f_ms={" + ", ".join(f"{bf}: {t:.4f}" for bf, t in
                                              res["block_f_ms"].items()) + "}"
@@ -331,16 +333,19 @@ def profile_call(label: str, fn, top: int = 12):
             "count_by_kernel": {e.key: e.count for e in events}}
 
 
-def print_traced_k5(label: str, trace, out: dict) -> None:
-    """K5's share of a ``profile_call`` trace of a serving chunk (its kernels
-    are ``paged_decode_split<T, D, G>``), into ``out`` and printed."""
-    keys = [k for k in trace["by_kernel"] if "paged_decode_split" in k]
+def print_traced(phase: str, label: str, kernel: str, trace, out: dict, key: str) -> None:
+    """One kernel's share of a ``profile_call`` trace, by the name its
+    launches carry (``paged_decode_split`` for K5, ``dense_decode_split`` for
+    K2: ``<T, D, G>`` instantiations), into ``out[key + "_ms"]`` and
+    ``out[key + "_launches"]`` and printed."""
+    mark = {"K5": "paged_decode_split", "K2": "dense_decode_split"}[kernel]
+    keys = [k for k in trace["by_kernel"] if mark in k]
     ms = sum(trace["by_kernel"][k] for k in keys) / 1e3
     n = sum(trace["count_by_kernel"][k] for k in keys)
-    out["chunk_k5_ms"], out["chunk_k5_launches"] = ms, n
-    print(f"[serve] {label} traced chunk: K5 paged_decode_split {ms:.3f} ms in {n} launches "
+    out[f"{key}_ms"], out[f"{key}_launches"] = ms, n
+    print(f"[{phase}] {label}: {kernel} {mark} {ms:.3f} ms in {n} launches "
           f"({1e3 * ms / max(n, 1):.2f} us a launch) of {trace['device_us'] / 1e3:.3f} ms "
-          f"device", flush=True)
+          f"device ({ms / (trace['device_us'] / 1e3):.3f})", flush=True)
 
 
 def main_path(device):
@@ -403,10 +408,13 @@ def main_path(device):
         engine.generate(ids, max_new_tokens=16, prompt_lengths=lens)
         torch.cuda.synchronize()
 
-    profile_call("generate(16 new)", traced_generate)
-    return {"ttft_ms": ttft * 1e3, "tpot_ms": tpot * 1e3, "decode_tokens_per_s": tps,
-            "new_tokens": n, "launches": launches, "prefill_logit_err": logit_err,
-            "token_agreement": agree}
+    result = {"ttft_ms": ttft * 1e3, "tpot_ms": tpot * 1e3, "decode_tokens_per_s": tps,
+              "new_tokens": n, "launches": launches, "prefill_logit_err": logit_err,
+              "token_agreement": agree}
+    trace = profile_call("generate(16 new)", traced_generate)
+    if trace is not None:
+        print_traced("main", "traced generate(16 new)", "K2", trace, result, "traced_k2")
+    return result
 
 
 def serve_step_logits(engine, snap, plain: bool):
@@ -543,7 +551,7 @@ def serve_path(device, smi: str):
     trace = profile_call(f"serve chunk ({SERVE_SLOTS} slots, {SERVE_CHUNK} steps)",
                          traced_chunk, top=15)
     if trace is not None:
-        print_traced_k5("bf16", trace, out)
+        print_traced("serve", "bf16 traced chunk", "K5", trace, out, "chunk_k5")
     sched2.run()
     del sched, sched2, engine
     gc.collect()
@@ -618,7 +626,7 @@ def serve_int8(device, smi: str, cfg, config, requests, bf16):
                         traced_chunk, top=15)
     sched2.run()
     if prof is not None:
-        print_traced_k5("int8", prof, out)
+        print_traced("serve", "int8 traced chunk", "K5", prof, out, "chunk_k5")
         out["chunk_qmm_ms"] = sum(v for key, v in prof["by_kernel"].items()
                                   if "qmm" in key) / 1e3
         out["step_launches"] = prof["launches"] / SERVE_CHUNK
@@ -1097,6 +1105,7 @@ def moe_path(device, smi: str):
         prof = profile_call(f"[moe] decode step (GPT-2 125M, 8 experts, batch 1, row "
                             f"{MOE_PROMPT})", traced_step, top=12)
     if prof is not None:
+        print_traced("moe", "traced decode step", "K2", prof, out, "decode_step_k2")
         by = prof["by_kernel"]
         out.update(decode_step_device_ms=prof["device_us"] / 1e3,
                    decode_step_k7_ms=sum(v for key, v in by.items() if "moe_ffn" in key) / 1e3,

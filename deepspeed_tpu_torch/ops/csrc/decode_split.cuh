@@ -4,7 +4,8 @@
 // through a ring of shared-memory stages fed by bulk copies, and the S
 // partial results merged once, in rank order, through distributed shared
 // memory. The paged decode kernel (paged_decode_attention.cu) runs it over a
-// page pool.
+// page pool, the dense decode kernel (decode_attention.cu) over a head-major
+// cache.
 //
 // The rows come in "units": a unit is a contiguous run of at most 64 rows
 // that lies contiguously in k and in v (a page, or a 64-row piece of a page
@@ -15,10 +16,12 @@
 //   unit_rows  a unit's row stride in a stage; every unit of a stage but its
 //              last has exactly unit_rows rows, so a stage's rows are one
 //              contiguous run of the sequence
-//   key(u)     what locating unit u reads from device memory (a page-table
-//              entry); read once, by the producer warp, a window of stages
-//              at a time
-//   offset(u, key)  the element offset of u's first row in k and v
+//   KEYED      whether locating a unit reads device memory (a static
+//              constexpr bool); if so,
+//   key(u)     what locating unit u reads (a page-table entry); read once,
+//              by the producer warp, a window of stages at a time
+//   offset(u, key), or offset(u) where KEYED is false: the element offset
+//              of u's first row in k and v
 //   first_row(u), rows(u)  u's first row in the sequence and its row count
 //
 // Block r of a cluster takes the units [r * share, (r + 1) * share) with
@@ -91,13 +94,13 @@ struct Shape {
 
 // shared memory of split_block: the ring [NST][K, V][64][D] of T, the
 // warps' partials [NCW][G][D + 2] and the block's [G][D + 2] floats (acc,
-// then m and l), the producer's window of unit keys [NST * 64] and the full
-// and empty mbarriers [2][NST]
-template <typename T, int D, int G>
+// then m and l), the producer's window of unit keys [NST * 64] (KEYED units
+// only) and the full and empty mbarriers [2][NST]
+template <typename T, int D, int G, bool KEYED = true>
 __host__ __device__ constexpr size_t smem_bytes() {
     using Sh = Shape<T, D, G>;
     return (size_t)Sh::NST * Sh::STAGE_BYTES + sizeof(float) * (Sh::NCW + 1) * G * (D + 2) +
-           sizeof(int) * Sh::NST * STAGE_ROWS + 16 * Sh::NST;
+           (KEYED ? sizeof(int) * Sh::NST * STAGE_ROWS : 0) + 16 * Sh::NST;
 }
 
 // 2^(m - m_new) (scores are kept in log2 units), 0 for a state that has
@@ -146,9 +149,18 @@ __device__ __forceinline__ void halving_exchange(float (&sc)[V], int li) {
     }
 }
 
+// the key of unit u of KEYED units; nothing is read for others
+template <typename Units>
+__device__ __forceinline__ int unit_key(const Units& units, int u) {
+    if constexpr (Units::KEYED)
+        return units.key(u);
+    else
+        return 0;
+}
+
 // One block of a cluster of S: the g_used (<= G) query heads at q (g_used x D,
 // written to out likewise) against the first len rows of the sequence that
-// units describes in k and v. smem: smem_bytes<T, D, G>().
+// units describes in k and v. smem: smem_bytes<T, D, G, Units::KEYED>().
 template <typename T, int D, int G, typename Units>
 __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
                                             const T* __restrict__ v, T* __restrict__ out,
@@ -166,7 +178,8 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
     float* part = reinterpret_cast<float*>(smem + (size_t)NST * Sh::STAGE_BYTES);
     float* blk = part + NCW * G * (D + 2);
     int* win = reinterpret_cast<int*>(blk + G * (D + 2));
-    uint64_t* bars = reinterpret_cast<uint64_t*>(win + NST * STAGE_ROWS);   // full, empty
+    uint64_t* bars =                                                         // full, empty
+        reinterpret_cast<uint64_t*>(win + (Units::KEYED ? NST * STAGE_ROWS : 0));
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int share = (units.count + splits - 1) / splits;
@@ -182,9 +195,9 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
     };
 
     // the producer loads the keys of a window of NST stages a window ahead,
-    // all at once, and keeps them in win while their stages are issued; the
-    // consumers hold q (scaled) in registers. Both loads go out before the
-    // barriers are set up.
+    // all at once, and keeps them in win while their stages are issued (units
+    // without keys: none); the consumers hold q (scaled) in registers. Both
+    // loads go out before the barriers are set up.
     constexpr int KPL = NST * STAGE_ROWS / 32;     // keys a lane loads a window
     int keys[KPL];
     auto load_keys = [&](int s0) {
@@ -192,12 +205,12 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
         const int nu = min(NST * pps, u_end - u0);
 #pragma unroll
         for (int i = 0; i < KPL; ++i)
-            keys[i] = lane + 32 * i < nu ? units.key(u0 + lane + 32 * i) : 0;
+            keys[i] = lane + 32 * i < nu ? unit_key(units, u0 + lane + 32 * i) : 0;
     };
     const int lg = lane / LPR, li = lane % LPR;
     float qf[G][VEC];
     if (warp == NCW) {
-        load_keys(0);
+        if constexpr (Units::KEYED) load_keys(0);
     } else {
 #pragma unroll
         for (int j = 0; j < G; ++j) {
@@ -224,11 +237,13 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
         for (int s = 0; s < n_st; ++s) {
             const int slot = s % NST;
             const int u0 = u_begin + s * pps;
-            if (slot == 0) {
+            if constexpr (Units::KEYED) {
+                if (slot == 0) {
 #pragma unroll
-                for (int i = 0; i < KPL; ++i) win[lane + 32 * i] = keys[i];
-                __syncwarp();
-                if (s + NST < n_st) load_keys(s + NST);
+                    for (int i = 0; i < KPL; ++i) win[lane + 32 * i] = keys[i];
+                    __syncwarp();
+                    if (s + NST < n_st) load_keys(s + NST);
+                }
             }
             if (s >= NST)       // the consumers are done with this slot's last stage
                 hopper::mbar_wait(hopper::smem_addr(&bars[NST + slot]), (s / NST - 1) & 1);
@@ -240,7 +255,11 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
             T* vs = ks + STAGE_ROWS * D;
             for (int i = lane; i < stage_units(s); i += 32) {
                 const int u = u0 + i;
-                const size_t off = units.offset(u, win[slot * pps + i]);
+                size_t off;
+                if constexpr (Units::KEYED)
+                    off = units.offset(u, win[slot * pps + i]);
+                else
+                    off = units.offset(u);
                 const uint32_t bytes = units.rows(u) * D * sizeof(T);
                 hopper::bulk_load(hopper::smem_addr(ks + i * units.unit_rows * D), k + off, bytes,
                                   full);

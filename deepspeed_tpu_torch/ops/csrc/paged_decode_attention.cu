@@ -49,6 +49,7 @@ using decode_split::STAGE_ROWS;
 // longer than 64 rows its 64-row pieces (spp of them)
 template <int D>
 struct PagedUnits {
+    static constexpr bool KEYED = true;
     const int* tbl;     // the slot's table row, in device memory
     int page;
     int hk;

@@ -29,11 +29,12 @@ kernel that is wrong by 20 % on most rows.
   value. float16 (1e-5, 1e-3): 11 bits, 2**-10. float32 (2e-5, 2e-5): sums
   of up to 2,048 terms of size ~1 in another order, and expf (K5: exp2f of
   scores scaled by log2 e) against torch's exp. atol covers values near 0, where f32 noise exceeds an ulp.
-  A paged slot with cache_len 0 gets zeros, as the TPU kernel gives it (its
-  l_safe); the plain version, as ``paged_attention_xla``, averages that
-  slot's masked rows instead, so the paged reference is zeroed there
-  (``run_plain``), and the kernel's output memory holds 1e4 before the
-  launch (``make_inputs``), so an unwritten row shows.
+  A sequence or paged slot with cache_len 0 gets zeros, as the TPU kernel
+  gives it (its l_safe); the plain version, as ``decode_attention_xla`` and
+  ``paged_attention_xla``, averages that sequence's masked rows instead, so
+  the reference is zeroed there (``run_plain``), and the kernel's output
+  memory holds 1e4 before the launch (``make_inputs``), so an unwritten row
+  shows.
 - The flash forward's o, ``FWD_TOLERANCES``: the kernel rounds each
   unnormalised probability (relative to the running max) to the input dtype
   before its product with v, the plain version rounds the normalised one,
@@ -122,11 +123,12 @@ from .attention.block_sparse import (block_sparse_bwd_dkv, block_sparse_bwd_dkv_
                                      block_sparse_bwd_dq, block_sparse_bwd_dq_plain,
                                      block_sparse_fwd, block_sparse_fwd_plain, build_tables,
                                      device_tables, kernel_tile_tables)
-from .attention.decode import decode_attention, decode_attention_plain
+from .attention.decode import decode_attention, decode_attention_plain, decode_split
 from .attention.flash import (flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
                              flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
 from .moe import moe_decode_ffn, moe_decode_ffn_plain, moe_decode_ffn_xla
-from .paged_attention import gather_kv_dense, paged_attention, paged_attention_plain
+from .paged_attention import (gather_kv_dense, paged_attention, paged_attention_plain,
+                              paged_split)
 from .quantizer import (dequantize_to, pack_int4, quantize_grouped, quantized_matmul,
                         quantized_matmul_plain)
 from .quantizer.quant import _group_size
@@ -244,6 +246,18 @@ CASES: List[Case] = [
          torch.bfloat16, lens=(2048, 1337, 700, 101)),
     Case("decode_attention", "fp32-gqa-T300", dict(b=3, h=8, hk=2, T=300, d=64),
          torch.float32, lens=(300, 65, 1)),
+    # a sequence with cache_len 0 (zeros), and one of 17 rows whose splits but
+    # the first walk nothing
+    Case("decode_attention", "bf16-gqa-empty-slot", dict(b=4, h=8, hk=2, T=512, d=128),
+         torch.bfloat16, lens=(300, 0, 17, 512)),
+    # Qwen2-7B's attention (28 query heads, 4 kv heads, d 128): groups of 7
+    # take two head blocks, the second of 3 heads
+    Case("decode_attention", "qwen2-g7-d128", dict(b=2, h=28, hk=4, T=1024, d=128),
+         torch.bfloat16, lens=(1024, 77)),
+    # Mistral-7B's (32 query heads, 8 kv heads, d 128) at batch 4: four-head
+    # blocks, one an SM by their registers
+    Case("decode_attention", "mistral7b-b4-d128", dict(b=4, h=32, hk=8, T=2048, d=128),
+         torch.bfloat16, lens=(2048, 1500, 700, 33)),
     Case("paged_decode_attention", "gpt2-serve",
          dict(b=16, h=12, hk=12, page=16, cap=1024, d=64), torch.bfloat16, lens=SERVE_LENS,
          main_path=True),
@@ -260,6 +274,8 @@ CASES: List[Case] = [
     # its eight blocks walk nothing
     Case("paged_decode_attention", "bf16-gqa-empty-slot",
          dict(b=4, h=8, hk=2, page=16, cap=512, d=128), torch.bfloat16, lens=(300, 0, 17, 512)),
+    Case("paged_decode_attention", "qwen2-g7-d128",
+         dict(b=2, h=28, hk=4, page=16, cap=1024, d=128), torch.bfloat16, lens=(1024, 77)),
 ] + [c for kernel in BWD_KERNELS for c in (
     # the training main path: GPT-2 125M, micro-batch 24, seq 1024
     Case(kernel, "gpt2-train", dict(b=24, t=1024, h=12, d=64), torch.bfloat16,
@@ -440,7 +456,7 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
     the null page 0 (every table pad points at it) and in the rows past each
     slot's length; a tensor of q's shape holding 1e4 is dropped last, so the
     allocator gives its memory to the kernel's output and a row the kernel
-    leaves unwritten shows."""
+    leaves unwritten shows; so is one after the dense decode inputs."""
     gen = torch.Generator(device=device).manual_seed(seed)
     dims = case.dims
 
@@ -479,6 +495,8 @@ def make_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
         for i, n in enumerate(case.lens):
             inp["k"][i, :, n:] = 1e4
             inp["v"][i, :, n:] = 1e4
+        poison = torch.full_like(inp["q"], 1e4)
+        del poison      # its memory goes to the kernel's output
         return inp
     b, h, hk, ps, d = dims["b"], dims["h"], dims["hk"], dims["page"], dims["d"]
     mp = max_pages(case)
@@ -628,8 +646,20 @@ def run_plain(case: Case, inp) -> Tuple[torch.Tensor, ...]:
     if case.kernel == "paged_decode_attention":
         o = paged_attention_plain(inp["q"], inp["k"], inp["v"], inp["table"], inp["lens"],
                                   case.dims["cap"], scale)
-        return (o.masked_fill((inp["lens"] <= 0)[:, None, None], 0),)
-    return (decode_attention_plain(inp["q"], inp["k"], inp["v"], inp["lens"], scale),)
+    else:
+        o = decode_attention_plain(inp["q"], inp["k"], inp["v"], inp["lens"], scale)
+    return (o.masked_fill((inp["lens"] <= 0)[:, None, None], 0),)
+
+
+def case_splits(case: Case) -> int:
+    """The cluster size S the decode or paged wrapper picks for a case."""
+    dims = case.dims
+    es = torch.tensor([], dtype=case.dtype).element_size()
+    g = dims["h"] // dims["hk"]
+    if case.kernel == "paged_decode_attention":
+        return paged_split(dims["b"], dims["hk"], max_pages(case), dims["page"], dims["d"], g,
+                           es)
+    return decode_split(dims["b"], dims["hk"], g, dims["T"], dims["d"], es)
 
 
 def dense_decode_fn(case: Case, inp) -> Callable[[], torch.Tensor]:

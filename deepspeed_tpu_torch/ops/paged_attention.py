@@ -15,12 +15,11 @@ head) over the :func:`paged_split` blocks of a thread-block cluster.
 """
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from .attention.decode import decode_attention_plain
+from .attention.decode import UNIT_ROWS, cluster_split, decode_attention_plain
 from .attention.flash import DTYPE_CODES, HEAD_DIMS
 from .op_builder import CudaKernel
 
@@ -33,31 +32,15 @@ PAGED_DECODE_ATTENTION = CudaKernel(
      _int, _int, _int, _int, _int, _int,      # b, h_kv, g, page, max_pages, d
      ctypes.c_float, _int, _int, _vp])        # scale, splits, dtype, stream
 
-#: the kernel's cluster sizes: the blocks that share one (slot, kv head)
-SPLITS = (1, 2, 4, 8)
-#: SMs of an H100 SXM
-H100_SMS = 132
 
-
-@functools.lru_cache(maxsize=256)
-def paged_split(b: int, hk: int, max_pages: int, page: int, d: int) -> int:
+def paged_split(b: int, hk: int, max_pages: int, page: int, d: int, g: int,
+                itemsize: int) -> int:
     """The blocks of a cluster that split one (slot, kv head)'s live pages in
-    the kernel, from shapes alone: ``cache_len`` lives on the device, and
-    reading it would cost a host sync (and a CUDA graph could not replay the
-    choice). The largest of :data:`SPLITS` whose ``b * hk * S`` blocks the
-    card holds at once, three an SM at d 64 and two at d 128 (their 16-bit
-    rings of stages fill shared memory), and no more than the table's pages;
-    so S grows as ``b * hk`` falls. ``page`` does not enter: a split of a
-    short slot walks nothing and costs little, while a block that waits for
-    a second wave costs a whole walk (``benchmarks/torch/qmm_versions.py
-    paged_decode_attention``, ``[split]`` lines)."""
-    resident = H100_SMS * (3 if d <= 64 else 2)
-    s = SPLITS[0]
-    for nxt in SPLITS[1:]:
-        if b * hk * nxt > resident or nxt > max_pages:
-            break
-        s = nxt
-    return s
+    the kernel: the dense kernel's rule (:func:`cluster_split`, shapes only)
+    over ``b * hk`` pairs of at most ``max_pages`` pages of ``page`` rows,
+    each ``cdiv(page, 64)`` units."""
+    return cluster_split(b * hk, max_pages * -(-page // UNIT_ROWS), max_pages * page, d, g,
+                         itemsize)
 
 
 def gather_kv_dense(k_pages: torch.Tensor, v_pages: torch.Tensor, page_table: torch.Tensor,
@@ -153,7 +136,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     PAGED_DECODE_ATTENTION.launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
         cache_len.data_ptr(), out.data_ptr(), b, hk, h // hk, ps, page_table.shape[1], d,
-        scale, paged_split(b, hk, page_table.shape[1], ps, d), DTYPE_CODES[q.dtype],
+        scale, paged_split(b, hk, page_table.shape[1], ps, d, h // hk, q.element_size()),
+        DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     return out
 

@@ -116,17 +116,19 @@ def test_paged_kernel_zero_length_slot_and_launch_count():
     assert kernel_checks.err_ratio(out[:1], ref[:1], atol, rtol) <= 1.0
 
 
-def test_paged_kernel_repeats_bit_identical():
-    """The paged kernel merges its partials in a fixed order (lane groups,
-    warps, then the cluster's blocks by rank) with no atomics, so two calls
-    on the same inputs give the same bits, at every case's split."""
+def test_kernel_repeats_bit_identical():
+    """The dense and paged decode kernels merge their partials in a fixed
+    order (lane groups, warps, then the cluster's blocks by rank) with no
+    atomics, so two calls on the same inputs give the same bits, at every
+    case's split."""
     device = _card()
     for case in kernel_checks.CASES:
-        if case.kernel != "paged_decode_attention":
+        if case.kernel not in ("decode_attention", "paged_decode_attention"):
             continue
         inp = kernel_checks.make_inputs(case, device)
         first = kernel_checks.run_kernel(case, inp)[0]
-        assert torch.equal(first, kernel_checks.run_kernel(case, inp)[0]), case.name
+        assert torch.equal(first, kernel_checks.run_kernel(case, inp)[0]), \
+            (case.kernel, case.name)
 
 
 def test_paged_kernel_page_one_long_cap():
@@ -356,7 +358,19 @@ PLANTED_FAULTS = {
     "decode-skips-last-tile": (
         "decode_attention.cu",
         "const int len = min(max(lens[bi], 0), cap);",
-        "const int len = (min(max(lens[bi], 0), cap) - 1) / decode_core::BK * decode_core::BK;",
+        "const int len = (min(max(lens[bi], 0), cap) - 1) / STAGE_ROWS * STAGE_ROWS;",
+        ("decode_attention",)),
+    # every K2 case has a sequence shorter than its capacity, whose rows past
+    # cache_len hold 1e4
+    "decode-rows-past-len-read": (
+        "decode_attention.cu",
+        "const int len = min(max(lens[bi], 0), cap);",
+        "const int len = cap;",
+        ("decode_attention",)),
+    "decode-o-5pct-high": (
+        "decode_split.cuh",
+        "out[e] = from_f32<T>(ls > 0.f ? a / ls : 0.f);",
+        "out[e] = from_f32<T>(ls > 0.f ? 1.05f * a / ls : 0.f);",
         ("decode_attention",)),
     "paged-skips-last-live-page": (
         "paged_decode_attention.cu",
@@ -368,11 +382,14 @@ PLANTED_FAULTS = {
         "out[e] = from_f32<T>(ls > 0.f ? a / ls : 0.f);",
         "out[e] = from_f32<T>(ls > 0.f ? 1.05f * a / ls : 0.f);",
         ("paged_decode_attention",)),
+    # rank 0's partial, which every sequence with rows has, whatever S
     "paged-merge-drops-a-split": (
         "decode_split.cuh",
         "if (r < splits) {",
-        "if (r < splits - 1) {",
-        ("paged_decode_attention",)),
+        "if (r > 0 && r < splits) {",
+        ("paged_decode_attention", "decode_attention")),
+    # K2's tiles stop at cache_len (DenseUnits::rows), so only the paged
+    # kernel copies rows past it, for this mask to exclude
     "paged-rows-past-len-unmasked": (
         "decode_split.cuh",
         "const int nvalid = min(stage_rows(s), len - first);",
@@ -380,12 +397,12 @@ PLANTED_FAULTS = {
         # every case with a slot whose last live page is partly past its length
         ("paged_decode_attention:gpt2-serve", "paged_decode_attention:gqa-d128",
          "paged_decode_attention:fp32-gqa-page8-cap300", "paged_decode_attention:bf16-page5-d128",
-         "paged_decode_attention:bf16-gqa-empty-slot")),
+         "paged_decode_attention:bf16-gqa-empty-slot", "paged_decode_attention:qwen2-g7-d128")),
     "paged-empty-slot-skips-zero-write": (
         "decode_split.cuh",
         "out[e] = from_f32<T>(ls > 0.f ? a / ls : 0.f);",
         "if (ls > 0.f) out[e] = from_f32<T>(a / ls);",
-        ("paged_decode_attention:bf16-gqa-empty-slot",)),
+        ("paged_decode_attention:bf16-gqa-empty-slot", "decode_attention:bf16-gqa-empty-slot")),
     "flash-fwd-o-5pct-high": (
         "flash_fwd.cu",
         "o[off + tx + 16 * c] = from_f32<T>(acc[i][c] / l_safe);",
@@ -426,11 +443,6 @@ PLANTED_FAULTS = {
         "const bool mask_causal = causal && q0 < kv0 + 64;",
         "const bool mask_causal = false;",
         ("flash_bwd_dkv:bfloat16:causal", "flash_bwd_dkv:float16:causal")),
-    "decode-o-5pct-high": (
-        "decode_core.cuh",
-        "out[e] = from_f32<T>(acc[e] / (lj > 0.f ? lj : 1.f));",
-        "out[e] = from_f32<T>(1.05f * acc[e] / (lj > 0.f ? lj : 1.f));",
-        ("decode_attention",)),
     "qmm-skips-last-group": (
         "quantized_matmul.cu",
         "const int k_used = k;",
@@ -681,20 +693,22 @@ def test_wgmma_main_path_instantiations_do_not_spill():
             assert "0 bytes spill stores, 0 bytes spill loads" in v, (e, v)
 
 
-def test_paged_kernel_issues_bulk_copies_and_does_not_spill():
-    """K5 loads its pages by bulk copies (no tensor map): UBLKCP stands in the
-    SASS of every instantiation (3 dtypes x 2 head dims x 3 head blocks) and
-    UTMALDG in none; ``-Xptxas -v`` shows no spills and no stack frame (no
-    register array indexed at run time) in any of them."""
+@pytest.mark.parametrize("kernel,function", [("paged_decode_attention", "paged_decode_split"),
+                                             ("decode_attention", "dense_decode_split")])
+def test_paged_kernel_issues_bulk_copies_and_does_not_spill(kernel, function):
+    """K5 and K2 load their pages and tiles by bulk copies (no tensor map):
+    UBLKCP stands in the SASS of every instantiation (3 dtypes x 2 head dims
+    x 3 head blocks) and UTMALDG in none; ``-Xptxas -v`` shows no spills and
+    no stack frame (no register array indexed at run time) in any of them."""
     _card()
     from deepspeed_tpu_torch.ops import op_builder
-    src = op_builder.KERNELS["paged_decode_attention"].source
+    src = op_builder.KERNELS[kernel].source
     op_builder.build([src])
     cuobjdump = os.path.join(os.path.dirname(op_builder._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", op_builder._library_path(src)],
                           capture_output=True, text=True, check=True).stdout
     functions = [f for f in sass.split("Function : ")[1:]
-                 if "paged_decode_split" in f.splitlines()[0]]
+                 if function in f.splitlines()[0]]
     assert len(functions) == 18, [f.splitlines()[0] for f in functions]
     for f in functions:
         ops = sorted({w.split(".")[0] for w in f.split() if w.startswith(("UBLK", "UTMA"))})
@@ -705,13 +719,15 @@ def test_paged_kernel_issues_bulk_copies_and_does_not_spill():
                            os.path.join(out_dir, src + ".so"),
                            os.path.join(op_builder.CSRC_DIR, src)],
                           capture_output=True, text=True, check=True)
-    spills, entry = {}, None
+    spills, regs, entry = {}, {}, None
     for line in (proc.stdout + proc.stderr).splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "spill stores" in line and entry is not None:
             spills[entry] = line.split(":", 1)[-1].strip()
+        elif "Used" in line and "registers" in line and entry is not None:
+            regs[entry] = line.split(":", 1)[-1].strip()
     assert len(spills) == 18, list(spills)
     for e, v in spills.items():
-        print(f"[ptxas] {src} {e[:90]}: {v}")
+        print(f"[ptxas] {src} {e}: {v}; {regs.get(e)}")
         assert v == "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", (e, v)

@@ -35,7 +35,8 @@ import numpy as np
 import pytest
 
 from deepspeed_tpu.ops.paged_attention import paged_attention_fused, paged_attention_xla
-from deepspeed_tpu_torch.ops.paged_attention import SPLITS, paged_split
+from deepspeed_tpu_torch.ops.attention.decode import SPLITS
+from deepspeed_tpu_torch.ops.paged_attention import paged_split
 from test_torch_paged_attention import _paged_inputs
 
 TOL = 2e-5
@@ -149,16 +150,22 @@ def emulate_split_walk(q, k, v, table, lens, splits):
                 parts = [_block_partial(qs, k, v, table[i], n, kh, page,
                                         (units[r * share:(r + 1) * share], pps), d)
                          for r in range(splits)]
-                mx = np.max([p[0] for p in parts], axis=0)
-                a = np.zeros_like(parts[0][2])
-                ls = np.zeros_like(mx)
-                for pm, pl, pacc in parts:          # rank order
-                    s = _rescale(pm, mx)
-                    a = a + pacc * s[:, None]
-                    ls = ls + pl * s
-                out[i, heads] = np.where(ls[:, None] > 0,
-                                         a / np.where(ls > 0, ls, 1)[:, None], 0)
+                out[i, heads] = merge_ranks(parts)
     return out
+
+
+def merge_ranks(parts):
+    """The cluster's merge of its blocks' partials (m, l, acc), in rank
+    order: the output rows of the block's heads, zeros where no row was
+    seen."""
+    mx = np.max([p[0] for p in parts], axis=0)
+    a = np.zeros_like(parts[0][2])
+    ls = np.zeros_like(mx)
+    for pm, pl, pacc in parts:          # rank order
+        s = _rescale(pm, mx)
+        a = a + pacc * s[:, None]
+        ls = ls + pl * s
+    return np.where(ls[:, None] > 0, a / np.where(ls > 0, ls, 1)[:, None], 0)
 
 
 CASES = {
@@ -229,27 +236,29 @@ def test_split_walk_balances_each_pair():
 
 
 def test_paged_split_reads_shapes_only():
-    """paged_split takes shapes, never cache_len: its arguments are five
-    integers, and it returns one of SPLITS."""
+    """paged_split takes shapes, never cache_len: its arguments are seven
+    integers (the query heads of a group and the element size too, which
+    set the blocks an SM holds), and it returns one of SPLITS."""
     assert list(inspect.signature(paged_split).parameters) == ["b", "hk", "max_pages", "page",
-                                                                "d"]
-    for args in ((1, 1, 1, 1, 64), (64, 32, 4096, 16, 128), (3, 7, 11, 5, 64)):
+                                                                "d", "g", "itemsize"]
+    for args in ((1, 1, 1, 1, 64, 1, 2), (64, 32, 4096, 16, 128, 4, 2), (3, 7, 11, 5, 64, 7, 4)):
         assert paged_split(*args) in SPLITS
 
 
 @pytest.mark.parametrize("max_pages,page,d", [(64, 16, 64), (128, 16, 128), (200, 1, 64),
                                               (103, 5, 128)])
 def test_paged_split_grows_as_pairs_fall(max_pages, page, d):
-    """Fewer (slot, kv head) pairs never take fewer splits."""
-    picks = [paged_split(b, hk, max_pages, page, d) for b, hk in
-             ((64, 16), (16, 12), (16, 4), (8, 4), (4, 4), (2, 2), (1, 1))]
-    assert picks == sorted(picks)
-    assert all(s in SPLITS for s in picks)
+    """Fewer (slot, kv head) pairs never take fewer splits, at any group."""
+    for g, itemsize in ((1, 2), (4, 2), (7, 2), (4, 4)):
+        picks = [paged_split(b, hk, max_pages, page, d, g, itemsize) for b, hk in
+                 ((64, 16), (16, 12), (16, 4), (8, 4), (4, 4), (2, 2), (1, 1))]
+        assert picks == sorted(picks)
+        assert all(s in SPLITS for s in picks)
 
 
 def test_paged_split_at_the_main_path_shapes():
     """The [serve] shape (16 slots, 12 kv heads, cap 1024, page 16, d 64)
     and kernel_checks' gqa-d128 (4 slots, 4 kv heads, cap 2048, d 128) both
     split, so the merge runs on the main path and its planted fault shows."""
-    assert paged_split(16, 12, 64, 16, 64) == 2
-    assert paged_split(4, 4, 128, 16, 128) == 8
+    assert paged_split(16, 12, 64, 16, 64, 1, 2) == 2
+    assert paged_split(4, 4, 128, 16, 128, 4, 2) == 8
