@@ -91,7 +91,25 @@ non-zero:
    finishes with its budget, selected-expert FFN 6 x 8 x chunks); the dense
    twin (no experts) on the same seed and traffic; a top-2 engine (16 new
    tokens); an int8 engine whose 12 expert stacks are quantized (the
-   selected-expert FFN does not launch, the dequant-GEMM 60 x forwards).
+   selected-expert FFN does not launch, the dequant-GEMM 60 x forwards);
+10. head dims other than 64 and 128 (``[hd]``), at full width, seeded random
+   weights, bf16: ``initialize`` must refuse a GPT-2 of head_dim 256 and
+   ``init_inference`` one of head_dim 84 (ValueError naming it, no launch,
+   nothing left on the card); GPT-2 2.7B (``gpt2-2.7b``, head_dim 80) and
+   GPT-J-6B's shape (head_dim 256) each through ``generate`` as in 4 (64 and
+   32 new tokens) and the scheduler as in 5 (16 and 8 requests), held to the
+   same launch counts, logits, budgets and traces; GPT-2 760M
+   (``gpt2-760m``, head_dim 96) trained as in 6 (micro-batch 8, 3 warm-up
+   and 10 timed steps) and as in 7 (the same Fixed layout over 16 heads, 3
+   and 3), launch counts, losses and micro-batch-4 gradients as there. The
+   kernels run their 128-wide builds at head dims 80 and 96 and their
+   256-wide ones (K1, K2, K5) at 256; ``[check]`` times them at these shapes
+   (the cases of ``kernel_checks`` with an ``hd_run``). Each prefill also
+   runs through the plain attention in f32 (the same weights, widened), and
+   the kernel's bf16 logits must lie within 0.1 of those: at 28-32 layers a
+   second bf16 run (the plain attention in bf16) carries rounding of its
+   own as large as the kernel's, so both its distances, from f32 and from
+   the kernel's logits, are printed beside.
 
 The last lines are a JSON line of the main paths' metrics, a JSON line on the
 kernels, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -121,6 +139,11 @@ WQ_REDUCTION = {8: 1.9, 4: 3.5}   # bench.py's modeled weight-byte reduction gat
 GRAD_RTOL = 5e-2   # bf16 whole-model gradients, kernel vs plain attention: see train_path()
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 SPIN_CYCLES = 2_000_000   # ~1.1 ms at the H100's 1.98 GHz boost: longer than any enqueue
+# [hd]: GPT-2 2.7B's scheduler requests, GPT-J-6B's new tokens and requests,
+# GPT-2 760M's training (micro-batch, warm-up and timed steps dense, then
+# block-sparse)
+HD_GPT2_REQUESTS, HD_GPTJ_NEW, HD_GPTJ_REQUESTS = 16, 32, 8
+HD_MICRO, HD_WARMUP, HD_STEPS, HD_SPARSE_WARMUP, HD_SPARSE_STEPS = 8, 3, 10, 3, 3
 
 
 def nvidia_smi_line() -> str:
@@ -204,6 +227,8 @@ def kernel_checks(device):
                  if "block_f_ms" in res else ""), flush=True)
         if case.main_path:
             rows[case.kernel] = res
+        if case.hd_run:
+            rows.setdefault("hd", {}).setdefault(case.kernel, []).append((case, res))
         del inp
     return rows
 
@@ -348,36 +373,80 @@ def print_traced(phase: str, label: str, kernel: str, trace, out: dict, key: str
           f"device ({ms / (trace['device_us'] / 1e3):.3f})", flush=True)
 
 
-def main_path(device):
+def gpt2_125m():
+    from deepspeed_tpu_torch.models import gpt2_cfg
+    return gpt2_cfg(vocab_size=50304, max_seq_len=1024, n_embd=768, n_layer=12, n_head=12)
+
+
+def f32_prefill(engine, ids, lens, device):
+    """The prefill logits of ``engine``'s model through the plain attention
+    in f32: a second module of the same config in f32, its weights the
+    engine's bf16 ones widened (exact), freed before returning."""
+    import dataclasses
+
+    import torch
+
+    from deepspeed_tpu_torch.inference.decode_fns import prefill
+    from deepspeed_tpu_torch.models import init_cache
+    from deepspeed_tpu_torch.models.causal_lm import CausalLM
+
+    cfg = dataclasses.replace(engine.model_config, dtype=torch.float32)
+    ref = CausalLM(cfg, device=device)
+    src = engine.module.state_dict()
+    with torch.no_grad():
+        for name, v in ref.state_dict().items():
+            v.copy_(src[name])
+    ref.requires_grad_(False).eval()
+    with torch.inference_mode(), plain_attention():
+        logits = prefill(ref, ids, init_cache(cfg, ids.shape[0], 1024, device=device), lens)
+    del ref, src
+    gc.collect()
+    torch.cuda.empty_cache()
+    return logits
+
+
+def main_path(device, cfg=None, label: str = "main", n_new: int = N_NEW, engine=None,
+              f32_witness: bool = False):
+    """``init_inference`` (or the given ``engine`` of ``cfg``) and ``generate``
+    on 4 prompts of 512 tokens (one shortened to 384), ``n_new`` new tokens:
+    launch counts, prefill logits against the plain attention, greedy
+    agreement, one traced ``generate``. ``cfg`` defaults to GPT-2 125M.
+    With ``f32_witness`` the prefill also runs through the plain attention in
+    f32, and LOGITS_TOL holds the kernel's logits to those; the plain bf16
+    run's distances from them and from the kernel's are printed."""
     import numpy as np
     import torch
 
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.inference.decode_fns import prefill
-    from deepspeed_tpu_torch.models import gpt2_cfg, init_cache
+    from deepspeed_tpu_torch.models import init_cache
     from deepspeed_tpu_torch.ops import op_builder
 
-    cfg = gpt2_cfg(vocab_size=50304, max_seq_len=1024, n_embd=768, n_layer=12, n_head=12)
-    t0 = time.perf_counter()
-    engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
-                                device=device)
-    torch.cuda.synchronize()
-    print(f"[main] init_inference {time.perf_counter() - t0:.2f} s", flush=True)
+    if cfg is None:
+        cfg = gpt2_125m()
+    if engine is None:
+        t0 = time.perf_counter()
+        engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
+                                    device=device)
+        torch.cuda.synchronize()
+        print(f"[{label}] init_inference {time.perf_counter() - t0:.2f} s", flush=True)
     rng = np.random.default_rng(SEED)
     ids = rng.integers(0, cfg.vocab_size, size=(4, PROMPT)).astype(np.int64)
     lens = np.array([PROMPT, PROMPT, PROMPT, SHORT_PROMPT], np.int32)
 
     engine.generate(ids, max_new_tokens=4, prompt_lengths=lens)      # warm-up
+    torch.cuda.reset_peak_memory_stats()
     op_builder.reset_launch_counts()
-    out = engine.generate(ids, max_new_tokens=N_NEW, prompt_lengths=lens)
+    out = engine.generate(ids, max_new_tokens=n_new, prompt_lengths=lens)
     launches = op_builder.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     n = out.shape[1] - PROMPT
-    if out.shape != (4, PROMPT + N_NEW) or not ((out >= 0) & (out < cfg.vocab_size)).all():
+    if out.shape != (4, PROMPT + n_new) or not ((out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError(f"generate returned shape {out.shape} or ids out of range")
     want = expect(flash_fwd=cfg.n_layer, decode_attention=cfg.n_layer * (n - 1))
-    print(f"[main] launches {launches} (expected {want})", flush=True)
+    print(f"[{label}] launches {launches} (expected {want})", flush=True)
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+        raise AssertionError(f"[{label}] launch counts {launches} != {want}")
     ttft, tpot, tps = engine.ttft, engine.tpot, engine.decode_tps
 
     # prefill logits: kernels vs plain attention, same engine, same inputs. bf16
@@ -394,15 +463,27 @@ def main_path(device):
             logits_p = prefill(engine.module, ids_dev, caches, lens_dev)
     if not bool(torch.isfinite(logits_k).all()) or logits_k.shape != (4, cfg.vocab_size):
         raise AssertionError(f"prefill logits non-finite or shaped {tuple(logits_k.shape)}")
-    logit_err = float((logits_k - logits_p).abs().max())
-    print(f"[main] prefill logits max_abs_err kernel vs plain {logit_err:.4e} "
-          f"(tol {LOGITS_TOL}, |logits| max {float(logits_p.abs().max()):.3f})", flush=True)
-    if not logit_err <= LOGITS_TOL:
-        raise AssertionError(f"prefill logits differ by {logit_err} > {LOGITS_TOL}")
+    logit_err, witness = float((logits_k - logits_p).abs().max()), {}
+    held, against, top = logit_err, "plain", float(logits_p.abs().max())
+    if f32_witness:
+        logits_32 = f32_prefill(engine, ids_dev, lens_dev, device)
+        witness = {"kernel_vs_f32": float((logits_k - logits_32).abs().max()),
+                   "plain_vs_f32": float((logits_p - logits_32).abs().max())}
+        held, against = witness["kernel_vs_f32"], "the plain attention in f32"
+        top = float(logits_32.abs().max())
+        print(f"[{label}] prefill logits max_abs_err, not held: plain bf16 vs plain f32 "
+              f"{witness['plain_vs_f32']:.4e}, kernel vs plain bf16 {logit_err:.4e}",
+              flush=True)
+        del logits_32
+    print(f"[{label}] prefill logits max_abs_err kernel vs {against} {held:.4e} "
+          f"(tol {LOGITS_TOL}, |logits| max {top:.3f})", flush=True)
+    if not held <= LOGITS_TOL:
+        raise AssertionError(f"[{label}] prefill logits differ by {held} > {LOGITS_TOL}")
+    del caches, logits_k, logits_p
     with plain_attention():
-        out_plain = engine.generate(ids, max_new_tokens=N_NEW, prompt_lengths=lens)
+        out_plain = engine.generate(ids, max_new_tokens=n_new, prompt_lengths=lens)
     agree = float((out_plain[:, PROMPT:] == out[:, PROMPT:]).mean())
-    print(f"[main] greedy token agreement kernel vs plain: {agree:.4f} "
+    print(f"[{label}] greedy token agreement kernel vs plain: {agree:.4f} "
           "(not asserted: random-weight logits are near-ties)", flush=True)
     def traced_generate():
         engine.generate(ids, max_new_tokens=16, prompt_lengths=lens)
@@ -410,10 +491,11 @@ def main_path(device):
 
     result = {"ttft_ms": ttft * 1e3, "tpot_ms": tpot * 1e3, "decode_tokens_per_s": tps,
               "new_tokens": n, "launches": launches, "prefill_logit_err": logit_err,
-              "token_agreement": agree}
-    trace = profile_call("generate(16 new)", traced_generate)
+              "token_agreement": agree, "peak_memory_bytes": peak,
+              **{f"prefill_logit_err_{k}": v for k, v in witness.items()}}
+    trace = profile_call(f"{label} generate(16 new)", traced_generate)
     if trace is not None:
-        print_traced("main", "traced generate(16 new)", "K2", trace, result, "traced_k2")
+        print_traced(label, "traced generate(16 new)", "K2", trace, result, "traced_k2")
     return result
 
 
@@ -431,10 +513,11 @@ def serve_step_logits(engine, snap, plain: bool):
     return logits[:, -1]
 
 
-def serve_setup(cfg):
+def serve_setup(cfg, n_requests: int = SERVE_REQUESTS):
     """The serving configuration (16 slots, chunks of 8, paged pool of page 16,
-    prefix cache inserting at prefill) and the 48 seeded requests: a shared
-    250-token prefix, a suffix of 8-256 tokens, budgets from {16, 32, 64, 128}."""
+    prefix cache inserting at prefill) and ``n_requests`` (48) seeded requests:
+    a shared 250-token prefix, a suffix of 8-256 tokens, budgets from {16, 32,
+    64, 128}."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.serving import PrefixCacheConfig, ServingConfig
@@ -447,22 +530,27 @@ def serve_setup(cfg):
     system = rng.integers(0, cfg.vocab_size, SERVE_PREFIX)
     requests = [(np.concatenate([system, rng.integers(0, cfg.vocab_size,
                                                       int(rng.integers(8, 257)))]),
-                 int(rng.choice([16, 32, 64, 128]))) for _ in range(SERVE_REQUESTS)]
+                 int(rng.choice([16, 32, 64, 128]))) for _ in range(n_requests)]
     return config, requests
 
 
-def serve_path(device, smi: str):
+def serve_path(device, smi: str, cfg=None, engine=None, n_requests: int = SERVE_REQUESTS,
+               label: str = "serve"):
+    """``[serve]``: the scheduler on ``n_requests`` seeded requests (see the
+    module's docstring). ``cfg`` defaults to GPT-2 125M; ``[hd]`` passes its
+    own ``cfg`` and ``engine``."""
     import torch
 
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler
-    from deepspeed_tpu_torch.models import gpt2_cfg
     from deepspeed_tpu_torch.ops import op_builder
 
-    cfg = gpt2_cfg(vocab_size=50304, max_seq_len=1024, n_embd=768, n_layer=12, n_head=12)
-    engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
-                                device=device)
-    config, requests = serve_setup(cfg)
+    if cfg is None:
+        cfg = gpt2_125m()
+    if engine is None:
+        engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
+                                    device=device)
+    config, requests = serve_setup(cfg, n_requests)
 
     sched = ContinuousBatchingScheduler(engine, config)
     handles = [sched.submit(p, max_new_tokens=m) for p, m in requests]
@@ -492,16 +580,16 @@ def serve_path(device, smi: str):
     bad = [(h.id, len(h.tokens), m, h.state.value) for h, (_, m) in zip(handles, requests)
            if len(h.tokens) != m or h.finish_reason != "length"]
     if bad:
-        raise AssertionError(f"requests that did not finish with their budget: {bad}")
+        raise AssertionError(f"[{label}] requests that did not finish with their budget: {bad}")
     chunks, misses = tele["chunks"], tele["prefix_misses"]
     want = expect(flash_fwd=cfg.n_layer * misses,
                   paged_decode_attention=cfg.n_layer * SERVE_CHUNK * chunks)
-    print(f"[serve] launches {launches} (expected {want}: {chunks} chunks, {misses} prefix "
+    print(f"[{label}] launches {launches} (expected {want}: {chunks} chunks, {misses} prefix "
           f"misses)", flush=True)
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+        raise AssertionError(f"[{label}] launch counts {launches} != {want}")
     if not (tele["prefix_hits"] > 0 and tele["paged_cow_copies_total"] > 0):
-        raise AssertionError(f"no prefix hits or no copy-on-write copies: {tele}")
+        raise AssertionError(f"[{label}] no prefix hits or no copy-on-write copies: {tele}")
 
     live = torch.from_numpy(snap["active"]).to(device)
     logits_k = serve_step_logits(engine, snap, plain=False)
@@ -510,16 +598,18 @@ def serve_path(device, smi: str):
                                                                       cfg.vocab_size):
         raise AssertionError(f"serve step logits non-finite or shaped {tuple(logits_k.shape)}")
     step_err = float((logits_k[live] - logits_p[live]).abs().max())
-    print(f"[serve] mid-run decode step after scheduler step {SERVE_CHECK_STEP}, "
+    print(f"[{label}] mid-run decode step after scheduler step {SERVE_CHECK_STEP}, "
           f"{int(live.sum())} live slots of {SERVE_SLOTS}, lens "
           f"{snap['lens'][live].tolist()}: logits max_abs_err kernels vs plain "
-          f"{step_err:.4e} (tol {LOGITS_TOL})", flush=True)
+          f"{step_err:.4e} (tol {LOGITS_TOL}, |logits| max "
+          f"{float(logits_p[live].abs().max()):.3f})", flush=True)
     if not int(live.sum()) > 0 or not step_err <= LOGITS_TOL:
-        raise AssertionError(f"serve step logits differ by {step_err} > {LOGITS_TOL}")
+        raise AssertionError(f"[{label}] serve step logits differ by {step_err} > "
+                             f"{LOGITS_TOL}")
     del snap, logits_k, logits_p
 
     tokens = sum(len(h.tokens) for h in handles)
-    out = {"requests_per_s": SERVE_REQUESTS / wall, "tokens_per_s": tokens / wall,
+    out = {"requests_per_s": n_requests / wall, "tokens_per_s": tokens / wall,
            "wall_s": wall, "generated_tokens": tokens,
            "ttft_ms_p50": tele["ttft_ms_p50"], "ttft_ms_p95": tele["ttft_ms_p95"],
            "tpot_ms_p50": tele["tpot_ms_p50"], "tpot_ms_p95": tele["tpot_ms_p95"],
@@ -528,7 +618,7 @@ def serve_path(device, smi: str):
            "cow_copies": tele["paged_cow_copies_total"], "peak_pages_in_use": peak_pages,
            "total_pages": tele["paged_total_pages"], "peak_memory_bytes": peak_mem,
            "step_logit_err": step_err, "launches": launches}
-    print(f"[serve] {smi}: {SERVE_REQUESTS} requests in {wall:.3f} s: "
+    print(f"[{label}] {smi}: {n_requests} requests in {wall:.3f} s: "
           f"{out['requests_per_s']:.3f} requests/s, {out['tokens_per_s']:.1f} generated "
           f"tokens/s ({tokens} tokens); TTFT p50 {out['ttft_ms_p50']:.2f} ms p95 "
           f"{out['ttft_ms_p95']:.2f} ms; TPOT p50 {out['tpot_ms_p50']:.3f} ms p95 "
@@ -548,14 +638,13 @@ def serve_path(device, smi: str):
         sched2.step()
         torch.cuda.synchronize()
 
-    trace = profile_call(f"serve chunk ({SERVE_SLOTS} slots, {SERVE_CHUNK} steps)",
+    trace = profile_call(f"{label} chunk ({SERVE_SLOTS} slots, {SERVE_CHUNK} steps)",
                          traced_chunk, top=15)
     if trace is not None:
-        print_traced("serve", "bf16 traced chunk", "K5", trace, out, "chunk_k5")
+        print_traced(label, "bf16 traced chunk", "K5", trace, out, "chunk_k5")
     sched2.run()
     del sched, sched2, engine
     gc.collect()
-    out["int8"] = serve_int8(device, smi, cfg, config, requests, out)
     return out
 
 
@@ -649,7 +738,8 @@ def grads_of(engine, batch):
     return loss.detach(), dict(zip(names, grads))
 
 
-def train_run(device, smi: str, label: str, cfg, per_step: dict, plain, beside):
+def train_run(device, smi: str, label: str, cfg, per_step: dict, plain, beside,
+              micro: int = TRAIN_MICRO, steps: int = TRAIN_STEPS, warmup: int = TRAIN_WARMUP):
     """``initialize`` on the GPT-2 ``cfg`` at ``bench.py``'s training
     configuration (micro-batch 24, seq 1024, bf16 AdamW lr 2e-4, weight decay
     0.01, ZeRO stage 1, clipping 1.0; seeded random weights, no remat), then 3
@@ -660,7 +750,7 @@ def train_run(device, smi: str, label: str, cfg, per_step: dict, plain, beside):
     micro-batch of 4 within ``GRAD_RTOL`` of the same engine under ``plain()``
     (the plain versions of the path's kernels); one more ``train_batch`` is
     traced. Prints the step line, with ``beside(tokens_per_s)`` appended, and
-    returns the metrics."""
+    returns the metrics. ``[hd]`` passes its own micro-batch and step counts."""
     import numpy as np
     import torch
 
@@ -668,7 +758,7 @@ def train_run(device, smi: str, label: str, cfg, per_step: dict, plain, beside):
     from deepspeed_tpu_torch.models import gpt2_model
     from deepspeed_tpu_torch.ops import op_builder
 
-    config = {"train_batch_size": TRAIN_MICRO, "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+    config = {"train_batch_size": micro, "train_micro_batch_size_per_gpu": micro,
               "optimizer": {"type": "AdamW", "params": {"lr": 2e-4, "weight_decay": 0.01}},
               "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
               "gradient_clipping": 1.0, "steps_per_print": 10**9}
@@ -676,34 +766,34 @@ def train_run(device, smi: str, label: str, cfg, per_step: dict, plain, beside):
     engine, _, _, _ = dst.initialize(model=gpt2_model(cfg), config=config, device=device)
     torch.cuda.synchronize()
     print(f"[{label}] initialize {time.perf_counter() - t0:.2f} s", flush=True)
-    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_MICRO, TRAIN_SEQ))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (micro, TRAIN_SEQ))
     batch = {"input_ids": ids}
 
-    for _ in range(TRAIN_WARMUP):
+    for _ in range(warmup):
         engine.train_batch(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     op_builder.reset_launch_counts()
     t0 = time.perf_counter()
-    losses = [engine.train_batch(batch) for _ in range(TRAIN_STEPS)]
+    losses = [engine.train_batch(batch) for _ in range(steps)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = op_builder.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = expect(**{name: n * TRAIN_STEPS for name, n in per_step.items()})
+    want = expect(**{name: n * steps for name, n in per_step.items()})
     print(f"[{label}] launches {launches} (expected {want})", flush=True)
     if launches != want:
         raise AssertionError(f"[{label}] launch counts {launches} != {want}")
     losses = [float(x) for x in losses]
-    print(f"[{label}] losses {losses[0]:.5f} -> {losses[-1]:.5f} over {TRAIN_STEPS} steps",
+    print(f"[{label}] losses {losses[0]:.5f} -> {losses[-1]:.5f} over {steps} steps",
           flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"[{label}] losses not finite and falling: {losses}")
-    step_ms = dt / TRAIN_STEPS * 1e3
-    tokens_per_s = TRAIN_MICRO * TRAIN_SEQ * TRAIN_STEPS / dt
+    step_ms = dt / steps * 1e3
+    tokens_per_s = micro * TRAIN_SEQ * steps / dt
     print(f"[{label}] {smi}: step {step_ms:.2f} ms, {tokens_per_s:.1f} tokens/s"
           f"{beside(tokens_per_s)}, peak "
-          f"memory {peak / 2**30:.2f} GiB (micro-batch {TRAIN_MICRO}, seq {TRAIN_SEQ})",
+          f"memory {peak / 2**30:.2f} GiB (micro-batch {micro}, seq {TRAIN_SEQ})",
           flush=True)
 
     # the whole model on one micro-batch of 4, same weights: kernels vs plain
@@ -811,6 +901,133 @@ def sparse_path(device, smi: str, dense_step_ms: float):
         print(f"[sparse] traced step: K8 {ms['k8']:.3f} ms, K9 {ms['k9']:.3f} ms, K10 "
               f"{ms['k10']:.3f} ms of device time", flush=True)
     return out
+
+
+def hd_refusals(device) -> dict:
+    """``initialize`` refuses a GPT-2 whose head_dim, 256 (width 4096 over 16
+    heads), the training kernels do not take, and ``init_inference`` one of
+    head_dim 84 (not a multiple of 8): ValueError naming the head_dim, before
+    any launch and before any weight reaches the card."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import GPT2Config, gpt2_cfg, gpt2_model
+    from deepspeed_tpu_torch.ops import op_builder
+
+    config = {"train_batch_size": 8, "optimizer": {"type": "AdamW", "params": {"lr": 2e-4}},
+              "bf16": {"enabled": True}}
+    tries = (
+        ("initialize", "head_dim 256", lambda: dst.initialize(
+            model=gpt2_model(GPT2Config(vocab_size=50304, n_positions=TRAIN_SEQ, n_embd=4096,
+                                        n_layer=2, n_head=16)), config=config, device=device)),
+        ("init_inference", "head_dim 84", lambda: dst.init_inference(
+            gpt2_cfg(vocab_size=50304, max_seq_len=1024, n_embd=336, n_layer=2, n_head=4),
+            {"dtype": "bfloat16"}, device=device)))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    op_builder.reset_launch_counts()
+    out = {}
+    for name, mark, fn in tries:
+        try:
+            fn()
+        except ValueError as e:
+            if mark not in str(e):
+                raise AssertionError(f"[hd] {name} refused without naming {mark}: {e}")
+            out[name] = str(e)
+            print(f"[hd] {name} refused: {e}", flush=True)
+        else:
+            raise AssertionError(f"[hd] {name} accepted a model of {mark}")
+    launches, held = op_builder.launch_counts(), torch.cuda.memory_allocated() - before
+    print(f"[hd] refusals: launches {launches}, {held} bytes more on the card", flush=True)
+    if any(launches.values()) or held:
+        raise AssertionError(f"[hd] a refused engine launched {launches} or holds {held} bytes")
+    return out
+
+
+def hd_serve(device, smi: str, label: str, cfg, n_new: int, n_requests: int) -> dict:
+    """One ``[hd]`` serving model: ``generate`` as ``[main]`` (``n_new`` new
+    tokens) and the scheduler as ``[serve]`` (``n_requests`` requests), on
+    one engine."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+
+    t0 = time.perf_counter()
+    engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
+                                device=device)
+    torch.cuda.synchronize()
+    print(f"[{label}] init_inference {time.perf_counter() - t0:.2f} s "
+          f"({cfg.num_params() / 1e9:.2f} B parameters, head_dim {cfg.head_dim})", flush=True)
+    gen = main_path(device, cfg, label, n_new, engine, f32_witness=True)
+    print(f"[{label}] {smi}: TTFT {gen['ttft_ms']:.3f} ms, TPOT {gen['tpot_ms']:.4f} ms, "
+          f"decode {gen['decode_tokens_per_s']:.1f} tokens/s (batch 4, prompt {PROMPT}, "
+          f"{gen['new_tokens']} new), peak memory {gen['peak_memory_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    serve = serve_path(device, smi, cfg, engine, n_requests, f"{label} serve")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"generate": gen, "serve": serve}
+
+
+def hd_path(device, smi: str) -> dict:
+    """``[hd]``: head dims other than 64 and 128 on the 128- and 256-wide
+    kernel builds, at full width, seeded random weights, bf16. The refusals;
+    GPT-2 2.7B (the port's preset ``gpt2-2.7b``: vocab 50304, 32 layers,
+    width 2560, 32 heads, head_dim 80) through ``generate`` and the scheduler
+    (K1, K2, K5 at d 80); GPT-J-6B's shape (EleutherAI's ``gpt-j-6b`` config:
+    vocab 50400, 28 layers, width 4096, 16 heads, head_dim 256, rotary on 64
+    dims, parallel residual, untied biased head, no qkv bias) the same way
+    (K1, K2, K5 at d 256); GPT-2 760M (``gpt2-760m``: 24 layers, width 1536,
+    16 heads, head_dim 96) trained as ``[train]`` (K1, K3, K4) and then as
+    ``[sparse]`` with the same Fixed layout over 16 heads (K8, K9, K10)."""
+    import torch
+
+    from deepspeed_tpu_torch.models import GPT2Config, gpt2_cfg, gptj_cfg
+    from deepspeed_tpu_torch.ops import sparse_attention
+    from deepspeed_tpu_torch.ops.attention import make_sparse_attention_impl
+    from deepspeed_tpu_torch.ops.kernel_checks import GPT2_760M_SPARSE
+
+    out = {"refusals": hd_refusals(device)}
+    out["gpt2_2.7b"] = hd_serve(
+        device, smi, "hd gpt2-2.7b",
+        gpt2_cfg(vocab_size=50304, max_seq_len=1024, n_embd=2560, n_layer=32, n_head=32),
+        N_NEW, HD_GPT2_REQUESTS)
+    out["gptj_6b"] = hd_serve(
+        device, smi, "hd gptj-6b",
+        gptj_cfg(vocab_size=50400, max_seq_len=2048, n_embd=4096, n_layer=28, n_head=16,
+                 qkv_bias=False, tie_word_embeddings=False, lm_head_bias=True),
+        HD_GPTJ_NEW, HD_GPTJ_REQUESTS)
+
+    def gpt2_760m(**kw):
+        return GPT2Config(vocab_size=50304, n_positions=TRAIN_SEQ, n_embd=1536, n_layer=24,
+                          n_head=16, dropout=0.0, **kw)
+
+    n = 24
+    dense = train_run(device, smi, "hd gpt2-760m train", gpt2_760m(),
+                      {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n},
+                      plain_attention, lambda _: "", micro=HD_MICRO, steps=HD_STEPS,
+                      warmup=HD_WARMUP)
+    gc.collect()
+    name, kw = GPT2_760M_SPARSE
+    sparse = train_run(device, smi, "hd gpt2-760m sparse", gpt2_760m(
+        attention_impl=make_sparse_attention_impl(getattr(sparse_attention, name)(**kw))),
+        {"block_sparse_fwd": n, "block_sparse_bwd_dq": n, "block_sparse_bwd_dkv": n},
+        plain_sparse, lambda _: f" (dense step {dense['step_ms']:.2f} ms)", micro=HD_MICRO,
+        steps=HD_SPARSE_STEPS, warmup=HD_SPARSE_WARMUP)
+    out["gpt2_760m_train"], out["gpt2_760m_sparse"] = dense, sparse
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hd_launches(hd: dict, case) -> int:
+    """A kernel's launches in the ``[hd]`` run its check case is shaped by
+    (the case's ``hd_run``, a path into ``hd_path``'s results)."""
+    run = hd
+    for key in case.hd_run.split("/"):
+        run = run[key]
+    return run["launches"][case.kernel]
 
 
 def wq_same_bytes(a, b) -> bool:
@@ -1247,6 +1464,9 @@ def main() -> int:
           f"decode {main['decode_tokens_per_s']:.1f} tokens/s (batch 4, prompt {PROMPT}, "
           f"{main['new_tokens']} new)", flush=True)
     serve = serve_path(device, smi)
+    gc.collect()
+    config, requests = serve_setup(gpt2_125m())
+    serve["int8"] = serve_int8(device, smi, gpt2_125m(), config, requests, serve)
     # a scheduler holds itself through its prefix cache's page hooks: collect
     # the serving phase's pools before training measures its peak memory
     gc.collect()
@@ -1259,6 +1479,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe = moe_path(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hd = hd_path(device, smi)
 
     # each kernel's launches on its own main path (the one its first check case
     # is shaped by): generate for the forward and decode kernels, the
@@ -1269,6 +1492,7 @@ def main() -> int:
     # training launches, the dequant-GEMM's in the int8 scheduler run and the
     # selected-expert FFN's in the MoE scheduler and top-2 runs ride beside
     kernels = []
+    hd_rows = rows.pop("hd")
     for name, res in rows.items():
         path = (train if name in kc.BWD_KERNELS else
                 sparse if name in kc.BS_KERNELS else
@@ -1292,6 +1516,12 @@ def main() -> int:
             entry.update(serve_launches=moe["serve"]["launches"][name],
                          top2_launches=moe["top2_launches"][name],
                          gather_ms=res["gather_ms"], block_f_ms=res["block_f_ms"])
+        # the kernel at [hd]'s head dims, beside its main path
+        if name in hd_rows:
+            entry["hd"] = [{"case": case.name, "launches": hd_launches(hd, case),
+                            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")}}
+                           for case, r in hd_rows[name]]
         kernels.append(entry)
     print(json.dumps({"main_path": {
         k: main[k] for k in ("ttft_ms", "tpot_ms", "decode_tokens_per_s",
@@ -1308,7 +1538,14 @@ def main() -> int:
                                              "grad_rel_err_max", "loss_err",
                                              "k1_k4_traced_ms", "k3_traced_ms")
                        if k in train},
-        "sparse_train_path": {k: v for k, v in sparse.items() if k not in ("launches", "trace")}}))
+        "sparse_train_path": {k: v for k, v in sparse.items() if k not in ("launches", "trace")},
+        "hd_path": {
+            "refusals": hd["refusals"],
+            **{f"{m}_{part}": {k: v for k, v in hd[m][part].items()
+                               if k not in ("launches", "int8")}
+               for m in ("gpt2_2.7b", "gptj_6b") for part in ("generate", "serve")},
+            **{m: {k: v for k, v in hd[m].items() if k not in ("launches", "trace")}
+               for m in ("gpt2_760m_train", "gpt2_760m_sparse")}}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

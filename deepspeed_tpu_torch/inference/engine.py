@@ -23,6 +23,7 @@ import torch
 from ..accelerator import resolve_device
 from ..models.causal_lm import (QUANT_NAMES, CausalLM, CausalLMConfig, Dense, ExpertWeights,
                                 QuantDense, QuantNode, init_cache)
+from ..ops.attention.flash import kernel_width
 from ..ops.quantizer import (dense_weight_bytes, make_quant_node, node_logical_shape,
                              node_weight_bytes, quantize_with_audit, validate_quant_config)
 from ..utils.logging import log_dist
@@ -37,6 +38,8 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.dtype = self._config.torch_dtype()
         cfg, state_dict = self._resolve_model(model)
+        if self.device.type == "cuda":
+            kernel_width(cfg.head_dim, training=False)     # before any weight moves
         # the serve dtype wins over the model's own, and the config's MoE decode
         # impl over the model's, before the module exists
         overrides = {"dtype": self.dtype}

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from ..ops.attention.flash import kernel_width
 from ..ops.transformer.attention import get_attention_impl
 from .base import Model, Params
 
@@ -184,7 +185,11 @@ def init_params(cfg: GPT2Config, seed: int, device) -> Params:
     """Seeded f32 parameters with the JAX model's initialisers: normal with
     ``init_std`` for the embeddings and projections, ``init_std / sqrt(2 *
     n_layer)`` for the residual projections (``c_proj``, ``mlp_c_proj``), zero
-    biases, unit LayerNorm scales. One ``torch.Generator`` on ``device``."""
+    biases, unit LayerNorm scales. One ``torch.Generator`` on ``device``.
+    On a CUDA device a head_dim the training kernels do not take raises
+    ``ValueError`` first, before anything reaches the card."""
+    if torch.device(device).type == "cuda" and cfg.attention_impl != "xla":
+        kernel_width(cfg.head_dim, training=True)
     gen = torch.Generator(device=device).manual_seed(seed)
     proj_std = cfg.init_std / (2 * cfg.n_layer) ** 0.5
     params = {}

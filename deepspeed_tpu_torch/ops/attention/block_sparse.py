@@ -25,8 +25,10 @@ rows in both cases; every shipped config holds the diagonal block in every
 row, so only hand-made layouts meet them.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
-for CPU tensors. The kernels take head_dim 64 or 128 and a layout block of 16,
-32, 64 or 128 (anything else raises ``ValueError``), in f32, fp16 or bf16
+for CPU tensors. The kernels take a head_dim that is a multiple of 8 up to 128
+(``flash.kernel_width`` in training mode: the 64- or 128-wide build, with the
+real head_dim at run time) and a layout block of 16, 32, 64 or 128 (anything
+else raises ``ValueError``), in f32, fp16 or bf16
 with f32 sums. The forward kernel writes through raw pointers, so its output
 has no autograd history: :func:`block_sparse_fwd` refuses CUDA inputs that
 require grad while grad mode is on, and :class:`BlockSparseAttnFunction` is
@@ -51,7 +53,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from ..op_builder import CudaKernel
 from ..sparse_attention.sparsity_config import SparsityConfig, layout_to_dense_mask
-from .flash import DTYPE_CODES, HEAD_DIMS, NEG_INF
+from .flash import DTYPE_CODES, NEG_INF, kernel_width
 
 BLOCKS = (16, 32, 64, 128)
 TABLE_NAMES = ("fwd_idx", "fwd_cnt", "bwd_idx", "bwd_cnt")
@@ -301,12 +303,10 @@ def _check(name, tensors, idx, cnt, block, n_heads) -> None:
 
 
 def _check_cuda(name, tensors, block) -> None:
-    """What the CUDA kernels take: head_dim 64 or 128, a layout block in
-    ``BLOCKS``, contiguous 16-byte-aligned tensors (tables included) on one
-    device."""
-    d = tensors[0].shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    """What the CUDA kernels take: a head_dim :func:`kernel_width` accepts
+    for training, a layout block in ``BLOCKS``, contiguous 16-byte-aligned
+    tensors (tables included) on one device."""
+    kernel_width(tensors[0].shape[-1], training=True)
     if block not in BLOCKS:
         raise ValueError(f"{name} kernel takes a layout block in {BLOCKS}, got {block}")
     device = tensors[0].device

@@ -6,7 +6,9 @@ Counterpart of ``deepspeed_tpu/ops/attention/decode.py`` (``decode_attention``
 ``(b, h_kv, T, d)`` with ``T`` the capacity; ``cache_len`` counts each
 sequence's valid rows, the current position included. Grouped-query attention
 (``h_kv`` dividing ``h``) shares one pass over a group's rows. The JAX package
-sent head_dim 64 to XLA on the TPU; this kernel takes 64 and 128.
+sent a head_dim that is not a multiple of 128 to XLA on the TPU; this kernel
+takes any multiple of 8 up to 256 (``flash.kernel_width``), on a build 64, 128
+or 256 wide with the real head_dim passed at run time.
 
 The kernel splits each (sequence, kv head) over the :func:`decode_split`
 blocks of a thread-block cluster; :func:`cluster_split` is the rule it shares
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from ..op_builder import CudaKernel
-from .flash import DTYPE_CODES, HEAD_DIMS, NEG_INF
+from .flash import DTYPE_CODES, NEG_INF, kernel_width
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 DECODE_ATTENTION = CudaKernel(
@@ -42,18 +44,23 @@ H100_SMS = 132
 SM_SMEM_BYTES = 233472
 BLOCK_SMEM_RESERVED = 1024
 SM_REGISTERS = 65536
-#: registers a thread of the split body, by (element bytes, d, G): the larger
-#: of ``dense_decode_split``'s and ``paged_decode_split``'s, as ``nvcc
-#: -Xptxas -v`` reports them for sm_90a (CUDA 12.8). A four-head block (288
-#: threads) of more than 112 holds an SM's registers alone, as the 16-bit
-#: ones at d 128 do (dense 126, paged 117); at d 64 (110) and in f32 (95)
-#: two fit. A block of two heads or one (160 threads) of up to 136 leaves
-#: room for three.
+#: the most shared memory a block may ask for
+BLOCK_SMEM_MAX = 232448
+#: registers a thread of the split body, by (element bytes, build width, G):
+#: the larger of ``dense_decode_split``'s and ``paged_decode_split``'s, as
+#: ``nvcc -Xptxas -v`` reports them for sm_90a (CUDA 12.8), for a head_dim
+#: equal to the width (its strides constant) and below it (taken at run
+#: time). A four-head block (288 threads) of more than 112 holds an SM's
+#: registers alone; of 112 or fewer (16-bit at d 64, f32 at d 64 and 128
+#: and below 128) two fit. A block of two heads or one (160 threads) of up
+#: to 136 leaves room for three.
 SPLIT_REGISTERS = {
-    (2, 64, 1): 77, (2, 64, 2): 80, (2, 64, 4): 110,
-    (2, 128, 1): 77, (2, 128, 2): 93, (2, 128, 4): 126,
-    (4, 64, 1): 75, (4, 64, 2): 79, (4, 64, 4): 95,
-    (4, 128, 1): 77, (4, 128, 2): 77, (4, 128, 4): 95,
+    (2, 64, 1): (77, 80), (2, 64, 2): (80, 91), (2, 64, 4): (110, 124),
+    (2, 128, 1): (77, 80), (2, 128, 2): (93, 92), (2, 128, 4): (126, 128),
+    (2, 256, 1): (75, 81), (2, 256, 2): (80, 89), (2, 256, 4): (124, 128),
+    (4, 64, 1): (75, 80), (4, 64, 2): (79, 93), (4, 64, 4): (95, 121),
+    (4, 128, 1): (77, 80), (4, 128, 2): (77, 80), (4, 128, 4): (95, 95),
+    (4, 256, 1): (94, 82), (4, 256, 2): (92, 80), (4, 256, 4): (127, 127),
 }
 #: a split that fills more than this share of the resident blocks pays a
 #: fixed cost that grows with S (the cluster's launch and merge: 0.0080 →
@@ -71,14 +78,19 @@ def heads_a_block(g: int) -> int:
 
 
 def split_smem_bytes(itemsize: int, d: int, heads: int) -> int:
-    """``decode_split::smem_bytes<T, D, G>()`` with the key window (the paged
-    kernel's; the dense kernel's is that less ``4 * stages * 64`` bytes, which
-    changes no count of blocks an SM)."""
-    stage = 2 * UNIT_ROWS * d * itemsize
+    """``decode_split::smem_bytes<T, D, G>()`` at the build width D that runs
+    head_dim ``d``, with the key window (the paged kernel's; the dense
+    kernel's is that less ``4 * stages * 64`` bytes, which changes no count of
+    blocks an SM). The ring has 4 stages where one holds at most 16 KB, else
+    3, and fewer where they would not fit a block's shared memory beside the
+    partials (2 at D 256 in 16-bit with four heads, 1 in f32)."""
+    width = kernel_width(d, training=False)
+    stage = 2 * UNIT_ROWS * width * itemsize
+    fixed = 4 * ((8 if heads >= 4 else 4) + 1) * heads * (width + 2)
     stages = 4 if stage <= 16384 else 3
-    warps = 8 if heads >= 4 else 4
-    return stages * stage + 4 * (warps + 1) * heads * (d + 2) + 4 * stages * UNIT_ROWS \
-        + 16 * stages
+    while stages > 1 and stages * (stage + 4 * UNIT_ROWS + 16) + fixed > BLOCK_SMEM_MAX:
+        stages -= 1
+    return stages * (stage + 4 * UNIT_ROWS + 16) + fixed
 
 
 def resident_blocks(itemsize: int, d: int, heads: int) -> int:
@@ -86,7 +98,9 @@ def resident_blocks(itemsize: int, d: int, heads: int) -> int:
     132 SMs times the fewer of what an SM's shared memory and its registers
     hold."""
     threads = 32 * ((8 if heads >= 4 else 4) + 1)
-    regs = -(-SPLIT_REGISTERS[(itemsize, d, heads)] // 8) * 8
+    width = kernel_width(d, training=False)
+    exact, below = SPLIT_REGISTERS[(itemsize, width, heads)]
+    regs = -(-(exact if d == width else below) // 8) * 8
     by_smem = SM_SMEM_BYTES // (split_smem_bytes(itemsize, d, heads) + BLOCK_SMEM_RESERVED)
     return H100_SMS * min(by_smem, SM_REGISTERS // (regs * threads))
 
@@ -151,8 +165,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         return decode_attention_plain(q, k_cache, v_cache, cache_len, scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu tensors, not {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"decode_attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    kernel_width(d, training=False)
     if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in DTYPE_CODES:
         raise TypeError(f"q and caches must share one of {list(DTYPE_CODES)}, got "
                         f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")

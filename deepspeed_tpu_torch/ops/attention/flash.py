@@ -25,7 +25,14 @@ from ..op_builder import CudaKernel
 
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-HEAD_DIMS = (64, 128)
+#: the row widths the attention kernels are built for; a head_dim d runs on
+#: the narrowest that holds it, with the real d passed at run time
+KERNEL_WIDTHS = (64, 128, 256)
+#: the widest head_dim the serving kernels (flash forward, dense and paged
+#: decode) take, and the widest the training kernels (flash and block-sparse,
+#: forward and backward) take
+SERVE_MAX_HEAD_DIM = 256
+TRAIN_MAX_HEAD_DIM = 128
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 FLASH_FWD = CudaKernel(
@@ -59,12 +66,25 @@ def _check(q3, k3, v3, slopes, n_heads):
         raise ValueError(f"alibi slopes must be ({n_heads},), got {tuple(slopes.shape)}")
 
 
-def _check_cuda(name: str, tensors, slopes, device) -> None:
-    """What the CUDA kernels take: head_dim 64 or 128, contiguous 16-byte-aligned
-    tensors on one device, f32 slopes."""
-    d = tensors[0].shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head_dim in {HEAD_DIMS}, got {d}")
+def kernel_width(d: int, training: bool) -> int:
+    """The row width of the attention kernels' build that runs head_dim ``d``:
+    the narrowest of :data:`KERNEL_WIDTHS` that holds it. Raises ValueError
+    for a ``d`` the card's kernels do not take: one that is not a multiple of
+    8 (a row must be whole 16-byte pieces for the TMA and bulk copies), above
+    :data:`SERVE_MAX_HEAD_DIM`, or above :data:`TRAIN_MAX_HEAD_DIM` where
+    ``training`` (the backward kernels are built up to 128)."""
+    limit = TRAIN_MAX_HEAD_DIM if training else SERVE_MAX_HEAD_DIM
+    if d <= 0 or d % 8 or d > limit:
+        mode = "training" if training else "serving"
+        raise ValueError(f"head_dim {d} has no attention kernel on the card for {mode}: "
+                         f"the kernels take a multiple of 8 up to {limit}")
+    return next(w for w in KERNEL_WIDTHS if w >= d)
+
+
+def _check_cuda(name: str, tensors, slopes, device, training: bool) -> None:
+    """What the CUDA kernels take: a head_dim :func:`kernel_width` accepts,
+    contiguous 16-byte-aligned tensors on one device, f32 slopes."""
+    kernel_width(tensors[0].shape[-1], training)
     if not all(x.device == device and x.is_contiguous() and x.data_ptr() % 16 == 0
                for x in tensors):
         raise ValueError(f"{name} kernel takes contiguous, 16-byte-aligned inputs "
@@ -97,7 +117,7 @@ def flash_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q3, k3, v3)):
         raise ValueError("flash_fwd's kernel output carries no gradient: under autograd "
                          "call flash_attention (FlashAttnFunction) instead")
-    _check_cuda("flash_fwd", (q3, k3, v3), slopes, q3.device)
+    _check_cuda("flash_fwd", (q3, k3, v3), slopes, q3.device, training=False)
     bh, t, d = q3.shape
     o = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
@@ -167,7 +187,7 @@ def _check_bwd(name, q3, k3, v3, do3, lse, delta, slopes, n_heads) -> None:
     if q3.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {q3.device}")
     if q3.device.type == "cuda":
-        _check_cuda(name, (q3, k3, v3, do3, lse, delta), slopes, q3.device)
+        _check_cuda(name, (q3, k3, v3, do3, lse, delta), slopes, q3.device, training=True)
 
 
 def flash_bwd_dq(q3, k3, v3, do3, lse, delta, slopes=None, softmax_scale=None,
@@ -256,6 +276,8 @@ class FlashAttnFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q3, k3, v3, slopes, softmax_scale, causal, n_heads):
+        if q3.device.type == "cuda" and any(ctx.needs_input_grad[:3]):
+            kernel_width(q3.shape[-1], training=True)   # before the forward launches
         o3, lse = flash_fwd(q3, k3, v3, slopes, softmax_scale, causal, n_heads)
         ctx.save_for_backward(q3, k3, v3, o3, lse, slopes)
         ctx.args = (softmax_scale, causal, n_heads)

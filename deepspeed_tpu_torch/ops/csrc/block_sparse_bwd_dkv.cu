@@ -68,6 +68,11 @@
 // - One launch a call. The longest walks start first; they are not split
 //   over blocks.
 //
+// Head dims: built for D 64 and 128, with the real head_dim d (a multiple of
+// 8, at most D) at run time, as csrc/flash_fwd.cu: d-wide TMA maps zero-fill
+// the columns past d, rows lie d apart, stores stop at d (the f32 kernel
+// stages zeros past d).
+//
 // float32 keeps the first version's kernel (block_sparse_bwd_dkv_kernel) on
 // the CUDA cores, chosen by dtype alone as in K1, K3, K4 and K8: wgmma's only
 // f32 input is TF32 (~10 mantissa bits), which would fail the f32 limits.
@@ -96,7 +101,7 @@ block_sparse_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             const int* __restrict__ idx, const int* __restrict__ cnt,
-                            T* __restrict__ dk, T* __restrict__ dv, int t, int n_heads,
+                            T* __restrict__ dk, T* __restrict__ dv, int t, int d, int n_heads,
                             int max_n, float scale, int causal) {
     using G = Geom<B, D>;
     constexpr int NT = G::NT, SUB = G::SUB, CJ = G::CJ, DC = G::DC, DP = G::DP, SP = G::SP;
@@ -118,13 +123,13 @@ block_sparse_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int nb = t / B;
     const int head = bh % n_heads;
     const int k0 = kb * B;
-    const size_t base = (size_t)bh * t * D;
+    const size_t base = (size_t)bh * t * d;
     const size_t row_base = (size_t)bh * t;
     const int* walk = idx + ((size_t)head * nb + kb) * max_n;
     const int nnz = cnt[head * nb + kb];
 
-    stage<T, D, B, DP, NT>(ks, k + base + (size_t)k0 * D, tid);
-    stage<T, D, B, DP, NT>(vs, v + base + (size_t)k0 * D, tid);
+    stage<T, D, B, DP, NT>(ks, k + base + (size_t)k0 * d, d, tid);
+    stage<T, D, B, DP, NT>(vs, v + base + (size_t)k0 * d, d, tid);
 
     float dk_acc[4][DC], dv_acc[4][DC];
 #pragma unroll
@@ -137,8 +142,8 @@ block_sparse_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int sub = 0; sub < B; sub += SUB) {
             const int q0 = qb * B + sub;
             __syncthreads();            // k/v are staged; the previous tile's q/do/p/ds reads are done
-            stage<T, D, SUB, DP, NT>(qs, q + base + (size_t)q0 * D, tid);
-            stage<T, D, SUB, DP, NT>(dos, dout + base + (size_t)q0 * D, tid);
+            stage<T, D, SUB, DP, NT>(qs, q + base + (size_t)q0 * d, d, tid);
+            stage<T, D, SUB, DP, NT>(dos, dout + base + (size_t)q0 * d, d, tid);
             if (tid < SUB) {
                 lse_s[tid] = lse[row_base + q0 + tid];
                 delta_s[tid] = delta[row_base + q0 + tid];
@@ -214,9 +219,10 @@ block_sparse_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-        const size_t off = base + (size_t)(k0 + ty * 4 + i) * D;
+        const size_t off = base + (size_t)(k0 + ty * 4 + i) * d;
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
+            if (tx + 16 * c >= d) continue;
             dk[off + tx + 16 * c] = from_f32<T>(dk_acc[i][c]);
             dv[off + tx + 16 * c] = from_f32<T>(dv_acc[i][c]);
         }
@@ -227,15 +233,16 @@ struct Dkv {
     template <typename T, int B, int D>
     static cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, const void* idx,
-                           const void* cnt, void* dk, void* dv, int bh, int t, int n_heads,
-                           int max_n, float scale, int causal, cudaStream_t stream) {
+                           const void* cnt, void* dk, void* dv, int bh, int t, int d,
+                           int n_heads, int max_n, float scale, int causal,
+                           cudaStream_t stream) {
         return block_sparse::launch(
             block_sparse_bwd_dkv_kernel<T, B, D>, smem_bytes<B, D>(), t / B, bh,
             Geom<B, D>::NT, stream, static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), static_cast<const T*>(dout),
             static_cast<const float*>(lse), static_cast<const float*>(delta),
             static_cast<const int*>(idx), static_cast<const int*>(cnt), static_cast<T*>(dk),
-            static_cast<T*>(dv), t, n_heads, max_n, scale, causal);
+            static_cast<T*>(dv), t, d, n_heads, max_n, scale, causal);
     }
 };
 
@@ -270,7 +277,7 @@ wgmma_bs_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
              const float* __restrict__ lse, const float* __restrict__ delta,
              const int* __restrict__ members, const int* __restrict__ tile_idx,
              const int* __restrict__ tile_cnt, const int* __restrict__ tile_order,
-             T* __restrict__ dk, T* __restrict__ dv, int t, int n_heads, int n_batch,
+             T* __restrict__ dk, T* __restrict__ dv, int t, int d, int n_heads, int n_batch,
              int n_tiles, int max_slots, int log2u, float scale, int causal) {
     using C = Cfg<D>;
     constexpr int NP = C::NP, NST = C::NST;
@@ -453,11 +460,12 @@ wgmma_bs_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
         if (my_unit >= 0) {
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
-                const size_t off = ((size_t)bh * t + ka + 8 * i) * D;
+                const size_t off = ((size_t)bh * t + ka + 8 * i) * d;
 #pragma unroll
                 for (int p = 0; p < NP; ++p)
 #pragma unroll
                     for (int j = 0; j < 8; ++j) {
+                        if (PANEL * p + 8 * j >= d) continue;     // d is a multiple of 8
                         const int c = PANEL * p + 8 * j + 2 * (lane % 4), a = 4 * j + 2 * i;
                         *reinterpret_cast<uint32_t*>(dk + off + c) =
                             pack2<T>(dk_acc[p][a], dk_acc[p][a + 1]);
@@ -473,7 +481,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* members, const void* tile_idx,
                    const void* tile_cnt, const void* tile_order, void* dk, void* dv, int bh,
-                   int t, int n_heads, int block, int max_slots, float scale, int causal,
+                   int t, int d, int n_heads, int block, int max_slots, float scale, int causal,
                    cudaStream_t stream) {
     using C = Cfg<D>;
     constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -481,10 +489,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     const int log2u = unit == 16 ? 4 : unit == 32 ? 5 : 6;
     CUtensorMap mq, mk, mv, mdo;
     cudaError_t err;
-    if ((err = make_map_3d(&mq, q, bh, t, D, bf16, unit)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mk, k, bh, t, D, bf16, unit)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mv, v, bh, t, D, bf16, unit)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mdo, dout, bh, t, D, bf16, unit)) != cudaSuccess) return err;
+    // maps d wide: columns past d come in as zeros (flash_fwd.cu)
+    if ((err = make_map_3d(&mq, q, bh, t, d, bf16, unit)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mk, k, bh, t, d, bf16, unit)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mv, v, bh, t, d, bf16, unit)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mdo, dout, bh, t, d, bf16, unit)) != cudaSuccess) return err;
     err = cudaFuncSetAttribute(wgmma_bs_dkv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::SMEM);
     if (err != cudaSuccess) return err;
@@ -493,8 +502,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
         mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<const int*>(members), static_cast<const int*>(tile_idx),
         static_cast<const int*>(tile_cnt), static_cast<const int*>(tile_order),
-        static_cast<T*>(dk), static_cast<T*>(dv), t, n_heads, bh / n_heads, n_tiles, max_slots,
-        log2u, scale, causal);
+        static_cast<T*>(dk), static_cast<T*>(dv), t, d, n_heads, bh / n_heads, n_tiles,
+        max_slots, log2u, scale, causal);
     return cudaGetLastError();
 }
 
@@ -504,24 +513,25 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const v
                      const void* tile_idx, const void* tile_cnt, const void* tile_order,
                      void* dk, void* dv, int bh, int t, int n_heads, int block, int max_slots,
                      float scale, int causal, cudaStream_t stream) {
-    if (d == 64)
+    if (build_width(d, 128) == 64)
         return launch<T, 64>(q, k, v, dout, lse, delta, members, tile_idx, tile_cnt, tile_order,
-                             dk, dv, bh, t, n_heads, block, max_slots, scale, causal, stream);
+                             dk, dv, bh, t, d, n_heads, block, max_slots, scale, causal, stream);
     return launch<T, 128>(q, k, v, dout, lse, delta, members, tile_idx, tile_cnt, tile_order, dk,
-                          dv, bh, t, n_heads, block, max_slots, scale, causal, stream);
+                          dv, bh, t, d, n_heads, block, max_slots, scale, causal, stream);
 }
 
 }  // namespace wg
 
 }  // namespace
 
-// q, k, v, dout, dk, dv: (bh, t, d) contiguous in `dtype`; lse, delta: (bh, t)
-// f32. The head of row block i is i % n_heads. float32 walks the transposed
-// table idx (n_heads, t / block, max_n) and cnt (n_heads, t / block); bf16
-// and fp16 walk the tile tables of build_bwd_tile_tables (tiles of 64 k rows):
-// members (n_heads, n_tiles, 64 / min(block, 64)), tile_idx (n_heads, n_tiles,
-// max_slots), tile_cnt (n_heads, n_tiles) and tile_order (n_heads * n_tiles),
-// n_tiles = ceil(t / 64). All int32. Returns cudaGetLastError().
+// q, k, v, dout, dk, dv: (bh, t, d) contiguous in `dtype`, d a multiple of 8 up
+// to 128; lse, delta: (bh, t) f32. The head of row block i is i % n_heads.
+// float32 walks the transposed table idx (n_heads, t / block, max_n) and cnt
+// (n_heads, t / block); bf16 and fp16 walk the tile tables of
+// build_bwd_tile_tables (tiles of 64 k rows): members (n_heads, n_tiles, 64 /
+// min(block, 64)), tile_idx (n_heads, n_tiles, max_slots), tile_cnt (n_heads,
+// n_tiles) and tile_order (n_heads * n_tiles), n_tiles = ceil(t / 64). All
+// int32. Returns cudaGetLastError().
 extern "C" int block_sparse_bwd_dkv(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     const void* idx, const void* cnt, const void* members,
@@ -533,10 +543,10 @@ extern "C" int block_sparse_bwd_dkv(const void* q, const void* k, const void* v,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == DS_F32)
         return (int)block_sparse::by_block<Dkv, float>(block, d, q, k, v, dout, lse, delta, idx,
-                                                       cnt, dk, dv, bh, t, n_heads, max_n, scale,
-                                                       causal, s);
+                                                       cnt, dk, dv, bh, t, d, n_heads, max_n,
+                                                       scale, causal, s);
     const int slots = 64 / (block < 64 ? block : 64);
-    if ((dtype != DS_F16 && dtype != DS_BF16) || (d != 64 && d != 128) ||
+    if ((dtype != DS_F16 && dtype != DS_BF16) || build_width(d, 128) == 0 ||
         (block != 16 && block != 32 && block != 64 && block != 128) || max_slots <= 0 ||
         max_slots % slots != 0 || members == nullptr || tile_idx == nullptr ||
         tile_cnt == nullptr || tile_order == nullptr)

@@ -65,6 +65,11 @@
 //   empty writes zeros (the output is uninitialised). One launch a call, the
 //   longest walks first, none split over blocks.
 //
+// Head dims: built for D 64 and 128, with the real head_dim d (a multiple of
+// 8, at most D) at run time, as csrc/flash_fwd.cu: d-wide TMA maps zero-fill
+// the columns past d, rows lie d apart, stores stop at d (the f32 kernel
+// stages zeros past d).
+//
 // float32 keeps the first version's kernel (block_sparse_bwd_dq_kernel) on
 // the CUDA cores, chosen by dtype alone as in K1, K3, K4, K6, K8 and K10:
 // wgmma's only f32 input is TF32 (~10 mantissa bits), which would fail the
@@ -93,8 +98,8 @@ block_sparse_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            const int* __restrict__ idx, const int* __restrict__ cnt,
-                           T* __restrict__ dq, int t, int n_heads, int max_n, float scale,
-                           int causal) {
+                           T* __restrict__ dq, int t, int d, int n_heads, int max_n,
+                           float scale, int causal) {
     using G = Geom<B, D>;
     constexpr int NT = G::NT, SUB = G::SUB, CJ = G::CJ, DC = G::DC, DP = G::DP, SP = G::SP;
     extern __shared__ float smem[];
@@ -112,12 +117,12 @@ block_sparse_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int nb = t / B;
     const int head = bh % n_heads;
     const int q0 = qb * B;
-    const size_t base = (size_t)bh * t * D;
+    const size_t base = (size_t)bh * t * d;
     const int* walk = idx + ((size_t)head * nb + qb) * max_n;
     const int nnz = cnt[head * nb + qb];
 
-    stage<T, D, B, DP, NT>(qs, q + base + (size_t)q0 * D, tid);
-    stage<T, D, B, DP, NT>(dos, dout + base + (size_t)q0 * D, tid);
+    stage<T, D, B, DP, NT>(qs, q + base + (size_t)q0 * d, d, tid);
+    stage<T, D, B, DP, NT>(dos, dout + base + (size_t)q0 * d, d, tid);
     float lse_r[4], delta_r[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -137,8 +142,8 @@ block_sparse_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int sub = 0; sub < B; sub += SUB) {
             const int k0 = kb * B + sub;
             __syncthreads();            // q/do are staged; the previous tile's k/ds reads are done
-            stage<T, D, SUB, DP, NT>(ks, k + base + (size_t)k0 * D, tid);
-            stage<T, D, SUB, DP, NT>(vs, v + base + (size_t)k0 * D, tid);
+            stage<T, D, SUB, DP, NT>(ks, k + base + (size_t)k0 * d, d, tid);
+            stage<T, D, SUB, DP, NT>(vs, v + base + (size_t)k0 * d, d, tid);
             __syncthreads();
 
             // s = q k^T and dp = do v^T, summed over d in the forward's order
@@ -201,9 +206,10 @@ block_sparse_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-        const size_t off = base + (size_t)(q0 + ty * 4 + i) * D;
+        const size_t off = base + (size_t)(q0 + ty * 4 + i) * d;
 #pragma unroll
-        for (int c = 0; c < DC; ++c) dq[off + tx + 16 * c] = from_f32<T>(acc[i][c]);
+        for (int c = 0; c < DC; ++c)
+            if (tx + 16 * c < d) dq[off + tx + 16 * c] = from_f32<T>(acc[i][c]);
     }
 }
 
@@ -211,15 +217,15 @@ struct Dq {
     template <typename T, int B, int D>
     static cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, const void* idx,
-                           const void* cnt, void* dq, int bh, int t, int n_heads, int max_n,
-                           float scale, int causal, cudaStream_t stream) {
+                           const void* cnt, void* dq, int bh, int t, int d, int n_heads,
+                           int max_n, float scale, int causal, cudaStream_t stream) {
         return block_sparse::launch(
             block_sparse_bwd_dq_kernel<T, B, D>, smem_bytes<B, D>(), t / B, bh,
             Geom<B, D>::NT, stream, static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), static_cast<const T*>(dout),
             static_cast<const float*>(lse), static_cast<const float*>(delta),
             static_cast<const int*>(idx), static_cast<const int*>(cnt), static_cast<T*>(dq),
-            t, n_heads, max_n, scale, causal);
+            t, d, n_heads, max_n, scale, causal);
     }
 };
 
@@ -250,7 +256,7 @@ wgmma_bs_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
             const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
             const float* __restrict__ lse, const float* __restrict__ delta,
             const int* __restrict__ tile_idx, const int* __restrict__ tile_cnt,
-            const int* __restrict__ tile_order, T* __restrict__ dq, int t, int n_heads,
+            const int* __restrict__ tile_order, T* __restrict__ dq, int t, int d, int n_heads,
             int n_batch, int n_tiles, int max_slots, int log2u, float scale, int causal) {
     using C = Cfg<D>;
     constexpr int NP = C::NP, NST = C::NST;
@@ -401,11 +407,12 @@ wgmma_bs_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
         for (int i = 0; i < 2; ++i) {
             const int row = ra + 8 * i;
             if (row < t) {
-                T* dqrow = dq + ((size_t)bh * t + row) * D;
+                T* dqrow = dq + ((size_t)bh * t + row) * d;
 #pragma unroll
                 for (int p = 0; p < NP; ++p)
 #pragma unroll
                     for (int j = 0; j < 8; ++j) {
+                        if (PANEL * p + 8 * j >= d) continue;     // d is a multiple of 8
                         const int a = 4 * j + 2 * i;
                         *reinterpret_cast<uint32_t*>(dqrow + PANEL * p + 8 * j + 2 * (lane % 4)) =
                             pack2<T>(acc[p][a], acc[p][a + 1]);
@@ -419,7 +426,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* tile_idx,
                    const void* tile_cnt, const void* tile_order, void* dq, int bh, int t,
-                   int n_heads, int block, int max_slots, float scale, int causal,
+                   int d, int n_heads, int block, int max_slots, float scale, int causal,
                    cudaStream_t stream) {
     using C = Cfg<D>;
     constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -427,10 +434,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     const int log2u = unit == 16 ? 4 : unit == 32 ? 5 : 6;
     CUtensorMap mq, mk, mv, mdo;
     cudaError_t err;
-    if ((err = make_map_3d(&mq, q, bh, t, D, bf16)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mk, k, bh, t, D, bf16, unit)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mv, v, bh, t, D, bf16, unit)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mdo, dout, bh, t, D, bf16)) != cudaSuccess) return err;
+    // maps d wide: columns past d come in as zeros (flash_fwd.cu)
+    if ((err = make_map_3d(&mq, q, bh, t, d, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mk, k, bh, t, d, bf16, unit)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mv, v, bh, t, d, bf16, unit)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mdo, dout, bh, t, d, bf16)) != cudaSuccess) return err;
     err = cudaFuncSetAttribute(wgmma_bs_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::SMEM);
     if (err != cudaSuccess) return err;
@@ -438,7 +446,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     wgmma_bs_dq<T, D><<<bh * n_tiles, C::THREADS, C::SMEM, stream>>>(
         mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<const int*>(tile_idx), static_cast<const int*>(tile_cnt),
-        static_cast<const int*>(tile_order), static_cast<T*>(dq), t, n_heads, bh / n_heads,
+        static_cast<const int*>(tile_order), static_cast<T*>(dq), t, d, n_heads, bh / n_heads,
         n_tiles, max_slots, log2u, scale, causal);
     return cudaGetLastError();
 }
@@ -449,19 +457,19 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const v
                      const void* tile_cnt, const void* tile_order, void* dq, int bh, int t,
                      int n_heads, int block, int max_slots, float scale, int causal,
                      cudaStream_t stream) {
-    if (d == 64)
+    if (build_width(d, 128) == 64)
         return launch<T, 64>(q, k, v, dout, lse, delta, tile_idx, tile_cnt, tile_order, dq, bh,
-                             t, n_heads, block, max_slots, scale, causal, stream);
+                             t, d, n_heads, block, max_slots, scale, causal, stream);
     return launch<T, 128>(q, k, v, dout, lse, delta, tile_idx, tile_cnt, tile_order, dq, bh, t,
-                          n_heads, block, max_slots, scale, causal, stream);
+                          d, n_heads, block, max_slots, scale, causal, stream);
 }
 
 }  // namespace wg
 
 }  // namespace
 
-// q, k, v, dout, dq: (bh, t, d) contiguous in `dtype`; lse, delta: (bh, t)
-// f32. The head of row block i is i % n_heads. float32 walks the forward
+// q, k, v, dout, dq: (bh, t, d) contiguous in `dtype`, d a multiple of 8 up to
+// 128; lse, delta: (bh, t) f32. The head of row block i is i % n_heads. float32 walks the forward
 // table idx (n_heads, t / block, max_n) and cnt (n_heads, t / block); bf16 and
 // fp16 walk the tile tables of build_tile_tables (tiles of 64 q rows, the
 // forward kernel's): tile_idx (n_heads, n_tiles, max_slots), tile_cnt
@@ -478,10 +486,10 @@ extern "C" int block_sparse_bwd_dq(const void* q, const void* k, const void* v,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == DS_F32)
         return (int)block_sparse::by_block<Dq, float>(block, d, q, k, v, dout, lse, delta, idx,
-                                                      cnt, dq, bh, t, n_heads, max_n, scale,
-                                                      causal, s);
+                                                      cnt, dq, bh, t, d, n_heads, max_n,
+                                                      scale, causal, s);
     const int slots = 64 / (block < 64 ? block : 64);
-    if ((dtype != DS_F16 && dtype != DS_BF16) || (d != 64 && d != 128) ||
+    if ((dtype != DS_F16 && dtype != DS_BF16) || build_width(d, 128) == 0 ||
         (block != 16 && block != 32 && block != 64 && block != 128) || max_slots <= 0 ||
         max_slots % slots != 0 || tile_idx == nullptr || tile_cnt == nullptr ||
         tile_order == nullptr)

@@ -2,7 +2,8 @@
 // paths of block_sparse_fwd.cu, block_sparse_bwd_dq.cu and
 // block_sparse_bwd_dkv.cu): the geometry of a thread block, the staging of
 // row tiles into shared memory, the check of the C entries' arguments and the
-// dispatch over layout block and head_dim.
+// dispatch over layout block and the build width of head_dim d (64 or 128;
+// rows are d apart in device memory, and a tile's columns d .. D-1 are zero).
 //
 // One thread block owns one layout block of B rows (B = 16, 32, 64 or 128):
 // a q-block in the forward and dq kernels, a k-block in the dk/dv kernel. It
@@ -31,15 +32,17 @@ struct Geom {
     static_assert(B % 16 == 0 && D % 16 == 0, "rows and head_dim split over 16 lanes");
 };
 
-// ROWS rows of a row-major (., D) matrix of T at src, widened to f32 into dst
-// with row stride STRIDE, as 16-byte loads spread over the block's NT threads
+// ROWS rows of a row-major (., d) matrix of T at src, widened to f32 into the
+// first D columns of dst with row stride STRIDE (columns d .. D-1 zero), as
+// 16-byte loads spread over the block's NT threads
 template <typename T, int D, int ROWS, int STRIDE, int NT>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int tid) {
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int d, int tid) {
     constexpr int VEC = vec_elems<T>();
     constexpr int ROW_VECS = D / VEC;
     for (int vi = tid; vi < ROWS * ROW_VECS; vi += NT) {
         const int r = vi / ROW_VECS, c = (vi % ROW_VECS) * VEC;
-        store16_f32<T>(dst + r * STRIDE + c, load16(src + (size_t)r * D + c));
+        store16_f32<T>(dst + r * STRIDE + c,
+                       c < d ? load16(src + (size_t)r * d + c) : make_uint4(0u, 0u, 0u, 0u));
     }
 }
 
@@ -49,11 +52,13 @@ inline bool bad_args(int bh, int t, int n_heads, int block, int max_n) {
            block <= 0 || t % block != 0 || max_n <= 0;
 }
 
-// F::run<T, B, D>(args...) for the runtime layout block and head_dim
+// F::run<T, B, D>(args...) for the runtime layout block and the build width D
+// of head_dim d (common.cuh: build_width), d itself among the args
 template <typename F, typename T, int B, typename... A>
 cudaError_t by_d(int d, A... args) {
-    if (d == 64) return F::template run<T, B, 64>(args...);
-    if (d == 128) return F::template run<T, B, 128>(args...);
+    const int width = build_width(d, 128);
+    if (width == 64) return F::template run<T, B, 64>(args...);
+    if (width == 128) return F::template run<T, B, 128>(args...);
     return cudaErrorInvalidValue;
 }
 

@@ -62,6 +62,11 @@
 //   the lse for rows < t. Maps are 3-D over (d, t, b*h), so a q box past t is
 //   zero-filled; those rows own nothing and are not written.
 //
+// Head dims: built for D 64 and 128, with the real head_dim d (a multiple of
+// 8, at most D) at run time, as csrc/flash_fwd.cu: d-wide TMA maps zero-fill
+// the columns past d, rows lie d apart, stores stop at d (the f32 kernel
+// stages zeros past d).
+//
 // float32 keeps the first version's kernel (block_sparse_fwd_kernel) on the
 // CUDA cores, chosen by dtype alone as in K1, K3 and K4: wgmma's only f32
 // input is TF32 (~10 mantissa bits), which would fail the f32 limits, while
@@ -89,8 +94,8 @@ __global__ void __launch_bounds__(Geom<B, D>::NT)
 block_sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ idx,
                         const int* __restrict__ cnt, T* __restrict__ o,
-                        float* __restrict__ lse, int t, int n_heads, int max_n, float scale,
-                        int causal) {
+                        float* __restrict__ lse, int t, int d, int n_heads, int max_n,
+                        float scale, int causal) {
     using G = Geom<B, D>;
     constexpr int NT = G::NT, SUB = G::SUB, CJ = G::CJ, DC = G::DC, DP = G::DP, SP = G::SP;
     extern __shared__ float smem[];
@@ -107,11 +112,11 @@ block_sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int nb = t / B;
     const int head = bh % n_heads;
     const int q0 = qb * B;
-    const size_t base = (size_t)bh * t * D;
+    const size_t base = (size_t)bh * t * d;
     const int* walk = idx + ((size_t)head * nb + qb) * max_n;
     const int nnz = cnt[head * nb + qb];
 
-    stage<T, D, B, DP, NT>(qs, q + base + (size_t)q0 * D, tid);
+    stage<T, D, B, DP, NT>(qs, q + base + (size_t)q0 * d, d, tid);
 
     float acc[4][DC];
     float m[4], l[4];
@@ -128,8 +133,8 @@ block_sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int sub = 0; sub < B; sub += SUB) {
             const int k0 = kb * B + sub;
             __syncthreads();            // q is staged; the previous tile's k/v/p reads are done
-            stage<T, D, SUB, DP, NT>(ks, k + base + (size_t)k0 * D, tid);
-            stage<T, D, SUB, D, NT>(vs, v + base + (size_t)k0 * D, tid);
+            stage<T, D, SUB, DP, NT>(ks, k + base + (size_t)k0 * d, d, tid);
+            stage<T, D, SUB, D, NT>(vs, v + base + (size_t)k0 * d, d, tid);
             __syncthreads();
 
             float s[4][CJ];
@@ -199,9 +204,10 @@ block_sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float lt = warp_sum16(l[i]);
         const float l_safe = lt > 0.f ? lt : 1.f;
         const int row = q0 + ty * 4 + i;
-        const size_t off = base + (size_t)row * D;
+        const size_t off = base + (size_t)row * d;
 #pragma unroll
-        for (int c = 0; c < DC; ++c) o[off + tx + 16 * c] = from_f32<T>(acc[i][c] / l_safe);
+        for (int c = 0; c < DC; ++c)
+            if (tx + 16 * c < d) o[off + tx + 16 * c] = from_f32<T>(acc[i][c] / l_safe);
         if (tx == 0) lse[(size_t)bh * t + row] = lt > 0.f ? m[i] + logf(l_safe) : DS_NEG_INF;
     }
 }
@@ -209,13 +215,14 @@ block_sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Fwd {
     template <typename T, int B, int D>
     static cudaError_t run(const void* q, const void* k, const void* v, const void* idx,
-                           const void* cnt, void* o, void* lse, int bh, int t, int n_heads,
-                           int max_n, float scale, int causal, cudaStream_t stream) {
+                           const void* cnt, void* o, void* lse, int bh, int t, int d,
+                           int n_heads, int max_n, float scale, int causal,
+                           cudaStream_t stream) {
         return block_sparse::launch(
             block_sparse_fwd_kernel<T, B, D>, smem_bytes<B, D>(), t / B, bh, Geom<B, D>::NT,
             stream, static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), static_cast<const int*>(idx),
-            static_cast<const int*>(cnt), static_cast<T*>(o), static_cast<float*>(lse), t,
+            static_cast<const int*>(cnt), static_cast<T*>(o), static_cast<float*>(lse), t, d,
             n_heads, max_n, scale, causal);
     }
 };
@@ -241,15 +248,18 @@ struct Cfg {
 // batch blockIdx.x % n_batch; 64 q rows from tile * 64. Units of
 // 2^log2u rows; an entry is k_unit << 8 | owner bits (bit g: the tile's q-unit
 // g owns it); a tile's entries are padded to whole stages of 64 >> log2u.
-template <typename T, int D>
+template <typename T, int D, bool EXACT>
 __global__ void __launch_bounds__(256, D == 64 ? 2 : 1)
 wgmma_bs_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ tile_idx,
              const int* __restrict__ tile_cnt, const int* __restrict__ tile_order,
-             T* __restrict__ o, float* __restrict__ lse, int t, int n_heads, int n_batch,
+             T* __restrict__ o, float* __restrict__ lse, int t, int d, int n_heads, int n_batch,
              int n_tiles, int max_slots, int log2u, float scale, int causal) {
     using C = Cfg<D>;
     constexpr int NP = C::NP, NST = C::NST;
+    // the exact build (d == D) folds the strides and guards below to constants
+    if constexpr (EXACT) d = D;
+
     extern __shared__ uint8_t smem_raw[];
     const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
     const uint32_t ring = q_s + C::Q_BYTES;
@@ -409,11 +419,12 @@ wgmma_bs_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
             const int row = ra + 8 * i;
             if (row < t) {
                 const float l_safe = l[i] > 0.f ? l[i] : 1.f;
-                T* orow = o + ((size_t)bh * t + row) * D;
+                T* orow = o + ((size_t)bh * t + row) * d;
 #pragma unroll
                 for (int p = 0; p < NP; ++p)
 #pragma unroll
                     for (int j = 0; j < 8; ++j) {
+                        if (PANEL * p + 8 * j >= d) continue;     // d is a multiple of 8
                         const float lo = acc[p][4 * j + 2 * i] / l_safe;
                         const float hi = acc[p][4 * j + 2 * i + 1] / l_safe;
                         *reinterpret_cast<uint32_t*>(orow + PANEL * p + 8 * j + 2 * (lane % 4)) =
@@ -432,7 +443,7 @@ wgmma_bs_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* tile_idx,
                    const void* tile_cnt, const void* tile_order, void* o, void* lse, int bh,
-                   int t, int n_heads, int block, int max_slots, float scale, int causal,
+                   int t, int d, int n_heads, int block, int max_slots, float scale, int causal,
                    cudaStream_t stream) {
     using C = Cfg<D>;
     constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -440,16 +451,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tile
     const int log2u = unit == 16 ? 4 : unit == 32 ? 5 : 6;
     CUtensorMap mq, mk, mv;
     cudaError_t err;
-    if ((err = make_map_3d(&mq, q, bh, t, D, bf16)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mk, k, bh, t, D, bf16, unit)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mv, v, bh, t, D, bf16, unit)) != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(wgmma_bs_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)C::SMEM);
+    // maps d wide: columns past d come in as zeros (flash_fwd.cu)
+    if ((err = make_map_3d(&mq, q, bh, t, d, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mk, k, bh, t, d, bf16, unit)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mv, v, bh, t, d, bf16, unit)) != cudaSuccess) return err;
+    auto* kernel = d == D ? wgmma_bs_fwd<T, D, true> : wgmma_bs_fwd<T, D, false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
     if (err != cudaSuccess) return err;
     const int n_tiles = (t + 63) / 64;
-    wgmma_bs_fwd<T, D><<<bh * n_tiles, C::THREADS, C::SMEM, stream>>>(
+    kernel<<<bh * n_tiles, C::THREADS, C::SMEM, stream>>>(
         mq, mk, mv, static_cast<const int*>(tile_idx), static_cast<const int*>(tile_cnt),
-        static_cast<const int*>(tile_order), static_cast<T*>(o), static_cast<float*>(lse), t,
+        static_cast<const int*>(tile_order), static_cast<T*>(o), static_cast<float*>(lse), t, d,
         n_heads, bh / n_heads, n_tiles, max_slots, log2u, scale, causal);
     return cudaGetLastError();
 }
@@ -459,10 +471,10 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const v
                      const void* tile_cnt, const void* tile_order, void* o, void* lse, int bh,
                      int t, int n_heads, int block, int max_slots, float scale, int causal,
                      cudaStream_t stream) {
-    if (d == 64)
-        return launch<T, 64>(q, k, v, tile_idx, tile_cnt, tile_order, o, lse, bh, t, n_heads,
+    if (build_width(d, 128) == 64)
+        return launch<T, 64>(q, k, v, tile_idx, tile_cnt, tile_order, o, lse, bh, t, d, n_heads,
                              block, max_slots, scale, causal, stream);
-    return launch<T, 128>(q, k, v, tile_idx, tile_cnt, tile_order, o, lse, bh, t, n_heads,
+    return launch<T, 128>(q, k, v, tile_idx, tile_cnt, tile_order, o, lse, bh, t, d, n_heads,
                           block, max_slots, scale, causal, stream);
 }
 
@@ -470,7 +482,8 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const v
 
 }  // namespace
 
-// q, k, v, o: (bh, t, d) contiguous in `dtype`; lse: (bh, t) f32. The head of
+// q, k, v, o: (bh, t, d) contiguous in `dtype`, d a multiple of 8 up to 128;
+// lse: (bh, t) f32. The head of
 // row block i is i % n_heads. float32 walks the forward table idx (n_heads,
 // t / block, max_n) and cnt (n_heads, t / block); bf16 and fp16 walk the tile
 // tables of build_tile_tables (tiles of 64 q rows): tile_idx (n_heads, n_tiles,
@@ -485,9 +498,9 @@ extern "C" int block_sparse_fwd(const void* q, const void* k, const void* v, con
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == DS_F32)
         return (int)block_sparse::by_block<Fwd, float>(block, d, q, k, v, idx, cnt, o, lse, bh,
-                                                       t, n_heads, max_n, scale, causal, s);
+                                                       t, d, n_heads, max_n, scale, causal, s);
     const int slots = 64 / (block < 64 ? block : 64);
-    if ((dtype != DS_F16 && dtype != DS_BF16) || (d != 64 && d != 128) ||
+    if ((dtype != DS_F16 && dtype != DS_BF16) || build_width(d, 128) == 0 ||
         (block != 16 && block != 32 && block != 64 && block != 128) || max_slots <= 0 ||
         max_slots % slots != 0 || tile_idx == nullptr || tile_cnt == nullptr ||
         tile_order == nullptr)

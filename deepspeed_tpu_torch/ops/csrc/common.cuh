@@ -25,8 +25,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
     return __float2bfloat16_rn(x);
 }
 
-// 16-byte vectors of T: the unit of the tile loads. A row of D elements (D 64 or
-// 128) is a whole number of them, and the wrappers require 16-byte-aligned tensors.
+// The build width (64, 128 or 256) that runs head_dim d, or 0 where none does:
+// d must be a multiple of 8 (a row of 16-bit values is then whole 16-byte
+// pieces, as the TMA and bulk copies need) and at most max_width. A kernel
+// built for width D takes the real d at run time: rows are d apart in device
+// memory, columns d .. D-1 of its tiles are zeros, and its stores stop at d.
+inline int build_width(int d, int max_width) {
+    if (d <= 0 || d % 8 != 0 || d > max_width) return 0;
+    return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
+// 16-byte vectors of T: the unit of the tile loads. A row of d elements (d a
+// multiple of 8) is a whole number of them, and the wrappers require
+// 16-byte-aligned tensors.
 template <typename T> __host__ __device__ constexpr int vec_elems() { return 16 / (int)sizeof(T); }
 
 template <typename T> __device__ __forceinline__ uint4 load16(const T* p) {

@@ -42,7 +42,6 @@ using decode_split::STAGE_ROWS;
 
 // the rows of one (sequence, kv head) as the body's units: its 64-row tiles,
 // the last cut at len
-template <int D>
 struct DenseUnits {
     static constexpr bool KEYED = false;
     static constexpr int per_stage = 1;
@@ -50,8 +49,9 @@ struct DenseUnits {
     size_t base;        // element offset of the pair's row 0 in k and v
     int len;            // valid rows, at most the capacity
     int count;          // tiles that hold them
+    int d;              // head_dim: the rows' stride
     __device__ __forceinline__ size_t offset(int u) const {
-        return base + (size_t)u * STAGE_ROWS * D;
+        return base + (size_t)u * STAGE_ROWS * d;
     }
     __device__ __forceinline__ int first_row(int u) const { return u * STAGE_ROWS; }
     __device__ __forceinline__ int rows(int u) const {
@@ -59,29 +59,33 @@ struct DenseUnits {
     }
 };
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool EXACT>
 __global__ void __launch_bounds__(decode_split::Shape<T, D, G>::NTHREADS, 1)
 dense_decode_split(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                    const int* __restrict__ lens, T* __restrict__ out, int hk, int g, int cap,
-                   float scale) {
+                   int d, float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
+    // the exact build (d == D) folds the strides and guards below to constants
+    if constexpr (EXACT) d = D;
+
     const int splits = (int)cooperative_groups::this_cluster().num_blocks();
     const int pair = blockIdx.x / splits;
     const int bi = pair / hk, kh = pair % hk;
     const int j0 = blockIdx.y * G;
     const int len = min(max(lens[bi], 0), cap);
-    const DenseUnits<D> units{((size_t)bi * hk + kh) * (size_t)cap * D, len,
-                              (len + STAGE_ROWS - 1) / STAGE_ROWS};
-    const size_t qoff = (((size_t)bi * hk + kh) * g + j0) * D;
-    decode_split::split_block<T, D, G>(q + qoff, kc, vc, out + qoff, len, min(G, g - j0), scale,
-                                       units, smem);
+    const DenseUnits units{((size_t)bi * hk + kh) * (size_t)cap * d, len,
+                           (len + STAGE_ROWS - 1) / STAGE_ROWS, d};
+    const size_t qoff = (((size_t)bi * hk + kh) * g + j0) * d;
+    decode_split::split_block<T, D, G>(q + qoff, kc, vc, out + qoff, len, min(G, g - j0), d,
+                                       scale, units, smem);
 }
 
 template <typename T, int D, int G>
 cudaError_t launch(const void* q, const void* kc, const void* vc, const void* lens, void* out,
-                   int b, int hk, int g, int cap, float scale, int splits, cudaStream_t stream) {
+                   int b, int hk, int g, int cap, int d, float scale, int splits,
+                   cudaStream_t stream) {
     constexpr size_t smem = decode_split::smem_bytes<T, D, G, false>();
-    auto* kernel = dense_decode_split<T, D, G>;
+    auto* kernel = d == D ? dense_decode_split<T, D, G, true> : dense_decode_split<T, D, G, false>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
@@ -99,35 +103,45 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const void* le
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(kc),
                              static_cast<const T*>(vc), static_cast<const int*>(lens),
-                             static_cast<T*>(out), hk, g, cap, scale);
+                             static_cast<T*>(out), hk, g, cap, d, scale);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t dispatch_g(const void* q, const void* kc, const void* vc, const void* lens, void* out,
-                       int b, int hk, int g, int cap, float scale, int splits,
+                       int b, int hk, int g, int cap, int d, float scale, int splits,
                        cudaStream_t stream) {
-    if (g <= 1) return launch<T, D, 1>(q, kc, vc, lens, out, b, hk, g, cap, scale, splits, stream);
-    if (g <= 2) return launch<T, D, 2>(q, kc, vc, lens, out, b, hk, g, cap, scale, splits, stream);
-    return launch<T, D, 4>(q, kc, vc, lens, out, b, hk, g, cap, scale, splits, stream);
+    if (g <= 1)
+        return launch<T, D, 1>(q, kc, vc, lens, out, b, hk, g, cap, d, scale, splits, stream);
+    if (g <= 2)
+        return launch<T, D, 2>(q, kc, vc, lens, out, b, hk, g, cap, d, scale, splits, stream);
+    return launch<T, D, 4>(q, kc, vc, lens, out, b, hk, g, cap, d, scale, splits, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* kc, const void* vc, const void* lens, void* out,
                        int b, int hk, int g, int cap, int d, float scale, int splits,
                        cudaStream_t stream) {
-    if (d == 64)
-        return dispatch_g<T, 64>(q, kc, vc, lens, out, b, hk, g, cap, scale, splits, stream);
-    if (d == 128)
-        return dispatch_g<T, 128>(q, kc, vc, lens, out, b, hk, g, cap, scale, splits, stream);
-    return cudaErrorInvalidValue;
+    switch (build_width(d, 256)) {
+        case 64:
+            return dispatch_g<T, 64>(q, kc, vc, lens, out, b, hk, g, cap, d, scale, splits,
+                                     stream);
+        case 128:
+            return dispatch_g<T, 128>(q, kc, vc, lens, out, b, hk, g, cap, d, scale, splits,
+                                      stream);
+        case 256:
+            return dispatch_g<T, 256>(q, kc, vc, lens, out, b, hk, g, cap, d, scale, splits,
+                                      stream);
+        default:
+            return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
 // q, out: (b, hk*g, d); k_cache, v_cache: (b, hk, cap, d), all contiguous in
-// `dtype`, 16-byte aligned; lens: (b,) int32 valid rows per sequence;
+// `dtype`, 16-byte aligned, d a multiple of 8 up to 256; lens: (b,) int32 valid rows per sequence;
 // splits: the blocks of a cluster that share one (sequence, kv head), 1, 2,
 // 4 or 8. Returns cudaGetLastError(), or the error of a launch the card
 // refuses.

@@ -38,16 +38,22 @@
 // busy, so it runs on the CUDA cores: the S blocks of a pair spread one
 // sequence over S SMs, one producer thread a stage issues one bulk copy a
 // unit for K and one for V (no tensor map, so no host-side encoding: the
-// call costs a plain launch), and a ring of NST stages keeps up to 48-192 KB
-// in flight a block.
+// call costs a plain launch), and a ring of NST stages keeps up to 48-196 KB
+// in flight a block (fewer stages at D 256, where one is 64 or 128 KB).
+//
+// Head dims: the body is built for a row width D of 64, 128 or 256 and
+// takes the real head_dim d (a multiple of 8, at most D) at run time. Rows
+// lie d apart in device memory and in a stage, so a unit is one bulk copy of
+// rows x d elements (a multiple of 16 bytes); q and the output are g x d.
 //
 // Layout of a block: NCW consumer warps (4, or 8 at four heads; see Shape)
 // and one producer warp. K/V stay in the input dtype in shared memory and
 // widen to f32 in registers. Consumer warp w takes rows [w * 64 / NCW,
-// (w + 1) * 64 / NCW) of each stage; its lanes split d in 16-byte
-// pieces (LPR lanes a row, RPI = 32 / LPR rows a warp instruction), and each
-// group of LPR lanes keeps its own online-softmax state over the rows it
-// sees, in registers: acc[g][its d piece] in every lane, each head's running
+// (w + 1) * 64 / NCW) of each stage; its lanes split a D-wide row in 16-byte
+// pieces (LPR lanes a row, a power of two, NV pieces a lane, RPI = 32 / LPR
+// rows a warp instruction; a lane's pieces at or past d load nothing and add
+// zero), and each group of LPR lanes keeps its own online-softmax state over
+// the rows it sees, in registers: acc[g][its d piece] in every lane, each head's running
 // max and sum in the lanes of that head's scores. The partial dot products of
 // a sub-tile (up to 4 rows x g heads) reduce by halving exchanges of shuffles
 // so that each lane ends with one whole score, whose exponential it alone
@@ -70,6 +76,14 @@ namespace decode_split {
 
 constexpr int STAGE_ROWS = 64;                   // rows a stage holds at most
 constexpr int MAX_SPLITS = 8;                    // blocks of a cluster
+constexpr int SMEM_MAX = 232448;                 // shared memory a block may ask for
+
+// the most stages, from `most` down to 1, that fit SMEM_MAX beside `fixed` bytes
+constexpr int fit_stages(int most, int per_stage, int fixed) {
+    return most > 1 && fixed + most * per_stage > SMEM_MAX
+               ? fit_stages(most - 1, per_stage, fixed)
+               : most;
+}
 
 // A block of G query heads: NCW consumer warps and one producer warp. At
 // G = 4 a row costs four heads' products, and one warp a scheduler cannot
@@ -81,21 +95,27 @@ struct Shape {
     static constexpr int NCW = G >= 4 ? 8 : 4;            // consumer warps
     static constexpr int WARP_ROWS = STAGE_ROWS / NCW;    // a consumer warp's rows a stage
     static constexpr int NTHREADS = (NCW + 1) * 32;
-    static constexpr int VEC = 16 / (int)sizeof(T);       // elements a lane loads
-    static constexpr int LPR = D / VEC;                   // lanes a row
+    static constexpr int VEC = 16 / (int)sizeof(T);       // elements a piece (a lane's load)
+    static constexpr int RV = D / VEC;                    // pieces of a D-wide row
+    static constexpr int LPR = RV < 32 ? RV : 32;         // lanes a row
+    static constexpr int NV = RV / LPR;                   // pieces a lane: 2 in f32 at D 256
     static constexpr int RPI = 32 / LPR;                  // rows a warp instruction
     static constexpr int NI = WARP_ROWS / RPI;            // a lane group's rows a stage
     static constexpr int TS = NI < 4 ? NI : 4;            // of them a softmax update
     static constexpr int NSUB = NI / TS;
     static constexpr int STAGE_BYTES = 2 * STAGE_ROWS * D * (int)sizeof(T);   // K and V
-    static constexpr int NST = STAGE_BYTES <= 16384 ? 4 : 3;                // ring stages
-    static_assert(LPR <= 32 && NI % TS == 0, "a row must fit a warp");
+    // ring stages: 4 of at most 16 KB, else 3, fewer where they would not fit
+    // beside the partials (the key window and barriers counted a stage)
+    static constexpr int NST =
+        fit_stages(STAGE_BYTES <= 16384 ? 4 : 3, STAGE_BYTES + 4 * STAGE_ROWS + 16,
+                   (int)sizeof(float) * (NCW + 1) * G * (D + 2));
+    static_assert(RV % LPR == 0 && NI % TS == 0, "a row must split over a warp");
 };
 
-// shared memory of split_block: the ring [NST][K, V][64][D] of T, the
-// warps' partials [NCW][G][D + 2] and the block's [G][D + 2] floats (acc,
-// then m and l), the producer's window of unit keys [NST * 64] (KEYED units
-// only) and the full and empty mbarriers [2][NST]
+// shared memory of split_block: the ring [NST][K, V][64][D] of T (rows d
+// apart), the warps' partials [NCW][G][D + 2] and the block's [G][D + 2]
+// floats (acc, then m and l), the producer's window of unit keys [NST * 64]
+// (KEYED units only) and the full and empty mbarriers [2][NST]
 template <typename T, int D, int G, bool KEYED = true>
 __host__ __device__ constexpr size_t smem_bytes() {
     using Sh = Shape<T, D, G>;
@@ -158,16 +178,17 @@ __device__ __forceinline__ int unit_key(const Units& units, int u) {
         return 0;
 }
 
-// One block of a cluster of S: the g_used (<= G) query heads at q (g_used x D,
-// written to out likewise) against the first len rows of the sequence that
-// units describes in k and v. smem: smem_bytes<T, D, G, Units::KEYED>().
+// One block of a cluster of S: the g_used (<= G) query heads at q (g_used x d,
+// written to out likewise; d <= D) against the first len rows of the
+// sequence that units describes in k and v. smem: smem_bytes<T, D, G,
+// Units::KEYED>().
 template <typename T, int D, int G, typename Units>
 __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __restrict__ k,
                                             const T* __restrict__ v, T* __restrict__ out,
-                                            int len, int g_used, float scale, const Units& units,
-                                            unsigned char* smem) {
+                                            int len, int g_used, int d, float scale,
+                                            const Units& units, unsigned char* smem) {
     using Sh = Shape<T, D, G>;
-    constexpr int VEC = Sh::VEC, LPR = Sh::LPR, RPI = Sh::RPI, TS = Sh::TS;
+    constexpr int VEC = Sh::VEC, LPR = Sh::LPR, NV = Sh::NV, RPI = Sh::RPI, TS = Sh::TS;
     constexpr int NSUB = Sh::NSUB, NST = Sh::NST, NCW = Sh::NCW, NTHREADS = Sh::NTHREADS;
     namespace cg = cooperative_groups;
     cg::cluster_group cluster = cg::this_cluster();
@@ -208,19 +229,27 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
             keys[i] = lane + 32 * i < nu ? unit_key(units, u0 + lane + 32 * i) : 0;
     };
     const int lg = lane / LPR, li = lane % LPR;
-    float qf[G][VEC];
+    // this lane's pieces: columns col(n) .. col(n) + VEC - 1 of a row, live
+    // where they lie before d (d is a multiple of VEC)
+    auto col = [&](int n) { return (li + n * LPR) * VEC; };
+    bool live[NV];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) live[n] = col(n) < d;
+    float qf[G][NV][VEC];
     if (warp == NCW) {
         if constexpr (Units::KEYED) load_keys(0);
     } else {
 #pragma unroll
-        for (int j = 0; j < G; ++j) {
-            if (j < g_used) {
-                widen<T, VEC>(load16(q + j * D + li * VEC), qf[j]);
-            } else {
+        for (int j = 0; j < G; ++j)
 #pragma unroll
-                for (int e = 0; e < VEC; ++e) qf[j][e] = 0.f;
+            for (int n = 0; n < NV; ++n) {
+                if (j < g_used && live[n]) {
+                    widen<T, VEC>(load16(q + j * d + col(n)), qf[j][n]);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < VEC; ++e) qf[j][n][e] = 0.f;
+                }
             }
-        }
     }
     if (tid == 0) {
         for (int s = 0; s < NST; ++s) {
@@ -249,7 +278,7 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
                 hopper::mbar_wait(hopper::smem_addr(&bars[NST + slot]), (s / NST - 1) & 1);
             const uint32_t full = hopper::smem_addr(&bars[slot]);
             if (lane == 0)
-                hopper::mbar_arrive_expect_tx(full, 2u * stage_rows(s) * D * sizeof(T));
+                hopper::mbar_arrive_expect_tx(full, 2u * stage_rows(s) * d * sizeof(T));
             __syncwarp();
             T* ks = ring + (size_t)slot * 2 * STAGE_ROWS * D;
             T* vs = ks + STAGE_ROWS * D;
@@ -260,10 +289,10 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
                     off = units.offset(u, win[slot * pps + i]);
                 else
                     off = units.offset(u);
-                const uint32_t bytes = units.rows(u) * D * sizeof(T);
-                hopper::bulk_load(hopper::smem_addr(ks + i * units.unit_rows * D), k + off, bytes,
+                const uint32_t bytes = units.rows(u) * d * sizeof(T);
+                hopper::bulk_load(hopper::smem_addr(ks + i * units.unit_rows * d), k + off, bytes,
                                   full);
-                hopper::bulk_load(hopper::smem_addr(vs + i * units.unit_rows * D), v + off, bytes,
+                hopper::bulk_load(hopper::smem_addr(vs + i * units.unit_rows * d), v + off, bytes,
                                   full);
             }
         }
@@ -279,16 +308,17 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
         static_assert(V <= LPR, "a lane group holds at least one lane a score");
         const int vi = li / SPREAD, ht = vi % TS;
         const int gbase = lg * LPR;
-        float acc[G][VEC];
+        float acc[G][NV][VEC];
         float mh = -INFINITY, lh = 0.f;
 #pragma unroll
-        for (int j = 0; j < G; ++j) {
+        for (int j = 0; j < G; ++j)
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) {
-                qf[j][e] *= scale * hopper::LOG2E;    // scores in log2 units: exp2
-                acc[j][e] = 0.f;
-            }
-        }
+            for (int n = 0; n < NV; ++n)
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) {
+                    qf[j][n][e] *= scale * hopper::LOG2E;    // scores in log2 units: exp2
+                    acc[j][n][e] = 0.f;
+                }
 
         for (int s = 0; s < n_st; ++s) {
             const int slot = s % NST;
@@ -304,14 +334,20 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
                 float sc[V];
 #pragma unroll
                 for (int t = 0; t < TS; ++t) {
-                    float kf[VEC];
-                    widen<T, VEC>(load16(ks + (r0 + t * RPI + lg) * D + li * VEC), kf);
 #pragma unroll
-                    for (int j = 0; j < G; ++j) {
-                        float dot = 0.f;
+                    for (int j = 0; j < G; ++j) sc[j * TS + t] = 0.f;
 #pragma unroll
-                        for (int e = 0; e < VEC; ++e) dot = fmaf(qf[j][e], kf[e], dot);
-                        sc[j * TS + t] = dot;
+                    for (int n = 0; n < NV; ++n) {
+                        if (!live[n]) continue;
+                        float kf[VEC];
+                        widen<T, VEC>(load16(ks + (r0 + t * RPI + lg) * d + col(n)), kf);
+#pragma unroll
+                        for (int j = 0; j < G; ++j) {
+                            float dot = sc[j * TS + t];
+#pragma unroll
+                            for (int e = 0; e < VEC; ++e) dot = fmaf(qf[j][n][e], kf[e], dot);
+                            sc[j * TS + t] = dot;
+                        }
                     }
                 }
                 halving_exchange<V, SPREAD>(sc, li);
@@ -337,7 +373,9 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
                 for (int j = 0; j < G; ++j) {
                     const float a = __shfl_sync(0xffffffffu, alpha, gbase + j * TS * SPREAD);
 #pragma unroll
-                    for (int e = 0; e < VEC; ++e) acc[j][e] *= a;
+                    for (int n = 0; n < NV; ++n)
+#pragma unroll
+                        for (int e = 0; e < VEC; ++e) acc[j][n][e] *= a;
                 }
                 float pv[V];
 #pragma unroll
@@ -345,13 +383,17 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
 #pragma unroll
                 for (int t = 0; t < TS; ++t) {
                     if (r0 + t * RPI + lg < nvalid) {
-                        float vf[VEC];
-                        widen<T, VEC>(load16(vs + (r0 + t * RPI + lg) * D + li * VEC), vf);
 #pragma unroll
-                        for (int j = 0; j < G; ++j)
+                        for (int n = 0; n < NV; ++n) {
+                            if (!live[n]) continue;
+                            float vf[VEC];
+                            widen<T, VEC>(load16(vs + (r0 + t * RPI + lg) * d + col(n)), vf);
 #pragma unroll
-                            for (int e = 0; e < VEC; ++e)
-                                acc[j][e] = fmaf(pv[j * TS + t], vf[e], acc[j][e]);
+                            for (int j = 0; j < G; ++j)
+#pragma unroll
+                                for (int e = 0; e < VEC; ++e)
+                                    acc[j][n][e] = fmaf(pv[j * TS + t], vf[e], acc[j][n][e]);
+                        }
                     }
                 }
             }
@@ -375,13 +417,17 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
             const float sc = rescale(m[j], mx);
             l[j] *= sc;
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[j][e] *= sc;
+            for (int n = 0; n < NV; ++n)
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) acc[j][n][e] *= sc;
 #pragma unroll
             for (int off = LPR; off < 32; off <<= 1) {
                 l[j] += __shfl_xor_sync(0xffffffffu, l[j], off);
 #pragma unroll
-                for (int e = 0; e < VEC; ++e)
-                    acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], off);
+                for (int n = 0; n < NV; ++n)
+#pragma unroll
+                    for (int e = 0; e < VEC; ++e)
+                        acc[j][n][e] += __shfl_xor_sync(0xffffffffu, acc[j][n][e], off);
             }
             m[j] = mx;
         }
@@ -390,7 +436,11 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
             for (int j = 0; j < G; ++j) {
                 float* pw = part + (warp * G + j) * (D + 2);
 #pragma unroll
-                for (int e = 0; e < VEC; ++e) pw[li * VEC + e] = acc[j][e];
+                for (int n = 0; n < NV; ++n)
+                    if (live[n]) {
+#pragma unroll
+                        for (int e = 0; e < VEC; ++e) pw[col(n) + e] = acc[j][n][e];
+                    }
                 if (li == 0) {
                     pw[D] = m[j];
                     pw[D + 1] = l[j];
@@ -401,8 +451,8 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
     __syncthreads();
 
     // the block's partial: its warps merged in warp order
-    for (int e = tid; e < G * D; e += NTHREADS) {
-        const int j = e / D, c = e % D;
+    for (int e = tid; e < G * d; e += NTHREADS) {
+        const int j = e / d, c = e % d;
         float mx = -INFINITY;
         for (int w = 0; w < NCW; ++w) mx = fmaxf(mx, part[(w * G + j) * (D + 2) + D]);
         float a = 0.f, ls = 0.f;
@@ -423,8 +473,8 @@ __device__ __forceinline__ void split_block(const T* __restrict__ q, const T* __
     // the output's elements are dealt over the cluster's blocks; each merges
     // the S partials of its elements in rank order, all S remote reads of an
     // element in flight at once
-    for (int e = rank * NTHREADS + tid; e < g_used * D; e += splits * NTHREADS) {
-        const int j = e / D, c = e % D;
+    for (int e = rank * NTHREADS + tid; e < g_used * d; e += splits * NTHREADS) {
+        const int j = e / d, c = e % d;
         float bm[MAX_SPLITS], bl[MAX_SPLITS], ba[MAX_SPLITS];
 #pragma unroll
         for (int r = 0; r < MAX_SPLITS; ++r) {

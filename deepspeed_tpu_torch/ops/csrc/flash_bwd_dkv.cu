@@ -43,6 +43,10 @@
 // - Tiles are 3-D TMA boxes of (d, t, b*h): a box past t is zero-filled and
 //   never reads the next head's rows.
 //
+// Head dims: built for D 64 and 128, with the real head_dim d (a multiple of
+// 8, at most D) at run time, as csrc/flash_fwd.cu: d-wide TMA maps zero-fill
+// the columns past d, rows lie d apart, stores stop at d.
+//
 // float32 keeps the first version's kernel (flash_bwd_dkv_kernel) on the CUDA
 // cores: wgmma's only f32 input type is TF32 (~10 mantissa bits), while the TPU
 // kernel takes f32 products in full f32. The choice is by dtype alone.
@@ -82,8 +86,8 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, const float* __restrict__ slopes,
-                     T* __restrict__ dk, T* __restrict__ dv, int t, int n_heads, float scale,
-                     int causal) {
+                     T* __restrict__ dk, T* __restrict__ dv, int t, int d, int n_heads,
+                     float scale, int causal) {
     extern __shared__ float smem[];
     constexpr int DP = D + 1;
     constexpr int DC = D / 16;          // dk/dv columns per thread
@@ -101,7 +105,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int ty = tid >> 4;
     const int k0 = blockIdx.x * BK;
     const int bh = blockIdx.y;
-    const size_t base = (size_t)bh * t * D;
+    const size_t base = (size_t)bh * t * d;      // rows d apart; columns d .. D-1 zero
     const size_t row_base = (size_t)bh * t;
     const bool use_alibi = slopes != nullptr;
     const float slope = use_alibi ? slopes[bh % n_heads] : 0.f;
@@ -115,8 +119,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const int vi = tid + i * NTHREADS;
         const int r = vi / ROW_VECS, c = (vi % ROW_VECS) * VEC;
         const int row = k0 + r;
-        const bool ok = row < t;
-        const size_t idx = base + (size_t)row * D + c;
+        const bool ok = row < t && c < d;
+        const size_t idx = base + (size_t)row * d + c;
         store16_f32<T>(ks + r * DP + c, ok ? load16(k + idx) : make_uint4(0u, 0u, 0u, 0u));
         store16_f32<T>(vs + r * DP + c, ok ? load16(v + idx) : make_uint4(0u, 0u, 0u, 0u));
     }
@@ -129,9 +133,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
         for (int i = 0; i < PER_THREAD; ++i) {
             const int vi = tid + i * NTHREADS;
-            const int row = q0 + vi / ROW_VECS;
-            const size_t idx = base + (size_t)row * D + (vi % ROW_VECS) * VEC;
-            const bool ok = row < t;
+            const int row = q0 + vi / ROW_VECS, c = (vi % ROW_VECS) * VEC;
+            const size_t idx = base + (size_t)row * d + c;
+            const bool ok = row < t && c < d;
             qreg[i] = ok ? load16(q + idx) : make_uint4(0u, 0u, 0u, 0u);
             doreg[i] = ok ? load16(dout + idx) : make_uint4(0u, 0u, 0u, 0u);
         }
@@ -241,9 +245,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int i = 0; i < 4; ++i) {
         const int row = k0 + ty * 4 + i;
         if (row < t) {
-            const size_t off = base + (size_t)row * D;
+            const size_t off = base + (size_t)row * d;
 #pragma unroll
             for (int c = 0; c < DC; ++c) {
+                if (tx + 16 * c >= d) continue;
                 dk[off + tx + 16 * c] = from_f32<T>(dk_acc[i][c]);
                 dv[off + tx + 16 * c] = from_f32<T>(dv_acc[i][c]);
             }
@@ -254,7 +259,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* slopes, void* dk, void* dv,
-                   int bh, int t, int n_heads, float scale, int causal, cudaStream_t stream) {
+                   int bh, int t, int d, int n_heads, float scale, int causal,
+                   cudaStream_t stream) {
     const size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -265,7 +271,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<const float*>(slopes),
-        static_cast<T*>(dk), static_cast<T*>(dv), t, n_heads, scale, causal);
+        static_cast<T*>(dk), static_cast<T*>(dv), t, d, n_heads, scale, causal);
     return cudaGetLastError();
 }
 
@@ -287,17 +293,27 @@ struct Cfg {
     // lse and delta (2 x 64 f32) after the tiles, padded so stages stay 1024-aligned
     static constexpr int STAGE_BYTES = TILE_BYTES + 1024;
     static constexpr size_t SMEM = 1024 + KV_BYTES + NST * STAGE_BYTES + 8 * (1 + 2 * NST);
+    // setmaxnreg with two consumer warpgroups: the 168 registers a thread of
+    // the launch bound, moved from the producer to the consumers (128 x 40 +
+    // 256 x 232 = 128 x 24 + 256 x 240 = 384 x 168). At D 128 each consumer
+    // holds dk and dv (2 x 64 f32 registers) beside S, dP and their fragments
+    // and needs the last 8: at 232 ptxas spilled 20 bytes.
+    static constexpr int PRODUCER_REGS = D == 128 ? 24 : 40;
+    static constexpr int CONSUMER_REGS = D == 128 ? 240 : 232;
 };
 
-template <typename T, int D, int NWG>
+template <typename T, int D, int NWG, bool EXACT>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
           const float* __restrict__ lse, const float* __restrict__ delta,
           const float* __restrict__ slopes, T* __restrict__ dk, T* __restrict__ dv, int t,
-          int n_heads, float scale, int causal) {
+          int d, int n_heads, float scale, int causal) {
     using C = Cfg<D, NWG>;
     constexpr int NP = C::NP, NST = C::NST;
+    // the exact build (d == D) folds the strides and guards below to constants
+    if constexpr (EXACT) d = D;
+
     extern __shared__ uint8_t smem_raw[];
     const uint32_t raw = smem_addr(smem_raw);
     const uint32_t k_s = (raw + 1023) & ~1023u;
@@ -332,7 +348,7 @@ wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     const int lane = threadIdx.x % 32;
     if (wgi == NWG) {
         // producer: its first warp loads; lane 0 issues the TMA copies
-        if constexpr (NWG == 2) setmaxnreg_dec<40>();
+        if constexpr (NWG == 2) setmaxnreg_dec<C::PRODUCER_REGS>();
         if (threadIdx.x / 32 == 4 * NWG) {
             if (lane == 0) {
                 mbar_arrive_expect_tx(kv_full, C::KV_BYTES);
@@ -368,7 +384,7 @@ wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
         }
     } else {
         // consumer warpgroup wgi: kv rows kv0 .. kv0 + 63
-        if constexpr (NWG == 2) setmaxnreg_inc<232>();
+        if constexpr (NWG == 2) setmaxnreg_inc<C::CONSUMER_REGS>();
         const int warp = (threadIdx.x % 128) / 32;
         const int kv0 = k0 + 64 * wgi;
         const int ra = kv0 + 16 * warp + lane / 4;           // this thread's kv rows: ra, ra + 8
@@ -443,15 +459,21 @@ wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
             mbar_arrive(empty(s));
         }
 
+        // a run-time d made opaque here, so the compiler does not hoist the
+        // epilogue's row addresses above the walk, where dk and dv hold every
+        // register
+        int dw = d;
+        if constexpr (!EXACT) asm volatile("" : "+r"(dw));
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
             const int row = ra + 8 * i;
             if (row < t) {
-                const size_t off = ((size_t)bh * t + row) * D;
+                const size_t off = ((size_t)bh * t + row) * dw;
 #pragma unroll
                 for (int p = 0; p < NP; ++p)
 #pragma unroll
                     for (int j = 0; j < 8; ++j) {
+                        if (PANEL * p + 8 * j >= dw) continue;    // d is a multiple of 8
                         const int c = PANEL * p + 8 * j + 2 * (lane % 4), a = 4 * j + 2 * i;
                         *reinterpret_cast<uint32_t*>(dk + off + c) =
                             pack2<T>(dk_acc[p][a], dk_acc[p][a + 1]);
@@ -478,23 +500,25 @@ inline int dkv_warpgroups(int bh, int t) {
 template <typename T, int D, int NWG>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* slopes, void* dk, void* dv,
-                   int bh, int t, int n_heads, float scale, int causal, cudaStream_t stream) {
+                   int bh, int t, int d, int n_heads, float scale, int causal,
+                   cudaStream_t stream) {
     using C = Cfg<D, NWG>;
     constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
     CUtensorMap mq, mk, mv, mdo;
     cudaError_t err;
-    if ((err = make_map_3d(&mq, q, bh, t, D, bf16)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mk, k, bh, t, D, bf16)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mv, v, bh, t, D, bf16)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mdo, dout, bh, t, D, bf16)) != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(wgmma_dkv<T, D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)C::SMEM);
+    // maps d wide: columns past d come in as zeros (flash_fwd.cu)
+    if ((err = make_map_3d(&mq, q, bh, t, d, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mk, k, bh, t, d, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mv, v, bh, t, d, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mdo, dout, bh, t, d, bf16)) != cudaSuccess) return err;
+    auto* kernel = d == D ? wgmma_dkv<T, D, NWG, true> : wgmma_dkv<T, D, NWG, false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
     if (err != cudaSuccess) return err;
     const dim3 grid(bh, (t + 64 * NWG - 1) / (64 * NWG));
-    wgmma_dkv<T, D, NWG><<<grid, C::THREADS, C::SMEM, stream>>>(
+    kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
         mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<const float*>(slopes), static_cast<T*>(dk), static_cast<T*>(dv), t, n_heads,
-        scale, causal);
+        static_cast<const float*>(slopes), static_cast<T*>(dk), static_cast<T*>(dv), t, d,
+        n_heads, scale, causal);
     return cudaGetLastError();
 }
 
@@ -505,32 +529,34 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, const void* slopes, void* dk,
                        void* dv, int bh, int t, int d, int n_heads, float scale, int causal,
                        cudaStream_t stream) {
+    const int width = build_width(d, 128);
     if constexpr (std::is_same<T, float>::value) {
-        if (d == 64)
-            return launch<T, 64>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t, n_heads,
+        if (width == 64)
+            return launch<T, 64>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t, d, n_heads,
                                  scale, causal, stream);
-        if (d == 128)
-            return launch<T, 128>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t, n_heads,
+        if (width == 128)
+            return launch<T, 128>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t, d, n_heads,
                                   scale, causal, stream);
     } else {
         const bool two = wg::dkv_warpgroups(bh, t) == 2;
-        if (d == 64)
+        if (width == 64)
             return two ? wg::launch<T, 64, 2>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t,
-                                              n_heads, scale, causal, stream)
+                                              d, n_heads, scale, causal, stream)
                        : wg::launch<T, 64, 1>(q, k, v, dout, lse, delta, slopes, dk, dv, bh, t,
-                                              n_heads, scale, causal, stream);
-        if (d == 128)
+                                              d, n_heads, scale, causal, stream);
+        if (width == 128)
             return two ? wg::launch<T, 128, 2>(q, k, v, dout, lse, delta, slopes, dk, dv, bh,
-                                               t, n_heads, scale, causal, stream)
+                                               t, d, n_heads, scale, causal, stream)
                        : wg::launch<T, 128, 1>(q, k, v, dout, lse, delta, slopes, dk, dv, bh,
-                                               t, n_heads, scale, causal, stream);
+                                               t, d, n_heads, scale, causal, stream);
     }
     return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v, dout, dk, dv: (bh, t, d) contiguous in `dtype`; lse, delta: (bh, t)
+// q, k, v, dout, dk, dv: (bh, t, d) contiguous in `dtype`, d a multiple of 8
+// up to 128; lse, delta: (bh, t)
 // f32; slopes: (n_heads,) f32 or null, head of row block i is i % n_heads.
 // Returns cudaGetLastError().
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,

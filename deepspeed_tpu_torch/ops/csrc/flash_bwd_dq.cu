@@ -60,6 +60,10 @@
 // - Tiles are 3-D TMA boxes of (d, t, b*h): a box past t is zero-filled and
 //   never reads the next head's rows.
 //
+// Head dims: built for D 64 and 128, with the real head_dim d (a multiple of
+// 8, at most D) at run time, as csrc/flash_fwd.cu: d-wide TMA maps zero-fill
+// the columns past d, rows lie d apart, stores stop at d.
+//
 // float32 keeps the first version's kernel (flash_bwd_dq_kernel) on the CUDA
 // cores: wgmma's only f32 input type is TF32 (~10 mantissa bits), while the
 // TPU kernel takes f32 products in full f32. The choice is by dtype alone.
@@ -101,7 +105,7 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ slopes,
-                    T* __restrict__ dq, int t, int n_heads, float scale, int causal) {
+                    T* __restrict__ dq, int t, int d, int n_heads, float scale, int causal) {
     extern __shared__ float smem[];
     constexpr int DP = D + 1;
     constexpr int DC = D / 16;          // dq columns per thread
@@ -116,7 +120,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int ty = tid >> 4;
     const int q0 = blockIdx.x * BQ;
     const int bh = blockIdx.y;
-    const size_t base = (size_t)bh * t * D;
+    const size_t base = (size_t)bh * t * d;      // rows d apart; columns d .. D-1 zero
     const bool use_alibi = slopes != nullptr;
     const float slope = use_alibi ? slopes[bh % n_heads] : 0.f;
 
@@ -129,8 +133,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const int vi = tid + i * NTHREADS;
         const int r = vi / ROW_VECS, c = (vi % ROW_VECS) * VEC;
         const int row = q0 + r;
-        const bool ok = row < t;
-        const size_t idx = base + (size_t)row * D + c;
+        const bool ok = row < t && c < d;
+        const size_t idx = base + (size_t)row * d + c;
         store16_f32<T>(qs + r * DP + c, ok ? load16(q + idx) : make_uint4(0u, 0u, 0u, 0u));
         store16_f32<T>(dos + r * DP + c, ok ? load16(dout + idx) : make_uint4(0u, 0u, 0u, 0u));
     }
@@ -147,9 +151,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
         for (int i = 0; i < PER_THREAD; ++i) {
             const int vi = tid + i * NTHREADS;
-            const int row = k0 + vi / ROW_VECS;
-            const size_t idx = base + (size_t)row * D + (vi % ROW_VECS) * VEC;
-            const bool ok = row < t;
+            const int row = k0 + vi / ROW_VECS, c = (vi % ROW_VECS) * VEC;
+            const size_t idx = base + (size_t)row * d + c;
+            const bool ok = row < t && c < d;
             kreg[i] = ok ? load16(k + idx) : make_uint4(0u, 0u, 0u, 0u);
             vreg[i] = ok ? load16(v + idx) : make_uint4(0u, 0u, 0u, 0u);
         }
@@ -241,9 +245,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int i = 0; i < 4; ++i) {
         const int row = q0 + ty * 4 + i;
         if (row < t) {
-            const size_t off = base + (size_t)row * D;
+            const size_t off = base + (size_t)row * d;
 #pragma unroll
-            for (int c = 0; c < DC; ++c) dq[off + tx + 16 * c] = from_f32<T>(acc[i][c]);
+            for (int c = 0; c < DC; ++c)
+                if (tx + 16 * c < d) dq[off + tx + 16 * c] = from_f32<T>(acc[i][c]);
         }
     }
 }
@@ -251,7 +256,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* slopes, void* dq, int bh,
-                   int t, int n_heads, float scale, int causal, cudaStream_t stream) {
+                   int t, int d, int n_heads, float scale, int causal, cudaStream_t stream) {
     const size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -262,7 +267,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<const float*>(slopes),
-        static_cast<T*>(dq), t, n_heads, scale, causal);
+        static_cast<T*>(dq), t, d, n_heads, scale, causal);
     return cudaGetLastError();
 }
 
@@ -342,8 +347,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), (NWG == 1 && D == 64) ? 2 : 1
 wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
          const float* __restrict__ lse, const float* __restrict__ delta,
-         const float* __restrict__ slopes, T* __restrict__ dq, int t, int n_heads, float scale,
-         int causal) {
+         const float* __restrict__ slopes, T* __restrict__ dq, int t, int d, int n_heads,
+         float scale, int causal) {
     using C = Cfg<D, NWG>;
     constexpr int NP = C::NP, NST = C::NST;
     extern __shared__ uint8_t smem_raw[];
@@ -498,11 +503,12 @@ wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUten
         for (int i = 0; i < 2; ++i) {
             const int row = ra + 8 * i;
             if (row < t) {
-                T* dqrow = dq + ((size_t)bh * t + row) * D;
+                T* dqrow = dq + ((size_t)bh * t + row) * d;
 #pragma unroll
                 for (int p = 0; p < NP; ++p)
 #pragma unroll
                     for (int j = 0; j < 8; ++j) {
+                        if (PANEL * p + 8 * j >= d) continue;     // d is a multiple of 8
                         const int a = 4 * j + 2 * i;
                         *reinterpret_cast<uint32_t*>(dqrow + PANEL * p + 8 * j + 2 * (lane % 4)) =
                             pack2<T>(acc[p][a], acc[p][a + 1]);
@@ -527,22 +533,23 @@ inline int dq_warpgroups() {
 template <typename T, int D, int NWG>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* slopes, void* dq, int bh,
-                   int t, int n_heads, float scale, int causal, cudaStream_t stream) {
+                   int t, int d, int n_heads, float scale, int causal, cudaStream_t stream) {
     using C = Cfg<D, NWG>;
     constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
     CUtensorMap mq, mk, mv, mdo;
     cudaError_t err;
-    if ((err = make_map_3d(&mq, q, bh, t, D, bf16)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mk, k, bh, t, D, bf16)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mv, v, bh, t, D, bf16)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mdo, dout, bh, t, D, bf16)) != cudaSuccess) return err;
+    // maps d wide: columns past d come in as zeros (flash_fwd.cu)
+    if ((err = make_map_3d(&mq, q, bh, t, d, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mk, k, bh, t, d, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mv, v, bh, t, d, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mdo, dout, bh, t, d, bf16)) != cudaSuccess) return err;
     err = cudaFuncSetAttribute(wgmma_dq<T, D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::SMEM);
     if (err != cudaSuccess) return err;
     const dim3 grid(bh, (t + 64 * NWG - 1) / (64 * NWG));
     wgmma_dq<T, D, NWG><<<grid, C::THREADS, C::SMEM, stream>>>(
         mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<const float*>(slopes), static_cast<T*>(dq), t, n_heads, scale, causal);
+        static_cast<const float*>(slopes), static_cast<T*>(dq), t, d, n_heads, scale, causal);
     return cudaGetLastError();
 }
 
@@ -553,24 +560,25 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, const void* slopes, void* dq,
                        int bh, int t, int d, int n_heads, float scale, int causal,
                        cudaStream_t stream) {
+    const int width = build_width(d, 128);
     if constexpr (std::is_same<T, float>::value) {
-        if (d == 64)
-            return launch<T, 64>(q, k, v, dout, lse, delta, slopes, dq, bh, t, n_heads, scale,
+        if (width == 64)
+            return launch<T, 64>(q, k, v, dout, lse, delta, slopes, dq, bh, t, d, n_heads, scale,
                                  causal, stream);
-        if (d == 128)
-            return launch<T, 128>(q, k, v, dout, lse, delta, slopes, dq, bh, t, n_heads, scale,
-                                  causal, stream);
+        if (width == 128)
+            return launch<T, 128>(q, k, v, dout, lse, delta, slopes, dq, bh, t, d, n_heads,
+                                  scale, causal, stream);
     } else {
         const bool two = wg::dq_warpgroups() == 2;
-        if (d == 64)
-            return two ? wg::launch<T, 64, 2>(q, k, v, dout, lse, delta, slopes, dq, bh, t,
+        if (width == 64)
+            return two ? wg::launch<T, 64, 2>(q, k, v, dout, lse, delta, slopes, dq, bh, t, d,
                                               n_heads, scale, causal, stream)
-                       : wg::launch<T, 64, 1>(q, k, v, dout, lse, delta, slopes, dq, bh, t,
+                       : wg::launch<T, 64, 1>(q, k, v, dout, lse, delta, slopes, dq, bh, t, d,
                                               n_heads, scale, causal, stream);
-        if (d == 128)
-            return two ? wg::launch<T, 128, 2>(q, k, v, dout, lse, delta, slopes, dq, bh, t,
+        if (width == 128)
+            return two ? wg::launch<T, 128, 2>(q, k, v, dout, lse, delta, slopes, dq, bh, t, d,
                                                n_heads, scale, causal, stream)
-                       : wg::launch<T, 128, 1>(q, k, v, dout, lse, delta, slopes, dq, bh, t,
+                       : wg::launch<T, 128, 1>(q, k, v, dout, lse, delta, slopes, dq, bh, t, d,
                                                n_heads, scale, causal, stream);
     }
     return cudaErrorInvalidValue;
@@ -578,7 +586,8 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 
 }  // namespace
 
-// q, k, v, dout, dq: (bh, t, d) contiguous in `dtype`; lse, delta: (bh, t) f32;
+// q, k, v, dout, dq: (bh, t, d) contiguous in `dtype`, d a multiple of 8 up to
+// 128; lse, delta: (bh, t) f32;
 // slopes: (n_heads,) f32 or null, head of row block i is i % n_heads.
 // Returns cudaGetLastError().
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

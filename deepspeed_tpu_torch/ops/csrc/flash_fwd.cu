@@ -37,6 +37,19 @@
 // - Tiles are 3-D TMA boxes of (d, t, b*h), so a box past t is zero-filled
 //   and never reads the next head's rows; o is stored row by row up to t.
 //
+// Head dims: both kernels are built for a row width D of 64, 128 and 256
+// (D 256 serves GPT-J-class prefill; the backward kernels stop at 128) and
+// take the real head_dim d, a multiple of 8 up to D, at run time (common.cuh:
+// build_width). The TMA maps are d wide, so a 64-column panel past d comes
+// in zero-filled and adds nothing; rows lie d apart in device memory, and the
+// stores stop at column d. d 80 and 96 do 1.6x and 1.33x the products they
+// need on the 128-wide build. At D 256 a block has one consumer warpgroup
+// (O is 128 f32 registers a thread; q and two K/V stages take 160 KB), and
+// the f32 kernel loads each K/V tile when its turn comes (prefetched
+// registers would spill). A head_dim equal to its width runs a second
+// instantiation (EXACT) in which d is the constant D: the code d 64 and 128
+// ran before, whose times the run-time stride and guards would cost 5 %.
+//
 // float32 keeps the first version's kernel (flash_fwd_kernel) on the CUDA
 // cores: wgmma's only f32 input type is TF32, which keeps ~10 mantissa bits,
 // while the TPU kernel takes f32 products in full f32. The choice between the
@@ -72,7 +85,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ slopes, T* __restrict__ o,
-                 float* __restrict__ lse, int t, int n_heads, float scale, int causal) {
+                 float* __restrict__ lse, int t, int d, int n_heads, float scale,
+                 int causal) {
     extern __shared__ float smem[];
     constexpr int DP = D + 1;
     constexpr int DC = D / 16;          // output columns per thread
@@ -86,35 +100,40 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int ty = tid >> 4;
     const int q0 = blockIdx.x * BQ;
     const int bh = blockIdx.y;
-    const size_t base = (size_t)bh * t * D;
+    const size_t base = (size_t)bh * t * d;
     const bool use_alibi = slopes != nullptr;
     const float slope = use_alibi ? slopes[bh % n_heads] : 0.f;
 
-    // tiles move as 16-byte vectors; K/V of the next tile are fetched into
-    // registers while the current tile computes
+    // tiles move as 16-byte vectors, rows d apart in device memory, columns
+    // d .. D-1 zero; up to D 128, K/V of the next tile are fetched into
+    // registers while the current tile computes (at D 256 those registers
+    // would spill, so each tile is loaded when its turn comes)
     constexpr int VEC = vec_elems<T>();
     constexpr int ROW_VECS = D / VEC;
     constexpr int PER_THREAD = BK * ROW_VECS / NTHREADS;
+    constexpr bool PREFETCH = D <= 128;
     static_assert(BK * ROW_VECS % NTHREADS == 0 && BQ == BK, "tiles must split evenly");
 #pragma unroll
     for (int i = 0; i < PER_THREAD; ++i) {
         const int vi = tid + i * NTHREADS;
         const int r = vi / ROW_VECS, c = (vi % ROW_VECS) * VEC;
         const int row = q0 + r;
-        const uint4 raw = row < t ? load16(q + base + (size_t)row * D + c)
-                                  : make_uint4(0u, 0u, 0u, 0u);
+        const uint4 raw = row < t && c < d ? load16(q + base + (size_t)row * d + c)
+                                           : make_uint4(0u, 0u, 0u, 0u);
         store16_f32<T>(qs + r * DP + c, raw);
     }
-    uint4 kreg[PER_THREAD], vreg[PER_THREAD];
+    uint4 kreg[PREFETCH ? PER_THREAD : 1], vreg[PREFETCH ? PER_THREAD : 1];
     auto fetch = [&](int k0) {
+        if constexpr (PREFETCH) {
 #pragma unroll
-        for (int i = 0; i < PER_THREAD; ++i) {
-            const int vi = tid + i * NTHREADS;
-            const int row = k0 + vi / ROW_VECS;
-            const size_t idx = base + (size_t)row * D + (vi % ROW_VECS) * VEC;
-            const bool ok = row < t;
-            kreg[i] = ok ? load16(k + idx) : make_uint4(0u, 0u, 0u, 0u);
-            vreg[i] = ok ? load16(v + idx) : make_uint4(0u, 0u, 0u, 0u);
+            for (int i = 0; i < PER_THREAD; ++i) {
+                const int vi = tid + i * NTHREADS;
+                const int row = k0 + vi / ROW_VECS, c = (vi % ROW_VECS) * VEC;
+                const size_t idx = base + (size_t)row * d + c;
+                const bool ok = row < t && c < d;
+                kreg[i] = ok ? load16(k + idx) : make_uint4(0u, 0u, 0u, 0u);
+                vreg[i] = ok ? load16(v + idx) : make_uint4(0u, 0u, 0u, 0u);
+            }
         }
     };
 
@@ -131,18 +150,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     int nk = (t + BK - 1) / BK;
     if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);   // stop at the diagonal tile
 
-    fetch(0);
+    if constexpr (PREFETCH) fetch(0);
     for (int kt = 0; kt < nk; ++kt) {
         const int k0 = kt * BK;
         __syncthreads();                // the previous tile's k/v/P reads are done
+        if constexpr (PREFETCH) {
 #pragma unroll
-        for (int i = 0; i < PER_THREAD; ++i) {
-            const int vi = tid + i * NTHREADS;
-            const int r = vi / ROW_VECS, c = (vi % ROW_VECS) * VEC;
-            store16_f32<T>(ks + r * DP + c, kreg[i]);
-            store16_f32<T>(vs + r * D + c, vreg[i]);
+            for (int i = 0; i < PER_THREAD; ++i) {
+                const int vi = tid + i * NTHREADS;
+                const int r = vi / ROW_VECS, c = (vi % ROW_VECS) * VEC;
+                store16_f32<T>(ks + r * DP + c, kreg[i]);
+                store16_f32<T>(vs + r * D + c, vreg[i]);
+            }
+            if (kt + 1 < nk) fetch(k0 + BK);
+        } else {
+#pragma unroll 4
+            for (int i = 0; i < PER_THREAD; ++i) {
+                const int vi = tid + i * NTHREADS;
+                const int r = vi / ROW_VECS, c = (vi % ROW_VECS) * VEC;
+                const size_t idx = base + (size_t)(k0 + r) * d + c;
+                const bool ok = k0 + r < t && c < d;
+                const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+                store16_f32<T>(ks + r * DP + c, ok ? load16(k + idx) : zero);
+                store16_f32<T>(vs + r * D + c, ok ? load16(v + idx) : zero);
+            }
         }
-        if (kt + 1 < nk) fetch(k0 + BK);
         __syncthreads();
 
         float s[4][4];
@@ -215,9 +247,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const float l_safe = lt > 0.f ? lt : 1.f;
         const int row = q0 + ty * 4 + i;
         if (row < t) {
-            const size_t off = base + (size_t)row * D;
+            const size_t off = base + (size_t)row * d;
 #pragma unroll
-            for (int c = 0; c < DC; ++c) o[off + tx + 16 * c] = from_f32<T>(acc[i][c] / l_safe);
+            for (int c = 0; c < DC; ++c)
+                if (tx + 16 * c < d) o[off + tx + 16 * c] = from_f32<T>(acc[i][c] / l_safe);
             if (tx == 0) lse[(size_t)bh * t + row] = m[i] + logf(l_safe);
         }
     }
@@ -225,7 +258,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* slopes, void* o,
-                   void* lse, int bh, int t, int n_heads, float scale, int causal,
+                   void* lse, int bh, int t, int d, int n_heads, float scale, int causal,
                    cudaStream_t stream) {
     const size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
@@ -235,7 +268,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* slop
     const dim3 grid((t + BQ - 1) / BQ, bh);
     flash_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const float*>(slopes), static_cast<T*>(o), static_cast<float*>(lse), t,
+        static_cast<const float*>(slopes), static_cast<T*>(o), static_cast<float*>(lse), t, d,
         n_heads, scale, causal);
     return cudaGetLastError();
 }
@@ -248,8 +281,12 @@ using namespace hopper;
 
 constexpr int BK = 64;          // k/v rows per tile
 
+// D 256 (serving only) runs one consumer warpgroup: its O accumulator is
+// 128 f32 registers a thread beside S and P, and q plus two K/V stages take
+// 160 KB of shared memory, so one block fills an SM
 template <int D, int NWG>
 struct Cfg {
+    static_assert(D != 256 || NWG == 1, "D 256 runs one consumer warpgroup");
     static constexpr int NP = D / PANEL;                      // 64-column panels of a row
     static constexpr int NST = D == 64 ? 3 : 2;               // stages of the K/V ring
     static constexpr int THREADS = 128 * (NWG + 1);
@@ -259,14 +296,17 @@ struct Cfg {
     static constexpr size_t SMEM = 1024 + Q_BYTES + NST * STAGE_BYTES + 8 * (1 + 2 * NST);
 };
 
-template <typename T, int D, int NWG>
+template <typename T, int D, int NWG, bool EXACT>
 __global__ void __launch_bounds__(128 * (NWG + 1), (NWG == 1 && D == 64) ? 2 : 1)
 wgmma_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
           const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ slopes,
-          T* __restrict__ o, float* __restrict__ lse, int t, int n_heads, float scale,
+          T* __restrict__ o, float* __restrict__ lse, int t, int d, int n_heads, float scale,
           int causal) {
     using C = Cfg<D, NWG>;
     constexpr int NP = C::NP, NST = C::NST;
+    // the exact build (d == D) folds the strides and guards below to constants
+    if constexpr (EXACT) d = D;
+
     // setmaxnreg where it paid in the sweep: d 64 with two consumer warpgroups
     // (3 % at the training shape); at d 128 it cost 5 %
     constexpr bool REBALANCE = NWG == 2 && D == 64;
@@ -409,11 +449,12 @@ wgmma_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
             const int row = ra + 8 * i;
             if (row < t) {
                 const float l_safe = l[i] > 0.f ? l[i] : 1.f;
-                T* orow = o + ((size_t)bh * t + row) * D;
+                T* orow = o + ((size_t)bh * t + row) * d;
 #pragma unroll
                 for (int p = 0; p < NP; ++p)
 #pragma unroll
                     for (int j = 0; j < 8; ++j) {
+                        if (PANEL * p + 8 * j >= d) continue;     // d is a multiple of 8
                         const float lo = acc[p][4 * j + 2 * i] / l_safe;
                         const float hi = acc[p][4 * j + 2 * i + 1] / l_safe;
                         *reinterpret_cast<uint32_t*>(orow + PANEL * p + 8 * j + 2 * (lane % 4)) =
@@ -439,22 +480,25 @@ inline int fwd_warpgroups(int bh, int t) {
 
 template <typename T, int D, int NWG>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* slopes, void* o,
-                   void* lse, int bh, int t, int n_heads, float scale, int causal,
+                   void* lse, int bh, int t, int d, int n_heads, float scale, int causal,
                    cudaStream_t stream) {
     using C = Cfg<D, NWG>;
     constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
     CUtensorMap mq, mk, mv;
     cudaError_t err;
-    if ((err = make_map_3d(&mq, q, bh, t, D, bf16)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mk, k, bh, t, D, bf16)) != cudaSuccess) return err;
-    if ((err = make_map_3d(&mv, v, bh, t, D, bf16)) != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(wgmma_fwd<T, D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)C::SMEM);
+    // maps d wide: a panel's columns past d are zero-filled by the TMA unit
+    // (and still counted in the barrier's bytes), so they add nothing to
+    // Q K^T and give zero columns of P V, which the epilogue does not store
+    if ((err = make_map_3d(&mq, q, bh, t, d, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mk, k, bh, t, d, bf16)) != cudaSuccess) return err;
+    if ((err = make_map_3d(&mv, v, bh, t, d, bf16)) != cudaSuccess) return err;
+    auto* kernel = d == D ? wgmma_fwd<T, D, NWG, true> : wgmma_fwd<T, D, NWG, false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
     if (err != cudaSuccess) return err;
     const dim3 grid(bh, (t + 64 * NWG - 1) / (64 * NWG));
-    wgmma_fwd<T, D, NWG><<<grid, C::THREADS, C::SMEM, stream>>>(
+    kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
         mq, mk, mv, static_cast<const float*>(slopes), static_cast<T*>(o),
-        static_cast<float*>(lse), t, n_heads, scale, causal);
+        static_cast<float*>(lse), t, d, n_heads, scale, causal);
     return cudaGetLastError();
 }
 
@@ -464,31 +508,41 @@ template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* slopes, void* o,
                        void* lse, int bh, int t, int d, int n_heads, float scale, int causal,
                        cudaStream_t stream) {
+    const int width = build_width(d, 256);
     if constexpr (std::is_same<T, float>::value) {
-        if (d == 64)
-            return launch<T, 64>(q, k, v, slopes, o, lse, bh, t, n_heads, scale, causal, stream);
-        if (d == 128)
-            return launch<T, 128>(q, k, v, slopes, o, lse, bh, t, n_heads, scale, causal, stream);
+        if (width == 64)
+            return launch<T, 64>(q, k, v, slopes, o, lse, bh, t, d, n_heads, scale, causal,
+                                 stream);
+        if (width == 128)
+            return launch<T, 128>(q, k, v, slopes, o, lse, bh, t, d, n_heads, scale, causal,
+                                  stream);
+        if (width == 256)
+            return launch<T, 256>(q, k, v, slopes, o, lse, bh, t, d, n_heads, scale, causal,
+                                  stream);
     } else {
         const bool two = wg::fwd_warpgroups(bh, t) == 2;
-        if (d == 64)
-            return two ? wg::launch<T, 64, 2>(q, k, v, slopes, o, lse, bh, t, n_heads, scale,
+        if (width == 64)
+            return two ? wg::launch<T, 64, 2>(q, k, v, slopes, o, lse, bh, t, d, n_heads, scale,
                                               causal, stream)
-                       : wg::launch<T, 64, 1>(q, k, v, slopes, o, lse, bh, t, n_heads, scale,
+                       : wg::launch<T, 64, 1>(q, k, v, slopes, o, lse, bh, t, d, n_heads, scale,
                                               causal, stream);
-        if (d == 128)
-            return two ? wg::launch<T, 128, 2>(q, k, v, slopes, o, lse, bh, t, n_heads, scale,
-                                               causal, stream)
-                       : wg::launch<T, 128, 1>(q, k, v, slopes, o, lse, bh, t, n_heads, scale,
-                                               causal, stream);
+        if (width == 128)
+            return two ? wg::launch<T, 128, 2>(q, k, v, slopes, o, lse, bh, t, d, n_heads,
+                                               scale, causal, stream)
+                       : wg::launch<T, 128, 1>(q, k, v, slopes, o, lse, bh, t, d, n_heads,
+                                               scale, causal, stream);
+        if (width == 256)
+            return wg::launch<T, 256, 1>(q, k, v, slopes, o, lse, bh, t, d, n_heads, scale,
+                                         causal, stream);
     }
     return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, t, d) contiguous in `dtype`; slopes: (n_heads,) f32 or null,
-// head of row block i is i % n_heads; lse: (bh, t) f32. Returns cudaGetLastError().
+// q, k, v, o: (bh, t, d) contiguous in `dtype`, d a multiple of 8 up to 256;
+// slopes: (n_heads,) f32 or null, head of row block i is i % n_heads; lse:
+// (bh, t) f32. Returns cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* slopes, void* o,
                          void* lse, int bh, int t, int d, int n_heads, float scale, int causal,
                          int dtype, void* stream) {

@@ -4,7 +4,8 @@
 //
 // Tiles live in shared memory as 64 x 64 panels of 16-bit values (8 KB, 1024-
 // byte aligned), each row one 128-byte line in the 128-byte swizzle that a TMA
-// load with CU_TENSOR_MAP_SWIZZLE_128B writes. A head dim of 128 is two panels.
+// load with CU_TENSOR_MAP_SWIZZLE_128B writes. A row of width 128 is two panels,
+// of 256 four; a head_dim d below the width leaves the columns past d zero.
 //
 // Tensor maps are encoded on the host inside each C entry point.
 // cuTensorMapEncodeTiled (libcuda) is reached through cudaGetDriverEntryPoint,
@@ -52,7 +53,7 @@ inline EncodeTiledFn encode_tiled() {
 // a multiple of 8 rows keeps each box on a 1024-byte swizzle boundary) x 64
 // columns of one (b*h). Rows past t lie outside the map, so a box that
 // reaches past t is zero-filled: a ragged last tile never reads the next
-// head's rows.
+// head's rows; likewise columns past d, for a head_dim below the panels' width.
 inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, int bh, int t, int d,
                                bool bf16, int box_rows = PANEL) {
     EncodeTiledFn encode = encode_tiled();

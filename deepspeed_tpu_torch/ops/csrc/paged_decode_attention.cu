@@ -25,7 +25,8 @@
 // is page * d contiguous elements, so it arrives as ONE bulk copy (K and V
 // each) onto its stage's mbarrier: a stage is cdiv(64, page) pages, 64 rows
 // or fewer (a page longer than 64 rows arrives in 64-row pieces), in a ring
-// of 3-4 stages kept full by the producer warp, which reads the live table
+// of up to 4 stages (fewer where a stage is 64 or 128 KB, at D 256) kept full
+// by the producer warp, which reads the live table
 // entries once. The units of the body are pages, and only a slot's
 // cdiv(cache_len, page) live pages are read. Shared memory depends on the
 // dtype, d and the heads a block takes only, never on the table's width, so
@@ -47,7 +48,6 @@ using decode_split::STAGE_ROWS;
 
 // the pages of one (slot, kv head) as the body's units: a page, or at a page
 // longer than 64 rows its 64-row pieces (spp of them)
-template <int D>
 struct PagedUnits {
     static constexpr bool KEYED = true;
     const int* tbl;     // the slot's table row, in device memory
@@ -58,9 +58,10 @@ struct PagedUnits {
     int per_stage;      // units a stage: 64 / page pages, or one piece
     int unit_rows;      // min(page, 64)
     int spp;            // units a page: cdiv(page, 64)
+    int d;              // head_dim: the rows' stride
     __device__ __forceinline__ int key(int u) const { return __ldg(tbl + u / spp); }
     __device__ __forceinline__ size_t offset(int u, int key) const {
-        return (((size_t)key * hk + kh) * page + (size_t)(u % spp) * STAGE_ROWS) * D;
+        return (((size_t)key * hk + kh) * page + (size_t)(u % spp) * STAGE_ROWS) * d;
     }
     __device__ __forceinline__ int first_row(int u) const {
         return (u / spp) * page + (u % spp) * STAGE_ROWS;
@@ -70,12 +71,16 @@ struct PagedUnits {
     }
 };
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool EXACT>
 __global__ void __launch_bounds__(decode_split::Shape<T, D, G>::NTHREADS, 1)
 paged_decode_split(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
                    const int* __restrict__ table, const int* __restrict__ lens,
-                   T* __restrict__ out, int hk, int g, int page, int max_pages, float scale) {
+                   T* __restrict__ out, int hk, int g, int page, int max_pages, int d,
+                   float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
+    // the exact build (d == D) folds the strides and guards below to constants
+    if constexpr (EXACT) d = D;
+
     const int splits = (int)cooperative_groups::this_cluster().num_blocks();
     const int pair = blockIdx.x / splits;
     const int bi = pair / hk, kh = pair % hk;
@@ -85,21 +90,21 @@ paged_decode_split(const T* __restrict__ q, const T* __restrict__ kp, const T* _
     const int spp = (page + STAGE_ROWS - 1) / STAGE_ROWS;
     // the live units of the last live page: 1, or its pieces up to row len - 1
     const int last = npg > 0 ? (len - (npg - 1) * page + STAGE_ROWS - 1) / STAGE_ROWS : 0;
-    const PagedUnits<D> units{table + (size_t)bi * max_pages, page, hk, kh,
-                              max(npg - 1, 0) * spp + last,
-                              page <= STAGE_ROWS ? STAGE_ROWS / page : 1, min(page, STAGE_ROWS),
-                              spp};
-    const size_t qoff = (((size_t)bi * hk + kh) * g + j0) * D;
-    decode_split::split_block<T, D, G>(q + qoff, kp, vp, out + qoff, len, min(G, g - j0), scale,
-                                       units, smem);
+    const PagedUnits units{table + (size_t)bi * max_pages, page, hk, kh,
+                           max(npg - 1, 0) * spp + last,
+                           page <= STAGE_ROWS ? STAGE_ROWS / page : 1, min(page, STAGE_ROWS),
+                           spp, d};
+    const size_t qoff = (((size_t)bi * hk + kh) * g + j0) * d;
+    decode_split::split_block<T, D, G>(q + qoff, kp, vp, out + qoff, len, min(G, g - j0), d,
+                                       scale, units, smem);
 }
 
 template <typename T, int D, int G>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* table,
                    const void* lens, void* out, int b, int hk, int g, int page, int max_pages,
-                   float scale, int splits, cudaStream_t stream) {
+                   int d, float scale, int splits, cudaStream_t stream) {
     constexpr size_t smem = decode_split::smem_bytes<T, D, G>();
-    auto* kernel = paged_decode_split<T, D, G>;
+    auto* kernel = d == D ? paged_decode_split<T, D, G, true> : paged_decode_split<T, D, G, false>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
@@ -118,7 +123,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const void* ta
     err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
                              static_cast<const T*>(kp), static_cast<const T*>(vp),
                              static_cast<const int*>(table), static_cast<const int*>(lens),
-                             static_cast<T*>(out), hk, g, page, max_pages, scale);
+                             static_cast<T*>(out), hk, g, page, max_pages, d, scale);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -126,34 +131,40 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const void* ta
 template <typename T, int D>
 cudaError_t dispatch_g(const void* q, const void* kp, const void* vp, const void* table,
                        const void* lens, void* out, int b, int hk, int g, int page,
-                       int max_pages, float scale, int splits, cudaStream_t stream) {
+                       int max_pages, int d, float scale, int splits, cudaStream_t stream) {
     if (g <= 1)
-        return launch<T, D, 1>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, scale,
+        return launch<T, D, 1>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, d, scale,
                                splits, stream);
     if (g <= 2)
-        return launch<T, D, 2>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, scale,
+        return launch<T, D, 2>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, d, scale,
                                splits, stream);
-    return launch<T, D, 4>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, scale, splits,
-                           stream);
+    return launch<T, D, 4>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, d, scale,
+                           splits, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* kp, const void* vp, const void* table,
                        const void* lens, void* out, int b, int hk, int g, int page,
                        int max_pages, int d, float scale, int splits, cudaStream_t stream) {
-    if (d == 64)
-        return dispatch_g<T, 64>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, scale,
-                                 splits, stream);
-    if (d == 128)
-        return dispatch_g<T, 128>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, scale,
-                                  splits, stream);
-    return cudaErrorInvalidValue;
+    switch (build_width(d, 256)) {
+        case 64:
+            return dispatch_g<T, 64>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, d,
+                                     scale, splits, stream);
+        case 128:
+            return dispatch_g<T, 128>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, d,
+                                      scale, splits, stream);
+        case 256:
+            return dispatch_g<T, 256>(q, kp, vp, table, lens, out, b, hk, g, page, max_pages, d,
+                                      scale, splits, stream);
+        default:
+            return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
 // q, out: (b, hk*g, d); k_pages, v_pages: (P, hk, page, d), all contiguous in
-// `dtype`, 16-byte aligned; table: (b, max_pages) int32 physical page
+// `dtype`, 16-byte aligned, d a multiple of 8 up to 256; table: (b, max_pages) int32 physical page
 // indices; lens: (b,) int32 valid rows per slot; splits: the blocks of a
 // cluster that share one (slot, kv head), 1, 2, 4 or 8. Returns
 // cudaGetLastError(), or the error of a launch the card refuses.

@@ -12,7 +12,11 @@ micro-batch 24, seq 1024) for the two backward kernels, weight-quantized
 serving (BLOOM-7B decode, batch 1) for the dequant-GEMM, MoE serving (GPT-2
 125M with 8 experts, decode at batch 1) for the selected-expert FFN,
 block-sparse training (GPT-2 125M, micro-batch 24, seq 1024, the Fixed layout
-of block 16 in ``GPT2_SPARSE``) for the three block-sparse kernels.
+of block 16 in ``GPT2_SPARSE``) for the three block-sparse kernels. The
+cases with an ``hd_run`` are the shapes ``chip_smoke.py``'s ``[hd]`` phase
+gives the attention kernels at head dims other than 64 and 128 (GPT-2 2.7B
+d 80, GPT-2 760M d 96, GPT-J-6B d 256), which run on the 128- and 256-wide
+builds; the tolerances are the same at every head dim.
 
 Every kernel is held to its plain version elementwise: every element of
 every output must have |kernel - plain| <= atol + rtol * |plain|, with
@@ -190,6 +194,8 @@ KERNEL_INFO = {
 GPT2_SPARSE = ("FixedSparsityConfig", dict(
     num_heads=12, block=16, different_layout_per_head=True, num_local_blocks=4,
     num_global_blocks=1, attention="unidirectional", num_different_global_patterns=4))
+#: the same layout over GPT-2 760M's 16 heads (head_dim 96), for ``[hd]``
+GPT2_760M_SPARSE = (GPT2_SPARSE[0], {**GPT2_SPARSE[1], "num_heads": 16})
 
 
 @dataclasses.dataclass
@@ -207,6 +213,11 @@ class Case:
     alibi: bool = False
     lens: Optional[Tuple[int, ...]] = None      # decode and paged: valid rows per sequence
     main_path: bool = False
+    # the ``[hd]`` run of ``chip_smoke.py`` that gives the kernel this shape at a
+    # head_dim other than 64 or 128, as a path into its results: "gpt2_2.7b/
+    # generate", "gpt2_2.7b/serve", "gptj_6b/generate", "gptj_6b/serve",
+    # "gpt2_760m_train", "gpt2_760m_sparse"
+    hd_run: Optional[str] = None
     activation: str = "gelu"                    # selected-expert FFN
     # block-sparse: a SparsityConfig's class name in ops/sparse_attention and
     # its arguments, or ("hand-made", {"block": ...}) for hand_made_layout()
@@ -258,6 +269,22 @@ CASES: List[Case] = [
     # blocks, one an SM by their registers
     Case("decode_attention", "mistral7b-b4-d128", dict(b=4, h=32, hk=8, T=2048, d=128),
          torch.bfloat16, lens=(2048, 1500, 700, 33)),
+    # head dims other than 64 and 128 (the 128- and 256-wide builds, lanes
+    # past d idle): [hd]'s GPT-2 2.7B (d 80) and GPT-J-6B (d 256) decode at
+    # [main]'s lengths, f32 and an empty slot at d 96, f32 at d 256 (two
+    # 16-byte pieces a lane), d 32 on the 64-wide build
+    Case("decode_attention", "gpt2-2.7b-decode", dict(b=4, h=32, hk=32, T=1024, d=80),
+         torch.bfloat16, lens=(544, 544, 544, 416), hd_run="gpt2_2.7b/generate"),
+    Case("decode_attention", "gptj-decode", dict(b=4, h=16, hk=16, T=1024, d=256),
+         torch.bfloat16, lens=(544, 544, 544, 416), hd_run="gptj_6b/generate"),
+    Case("decode_attention", "fp32-gqa-d96", dict(b=3, h=8, hk=2, T=300, d=96),
+         torch.float32, lens=(300, 65, 1)),
+    Case("decode_attention", "bf16-gqa-empty-slot-d96", dict(b=4, h=8, hk=2, T=512, d=96),
+         torch.bfloat16, lens=(300, 0, 17, 512)),
+    Case("decode_attention", "fp32-gqa-d256", dict(b=2, h=8, hk=2, T=300, d=256),
+         torch.float32, lens=(300, 77)),
+    Case("decode_attention", "gqa-d32", dict(b=2, h=8, hk=2, T=300, d=32), torch.bfloat16,
+         lens=(300, 77)),
     Case("paged_decode_attention", "gpt2-serve",
          dict(b=16, h=12, hk=12, page=16, cap=1024, d=64), torch.bfloat16, lens=SERVE_LENS,
          main_path=True),
@@ -276,6 +303,16 @@ CASES: List[Case] = [
          dict(b=4, h=8, hk=2, page=16, cap=512, d=128), torch.bfloat16, lens=(300, 0, 17, 512)),
     Case("paged_decode_attention", "qwen2-g7-d128",
          dict(b=2, h=28, hk=4, page=16, cap=1024, d=128), torch.bfloat16, lens=(1024, 77)),
+    # [hd]'s scheduler runs: GPT-2 2.7B (d 80) over 16 slots and GPT-J-6B
+    # (d 256) over 8, at [serve]'s lengths; f32 at d 256 with GQA
+    Case("paged_decode_attention", "gpt2-2.7b-serve",
+         dict(b=16, h=32, hk=32, page=16, cap=1024, d=80), torch.bfloat16, lens=SERVE_LENS,
+         hd_run="gpt2_2.7b/serve"),
+    Case("paged_decode_attention", "gptj-serve",
+         dict(b=8, h=16, hk=16, page=16, cap=1024, d=256), torch.bfloat16,
+         lens=SERVE_LENS[:8], hd_run="gptj_6b/serve"),
+    Case("paged_decode_attention", "fp32-gqa-page8-d256",
+         dict(b=3, h=8, hk=2, page=8, cap=300, d=256), torch.float32, lens=(300, 65, 1)),
 ] + [c for kernel in BWD_KERNELS for c in (
     # the training main path: GPT-2 125M, micro-batch 24, seq 1024
     Case(kernel, "gpt2-train", dict(b=24, t=1024, h=12, d=64), torch.bfloat16,
@@ -286,12 +323,35 @@ CASES: List[Case] = [
     Case(kernel, "fp32", dict(b=2, t=1024, h=4, d=64), torch.float32),
     Case(kernel, "fp16-full-d128", dict(b=2, t=300, h=4, d=128), torch.float16,
          causal=False),
-)] + [c for kernel in ("flash_fwd",) + BWD_KERNELS for c in (
+    # head dims other than 64 and 128 on the 128-wide build: [hd]'s GPT-2
+    # 760M training (d 96), a ragged d 80, f32 at d 96
+    Case(kernel, "gpt2-760m-train", dict(b=8, t=1024, h=16, d=96), torch.bfloat16,
+         hd_run="gpt2_760m_train"),
+    Case(kernel, "ragged-t1000-d80", dict(b=2, t=1000, h=4, d=80), torch.bfloat16),
+    Case(kernel, "fp32-d96", dict(b=2, t=300, h=4, d=96), torch.float32),
+)] + [
+    # the forward at head dims other than 64 and 128: [hd]'s GPT-2 2.7B
+    # prefill (d 80), GPT-2 760M training (d 96) and GPT-J-6B prefill (d 256,
+    # the 256-wide build, serving only), f32 at d 80 and d 256
+    Case("flash_fwd", "gpt2-2.7b-prefill", dict(b=4, t=512, h=32, d=80), torch.bfloat16,
+         hd_run="gpt2_2.7b/generate"),
+    Case("flash_fwd", "gpt2-760m-train", dict(b=8, t=1024, h=16, d=96), torch.bfloat16,
+         hd_run="gpt2_760m_train"),
+    Case("flash_fwd", "gptj-prefill", dict(b=4, t=512, h=16, d=256), torch.bfloat16,
+         hd_run="gptj_6b/generate"),
+    Case("flash_fwd", "ragged-t300-d256-fp16", dict(b=2, t=300, h=4, d=256), torch.float16,
+         causal=False),
+    Case("flash_fwd", "fp32-d80", dict(b=2, t=300, h=4, d=80), torch.float32),
+    Case("flash_fwd", "fp32-d256", dict(b=1, t=200, h=2, d=256), torch.float32),
+] + [c for kernel in ("flash_fwd",) + BWD_KERNELS for c in (
     # the flash wgmma kernels' tilings: 64-row tiles, blocks of 64 or 128 rows, a
     # ring of K/V (K1, K3) or q/do (K4) stages. A t shorter than one tile, a t one tile and
-    # two rows long, a causal walk that wraps the ring many times, fp16 causal.
+    # two rows long, a causal walk that wraps the ring many times, fp16 causal;
+    # head dims 80 and 48 (panels past d zero-filled, stores stopped at d).
     Case(kernel, "t40", dict(b=2, t=40, h=4, d=64), torch.bfloat16),
     Case(kernel, "t130-d128", dict(b=2, t=130, h=4, d=128), torch.bfloat16),
+    Case(kernel, "t130-d80", dict(b=2, t=130, h=4, d=80), torch.bfloat16),
+    Case(kernel, "t130-d48", dict(b=2, t=130, h=4, d=48), torch.bfloat16),
     Case(kernel, "long-t4096", dict(b=1, t=4096, h=4, d=64), torch.bfloat16),
     Case(kernel, "fp16-causal", dict(b=2, t=1024, h=4, d=64), torch.float16),
 )] + [
@@ -396,6 +456,15 @@ CASES: List[Case] = [
     # of k-block 2, which no q-block attends to, walks nothing and writes zeros
     Case(kernel, "hand-made-block64", dict(b=2, t=512, h=2, d=64), torch.bfloat16,
          layout=("hand-made", dict(block=64))),
+    # head dims other than 64 and 128 on the 128-wide build: [hd]'s
+    # block-sparse GPT-2 760M training (d 96, the same layout over 16 heads),
+    # f32 at d 80
+    Case(kernel, "gpt2-760m-train-fixed16", dict(b=8, t=1024, h=16, d=96), torch.bfloat16,
+         layout=GPT2_760M_SPARSE, hd_run="gpt2_760m_sparse"),
+    Case(kernel, "longformer32-fp32-d80", dict(b=2, t=512, h=4, d=80), torch.float32,
+         causal=False, layout=("BSLongformerSparsityConfig", dict(
+             num_heads=4, block=32, num_sliding_window_blocks=3,
+             global_block_indices=[0, 7]))),
 )]
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .attention.decode import UNIT_ROWS, cluster_split, decode_attention_plain
-from .attention.flash import DTYPE_CODES, HEAD_DIMS
+from .attention.flash import DTYPE_CODES, kernel_width
 from .op_builder import CudaKernel
 
 NULL_PAGE = 0
@@ -120,8 +120,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
         return paged_attention_plain(q, k_pages, v_pages, page_table, cache_len, cap, scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu tensors, not {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"paged_attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    kernel_width(d, training=False)
     if not (q.dtype == k_pages.dtype == v_pages.dtype) or q.dtype not in DTYPE_CODES:
         raise TypeError(f"q and pages must share one of {list(DTYPE_CODES)}, got "
                         f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")

@@ -34,7 +34,9 @@ import pytest
 from deepspeed_tpu.ops.attention.decode import decode_attention, decode_attention_xla
 from deepspeed_tpu_torch.ops import kernel_checks
 from deepspeed_tpu_torch.ops.attention.decode import (SPLITS, cluster_split, decode_split,
-                                                      heads_a_block, resident_blocks)
+                                                      heads_a_block, resident_blocks,
+                                                      split_smem_bytes)
+from deepspeed_tpu_torch.ops.paged_attention import paged_split
 from test_torch_paged_split import _block_partial, merge_ranks
 
 TOL = 2e-5
@@ -100,6 +102,10 @@ CASES = {
     "cap-off-64-g1": (2, 4, 4, 64, 300, (300, 77)),
     "g7-two-head-blocks-d128": (2, 14, 2, 128, 192, (192, 70)),
     "g1-d128-one-tile": (2, 2, 2, 128, 128, (64, 5)),
+    # head dims on the 128- and 256-wide builds
+    "d80-empty-seq-g4": (3, 8, 2, 80, 256, (0, 200, 33)),
+    "d96-g1-cap-off-64": (2, 4, 4, 96, 300, (300, 77)),
+    "d256-g7-two-head-blocks": (2, 14, 2, 256, 192, (192, 70)),
 }
 
 
@@ -190,7 +196,8 @@ def test_split_picks_at_the_check_cases():
     shape likewise, and Mistral-7B's 32 pairs of four-head blocks 4 ways (a
     count of two such blocks an SM would take 8)."""
     picks = {(c.kernel, c.name): kernel_checks.case_splits(c) for c in kernel_checks.CASES
-             if c.kernel in ("decode_attention", "paged_decode_attention")}
+             if c.kernel in ("decode_attention", "paged_decode_attention")
+             and c.dims["d"] in (64, 128)}
     assert {name: s for (kernel, name), s in picks.items()
             if kernel == "paged_decode_attention" and name != "qwen2-g7-d128"} == {
         "gpt2-serve": 2, "gqa-d128": 8, "fp32-gqa-page8-cap300": 8, "fp16-page1": 8,
@@ -201,3 +208,51 @@ def test_split_picks_at_the_check_cases():
     assert picks[("decode_attention", "mistral7b-b4-d128")] == 4
     assert picks[("decode_attention", "qwen2-g7-d128")] == 4
     assert picks[("paged_decode_attention", "qwen2-g7-d128")] == 4
+
+
+# (element bytes, head_dim, heads a block) -> decode_split::smem_bytes<T, D, G>()
+# with the key window, by hand: D the build width; stages 4 of at most 16 KB,
+# else 3, fewer where they pass 232,448 bytes beside the partials
+SMEM_BY_HAND = {
+    # D 128: 3 stages of 2 x 64 x 128 x 2 bytes, partials 4 x 5 x 1 x 130
+    (2, 80, 1): 3 * 32768 + 4 * 5 * 1 * 130 + 4 * 3 * 64 + 16 * 3,
+    (2, 96, 2): 3 * 32768 + 4 * 5 * 2 * 130 + 4 * 3 * 64 + 16 * 3,
+    (4, 80, 4): 3 * 65536 + 4 * 9 * 4 * 130 + 4 * 3 * 64 + 16 * 3,
+    # D 256 in 16-bit: 3 stages of 64 KB with one or two heads; with four,
+    # 3 x 65,808 + 37,152 = 234,576 would not fit, so 2
+    (2, 256, 1): 3 * 65536 + 4 * 5 * 1 * 258 + 4 * 3 * 64 + 16 * 3,
+    (2, 256, 2): 3 * 65536 + 4 * 5 * 2 * 258 + 4 * 3 * 64 + 16 * 3,
+    (2, 256, 4): 2 * 65536 + 4 * 9 * 4 * 258 + 4 * 2 * 64 + 16 * 2,
+    # D 256 in f32: one stage of 128 KB
+    (4, 256, 1): 131072 + 4 * 5 * 1 * 258 + 4 * 64 + 16,
+    (4, 256, 4): 131072 + 4 * 9 * 4 * 258 + 4 * 64 + 16,
+}
+
+
+@pytest.mark.parametrize("itemsize,d,heads", sorted(SMEM_BY_HAND))
+def test_split_smem_bytes_at_head_dims(itemsize, d, heads):
+    """The wrappers' mirror of the body's shared memory at head dims other
+    than 64 and 128, against the count by hand; every block fits the card's
+    232,448 bytes, and a head_dim runs on the build of its width."""
+    assert split_smem_bytes(itemsize, d, heads) == SMEM_BY_HAND[(itemsize, d, heads)]
+    assert split_smem_bytes(itemsize, d, heads) <= 232448
+    width = 128 if d <= 128 else 256
+    assert split_smem_bytes(itemsize, d, heads) == split_smem_bytes(itemsize, width, heads)
+    assert resident_blocks(itemsize, d, heads) == resident_blocks(itemsize, width, heads)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("d", [80, 96, 256])
+def test_split_rule_at_head_dims(d, g):
+    """cluster_split and paged_split at head dims 80, 96 and 256 pick as at
+    their build width, fall as pairs grow and never pass a pair's units; the
+    rule refuses a head_dim the kernels do not take."""
+    width = 128 if d <= 128 else 256
+    for b, hk in ((1, 1), (4, 4), (16, 32)):
+        assert decode_split(b, hk, g, 1024, d, 2) == decode_split(b, hk, g, 1024, width, 2)
+        assert paged_split(b, hk, 64, 16, d, g, 2) == paged_split(b, hk, 64, 16, width, g, 2)
+    picks = [cluster_split(pairs, 16, 1024, d, g, 2) for pairs in (1, 4, 16, 64, 512)]
+    assert picks == sorted(picks, reverse=True) and all(s in SPLITS for s in picks)
+    assert decode_split(1, 1, g, 100, d, 2) == 2       # two tiles
+    with pytest.raises(ValueError, match="head_dim 84"):
+        decode_split(1, 1, g, 100, 84, 2)

@@ -9,7 +9,8 @@ cache_len; a stage holds 64 // page pages (a page longer than 64 rows comes in
 64-row pieces); a block takes G = 1, 2 or 4 of a group's query heads, and at
 G = 4 has 8 consumer warps, else 4; consumer warp w takes rows [w * R, (w +
 1) * R) of a stage (R = 64 / warps), and within it each group of LPR lanes
-the rows w * R + t * RPI + its group index (LPR = d / 4 lanes a row at f32,
+the rows w * R + t * RPI + its group index (LPR = min(32, D / 4) lanes a row
+at f32, D the build width 64, 128 or 256 that holds d, lanes past d idle;
 RPI = 32 / LPR), with its own online softmax over sub-tiles of up to 4 of
 its rows. The partials merge by shuffles across
 lane groups, in warp order, then in rank order. The emulation below walks the
@@ -36,6 +37,7 @@ import pytest
 
 from deepspeed_tpu.ops.paged_attention import paged_attention_fused, paged_attention_xla
 from deepspeed_tpu_torch.ops.attention.decode import SPLITS
+from deepspeed_tpu_torch.ops.attention.flash import kernel_width
 from deepspeed_tpu_torch.ops.paged_attention import paged_split
 from test_torch_paged_attention import _paged_inputs
 
@@ -80,7 +82,7 @@ def _block_partial(q, k, v, table_row, n, kh, page, share_units, d):
     g = q.shape[0]
     ncw = _consumer_warps(g)
     warp_rows = STAGE_ROWS // ncw
-    lpr = d // 4
+    lpr = min(32, kernel_width(d, training=False) // 4)
     rpi = 32 // lpr
     ni = warp_rows // rpi
     ts = min(ni, 4)
@@ -177,6 +179,10 @@ CASES = {
     "page-5-d128": (2, 4, 4, 128, 5, 200, (200, 11), True),
     "page-96-pieces": (2, 4, 2, 64, 96, 400, (400, 97), True),
     "contiguous-pages": (2, 4, 4, 64, 16, 160, (160, 5), False),
+    # head dims on the 128- and 256-wide builds
+    "d80-empty-slot-gqa": (3, 8, 2, 80, 16, 256, (0, 200, 33), True),
+    "d96-page8-cap-off": (2, 4, 4, 96, 8, 300, (300, 77), True),
+    "d256-gqa-two-blocks": (2, 8, 1, 256, 16, 160, (160, 70), True),
 }
 
 
