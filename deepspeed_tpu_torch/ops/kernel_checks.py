@@ -130,7 +130,7 @@ from .attention.block_sparse import (block_sparse_bwd_dkv, block_sparse_bwd_dkv_
 from .attention.decode import decode_attention, decode_attention_plain, decode_split
 from .attention.flash import (flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
                              flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
-from .moe import moe_decode_ffn, moe_decode_ffn_plain, moe_decode_ffn_xla
+from .moe import moe_decode_ffn, moe_decode_ffn_plain, moe_decode_ffn_xla, moe_plan
 from .paged_attention import (gather_kv_dense, paged_attention, paged_attention_plain,
                               paged_split)
 from .quantizer import (dequantize_to, pack_int4, quantize_grouped, quantized_matmul,
@@ -205,7 +205,8 @@ class Case:
     # flash (fwd and bwd): b, t, h, d; decode: b, h, hk, T, d; paged: b, h,
     # hk, page, cap, d (max_pages = cdiv(cap, page)); dequant-GEMM: m, k, n,
     # group (requested; the quantizer may degrade it), bits; selected-expert
-    # FFN: n rows (tokens x k), e, d, f, k experts a token (distinct);
+    # FFN: n rows (tokens x k), e, d, f, k experts a token (distinct;
+    # one_expert=1: every row to one expert);
     # block-sparse: b, t, h, d (the layout block is the config's)
     dims: Dict[str, int]
     dtype: torch.dtype
@@ -403,8 +404,18 @@ CASES: List[Case] = [
          torch.bfloat16),
     Case("moe_decode_ffn", "gpt2moe-top2-n2", dict(n=2, e=8, d=768, f=3072, k=2),
          torch.bfloat16),
+    # the scheduler's 16 slots all routed to one expert, and 32 sequences
+    # top-2 (64 rows over 8 experts)
+    Case("moe_decode_ffn", "gpt2moe-serve-n16-one-expert",
+         dict(n=16, e=8, d=768, f=3072, k=1, one_expert=1), torch.bfloat16),
+    Case("moe_decode_ffn", "gpt2moe-top2-n64", dict(n=64, e=8, d=768, f=3072, k=2),
+         torch.bfloat16),
     # a partial last f-block; 16-byte loads
     Case("moe_decode_ffn", "ragged-d96-f200-relu", dict(n=5, e=3, d=96, f=200, k=1),
+         torch.bfloat16, activation="relu"),
+    # the same shape at one token, on the tensor cores: a last f-block of 8
+    # columns, w2's second 64-column box half past d
+    Case("moe_decode_ffn", "ragged-d96-f200-n1-relu", dict(n=1, e=3, d=96, f=200, k=1),
          torch.bfloat16, activation="relu"),
     Case("moe_decode_ffn", "fp32-silu-top2", dict(n=4, e=8, d=256, f=1024, k=2),
          torch.float32, activation="silu"),
@@ -414,6 +425,13 @@ CASES: List[Case] = [
          torch.float16, activation="relu"),
     # DeepSpeed-MoE 350M+MoE-128's expert shape (2.1 GB of stacks), where the
     # experts dominate the weight stream
+    # GPT-2 6.7B's width (`models/gpt2.py` "gpt2-6.7b": d 4096, f 16384) with
+    # 8 experts at batch 1, top-1 and top-2: the tensor-core kernel's shared
+    # memory (~330 KB) does not fit a block, so the plan takes the slab kernel
+    Case("moe_decode_ffn", "gpt2-6.7b-moe-n1", dict(n=1, e=8, d=4096, f=16384, k=1),
+         torch.bfloat16),
+    Case("moe_decode_ffn", "gpt2-6.7b-moe-top2-n2", dict(n=2, e=8, d=4096, f=16384, k=2),
+         torch.bfloat16),
     Case("moe_decode_ffn", "dsmoe350m-e128-n1", dict(n=1, e=128, d=1024, f=4096, k=1),
          torch.bfloat16),
     Case("moe_decode_ffn", "dsmoe350m-e128-n16", dict(n=16, e=128, d=1024, f=4096, k=1),
@@ -600,9 +618,16 @@ def moe_inputs(case: Case, device, seed: int = 0) -> Dict[str, torch.Tensor]:
 
     idx = torch.tensor(moe_inputs_idx(case, seed), dtype=torch.int32, device=device)
     x = randn(1.0, n // k, d).repeat_interleave(k, dim=0)
-    return {"x": x, "idx": idx,
-            "w1": randn(float(d) ** -0.5, e, d, f), "b1": randn(0.5, e, f),
-            "w2": randn(float(f) ** -0.5, e, f, d), "b2": randn(0.5, e, d)}
+    inp = {"x": x, "idx": idx,
+           "w1": randn(float(d) ** -0.5, e, d, f), "b1": randn(0.5, e, f),
+           "w2": randn(float(f) ** -0.5, e, f, d), "b2": randn(0.5, e, d)}
+    # NaN in memory the wrapper's output and partials will take (the same
+    # sizes), so a row or a partial the kernel leaves unwritten shows
+    bf, _ = moe_plan(n, d, f, inp["x"].element_size())
+    poison = [torch.full((n, d), float("nan"), device=device),
+              torch.full((n, -(-f // bf), d), float("nan"), device=device)]
+    del poison
+    return inp
 
 
 def block_sparse_inputs(case: Case, device, gen) -> Dict[str, torch.Tensor]:
@@ -886,6 +911,8 @@ def moe_inputs_idx(case: Case, seed: int = 0) -> List[int]:
     draws), without building the tensors."""
     rng = np.random.default_rng(seed)
     e, k = case.dims["e"], case.dims["k"]
+    if case.dims.get("one_expert"):
+        return [int(rng.integers(e))] * case.dims["n"]
     return [int(i) for _ in range(case.dims["n"] // k) for i in rng.permutation(e)[:k]]
 
 

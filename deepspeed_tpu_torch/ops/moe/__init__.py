@@ -1,3 +1,3 @@
 from .decode_ffn import (ACTIVATIONS, MOE_DECODE_FFN, moe_decode_ffn,  # noqa: F401
                          moe_decode_ffn_plain, moe_decode_ffn_quant, moe_decode_ffn_xla,
-                         pick_block_f)
+                         moe_plan)

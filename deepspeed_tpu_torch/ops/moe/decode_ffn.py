@@ -20,7 +20,7 @@ kernel needs a code.
 """
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,34 +34,66 @@ ACTIVATIONS = {"gelu": lambda v: F.gelu(v, approximate="tanh"), "relu": F.relu,
                "silu": F.silu}
 ACT_CODES = {"gelu": 0, "relu": 1, "silu": 2}
 
-#: f-block widths the kernel is tuned over; :func:`pick_block_f` takes the
-#: widest that still gives ``TARGET_BLOCKS`` blocks, else the narrowest.
-#: From the sweep on the H100 at GPT-2 MoE's d 768, f 3072 (``chip_smoke.py``
-#: ``[check]``, ``PERF.md``): at n = 1, widths 16, 32 and 64 (192, 96 and 48
-#: blocks) within 5 % of each other and 128 about 20 % slower; at n = 16, 128
-#: (384 blocks) fastest, 16 nearly twice as slow (more f32 partials)
+#: the kernel's plan (:func:`moe_plan`). 16-bit stacks with d and f
+#: multiples of 8 run the tensor-core kernel on f-blocks of ``MMA_BLOCK_F``
+#: columns where a call holds at most ``MMA_TOKENS`` tokens (at GPT-2 MoE's f
+#: 3072 and n 1, 192 blocks of 48 KB of slabs) and its shared memory
+#: (:func:`mma_smem_bytes`) fits a block's ``SMEM_MAX``. Every other call
+#: runs the first version's slab kernel, each token its own blocks (experts
+#: shared by a few tokens come from L2), on the widest of
+#: ``BLOCK_F_CHOICES`` for which the blocks reach ``SLAB_TARGET_BLOCKS``,
+#: else the narrowest: at those shapes it is the faster (``PERF.md``,
+#: ``benchmarks/torch/moe_parts.py``)
+MMA_TOKENS = 2
+MMA_BLOCK_F = 16
 BLOCK_F_CHOICES = (128, 64, 32, 16)
-TARGET_BLOCKS = 96
+SLAB_TARGET_BLOCKS = 96
 MAX_BLOCK_F = 256                # the C entry's limit
+SMEM_MAX = 227 * 1024            # a block's shared memory on the H100
+SLAB, MMA = 0, 1                 # the C entry's modes
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 MOE_DECODE_FFN = CudaKernel(
     "moe_decode_ffn", "moe_decode_ffn.cu", "moe_decode_ffn",
     [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,     # x, idx, w1, b1, w2, b2, part, y
-     _int, _int, _int, _int, _int, _int, _int,   # n, d, f, e, block_f, act, dtype
-     _vp])                                       # stream
+     _int, _int, _int, _int, _int, _int,         # n, d, f, e, block_f, mode
+     _int, _int, _vp])                           # act, dtype, stream
 
 
-def pick_block_f(n: int, f: int) -> int:
-    """The kernel's f-block width: the widest of :data:`BLOCK_F_CHOICES` for
-    which ``n * cdiv(f, bf)`` blocks reach :data:`TARGET_BLOCKS`, else the
-    narrowest. At f 3072 that is 32 at n = 1 (96 blocks), 64 at n = 2 and
-    128 at n = 16 (384): narrow blocks spread a batch of one over the SMs,
-    wide ones write fewer f32 partials when tokens already fill the card."""
+def mma_smem_bytes(d: int, bf: int) -> int:
+    """The tensor-core kernel's dynamic shared memory at width ``d`` and
+    f-blocks of ``bf`` (16-bit stacks), as ``mma_layout`` in
+    ``csrc/moe_decode_ffn.cu`` lays it out: w2's boxes, w1's boxes, x as 8
+    rows of A, the warps' sums of h, h as 8 rows of A, b1's slice, the
+    barriers, and 1024 bytes to align the start. About 80 d bytes at bf 16:
+    d up to 2,848 fits."""
+    at = 0
+
+    def take(size: int, align: int) -> None:
+        nonlocal at
+        at = -(-at // align) * align + size
+
+    nb, kr = -(-d // 64), max(bf, 16)
+    take(nb * kr * 128, 1024)           # w2: cdiv(d, 64) boxes of kr rows x 128 bytes
+    take(nb * 64 * bf * 2, 1024)        # w1: cdiv(d, 64) boxes of 64 rows x bf
+    take(8 * (d + 8) * 2, 16)           # x
+    take(8 * bf * 4, 16)                # the 8 warps' sums of h
+    take(8 * (kr + 8) * 2, 16)          # h
+    take(bf * 4, 16)                    # b1
+    take((nb + 1) * 8, 8)               # the barriers
+    return at + 1024
+
+
+def moe_plan(n: int, d: int, f: int, itemsize: int) -> Tuple[int, int]:
+    """``(block_f, mode)`` for ``n`` tokens, from the shapes alone (no host
+    read of ``idx``): see :data:`MMA_TOKENS`."""
+    if itemsize == 2 and d % 8 == 0 and f % 8 == 0 and n <= MMA_TOKENS and \
+            mma_smem_bytes(d, MMA_BLOCK_F) <= SMEM_MAX:
+        return MMA_BLOCK_F, MMA
     for bf in BLOCK_F_CHOICES:
-        if n * -(-f // bf) >= TARGET_BLOCKS:
-            return bf
-    return BLOCK_F_CHOICES[-1]
+        if n * -(-f // bf) >= SLAB_TARGET_BLOCKS:
+            return bf, SLAB
+    return BLOCK_F_CHOICES[-1], SLAB
 
 
 def _check(x, idx, w1, b1, w2, b2, activation):
@@ -93,7 +125,9 @@ def moe_decode_ffn(x: torch.Tensor, idx: torch.Tensor, w1: torch.Tensor, b1: tor
     applies the gate weights. ``idx (n,)`` integer expert ids, read by the
     kernel from device memory (no host synchronisation); weights stacked
     ``(e, d, f)`` / ``(e, f)`` / ``(e, f, d)`` / ``(e, d)`` in x's dtype.
-    ``block_f``: the kernel's f-block width (default :func:`pick_block_f`)."""
+    ``block_f``: the f-block width (default :func:`moe_plan`'s; another
+    width runs the slab kernel). The FFN kernel and the reduction over
+    f-blocks, with no host synchronisation."""
     _check(x, idx, w1, b1, w2, b2, activation)
     if x.device.type == "cpu":
         return moe_decode_ffn_plain(x, idx, w1, b1, w2, b2, activation)
@@ -103,7 +137,9 @@ def moe_decode_ffn(x: torch.Tensor, idx: torch.Tensor, w1: torch.Tensor, b1: tor
         raise ValueError("x, idx and the expert weights must be on one device")
     n, d = x.shape
     e, _, f = w1.shape
-    bf = block_f or pick_block_f(n, f)
+    bf, mode = moe_plan(n, d, f, x.element_size())
+    if block_f is not None:
+        bf, mode = block_f, mode if block_f == bf else SLAB
     if not 1 <= bf <= MAX_BLOCK_F:
         raise ValueError(f"block_f={bf} not in [1, {MAX_BLOCK_F}]")
     y = torch.empty(n, d, dtype=torch.float32, device=x.device)
@@ -114,8 +150,9 @@ def moe_decode_ffn(x: torch.Tensor, idx: torch.Tensor, w1: torch.Tensor, b1: tor
     part = torch.empty(n, -(-f // bf), d, dtype=torch.float32, device=x.device)
     MOE_DECODE_FFN.launch(
         x.data_ptr(), idx.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), part.data_ptr(), y.data_ptr(), n, d, f, e, bf, ACT_CODES[activation],
-        DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        b2.data_ptr(), part.data_ptr(), y.data_ptr(), n, d, f, e, bf, mode,
+        ACT_CODES[activation], DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     return y
 
 

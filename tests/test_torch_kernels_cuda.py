@@ -145,14 +145,19 @@ def test_paged_kernel_zero_length_slot_and_launch_count():
 def test_kernel_repeats_bit_identical():
     """The dense and paged decode kernels merge their partials in a fixed
     order (lane groups, warps, then the cluster's blocks by rank) with no
-    atomics, so two calls on the same inputs give the same bits, at every
-    case's split."""
+    atomics, and so does the selected-expert FFN (warps and row groups in
+    order, then the f-blocks' partials in a fixed order): two calls on the
+    same inputs give the same bits, at every case's split and plan. Before
+    the second call NaN fills the memory its output will take, so an output
+    left unwritten shows."""
     device = _card()
     for case in kernel_checks.CASES:
-        if case.kernel not in ("decode_attention", "paged_decode_attention"):
+        if case.kernel not in ("decode_attention", "paged_decode_attention", "moe_decode_ffn"):
             continue
         inp = kernel_checks.make_inputs(case, device)
         first = kernel_checks.run_kernel(case, inp)[0]
+        poison = torch.full_like(first, float("nan"))
+        del poison
         assert torch.equal(first, kernel_checks.run_kernel(case, inp)[0]), \
             (case.kernel, case.name)
 
@@ -239,14 +244,16 @@ def test_quantized_matmul_launch_count_and_refusals():
 
 
 def test_moe_decode_ffn_block_widths_launch_count_and_refusals():
-    """The selected-expert FFN on the card: every f-block width the C entry
-    takes gives the plain version's result (a ragged last block at most of
-    them), repeated calls are bit-identical (no atomics), each call is one
+    """The selected-expert FFN on the card: the slab kernel at every f-block
+    width the C entry takes, and the tensor-core kernel at its widths (8, 16
+    and 32), give the plain version's result (a ragged last block at most of them), repeated
+    calls are bit-identical (no atomics), each wrapper call counts one
     launch whatever n and k, and what the wrapper or the C entry refuses
     raises."""
     from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.attention.flash import DTYPE_CODES
     from deepspeed_tpu_torch.ops.moe import moe_decode_ffn, moe_decode_ffn_plain
-    from deepspeed_tpu_torch.ops.moe.decode_ffn import MOE_DECODE_FFN
+    from deepspeed_tpu_torch.ops.moe.decode_ffn import ACT_CODES, MMA, MOE_DECODE_FFN, SLAB
     from deepspeed_tpu_torch.ops.op_builder import KernelLaunchError
     device = _card()
     case = kernel_checks.Case("moe_decode_ffn", "widths", dict(n=6, e=4, d=256, f=1000, k=2),
@@ -254,27 +261,94 @@ def test_moe_decode_ffn_block_widths_launch_count_and_refusals():
     inp = kernel_checks.make_inputs(case, device)
     args = (inp["x"], inp["idx"], inp["w1"], inp["b1"], inp["w2"], inp["b2"], "gelu")
     ref = moe_decode_ffn_plain(*args)
+    tol = kernel_checks.MOE_TOLERANCES[torch.bfloat16]
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def direct(bf, mode):
+        part = torch.empty(6, -(-1000 // bf), 256, device=device)
+        y = torch.empty(6, 256, device=device)
+        MOE_DECODE_FFN.launch(*(t.data_ptr() for t in args[:6]), part.data_ptr(), y.data_ptr(),
+                              6, 256, 1000, 4, bf, mode, ACT_CODES["gelu"],
+                              DTYPE_CODES[torch.bfloat16], stream)
+        return y
+
     op_builder.reset_launch_counts()
     widths = (1, 7, 16, 32, 64, 128, 256)
     for bf in widths:
         y = moe_decode_ffn(*args, block_f=bf)
-        assert kernel_checks.err_ratio(y, ref, *kernel_checks.MOE_TOLERANCES[torch.bfloat16]) \
-            <= 1.0, bf
+        assert kernel_checks.err_ratio(y, ref, *tol) <= 1.0, bf
         assert torch.equal(y, moe_decode_ffn(*args, block_f=bf)), bf
     assert op_builder.launch_counts()["moe_decode_ffn"] == 2 * len(widths)
+    for bf in (8, 16, 32):
+        y = direct(bf, MMA)
+        assert kernel_checks.err_ratio(y, ref, *tol) <= 1.0, bf
+        assert torch.equal(y, direct(bf, MMA)), bf
     with pytest.raises(ValueError, match="block_f"):
         moe_decode_ffn(*args, block_f=512)
     with pytest.raises(ValueError, match="w2"):
         moe_decode_ffn(*args[:4], inp["w2"][:, :-1], *args[5:])
     with pytest.raises(TypeError, match="share one"):
         moe_decode_ffn(args[0].float(), *args[1:])
-    assert op_builder.launch_counts()["moe_decode_ffn"] == 2 * len(widths)
-    y = torch.empty(6, 256, device=device)
-    with pytest.raises(KernelLaunchError, match="invalid argument"):
-        MOE_DECODE_FFN.launch(args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-                              args[3].data_ptr(), args[4].data_ptr(), args[5].data_ptr(),
-                              y.data_ptr(), y.data_ptr(), 6, 256, 1000, 4, 300, 0, 2,
-                              torch.cuda.current_stream(device).cuda_stream)
+    assert op_builder.launch_counts()["moe_decode_ffn"] == 2 * len(widths) + 6
+    # the C entry: a width past 256; a mode it does not have; the
+    # tensor-core kernel at a width it has no tiling for, on f32, or at a d
+    # whose shared memory does not fit a block (its maps not yet made)
+    for d, bf, mode, dtype in ((256, 300, SLAB, torch.bfloat16), (256, 16, 2, torch.bfloat16),
+                               (256, 24, MMA, torch.bfloat16), (256, 16, MMA, torch.float32),
+                               (4096, 16, MMA, torch.bfloat16)):
+        with pytest.raises(KernelLaunchError, match="invalid argument"):
+            MOE_DECODE_FFN.launch(*(t.data_ptr() for t in args[:6]), 0, 0, 6, d, 1000, 4, bf,
+                                  mode, ACT_CODES["gelu"], DTYPE_CODES[dtype], stream)
+
+
+def test_moe_decode_ffn_call_is_the_ffn_and_its_reduction():
+    """A K7 call on the card launches the FFN kernel and the reduction and
+    nothing else (no copy, no fill, no host synchronisation), at the plans of
+    generate (one token, the tensor-core kernel), the scheduler (16 tokens,
+    the slab kernel) and one token at GPT-2 6.7B's width (the slab kernel)."""
+    from deepspeed_tpu_torch.ops.moe import moe_decode_ffn
+    device = _card()
+    for name in ("gpt2moe-decode-n1", "gpt2moe-serve-n16", "gpt2-6.7b-moe-n1"):
+        case = next(c for c in kernel_checks.CASES if c.name == name)
+        inp = kernel_checks.make_inputs(case, device)
+        args = (inp["x"], inp["idx"], inp["w1"], inp["b1"], inp["w2"], inp["b2"], "gelu")
+        moe_decode_ffn(*args)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            moe_decode_ffn(*args)
+            torch.cuda.synchronize()
+        kernels = [ev.name for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        ffn = "moe_ffn_mma" if name == "gpt2moe-decode-n1" else "moe_ffn_slab"
+        assert len(kernels) == 2, (name, kernels)
+        assert sum(ffn in k for k in kernels) == 1, (name, kernels)
+        assert sum("moe_ffn_reduce" in k for k in kernels) == 1, (name, kernels)
+
+
+def test_moe_decode_ffn_builds_do_not_spill():
+    """``-Xptxas -v`` of the selected-expert FFN's source: no kernel (the
+    tensor-core kernel, the slab kernel, the reduction, every dtype and
+    vector width) spills or keeps a stack frame."""
+    _card()
+    from deepspeed_tpu_torch.ops import op_builder
+    src = op_builder.KERNELS["moe_decode_ffn"].source
+    out_dir = os.path.join(REPO, "build", "ptxas_check")
+    os.makedirs(out_dir, exist_ok=True)
+    proc = subprocess.run([op_builder._nvcc(), *op_builder.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                           os.path.join(out_dir, src + ".so"),
+                           os.path.join(op_builder.CSRC_DIR, src)],
+                          capture_output=True, text=True, check=True)
+    spills, entry = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry is not None:
+            spills[entry] = line.split(":", 1)[-1].strip()
+    for kernel in ("moe_ffn_mma", "moe_ffn_slab", "moe_ffn_reduce"):
+        assert any(kernel in e for e in spills), (kernel, list(spills))
+    for e, v in spills.items():
+        print(f"[ptxas] {src} {e[:90]}: {v}")
+        assert v == "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", (e, v)
 
 
 def _sparse_inputs(device, dtype, b=2, t=256, h=4, d=64, block=16):
@@ -374,6 +448,11 @@ def test_block_sparse_refuses_unsupported_shapes_on_card():
                                    tiles.idx.shape[2], 0.125, 1, 2,
                                    torch.cuda.current_stream(device).cuda_stream)
 
+
+#: the selected-expert FFN's check cases that its plan runs on the tensor
+#: cores (test_moe_plan_at_the_check_cases holds the list to the plan)
+MOE_MMA_CASES = ("moe_decode_ffn:gpt2moe-decode-n1", "moe_decode_ffn:gpt2moe-top2-n2",
+                 "moe_decode_ffn:dsmoe350m-e128-n1", "moe_decode_ffn:ragged-d96-f200-n1-relu")
 
 #: faults planted in a copy of the package: name -> (source in csrc/, line as
 #: written, line as planted, the check cases the fault must fail, as
@@ -475,6 +554,7 @@ PLANTED_FAULTS = {
         "const int k_used = k;",
         "const int k_used = k - group;",
         ("quantized_matmul",)),
+    # the reduction, after either FFN kernel
     "moe-skips-last-f-block": (
         "moe_decode_ffn.cu",
         "const int nfb_used = nfb;",
@@ -482,9 +562,27 @@ PLANTED_FAULTS = {
         ("moe_decode_ffn",)),
     "moe-adds-b2-twice": (
         "moe_decode_ffn.cu",
-        "float t = to_f32(b2[(size_t)expert_of(idx, i, e) * d + col]);",
-        "float t = 2.f * to_f32(b2[(size_t)expert_of(idx, i, e) * d + col]);",
+        "float v = to_f32(b2[(size_t)ex * d + col]);",
+        "float v = 2.f * to_f32(b2[(size_t)ex * d + col]);",
         ("moe_decode_ffn",)),
+    "moe-reduce-skips-first-f-block": (
+        "moe_decode_ffn.cu",
+        "for (int j = g; j < nfb_used; j += RED_GROUPS) s += __ldcg(p + (size_t)j * d);",
+        "for (int j = g + (g == 0) * RED_GROUPS; j < nfb_used; j += RED_GROUPS) "
+        "s += __ldcg(p + (size_t)j * d);",
+        ("moe_decode_ffn",)),
+    # the tensor-core kernel: the cases its plan takes it for (one or two
+    # tokens)
+    "moe-mma-w2-unswizzled": (
+        "moe_decode_ffn.cu",
+        "(((nt & 7) ^ (r & 7)) << 4)),",
+        "((nt & 7) << 4)),",
+        MOE_MMA_CASES),
+    "moe-mma-h-drops-last-warp": (
+        "moe_decode_ffn.cu",
+        "for (int w = 0; w < WARPS; ++w) s += red[w * p.bf + c];",
+        "for (int w = 0; w < WARPS - 1; ++w) s += red[w * p.bf + c];",
+        MOE_MMA_CASES),
     "qmm-wgmma-drops-a-stage": (
         "quantized_matmul.cu",
         "const int n_st = max(p_end - p_begin + PR - 1, 0) / PR;",
@@ -741,6 +839,20 @@ def test_planted_fault_line_and_cases(fault):
         assert f.read().count(line) == 1, f"the line to plant is not once in {source}: {line}"
     for sel in selectors:
         assert any(kernel_checks.selects(sel, c) for c in kernel_checks.CASES), sel
+
+
+def test_moe_plan_at_the_check_cases():
+    """Without a card: ``MOE_MMA_CASES`` names exactly the selected-expert
+    FFN cases whose plan runs the tensor-core kernel, so that kernel's
+    planted faults are held to the cases that run it."""
+    from deepspeed_tpu_torch.ops.moe.decode_ffn import SLAB, moe_plan
+    mma = set()
+    for c in kernel_checks.CASES:
+        if c.kernel == "moe_decode_ffn":
+            itemsize = torch.tensor([], dtype=c.dtype).element_size()
+            if moe_plan(c.dims["n"], c.dims["d"], c.dims["f"], itemsize)[1] != SLAB:
+                mma.add(f"moe_decode_ffn:{c.name}")
+    assert mma == set(MOE_MMA_CASES)
 
 
 def test_case_selectors():

@@ -230,10 +230,26 @@ def test_moe_decode_ffn_quant_matches_jax(bits, dtype):
 
 
 def test_pick_block_f_and_refusals():
-    assert torch_ops_moe.pick_block_f(1, 3072) == 32
-    assert torch_ops_moe.pick_block_f(2, 3072) == 64
-    assert torch_ops_moe.pick_block_f(16, 3072) == 128
-    assert torch_ops_moe.pick_block_f(1, 200) == 16
+    """The kernel's plan (f-block width and kernel, from the shapes alone) at
+    the check cases' shapes, and the wrapper's refusals."""
+    from deepspeed_tpu_torch.ops.moe.decode_ffn import MMA, SLAB
+    plan = torch_ops_moe.moe_plan
+    # GPT-2 MoE (d 768, f 3072, bf16): the tensor-core kernel for one or two
+    # tokens, the slab kernel (the first version's widths) for more
+    assert plan(1, 768, 3072, 2) == (16, MMA)
+    assert plan(2, 768, 3072, 2) == (16, MMA)
+    assert plan(16, 768, 3072, 2) == (128, SLAB)
+    assert plan(64, 768, 3072, 2) == (128, SLAB)
+    assert plan(3, 512, 2048, 2) == (64, SLAB)
+    # the tensor-core kernel's shared memory past 227 KB (GPT-2 6.7B's and
+    # 13B's widths): the slab kernel
+    assert plan(1, 4096, 16384, 2) == (128, SLAB)
+    assert plan(2, 5120, 20480, 2) == (128, SLAB)
+    # f32, and d or f not a multiple of 8: the slab kernel
+    assert plan(1, 768, 3072, 4) == (32, SLAB)
+    assert plan(4, 256, 1024, 4) == (32, SLAB)
+    assert plan(3, 77, 201, 2) == (16, SLAB)
+    assert plan(1, 96, 200, 2) == (16, MMA)
     inp = _to_torch(_ffn_inputs(5, 2, 1), torch.float32)
     with pytest.raises(ValueError, match="activation"):
         torch_ops_moe.moe_decode_ffn(*inp, "tanh")
