@@ -41,7 +41,29 @@ non-zero:
    layers x 6 projections) per forward pass the scheduler's telemetry counts
    (prefills and decode steps), the paged kernel as in the bf16 run; one
    chunk of a second int8 run is traced (the dequant-GEMM's and the paged
-   kernel's device time and the launches of a decode step);
+   kernel's device time and the launches of a decode step). Then
+   speculative decoding (``[spec]``, ``ServingConfig(speculate=True,
+   spec_k=4)``) on the same configuration: (a) the n-gram proposer (n-grams
+   4 down to 1) on the 48 requests: every request finishes with its budget;
+   launch counts exact (flash forward n_layer x prefix misses, the paged and
+   the dense decode kernels 0: every decode chunk is one verify round); each
+   request's tokens equal its ``[serve]`` tokens, or first differ where the
+   ``[serve]`` stream's top-2 logit margin (a flash-kernel prefill of the
+   prompt and the common prefix) is at most 0.2; the spec counters,
+   requests/s, tokens/s and TPOT beside ``[serve]``'s; (b) after scheduler
+   step 6 the pool is copied, one verify round runs on a copy and the same
+   window tokens go one at a time through paged-kernel decode steps from a
+   second copy: logits within 0.1 at every window position of every live
+   slot, argmax equal wherever the step's top-2 margin exceeds 0.2; (c) a
+   draft-model proposer (a second engine of the same seed, so the target's
+   weights) on the first 8 requests, budgets capped at 32: budgets,
+   divergences as in (a), acceptance >= 0.5, passes a token <= 0.5, the
+   draft engine's flash forward (n_layer a ``generate``) and dense decode
+   kernel (n_layer x (k - 1) a ``generate``) launch counts exact; (d) (a)'s
+   traffic on the int8 engine: budgets, the dequant-GEMM 72 x (prefills +
+   verify rounds), the paged kernel 0; (e) one traced verify round (device
+   time, busy share, launches) and a second one with the device time of the
+   page gather, of ``prefix_attention`` and of the window's cache write;
 6. training path: ``initialize`` on GPT-2 125M at ``bench.py``'s training
    configuration (vocab 50304, seq 1024, micro-batch 24, bf16 AdamW lr 2e-4,
    weight decay 0.01, ZeRO stage 1, clipping 1.0; seeded random weights, no
@@ -131,6 +153,9 @@ SEED = 0
 N_NEW = 64
 SERVE_REQUESTS, SERVE_PREFIX, SERVE_SLOTS, SERVE_CHUNK = 48, 250, 16, 8
 SERVE_CHECK_STEP = 6   # the scheduler step after which the pool is copied for the check
+# [spec]: draft tokens a verify window; the draft-model lane's requests and budget cap;
+# the top-2 logit margin under which a greedy token may flip between two passes
+SPEC_K, SPEC_DRAFT_REQUESTS, SPEC_DRAFT_BUDGET, SPEC_MARGIN = 4, 8, 32, 0.2
 PROMPT = 512
 SHORT_PROMPT = 384
 LOGITS_TOL = 0.1   # bf16 prefill logits, kernel vs plain attention: see main_path()
@@ -643,7 +668,8 @@ def serve_path(device, smi: str, cfg=None, engine=None, n_requests: int = SERVE_
            "prefix_hit_rate": tele["prefix_hit_rate"], "prefix_misses": misses,
            "cow_copies": tele["paged_cow_copies_total"], "peak_pages_in_use": peak_pages,
            "total_pages": tele["paged_total_pages"], "peak_memory_bytes": peak_mem,
-           "step_logit_err": step_err, "launches": launches}
+           "step_logit_err": step_err, "launches": launches,
+           "tokens": [h.result() for h in handles]}
     print(f"[{label}] {smi}: {n_requests} requests in {wall:.3f} s: "
           f"{out['requests_per_s']:.3f} requests/s, {out['tokens_per_s']:.1f} generated "
           f"tokens/s ({tokens} tokens); TTFT p50 {out['ttft_ms_p50']:.2f} ms p95 "
@@ -749,6 +775,329 @@ def serve_int8(device, smi: str, cfg, config, requests, bf16):
               f"{prof['device_us'] / 1e3:.3f} ms device, {out['step_launches']:.1f} launches a "
               f"decode step", flush=True)
     del sched, sched2, engine
+    gc.collect()
+    return out
+
+
+def spec_config(config, **kw):
+    """``config`` with speculation on, ``SPEC_K`` draft tokens a window."""
+    import dataclasses
+    return dataclasses.replace(config, speculate=True, spec_k=SPEC_K, **kw)
+
+
+def top2_margin(logits):
+    """``(..., V)`` logits → the gap between their two largest values."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def spec_run(engine, config, requests, label: str, check_step=None):
+    """The scheduler with ``config`` on ``requests``, launch counts from 0
+    over the run; every request must finish with its budget. With
+    ``check_step``, a copy of the pool and of the next round's windows
+    (``_spec_windows``: the proposer is a pure function of the streams)
+    after that scheduler step, for :func:`spec_verify_check`."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.ops import op_builder
+
+    device = engine.device
+    sched = ContinuousBatchingScheduler(engine, config)
+    handles = [sched.submit(p, max_new_tokens=m) for p, m in requests]
+    torch.cuda.synchronize()
+    op_builder.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps, snap = 0, None
+    while sched.busy:
+        sched.step()
+        steps += 1
+        if steps == check_step:
+            pool = sched.executor.pool
+            proposals, spec_lens = sched._spec_windows()
+            snap = {"caches": [{k: v.clone() for k, v in c.items()} for c in pool.caches],
+                    "table": torch.from_numpy(pool.page_table.copy()).to(device),
+                    "toks": sched._toks.copy(), "lens": sched._lens.copy(),
+                    "active": sched._active.copy(), "cap": sched.cap,
+                    "proposals": proposals, "spec_lens": spec_lens}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = op_builder.launch_counts()
+    bad = [(h.id, len(h.tokens), m, h.state.value) for h, (_, m) in zip(handles, requests)
+           if len(h.tokens) != m or h.finish_reason != "length"]
+    if bad:
+        raise AssertionError(f"[spec] {label}: requests that did not finish with their "
+                             f"budget: {bad}")
+    return sched, handles, launches, sched.telemetry.snapshot(), wall, snap
+
+
+def spec_divergences(engine, requests, got, want, label: str) -> dict:
+    """Each request's speculative tokens ``got`` against the non-speculative
+    ``want``: where they first differ, the top-2 margin of the
+    non-speculative stream there, from a flash-kernel prefill of the prompt
+    and the common prefix, must be at most ``SPEC_MARGIN`` (a near-tie that
+    the two passes' numerics may flip). Printed and returned."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference.decode_fns import prefill
+    from deepspeed_tpu_torch.models import init_cache
+
+    device = engine.device
+    identical, margins = 0, []
+    for i, ((prompt, _), g, w) in enumerate(zip(requests, got, want)):
+        d = next((j for j in range(len(g)) if g[j] != w[j]), None)
+        if d is None:
+            identical += 1
+            continue
+        ids = np.concatenate([prompt, w[:d]]).astype(np.int64)[None]
+        with torch.inference_mode():
+            caches = init_cache(engine.model_config, 1, ids.shape[1], device=device)
+            logits = prefill(engine.module, torch.from_numpy(ids).to(device), caches,
+                             torch.tensor([ids.shape[1]], dtype=torch.int32, device=device))
+        margins.append({"request": i, "position": d, "margin": float(top2_margin(logits)[0])})
+    print(f"[spec] {label}: {identical} of {len(requests)} requests identical to the "
+          f"non-speculative [serve] tokens; first divergences (request, position, top-2 "
+          f"margin): {[(m['request'], m['position'], round(m['margin'], 4)) for m in margins]}"
+          f" (each must be <= {SPEC_MARGIN})", flush=True)
+    over = [m for m in margins if not m["margin"] <= SPEC_MARGIN]
+    if over:
+        raise AssertionError(f"[spec] {label}: divergences where the non-speculative margin "
+                             f"exceeds {SPEC_MARGIN}: {over}")
+    return {"identical": identical, "divergences": margins}
+
+
+def spec_verify_check(engine, snap) -> dict:
+    """``[spec]`` (b): one verify round on a copy of the pool, then the same
+    window tokens fed one at a time through paged-kernel decode steps from a
+    second copy. At every window position of every live slot the verify
+    logits must lie within LOGITS_TOL of the step's, and the argmax must
+    agree wherever the step's top-2 margin exceeds SPEC_MARGIN."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference.decode_fns import paged_spec_verify
+
+    device = engine.device
+
+    def dev(x):
+        return torch.from_numpy(np.asarray(x)).to(device)
+
+    ids = dev(np.concatenate([snap["toks"].reshape(-1, 1), snap["proposals"]], axis=1))
+    lens, valid, active = dev(snap["lens"]), dev(snap["spec_lens"] + 1), dev(snap["active"])
+    W = ids.shape[1]
+    with torch.no_grad():
+        pages = [{k: v.clone() for k, v in c.items()} for c in snap["caches"]]
+        verify = paged_spec_verify(engine.module, ids, pages, snap["table"], lens, valid,
+                                   active, snap["cap"])
+        pages = [{k: v.clone() for k, v in c.items()} for c in snap["caches"]]
+        steps = []
+        for j in range(W):
+            lj = lens + j
+            logits, _ = engine.module(ids[:, j:j + 1], positions=lj[:, None], caches=pages,
+                                      cache_lens=lj, page_table=snap["table"],
+                                      kv_cap=snap["cap"])
+            steps.append(logits[:, -1])
+        step = torch.stack(steps, dim=1)
+    live = active[:, None] & (torch.arange(W, device=device)[None] < valid[:, None])
+    if not bool(torch.isfinite(verify[live]).all()):
+        raise AssertionError("[spec] verify logits are not finite")
+    err = float((verify - step).abs().amax(dim=-1)[live].max())
+    sure = live & (top2_margin(step) > SPEC_MARGIN)
+    flips = int((verify.argmax(-1) != step.argmax(-1))[sure].sum())
+    out = {"positions": int(live.sum()), "live_slots": int(active.sum()),
+           "drafted": int(snap["spec_lens"][snap["active"]].sum()), "max_abs_err": err,
+           "argmax_checked": int(sure.sum()), "argmax_flips": flips}
+    print(f"[spec] teacher-forced verify after scheduler step {SERVE_CHECK_STEP}: "
+          f"{out['live_slots']} live slots, {out['positions']} window positions "
+          f"({out['drafted']} drafted): verify logits vs paged-kernel steps max_abs_err "
+          f"{err:.4e} (tol {LOGITS_TOL}); argmax differs at {flips} of {out['argmax_checked']} "
+          f"positions with top-2 margin > {SPEC_MARGIN}", flush=True)
+    if not out["live_slots"] > 0 or not err <= LOGITS_TOL or flips:
+        raise AssertionError(f"[spec] teacher-forced verify check failed: {out}")
+    return out
+
+
+def range_device_ms(fn, targets: dict) -> dict:
+    """Device milliseconds of the kernels that each target function launches
+    in one traced call of ``fn``: ``targets`` maps a name to ``(module,
+    attribute)``; each is wrapped in a ``record_function`` range of that
+    name, whose host event sums its children's kernels. None where the
+    tracer recorded no device time."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(f, name):
+        def wrapped(*args, **kwargs):
+            with record_function(name):
+                return f(*args, **kwargs)
+        return wrapped
+
+    with ExitStack() as stack:
+        for name, (mod, attr) in targets.items():
+            stack.enter_context(mock.patch.object(mod, attr, ranged(getattr(mod, attr), name)))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+    out = {}
+    for name in targets:
+        events = [e for e in prof.events()
+                  if e.name == name and e.device_type == DeviceType.CPU]
+        total = sum(e.device_time_total for e in events) / 1e3
+        out[name] = {"ms": total if total > 0 else None, "calls": len(events)}
+    return out
+
+
+def spec_path(device, smi: str, serve: dict) -> dict:
+    """``[spec]``: speculative decoding through the scheduler on ``[serve]``'s
+    engine configuration and traffic (see the module's docstring): (a) the
+    n-gram lane, (b) the teacher-forced verify check, (c) the draft-model
+    lane, (d) the int8 lane, (e) one traced verify round."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference import decode_fns
+    from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler
+    from deepspeed_tpu_torch.models import causal_lm
+
+    cfg = gpt2_125m()
+    engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
+                                device=device)
+    config, requests = serve_setup(cfg)
+    out = {}
+
+    def report(lane: str, tele: dict, wall: float, handles, beside: dict) -> dict:
+        tokens = sum(len(h.tokens) for h in handles)
+        res = {k: tele[k] for k in ("spec_rounds", "spec_proposed", "spec_accepted",
+                                    "spec_acceptance_rate", "spec_passes_per_token",
+                                    "tpot_ms_p50", "tpot_ms_p95", "ttft_ms_p50",
+                                    "prefix_misses", "prefix_hits")}
+        res.update(requests_per_s=len(handles) / wall, tokens_per_s=tokens / wall,
+                   wall_s=wall, generated_tokens=tokens,
+                   draft_ms_per_round=tele["spec_draft_s"] / tele["spec_rounds"] * 1e3,
+                   verify_ms_per_round=tele["spec_verify_s"] / tele["spec_rounds"] * 1e3)
+        print(f"[spec] {smi}: {lane}: {len(handles)} requests in {wall:.3f} s: "
+              f"{res['requests_per_s']:.3f} requests/s, {res['tokens_per_s']:.1f} tokens/s, "
+              f"TPOT p50 {res['tpot_ms_p50']:.3f} ms p95 {res['tpot_ms_p95']:.3f} ms; "
+              f"{res['spec_rounds']} rounds, {res['spec_proposed']} proposed, "
+              f"{res['spec_accepted']} accepted: acceptance "
+              f"{res['spec_acceptance_rate']:.4f}, {res['spec_passes_per_token']:.4f} passes "
+              f"a token; a round {res['draft_ms_per_round']:.3f} ms drafting + "
+              f"{res['verify_ms_per_round']:.3f} ms verifying; non-speculative "
+              f"{beside['label']}: "
+              f"{beside['requests_per_s']:.3f} requests/s, {beside['tokens_per_s']:.1f} "
+              f"tokens/s, TPOT p50 {beside['tpot_ms_p50']:.3f} ms p95 "
+              f"{beside['tpot_ms_p95']:.3f} ms", flush=True)
+        return res
+
+    # (a) n-gram lane, with the pool copied for (b)
+    sched, handles, launches, tele, wall, snap = spec_run(
+        engine, spec_config(config, spec_ngram_max=4, spec_ngram_min=1), requests,
+        "n-gram", check_step=SERVE_CHECK_STEP)
+    misses = tele["prefix_misses"]
+    want = expect(flash_fwd=cfg.n_layer * misses)
+    print(f"[spec] n-gram launches {launches} (expected {want}: {misses} prefix misses, "
+          f"{tele['spec_rounds']} verify rounds, no decode kernel)", flush=True)
+    if launches != want:
+        raise AssertionError(f"[spec] n-gram launch counts {launches} != {want}")
+    out["ngram"] = report("n-gram", tele, wall, handles, {"label": "[serve] bf16", **serve})
+    out["ngram"]["launches"] = launches
+    out["ngram"].update(spec_divergences(engine, requests, [h.result() for h in handles],
+                                         serve["tokens"], "n-gram"))
+    del sched
+
+    # (b) teacher-forced verify check on the copy
+    out["verify_check"] = spec_verify_check(engine, snap)
+    del snap
+    gc.collect()
+
+    # (c) draft-model lane: a second engine on the same seed, the target's weights
+    draft = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
+                               device=device)
+    reqs = [(p, min(m, SPEC_DRAFT_BUDGET)) for p, m in requests[:SPEC_DRAFT_REQUESTS]]
+    sched, handles, launches, tele, wall, _ = spec_run(
+        engine, spec_config(config, spec_proposer="draft_model", spec_draft_engine=draft),
+        reqs, "draft-model")
+    calls, misses, proposed = sched.proposer.calls, tele["prefix_misses"], tele["spec_proposed"]
+    want = expect(flash_fwd=cfg.n_layer * (misses + calls),
+                  decode_attention=cfg.n_layer * (proposed - calls))
+    print(f"[spec] draft-model launches {launches} (expected {want}: {misses} target prefix "
+          f"misses, {calls} draft generate calls of {proposed} proposed tokens)", flush=True)
+    if launches != want:
+        raise AssertionError(f"[spec] draft-model launch counts {launches} != {want}")
+    out["draft"] = report("draft-model", tele, wall, handles,
+                          {"label": "[serve] bf16 (48 requests)", **serve})
+    out["draft"].update(launches=launches, draft_calls=calls)
+    out["draft"].update(spec_divergences(
+        engine, reqs, [h.result() for h in handles],
+        [t[:m] for t, (_, m) in zip(serve["tokens"], reqs)], "draft-model"))
+    if not (out["draft"]["spec_acceptance_rate"] >= 0.5
+            and out["draft"]["spec_passes_per_token"] <= 0.5):
+        raise AssertionError(f"[spec] draft-model acceptance "
+                             f"{out['draft']['spec_acceptance_rate']} < 0.5 or passes a token "
+                             f"{out['draft']['spec_passes_per_token']} > 0.5")
+    del sched, draft
+    gc.collect()
+
+    # (e) one verify round of a second n-gram run, 16 requests in flight, traced
+    sched2 = ContinuousBatchingScheduler(engine, spec_config(config))
+    for p, m in requests[:SERVE_SLOTS]:
+        sched2.submit(p, max_new_tokens=max(m, 2 * SERVE_CHUNK + 1))
+    sched2.step()                   # admits all 16, runs one round
+
+    def traced_round():
+        sched2.step()
+        torch.cuda.synchronize()
+
+    trace = profile_call(f"spec verify round ({SERVE_SLOTS} slots, k {SPEC_K})", traced_round,
+                         top=15)
+    parts = range_device_ms(traced_round, {
+        "page_gather": (decode_fns, "gather_kv_dense"),
+        "prefix_attention": (causal_lm, "prefix_attention"),
+        "write_rows": (causal_lm, "write_rows")})
+    sched2.run()
+    if trace is not None:
+        out["round_trace"] = {"device_ms": trace["device_us"] / 1e3,
+                              "wall_ms": trace["wall_us"] / 1e3,
+                              "busy_share": trace["device_us"] / trace["wall_us"],
+                              "launches": trace["launches"],
+                              **{f"{k}_ms": v["ms"] for k, v in parts.items()},
+                              **{f"{k}_calls": v["calls"] for k, v in parts.items()}}
+        print(f"[spec] {smi}: traced verify round: device {out['round_trace']['device_ms']:.3f} "
+              f"ms of {out['round_trace']['wall_ms']:.3f} ms wall (busy "
+              f"{out['round_trace']['busy_share']:.3f}), {trace['launches']} launches; page "
+              "gather " + ("not measured" if parts["page_gather"]["ms"] is None else
+                           f"{parts['page_gather']['ms']:.3f} ms") +
+              f" in {parts['page_gather']['calls']} calls, prefix_attention " +
+              ("not measured" if parts["prefix_attention"]["ms"] is None else
+               f"{parts['prefix_attention']['ms']:.3f} ms") +
+              f" in {parts['prefix_attention']['calls']} calls, the window's cache write "
+              "(write_rows) " + ("not measured" if parts["write_rows"]["ms"] is None else
+                                 f"{parts['write_rows']['ms']:.3f} ms") +
+              f" in {parts['write_rows']['calls']} calls (a second traced round)", flush=True)
+    del sched2, engine
+    gc.collect()
+
+    # (d) int8 lane: (a)'s traffic on the int8 engine
+    engine = dst.init_inference(cfg, {"dtype": "bfloat16", "max_out_tokens": 1024,
+                                      "weight_quant": {"enabled": True, "bits": 8}},
+                                device=device)
+    sched, handles, launches, tele, wall, _ = spec_run(
+        engine, spec_config(config), requests, "int8")
+    hits, misses, rounds = tele["prefix_hits"], tele["prefix_misses"], tele["spec_rounds"]
+    forwards = hits + misses + rounds
+    want = expect(flash_fwd=cfg.n_layer * misses, quantized_matmul=cfg.n_layer * 6 * forwards)
+    print(f"[spec] int8 launches {launches} (expected {want}: {forwards} forward passes = "
+          f"{hits + misses} prefills + {rounds} verify rounds of m = {SERVE_SLOTS} x "
+          f"{SPEC_K + 1} rows)", flush=True)
+    if launches != want:
+        raise AssertionError(f"[spec] int8 launch counts {launches} != {want}")
+    out["int8"] = report("int8", tele, wall, handles,
+                         {"label": "[serve] int8", **serve["int8"]})
+    out["int8"]["launches"] = launches
+    del sched, engine
     gc.collect()
     return out
 
@@ -1602,8 +1951,10 @@ def main() -> int:
     gc.collect()
     config, requests = serve_setup(gpt2_125m())
     serve["int8"] = serve_int8(device, smi, gpt2_125m(), config, requests, serve)
+    gc.collect()
+    spec = spec_path(device, smi, serve)
     # a scheduler holds itself through its prefix cache's page hooks: collect
-    # the serving phase's pools before training measures its peak memory
+    # the serving phases' pools before training measures its peak memory
     gc.collect()
     train = train_path(device, smi)
     gc.collect()
@@ -1643,10 +1994,17 @@ def main() -> int:
         if name == "flash_fwd":
             entry["serve_launches"] = serve["launches"][name]
             entry["train_launches"] = train["launches"][name]
+        # [spec]: the n-gram lane's target (K1; K5 none), the draft-model
+        # lane's draft engine (K2), the int8 lane's verify rounds (K6)
+        if name in ("flash_fwd", "paged_decode_attention"):
+            entry["spec_launches"] = spec["ngram"]["launches"][name]
+        if name == "decode_attention":
+            entry["spec_draft_launches"] = spec["draft"]["launches"][name]
         if "dense_decode_ms" in res:
             entry["dense_decode_ms"] = res["dense_decode_ms"]
         if name == "quantized_matmul":
             entry["serve_int8_launches"] = serve["int8"]["launches"][name]
+            entry["spec_int8_launches"] = spec["int8"]["launches"][name]
         if name == "moe_decode_ffn":
             entry.update(serve_launches=moe["serve"]["launches"][name],
                          top2_launches=moe["top2_launches"][name],
@@ -1661,8 +2019,11 @@ def main() -> int:
     print(json.dumps({"main_path": {
         k: main[k] for k in ("ttft_ms", "tpot_ms", "decode_tokens_per_s",
                              "prefill_logit_err", "token_agreement")},
-        "serve_path": {k: v for k, v in serve.items() if k not in ("launches", "int8")},
+        "serve_path": {k: v for k, v in serve.items()
+                       if k not in ("launches", "int8", "tokens")},
         "serve_int8": {k: v for k, v in serve["int8"].items() if k != "launches"},
+        "spec_path": {lane: ({k: v for k, v in res.items() if k != "launches"}
+                             if isinstance(res, dict) else res) for lane, res in spec.items()},
         "wq_path": {name: {k: v for k, v in lane.items() if k != "generate_launches"}
                     for name, lane in wq.items()},
         "moe_path": {k: v for k, v in moe.items()
@@ -1677,7 +2038,7 @@ def main() -> int:
         "hd_path": {
             "refusals": hd["refusals"],
             **{f"{m}_{part}": {k: v for k, v in hd[m][part].items()
-                               if k not in ("launches", "int8")}
+                               if k not in ("launches", "int8", "tokens")}
                for m in ("gpt2_2.7b", "gptj_6b") for part in ("generate", "serve")},
             **{m: {k: v for k, v in hd[m].items() if k not in ("launches", "trace")}
                for m in ("gpt2_760m_train", "gpt2_760m_sparse")}}}))

@@ -1,11 +1,12 @@
-"""Generation steps: token selection, prefill, the decode loop and the serving
-chunks.
+"""Generation steps: token selection, prefill, the decode loop, the serving
+chunks and the speculative verify pass.
 
 Counterpart of ``deepspeed_tpu/inference/decode_fns.py`` (``logits_transform``,
 ``make_select_fn``, ``make_slot_select_fn``, ``build_prefill``,
-``build_prefix_prefill``, ``build_decode_loop``, ``build_decode_chunk``,
-``build_paged_decode_chunk``). PyTorch runs eagerly, so the builders become
-plain functions, and the compiled loops become Python loops. ``decode_loop``
+``build_prefix_prefill``, ``build_spec_verify``, ``build_paged_spec_verify``,
+``build_decode_loop``, ``build_decode_chunk``, ``build_paged_decode_chunk``).
+PyTorch runs eagerly, so the builders become plain functions, and the
+compiled loops become Python loops. ``decode_loop``
 (the ``generate`` path) stops after ``n_new`` tokens or when every row has
 emitted EOS; that check reads one flag per step back to the host. A serving
 chunk runs exactly ``chunk_size`` steps with every piece of per-slot state on
@@ -109,15 +110,33 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def step_hashes(base_seed: int, seeds: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """``(S,)`` int64 32-bit hashes of ``(base_seed, seeds[s], steps[s])``: the
+    per-(request, token index) state every draw of that step derives from."""
+    h = _mix32(torch.full_like(seeds, base_seed, dtype=torch.int64) & _MASK32)
+    h = _mix32(h ^ (seeds.long() & _MASK32))
+    return _mix32(h ^ (steps.long() & _MASK32))
+
+
+def fold_hash(h: torch.Tensor, tag: int) -> torch.Tensor:
+    """A state derived from ``h`` by the constant ``tag``. With bit 31 of
+    ``tag`` set, ``h ^ tag`` differs from ``h ^ id`` for every token id below
+    ``2**31``, and the mix is a bijection, so the derived state is none of
+    ``h``'s token hashes."""
+    return _mix32(h ^ tag)
+
+
+def hashes_over_vocab(h: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``(S, vocab)`` hashes of each state ``h[s]`` with every token id."""
+    ids = torch.arange(vocab, device=h.device, dtype=torch.int64)
+    return _mix32(h[:, None] ^ ids[None, :])
+
+
 def token_hashes(base_seed: int, seeds: torch.Tensor, steps: torch.Tensor,
                  vocab: int) -> torch.Tensor:
     """``(S, vocab)`` int64 32-bit hashes of ``(base_seed, seeds[s], steps[s],
     token id)``, computed on the seeds' device."""
-    h = _mix32(torch.full_like(seeds, base_seed, dtype=torch.int64) & _MASK32)
-    h = _mix32(h ^ (seeds.long() & _MASK32))
-    h = _mix32(h ^ (steps.long() & _MASK32))
-    ids = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
-    return _mix32(h[:, None] ^ ids[None, :])
+    return hashes_over_vocab(step_hashes(base_seed, seeds, steps), vocab)
 
 
 def gumbel_from_hash(h: torch.Tensor) -> torch.Tensor:
@@ -168,6 +187,50 @@ def prefix_prefill(model, ids: torch.Tensor, caches, prefix_len: torch.Tensor,
     logits, _ = model(ids, positions=positions, caches=caches, cache_lens=prefix_len,
                       logits_positions=(suffix_len - 1).clamp(min=0), prefix_fill=True)
     return logits[:, 0]
+
+
+def spec_verify(model, ids: torch.Tensor, caches, lens: torch.Tensor) -> torch.Tensor:
+    """Speculative one-pass verify over a slot-batch of slot-row caches ``(S,
+    h_kv, cap, d)``, updated in place. ``ids (S, t)`` is each slot's window
+    ``[cur_tok, draft_0 .. draft_{t-2}]``; the forward runs in ``prefix_fill``
+    mode at offset ``lens``: the window's K/V go to rows ``lens + j`` (rows
+    at or past ``cap`` are dropped) and each window position attends over
+    the committed rows and the window up to itself. The head runs at every
+    window position. Rows past what the accept rule keeps stay behind ``lens``
+    and are overwritten by later appends: committing is a ``lens`` advance.
+    Returns ``(S, t, V)`` f32 logits."""
+    t = ids.shape[1]
+    positions = lens.long()[:, None] + torch.arange(t, device=ids.device)[None]
+    logits, _ = model(ids, positions=positions, caches=caches, cache_lens=lens,
+                      logits_positions=None, prefix_fill=True)
+    return logits
+
+
+def paged_spec_verify(model, ids: torch.Tensor, caches: List[dict], page_table: torch.Tensor,
+                      lens: torch.Tensor, valid: torch.Tensor, active: torch.Tensor,
+                      kv_cap: int) -> torch.Tensor:
+    """:func:`spec_verify` against a paged pool: each slot's pages are gathered
+    into the dense view once, the verify forward runs on the view, and only
+    the valid window rows ``[lens, lens + valid)`` of live slots go back
+    through the page table (``valid (S,)`` is each slot's draft length + 1).
+    Pad rows, inactive slots and rows at or past ``kv_cap`` go to the null
+    page (:func:`page_rows`), so no shared, released or unreserved page is
+    written. One index write a layer and tensor."""
+    S, t = ids.shape
+    dense = [dict(zip(("k", "v"), (x.contiguous() for x in gather_kv_dense(
+        c["k"], c["v"], page_table, kv_cap)))) for c in caches]
+    logits = spec_verify(model, ids, dense, lens)
+    j = torch.arange(t, device=ids.device)
+    rows = (lens.long()[:, None] + j[None]).reshape(-1)                    # (S * t,)
+    keep = (active[:, None] & (j[None] < valid[:, None])).reshape(-1) & (rows < kv_cap)
+    pidx, off = page_rows(page_table.repeat_interleave(t, dim=0), rows,
+                          caches[0]["k"].shape[2], keep)
+    slots = torch.arange(S, device=ids.device).repeat_interleave(t)
+    src = rows.clamp(max=kv_cap - 1)
+    for c, dn in zip(caches, dense):
+        c["k"][pidx, :, off] = dn["k"][slots, :, src]
+        c["v"][pidx, :, off] = dn["v"][slots, :, src]
+    return logits
 
 
 def _chunk_loop(step_logits, select, chunk_size: int, toks, lens, active, remaining,

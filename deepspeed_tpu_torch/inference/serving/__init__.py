@@ -8,13 +8,14 @@ bottom up:
   prefix sharing with a copy-on-write boundary page; :class:`SlotKVPool`, one
   cap-row reservation per slot;
 - :mod:`executor`: :class:`ChunkedDecodeExecutor`, bucketed prefill into a
-  slot and K-step decode chunks over the slot-batch, with an optional
-  per-chunk watchdog (:class:`ChunkTimeoutError`);
+  slot, K-step decode chunks and speculative verify rounds over the
+  slot-batch, with an optional per-chunk watchdog (:class:`ChunkTimeoutError`);
 - :mod:`prefix_cache`: :class:`PrefixCache`, a radix trie over token-ID
   prefixes, LRU under a device byte budget with an optional host tier;
 - :mod:`scheduler`: :class:`ContinuousBatchingScheduler`, a bounded queue with
   admission control, backpressure, deadlines, cancellation and slot recycling
-  between chunks;
+  between chunks, and speculative decoding (``ServingConfig(speculate=True)``,
+  ``inference.speculative``);
 - :mod:`telemetry`: :class:`ServingTelemetry`, TTFT, TPOT, queue depth,
   occupancy and tokens/s.
 

@@ -22,8 +22,9 @@ on a worker thread and an overrun raises :class:`ChunkTimeoutError` instead of
 blocking the scheduler forever. The timed region declares the
 ``serving.chunk_compute`` fault point, and :meth:`stall_next` models a hang
 deterministically. After a timeout the caller must :meth:`reset_pool` (the
-scheduler's decode-failure path does). Speculative verify rounds
-(``run_spec_round``) are ROADMAP.md queue 1 item 8.
+scheduler's decode-failure path does). A speculative verify round
+(:meth:`run_spec_round`) runs under the same watchdog, with the fault point
+``serving.spec_verify``.
 """
 
 import threading
@@ -40,8 +41,9 @@ from ...observability.trace import get_tracer
 from ...ops.paged_attention import gather_kv_dense
 from ...utils.fault_injection import fault_point
 from ...utils.nvtx import annotate
-from ..decode_fns import (decode_chunk, make_slot_select_fn, paged_decode_chunk, prefill,
-                          prefix_prefill)
+from ..decode_fns import (decode_chunk, make_slot_select_fn, paged_decode_chunk,
+                          paged_spec_verify, prefill, prefix_prefill, spec_verify)
+from ..speculative import accept_drawn, window_draws
 from .kv_pool import PagedKVPool, SlotKVPool
 
 
@@ -76,6 +78,19 @@ class ChunkResult:
     remaining: np.ndarray    # (S,) decode budget left
     steps: np.ndarray        # (S,) per-request tokens emitted so far
     elapsed: float           # wall seconds for launch + harvest
+
+
+@dataclass
+class SpecResult(ChunkResult):
+    """One speculative verify round, harvest-compatible with a chunk: ``buf``
+    is ``(S, k + 1)`` wide and a slot's real tokens are the prefix of length
+    ``steps_out - steps_in``, so the scheduler's chunk harvest works
+    unchanged. ``proposed``/``accepted`` feed the ``serving/spec_*``
+    telemetry; the scheduler fills ``draft_s`` (the proposer runs on the host
+    before the launch)."""
+    proposed: int = 0        # real draft tokens offered this round
+    accepted: int = 0        # draft tokens that survived accept/reject
+    draft_s: float = 0.0     # host proposer wall seconds
 
 
 class ChunkedDecodeExecutor:
@@ -352,3 +367,89 @@ class ChunkedDecodeExecutor:
         return ChunkResult(buf=buf, toks=toks_d, lens=lens_d, active=active_d,
                            remaining=remaining_d, steps=steps_d,
                            elapsed=time.perf_counter() - t0)
+
+    def run_spec_round(self, toks: np.ndarray, lens: np.ndarray, active: np.ndarray,
+                       remaining: np.ndarray, eos_ids: np.ndarray, seeds: np.ndarray,
+                       steps: np.ndarray, proposals: np.ndarray,
+                       spec_lens: np.ndarray) -> SpecResult:
+        """One draft-verify round over the slot-batch: a single target forward
+        scores every slot's ``[cur_tok, draft...]`` window, writing the pool in
+        place, the accept rule runs on the host, and committing is a
+        per-slot ``lens`` advance.
+
+        ``proposals (S, k)`` holds each slot's draft (pad past ``spec_lens[s]``
+        is arbitrary: pad rows are neither committed nor written to pages,
+        and their logits are never read). A slot with ``spec_lens == 0`` takes
+        a plain one-token step through the same window shape: that is how
+        the cap and budget edges and a dry proposer are served, with no
+        other path. The round's one host synchronisation fetches what the
+        accept rule reads (:func:`~..speculative.window_draws`; greedy: the
+        ``(S, k + 1)`` argmax). Watchdog and recovery as :meth:`run_chunk`,
+        with the fault point ``serving.spec_verify``."""
+        pool = self.pool
+        toks = np.asarray(toks, np.int32).reshape(-1)
+        S = toks.size
+        proposals = np.asarray(proposals, np.int32).reshape(S, -1)
+        k = int(proposals.shape[1])
+        spec_lens = np.asarray(spec_lens, np.int32)
+        args = (self._i32(np.concatenate([toks[:, None], proposals], axis=1)),
+                self._i32(lens), self._i32(spec_lens + 1),
+                torch.as_tensor(np.asarray(active, bool), device=self.device),
+                self._i32(seeds), self._i32(steps))
+        table = self._i32(pool.page_table) if self.paged else None
+        t0 = time.perf_counter()
+
+        def timed():
+            # the seam between the proposer's window and the verify launch
+            fault_point("serving.spec_verify")
+            if self._stall_next > 0:
+                stall, self._stall_next = self._stall_next, 0.0
+                time.sleep(stall)
+            with annotate("serving.spec_verify"), torch.no_grad():
+                ids_d, lens_d, valid_d, active_d, seeds_d, steps_d = args
+                if self.paged:
+                    logits = paged_spec_verify(self.engine.module, ids_d, pool.caches, table,
+                                               lens_d, valid_d, active_d, self.cap)
+                else:
+                    logits = spec_verify(self.engine.module, ids_d, pool.caches, lens_d)
+                # the round's harvest: its one host synchronisation
+                return window_draws(logits, ids_d[:, 1:], self.sampling, self.base_seed,
+                                    seeds_d, steps_d)
+
+        draws = self._dispatch_watched(timed)
+        self._warm_chunk = True
+        obs_profiler.tick("spec_verify")
+
+        buf = np.zeros((S, k + 1), np.int32)
+        toks_out = toks.copy()
+        lens_out = np.asarray(lens, np.int32).copy()
+        active_out = np.asarray(active, bool).copy()
+        remaining_out = np.asarray(remaining, np.int32).copy()
+        steps_out = np.asarray(steps, np.int32).copy()
+        proposed = accepted = 0
+        for s in range(S):
+            if not active_out[s]:
+                continue
+            L = int(spec_lens[s])
+            proposed += L
+            emitted, acc = accept_drawn(proposals[s, :L], draws, s)
+            accepted += acc
+            # the chunk's semantics on the emitted stream: clamp to the
+            # budget, cut at the first EOS (inclusive), then commit
+            r = int(remaining_out[s])
+            emitted = emitted[:r]
+            eos = int(eos_ids[s])
+            if eos >= 0 and eos in emitted:
+                emitted = emitted[:emitted.index(eos) + 1]
+            e = len(emitted)
+            buf[s, :e] = emitted
+            toks_out[s] = emitted[-1]
+            lens_out[s] += e
+            steps_out[s] += e
+            remaining_out[s] = r - e
+            if remaining_out[s] <= 0 or (eos >= 0 and emitted[-1] == eos):
+                active_out[s] = False
+        return SpecResult(buf=buf, toks=toks_out.reshape(-1, 1), lens=lens_out,
+                          active=active_out, remaining=remaining_out, steps=steps_out,
+                          elapsed=time.perf_counter() - t0, proposed=proposed,
+                          accepted=accepted)

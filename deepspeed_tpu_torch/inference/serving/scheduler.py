@@ -28,8 +28,15 @@ shared through ``decode_fns``). Sampled decode is deterministic per request
 
 Threading: single-threaded by design; drive it with ``step()`` / ``run()``
 from one thread. ``RequestHandle.cancel`` only sets a flag and is safe from
-anywhere. Speculative decoding (``speculate=True``) is ROADMAP.md queue 1
-item 8 and raises.
+anywhere.
+
+Speculative decoding (``speculate=True``): every decode chunk becomes one
+draft-propose / one-pass-verify round (``inference.speculative``): the
+proposer drafts each active slot's window on the host from the request's
+prompt and tokens, and the executor's ``run_spec_round`` verifies all of them
+in one target forward. Greedy output is the non-speculative output wherever
+the verify pass and the decode step pick the same argmax (everywhere in the
+f32 CPU tests); sampled output keeps each position's distribution.
 """
 
 import itertools
@@ -44,6 +51,7 @@ import numpy as np
 from ...observability.trace import CAT_SERVING, get_tracer
 from ...utils.fault_injection import fault_point, retry_with_backoff
 from ...utils.logging import logger
+from ..speculative import SpeculativeConfig, make_proposer
 from .executor import ChunkedDecodeExecutor
 from .prefix_cache import PrefixCache, PrefixCacheConfig
 from .telemetry import ServingTelemetry, adaptive_retry_after
@@ -95,7 +103,14 @@ class ServingConfig:
     kv_page_size: int = 16
     kv_total_pages: Optional[int] = None   # device budget in pages (None = match
     #   the slot-row pool's bytes: slots * ceil(cap/page) + the null page)
-    speculate: bool = False             # speculative decoding: ROADMAP.md queue 1 item 8
+    # speculative decoding: every decode chunk becomes ONE draft-propose /
+    # one-pass-verify round (see inference.speculative)
+    speculate: bool = False
+    spec_k: int = 4                     # draft tokens per verify window
+    spec_proposer: str = "ngram"        # "ngram" | "draft_model"
+    spec_ngram_max: int = 4
+    spec_ngram_min: int = 1
+    spec_draft_engine: object = None    # engine for "draft_model"
 
 
 def validate_admission(prompt, max_new_tokens: Optional[int],
@@ -167,9 +182,6 @@ class ContinuousBatchingScheduler:
     def __init__(self, engine, config: Optional[ServingConfig] = None,
                  monitor=None):
         self.config = cfg = config or ServingConfig()
-        if cfg.speculate:
-            raise NotImplementedError("speculative decoding (speculate=True) is not ported "
-                                      "yet: ROADMAP.md queue 1 item 8")
         cap = int(cfg.max_seq_len or engine._config.max_out_tokens)
         self.executor = ChunkedDecodeExecutor(
             engine, slots=cfg.slots, cap=cap, chunk_size=cfg.chunk_size,
@@ -179,6 +191,18 @@ class ContinuousBatchingScheduler:
             chunk_deadline_s=cfg.chunk_deadline_s, kv_pool=cfg.kv_pool,
             kv_page_size=cfg.kv_page_size, kv_total_pages=cfg.kv_total_pages)
         self.cap = cap
+        self.proposer = None
+        self._spec_cfg: Optional[SpeculativeConfig] = None
+        if cfg.speculate:
+            self._spec_cfg = SpeculativeConfig(
+                k=cfg.spec_k, proposer=cfg.spec_proposer,
+                ngram_max=cfg.spec_ngram_max, ngram_min=cfg.spec_ngram_min,
+                draft_engine=cfg.spec_draft_engine)
+            self.proposer = make_proposer(self._spec_cfg)
+            draft = cfg.spec_draft_engine
+            if cfg.spec_proposer == "draft_model" and draft.device != engine.device:
+                raise ValueError(f"the draft engine is on {draft.device}, the target on "
+                                 f"{engine.device}: keep both on one device")
         self.telemetry = ServingTelemetry(monitor)
         self._tracer = get_tracer()
         self.prefix_cache: Optional[PrefixCache] = None
@@ -444,6 +468,13 @@ class ContinuousBatchingScheduler:
             # a prefix hit can only need fewer pages. The slot pool reduces
             # to its free-slot check. FIFO: a head that doesn't fit waits.
             need_tokens = int(head.prompt.size) + int(head.max_new_tokens)
+            if self.proposer is not None:
+                # speculation headroom: a verify window writes up to spec_k
+                # draft rows past the committed length before the accept
+                # rule trims them; admit only when those rows fit too.
+                # Clamped to the cap: the per-slot window limit already
+                # shrinks the window near the cap edge.
+                need_tokens = min(need_tokens + self._spec_cfg.k, self.cap)
             if not pool.can_admit(need_tokens):
                 # admission-pressure eviction (paged): cached prefixes pin
                 # real pool pages, so a full free list trades the coldest
@@ -598,6 +629,8 @@ class ContinuousBatchingScheduler:
 
         def attempt():
             fault_point("serving.decode_chunk")
+            if self.proposer is not None:
+                return self._spec_round()
             return self.executor.run_chunk(
                 self._toks, self._lens, self._active, self._remaining,
                 self._eos, self._seeds, self._steps)
@@ -662,7 +695,49 @@ class ContinuousBatchingScheduler:
             self._finalize(h, RequestState.FINISHED, reason, now)
             self._release(int(slot))
         self.telemetry.on_chunk(total, res.elapsed)
+        if self.proposer is not None:
+            self.telemetry.on_spec(res.proposed, res.accepted, total, res.draft_s,
+                                   res.elapsed)
         return True
+
+    def _spec_round(self):
+        """Draft each active slot's window on the host and run one verify
+        round through the executor."""
+        t0 = time.perf_counter()
+        proposals, spec_lens = self._spec_windows()
+        draft_s = time.perf_counter() - t0
+        res = self.executor.run_spec_round(
+            self._toks, self._lens, self._active, self._remaining,
+            self._eos, self._seeds, self._steps, proposals, spec_lens)
+        res.draft_s = draft_s
+        return res
+
+    def _spec_windows(self):
+        """Each active slot's draft ``(proposals (S, k), spec_lens (S,))``. The
+        proposer reads the request's prompt and tokens: host state, so a
+        retry re-derives the same drafts."""
+        k = self._spec_cfg.k
+        S = self.config.slots
+        proposals = np.zeros((S, k), np.int32)
+        spec_lens = np.zeros(S, np.int32)
+        for slot, h in enumerate(self._slot_req):
+            if h is None or not self._active[slot]:
+                continue
+            # window rows [lens, lens + L] must fit the cap, and an L-token
+            # draft can emit L + 1 tokens: slots at the cap or budget edge get
+            # a shorter (possibly empty) window, the plain one-token step
+            # through the same shape
+            limit = min(k, self.cap - 1 - int(self._lens[slot]),
+                        int(self._remaining[slot]) - 1)
+            if limit <= 0:
+                continue
+            ctx = np.concatenate([h.prompt.astype(np.int32), np.asarray(h.tokens, np.int32)])
+            draft = np.asarray(self.proposer.propose(ctx, limit), np.int32)
+            L = min(int(draft.size), limit)
+            if L > 0:
+                proposals[slot, :L] = draft[:L]
+                spec_lens[slot] = L
+        return proposals, spec_lens
 
     # --------------------------------------------------------------- lifecycle
     def _finalize(self, handle: RequestHandle, state: RequestState,

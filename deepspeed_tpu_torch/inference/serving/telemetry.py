@@ -3,10 +3,9 @@ tokens/sec, recorded into the process-wide metrics registry
 (``observability.metrics``) and aggregated for the caller's snapshot.
 
 Counterpart of ``deepspeed_tpu/inference/serving/telemetry.py`` without the
-speculation counters (ROADMAP.md queue 1 item 8) and without the
-``MonitorMaster`` backends (item 9): a ``monitor`` passed in receives the same
-``(tag, value, step)`` events through its ``write_events``. Tags, declared in
-``observability.schema``:
+``MonitorMaster`` backends (ROADMAP.md queue 1 item 9): a ``monitor`` passed
+in receives the same ``(tag, value, step)`` events through its
+``write_events``. Tags, declared in ``observability.schema``:
 
 - ``serving/ttft_ms``, ``serving/tpot_ms``: per finished request;
 - ``serving/tokens_per_sec``: per decode chunk;
@@ -15,7 +14,10 @@ speculation counters (ROADMAP.md queue 1 item 8) and without the
 - ``serving/prefix_*``: per scheduler step, prefix cache enabled only;
 - ``serving/pages_in_use``, ``serving/page_fragmentation``,
   ``serving/prefix_shared_pages``, ``serving/cow_copies_total``: per
-  scheduler step, paged pool only.
+  scheduler step, paged pool only;
+- ``serving/spec_*``: per verify round, speculation on only; the emission
+  site is ``inference.speculative.emit_spec_events``, this class keeps the
+  counters.
 
 Latency distributions are fixed-log-bucket histograms: memory stays O(1)
 however long the run, and ``snapshot()`` reads its percentiles from them.
@@ -26,6 +28,7 @@ from collections import deque
 from typing import Dict, Iterable, Optional
 
 from ...observability.metrics import Histogram, RegistryFeed
+from ..speculative import SpecStats, emit_spec_events
 
 
 def window_rate(times: Iterable[float], now: float,
@@ -87,6 +90,9 @@ class ServingTelemetry:
         self.prefix_hit_tokens = 0
         self._prefix_stats = None    # latest PrefixCache.stats() gauge set
         self._paged_stats = None     # latest PagedKVPool.stats() gauge set
+        # speculative-decoding counters (advanced only when speculation is on)
+        self.spec = SpecStats()
+        self.spec_enabled = False
         # completion timestamps (bounded): the observed drain rate behind the
         # load-adaptive QueueFullError.retry_after hint
         self._finish_times = deque(maxlen=64)
@@ -161,6 +167,20 @@ class ServingTelemetry:
             self._write([("serving/tokens_per_sec", tokens / elapsed,
                           self._chunk_idx)])
 
+    def on_spec(self, proposed: int, accepted: int, tokens: int, draft_s: float,
+                verify_s: float) -> None:
+        """Per-verify-round accounting (one round is one target forward pass
+        over the whole slot-batch)."""
+        self.spec_enabled = True
+        s = self.spec
+        s.rounds += 1
+        s.proposed += int(proposed)
+        s.accepted += int(accepted)
+        s.tokens += int(tokens)
+        s.draft_s += float(draft_s)
+        s.verify_s += float(verify_s)
+        emit_spec_events(self, s, draft_s, s.rounds)
+
     def on_rejected(self) -> None:
         self.rejected += 1
 
@@ -220,9 +240,11 @@ class ServingTelemetry:
                         self._prefix_stats["promotions"]
         paged = ({f"paged_{k}": v for k, v in self._paged_stats.items()}
                  if self._paged_stats is not None else {})
+        spec = self.spec.snapshot() if self.spec_enabled else {}
         return {
             **prefix,
             **paged,
+            **spec,
             "elapsed_s": elapsed,
             "completed": self.completed,
             "chunks": self._chunk_idx,

@@ -2,9 +2,11 @@
 
 Counterpart of ``deepspeed_tpu/observability/schema.py``: every tag a
 telemetry emitter records is declared here with its instrument kind and a
-help text, and the registry refuses an undeclared tag. Only the
-single-replica ``serving/*`` tags are ported; the router, fleet, training and
-speculation tags come with their emitters (ROADMAP.md queue 1 items 8, 9).
+help text, and the registry refuses an undeclared tag. The single-replica
+``serving/*`` tags are ported, speculation's among them (emitted by
+``inference/serving/telemetry.py`` and ``inference/speculative.py``); the
+router, fleet and training tags come with their emitters (ROADMAP.md queue 1
+item 9).
 """
 
 from typing import Dict, Tuple
@@ -37,7 +39,18 @@ TAGS: Dict[str, Tuple[str, str]] = {
                                            "prefix sharing)"),
     "serving/cow_copies_total": (COUNTER, "copy-on-write boundary-page copies at prefix "
                                           "bind"),
+    "serving/spec_acceptance_rate": (GAUGE, "cumulative draft-token acceptance rate per "
+                                            "verify round"),
+    "serving/spec_proposed_total": (COUNTER, "draft tokens offered to the verifier"),
+    "serving/spec_accepted_total": (COUNTER, "draft tokens accepted by the verify pass"),
+    "serving/spec_draft_ms": (GAUGE, "proposer wall time of the last round"),
 }
+
+#: the modules that emit these tags (as the JAX schema lists its own)
+EMITTER_MODULES = (
+    "deepspeed_tpu_torch/inference/serving/telemetry.py",
+    "deepspeed_tpu_torch/inference/speculative.py",
+)
 
 
 def kind_of(tag: str) -> str:

@@ -358,7 +358,7 @@ CASES: List[Case] = [
 )] + [
     # weight-quantized serving: BLOOM-7B (n_embd 4096, ffn 16,384, group 128)
     # decode at batch 1 and prefill of 512 tokens, then GPT-2 125M decode over
-    # the scheduler's 16 slots
+    # the scheduler's 16 slots and its speculative verify rounds
     Case("quantized_matmul", "bloom7b-decode-fc_in-int8",
          dict(m=1, k=4096, n=16384, group=128, bits=8), torch.bfloat16, main_path=True),
     Case("quantized_matmul", "bloom7b-decode-fc_out-int4",
@@ -369,6 +369,9 @@ CASES: List[Case] = [
          dict(m=512, k=4096, n=16384, group=128, bits=4), torch.bfloat16),
     Case("quantized_matmul", "gpt2-serve-decode-fc_in-int8",
          dict(m=16, k=768, n=3072, group=128, bits=8), torch.bfloat16),
+    # a speculative verify round of the scheduler: 16 slots x (k 4 + 1) rows
+    Case("quantized_matmul", "gpt2-spec-verify-fc_in-int8",
+         dict(m=80, k=768, n=3072, group=128, bits=8), torch.bfloat16),
     Case("quantized_matmul", "fp32-ragged-int8", dict(m=300, k=256, n=200, group=64, bits=8),
          torch.float32),
     Case("quantized_matmul", "fp16-int4", dict(m=3, k=512, n=72, group=32, bits=4),

@@ -284,8 +284,17 @@ def test_sampled_token_never_masked_at_top_hash():
 
 
 def test_speculate_raises(gpt2):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ContinuousBatchingScheduler(gpt2[1], ServingConfig(speculate=True))
+    """Speculation serves (``tests/test_torch_speculative.py``); the
+    draft-model proposer without a draft engine is refused, as in JAX, and
+    so is a draft engine on another device than the target's."""
+    with pytest.raises(ValueError, match="needs a draft_engine"):
+        ContinuousBatchingScheduler(gpt2[1], ServingConfig(speculate=True,
+                                                           spec_proposer="draft_model"))
+    other = type("Engine", (), {"device": torch.device("meta"),
+                                "_config": gpt2[1]._config})()
+    with pytest.raises(ValueError, match="keep both on one device"):
+        ContinuousBatchingScheduler(gpt2[1], ServingConfig(
+            speculate=True, spec_proposer="draft_model", spec_draft_engine=other))
 
 
 def test_transient_faults_spans_and_metrics(gpt2):
