@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card.
+"""Drive the PyTorch port's serving, training and checkpoint paths on one NVIDIA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and
@@ -135,7 +135,37 @@ non-zero:
    the kernel's bf16 logits must lie within 0.1 of those: at 28-32 layers a
    second bf16 run (the plain attention in bf16) carries rounding of its
    own as large as the kernel's, so both its distances, from f32 and from
-   the kernel's logits, are printed beside.
+   the kernel's logits, are printed beside;
+11. training checkpoints (``[ckpt]``, right after ``[sparse]``): ``[train]``'s
+   GPT-2 125M and configuration plus a WarmupLR schedule, seeded distinct
+   batches a step, in a temporary directory it removes (free disk printed
+   first). (a) Engine A takes steps 1-3, saves ``global_step3`` and takes
+   4-6; A2 repeats A's run, to measure whether two identical runs agree bit
+   for bit; engine B (another seed) loads ``latest``: every restored tensor
+   (masters, both moments, Adam's step, the loss scaler, the step counters)
+   and counter and the schedule equal to what was saved, bit for bit; B's
+   steps 4-6 (losses and final masters) equal to A's, or, where A and A2
+   differ, within their spread (the first differing tensor is printed); K1,
+   K3 and K4 launch 12 times a step in every engine. (b) ``chip_smoke.py
+   --ckpt-child DIR crash`` commits ``good`` after two steps, records step
+   3's loss and dies by a ``kill`` fault inside a shard write of ``bad``;
+   ``--ckpt-child DIR resume`` loads and takes step 3: SIGKILL, ``bad`` not
+   visible, ``good`` validates strictly, the two losses equal. (c) SIGTERM to
+   this process under ``CheckpointAutoSaver``: ``after_step`` saves, writes
+   the marker and exits 143 (the one exit the phase expects); ``resume``
+   into a third engine restores it and clears the marker. (d) The universal
+   export read back with ``torch.load`` equals the masters and moments;
+   ``zero_to_fp32`` equals ``export_fp32_state_dict``; ``global_step3`` served
+   through ``zero_to_fp32`` -> ``convert_training_model`` ->
+   ``init_inference`` (bf16; 4 prompts of 512 tokens, 32 new; K1 12 and K2 12
+   x 31 exact), its logits within LOGITS_TOL of the training forward's on
+   the same prompts and weights; a tag with the serving names through
+   ``InferenceEngine.load_checkpoint`` gives the built engine's tokens. (e)
+   Bytes written, save seconds (device-to-host, write, hash + fsync, commit),
+   load seconds (validate, read, host-to-device), GB/s, free and peak disk
+   beside the ``nvidia-smi`` line. (f) Peak device memory during the save
+   and during the load at most 2 x the largest tensor (``wte`` in f32) above
+   the level before.
 
 The last lines are a JSON line of the main paths' metrics, a JSON line on the
 kernels, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -1922,6 +1952,422 @@ def moe_serve(engine, n_moe: int):
     return out
 
 
+def ckpt_train_config():
+    """``[train]``'s configuration with a WarmupLR schedule (so the schedule's
+    state must round-trip too)."""
+    return {"train_batch_size": TRAIN_MICRO, "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+            "optimizer": {"type": "AdamW", "params": {"lr": 2e-4, "weight_decay": 0.01}},
+            "scheduler": {"type": "WarmupLR",
+                          "params": {"warmup_min_lr": 0.0, "warmup_max_lr": 2e-4,
+                                     "warmup_num_steps": 10, "warmup_type": "linear"}},
+            "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
+            "gradient_clipping": 1.0, "steps_per_print": 10**9}
+
+
+def ckpt_engine(device, seed: int):
+    """``initialize`` on ``[train]``'s GPT-2 125M with weights from ``seed``."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import gpt2_model
+    from deepspeed_tpu_torch.models.gpt2 import init_params
+
+    cfg = gpt2_train_cfg()
+    model = dataclasses.replace(gpt2_model(cfg),
+                                init_fn=lambda _, dev: init_params(cfg, seed, dev))
+    return dst.initialize(model=model, config=ckpt_train_config(), device=device)[0]
+
+
+def ckpt_batch(step: int) -> dict:
+    """The seeded batch of training step ``step`` (1-based): a distinct batch a
+    step, so the data order matters."""
+    import numpy as np
+    rng = np.random.default_rng(1000 + step)
+    return {"input_ids": rng.integers(0, 50304, (TRAIN_MICRO, TRAIN_SEQ))}
+
+
+def ckpt_steps(engine, first: int, last: int, label: str):
+    """``train_batch`` on the batches of steps ``first``..``last``: each step must
+    launch K1, K3 and K4 exactly 12 times. Returns the losses."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import op_builder
+
+    op_builder.reset_launch_counts()
+    losses = [engine.train_batch(ckpt_batch(s)) for s in range(first, last + 1)]
+    torch.cuda.synchronize()
+    launches = op_builder.launch_counts()
+    n = 12 * (last - first + 1)
+    want = expect(flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n)
+    if launches != want:
+        raise AssertionError(f"[ckpt] {label}: launch counts {launches} != {want}")
+    return [float(x) for x in losses], launches
+
+
+def host_tree(engine) -> dict:
+    """Every tensor of the engine's state, as host copies by dotted name."""
+    from deepspeed_tpu_torch.runtime.engine import state_tree
+
+    def flat(tree, prefix=""):
+        if not isinstance(tree, dict):
+            return {prefix: tree.detach().to("cpu", copy=True)}
+        return {k: v for key, sub in tree.items()
+                for k, v in flat(sub, f"{prefix}.{key}" if prefix else key).items()}
+    return flat(state_tree(engine.state))
+
+
+def first_difference(a: dict, b: dict):
+    """(the first name whose tensors differ, max |a - b| over all of them)."""
+    import torch
+    first, worst = None, 0.0
+    for name in a:
+        if not torch.equal(a[name], b[name]):
+            first = first or name
+            worst = max(worst, float((a[name].double() - b[name].double()).abs().max()))
+    return first, worst
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def ckpt_child(argv) -> int:
+    """``python3 chip_smoke.py --ckpt-child DIR crash|resume``, ``[ckpt]`` (b)'s
+    two processes. ``crash``: steps 1 and 2, commit ``good``, write step 3's
+    loss, then save ``bad`` with a SIGKILL armed inside its second shard write.
+    ``resume``: another seed's engine loads ``latest`` and takes step 3."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepspeed_tpu_torch.utils.fault_injection import FaultSpec, inject
+
+    ckpt_dir, phase = argv
+    device = torch.device("cuda", 0)
+    if phase == "crash":
+        engine = ckpt_engine(device, 0)
+        ckpt_steps(engine, 1, 2, "crash child")
+        engine.save_checkpoint(ckpt_dir, tag="good")
+        loss, _ = ckpt_steps(engine, 3, 3, "crash child")
+        with open(os.path.join(ckpt_dir, "expected.txt"), "w") as f:
+            f.write(repr(loss[0]))
+        with inject("ckpt.save.io", FaultSpec(kind="kill", after_n=1)):
+            engine.save_checkpoint(ckpt_dir, tag="bad")
+        return 7                                  # unreachable: the fault killed us
+    engine = ckpt_engine(device, 1)
+    path, _ = engine.load_checkpoint(ckpt_dir)
+    if os.path.basename(path) != "good" or engine.global_steps != 2:
+        raise AssertionError(f"resume child loaded {path} at step {engine.global_steps}")
+    loss, _ = ckpt_steps(engine, 3, 3, "resume child")
+    with open(os.path.join(ckpt_dir, "resumed.txt"), "w") as f:
+        f.write(repr(loss[0]))
+    return 0
+
+
+def ckpt_path(device, smi: str) -> dict:
+    """``[ckpt]``: training checkpoints of ``[train]``'s GPT-2 125M (plus
+    WarmupLR) in a temporary directory it removes. (a) engine A takes steps
+    1-3, saves ``global_step3``, takes 4-6; engine A2, the same run again,
+    measures whether two identical runs agree bit for bit; engine B (another
+    seed) loads ``latest`` (every restored tensor and counter equal to what
+    was saved, bit for bit) and takes 4-6, its losses and final masters held
+    to A's within A2's spread (bit for bit when that is 0). (b) a child dies
+    by SIGKILL inside a shard write of ``bad`` after committing ``good``; a
+    second resumes and takes step 3 at the first one's loss. (c) SIGTERM to
+    this process under ``CheckpointAutoSaver``: ``after_step`` saves, marks,
+    exits 143; ``resume`` into engine C. (d) the universal export read back
+    with ``torch.load`` equals B's masters and moments; ``zero_to_fp32`` equals
+    ``export_fp32_state_dict``; the tag served through ``convert_training_model``
+    and ``init_inference`` (launches exact, prefill logits within LOGITS_TOL of
+    the training forward) and through ``InferenceEngine.load_checkpoint``.
+    (e) bytes, seconds and rates printed; (f) peak device memory of the save
+    and of the load at most 2 x the largest tensor above the level before."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint import (export_fp32_state_dict,
+                                                export_universal_checkpoint)
+    from deepspeed_tpu_torch.models import gpt2_model
+    from deepspeed_tpu_torch.module_inject import convert_training_model
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
+        TorchCheckpointEngine, validate_manifest, write_latest_pointer)
+    from deepspeed_tpu_torch.runtime.engine import CheckpointAutoSaver
+    from deepspeed_tpu_torch.utils import zero_to_fp32
+
+    root = tempfile.mkdtemp(prefix="ds-ckpt-")
+    free0 = shutil.disk_usage(root).free
+    print(f"[ckpt] {root}: {free0 / 1e9:.2f} GB free", flush=True)
+    out, totals, peak_disk = {"disk_free_bytes": free0}, {}, [0]
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def disk():
+        peak_disk[0] = max(peak_disk[0], dir_bytes(root))
+
+    try:
+        # ---------------------------------------------------------------- (a)
+        save_dir = os.path.join(root, "a")
+        a = ckpt_engine(device, 0)
+        losses_a, n = ckpt_steps(a, 1, 3, "A")
+        add(n)
+        saved, sched = host_tree(a), a.lr_scheduler.state_dict()
+        largest = max(t.numel() * t.element_size() for t in saved.values())
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        path = a.save_checkpoint(save_dir, client_state={"phase": "ckpt"})
+        save_s = time.perf_counter() - t0
+        save_peak = torch.cuda.max_memory_allocated() - before
+        save_t = dict(a.checkpoint_engine.timings)
+        written = dir_bytes(path)
+        disk()
+        more, n = ckpt_steps(a, 4, 6, "A")
+        add(n)
+        losses_a += more
+        final_a = {k: v.detach().to("cpu", copy=True) for k, v in a.state.params.items()}
+        del a
+        gc.collect()
+
+        a2 = ckpt_engine(device, 0)
+        losses_a2, n = ckpt_steps(a2, 1, 6, "A2")
+        add(n)
+        final_a2 = {k: v.detach().to("cpu", copy=True) for k, v in a2.state.params.items()}
+        del a2
+        gc.collect()
+        det_first, det_master = first_difference(final_a, final_a2)
+        det_loss = max(abs(x - y) for x, y in zip(losses_a, losses_a2))
+        print(f"[ckpt] two identical runs (A, A2) over 6 steps: losses max |diff| "
+              f"{det_loss:.3e}, masters max |diff| {det_master:.3e}, first differing "
+              f"tensor {det_first}", flush=True)
+
+        b = ckpt_engine(device, 1)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got_path, client = b.load_checkpoint(save_dir)
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() - before
+        load_t = dict(b.checkpoint_engine.timings)
+        restored = host_tree(b)
+        wrong = [k for k in saved if not torch.equal(saved[k], restored[k])]
+        counters = (b.global_steps, b.skipped_steps, b.micro_steps, b._host_steps)
+        if got_path != path or client != {"phase": "ckpt"} or wrong or \
+                counters != (3, 0, 3, 3) or b.lr_scheduler.state_dict() != sched:
+            raise AssertionError(f"[ckpt] restore: path {got_path}, client {client}, "
+                                 f"differing {wrong[:5]}, counters {counters}, "
+                                 f"schedule {b.lr_scheduler.state_dict()} vs {sched}")
+        print(f"[ckpt] restored {len(saved)} tensors bit for bit (masters, exp_avg, "
+              f"exp_avg_sq, Adam step, scaler, global_step, skipped_steps), counters "
+              f"{counters}, schedule {sched}", flush=True)
+
+        # (d) the exports, from B as loaded (the tag's state)
+        export_dir = os.path.join(root, "export")
+        t0 = time.perf_counter()
+        upath = export_universal_checkpoint(b, export_dir)
+        fp32 = export_fp32_state_dict(b, os.path.join(export_dir, "pytorch_model.bin"))
+        zpath = os.path.join(export_dir, "zero_to_fp32.bin")
+        zsd = zero_to_fp32.convert_zero_checkpoint_to_fp32_state_dict(save_dir, zpath)
+        export_s = time.perf_counter() - t0
+        disk()
+        for pname in fp32:
+            for fname, prefix in (("fp32", "params"), ("exp_avg", "opt_state.exp_avg"),
+                                  ("exp_avg_sq", "opt_state.exp_avg_sq")):
+                f = os.path.join(upath, "zero", pname, f"{fname}.pt")
+                if not torch.equal(torch.load(f, weights_only=True)["param"],
+                                   restored[f"{prefix}.{pname}"]):
+                    raise AssertionError(f"[ckpt] universal export {f} differs")
+        on_disk = torch.load(os.path.join(export_dir, "pytorch_model.bin"), weights_only=True)
+        for k in fp32:
+            if not (torch.equal(zsd[k], fp32[k]) and torch.equal(on_disk[k], fp32[k])):
+                raise AssertionError(f"[ckpt] zero_to_fp32 and export_fp32_state_dict "
+                                     f"differ at {k}")
+        print(f"[ckpt] universal export ({dir_bytes(upath) / 1e9:.3f} GB, "
+              f"{len(fp32)} params x 3 files) equals the masters and moments; "
+              f"zero_to_fp32 equals export_fp32_state_dict; {export_s:.2f} s", flush=True)
+        shutil.rmtree(export_dir)
+        del on_disk, fp32
+
+        losses_b, n = ckpt_steps(b, 4, 6, "B")
+        add(n)
+        final_b = {k: v.detach().to("cpu", copy=True) for k, v in b.state.params.items()}
+        res_first, res_master = first_difference(final_a, final_b)
+        res_loss = max(abs(x - y) for x, y in zip(losses_a[3:], losses_b))
+        print(f"[ckpt] resumed B vs uninterrupted A, steps 4-6: losses {losses_b} vs "
+              f"{losses_a[3:]}, max |diff| {res_loss:.3e} (limit, A vs A2: {det_loss:.3e}); "
+              f"masters max |diff| {res_master:.3e} (limit {det_master:.3e}), first "
+              f"differing tensor {res_first}", flush=True)
+        if not (res_loss <= det_loss and res_master <= det_master):
+            raise AssertionError(f"[ckpt] resumed run outside the determinism spread: "
+                                 f"first differing tensor {res_first}")
+        del final_a2
+
+        # ---------------------------------------------------------------- (c)
+        auto_dir = os.path.join(root, "auto")
+        saved_b = host_tree(b)
+        with CheckpointAutoSaver(b, auto_dir) as saver:
+            os.kill(os.getpid(), signal.SIGTERM)
+            for _ in range(200):
+                if saver.preempted:
+                    break
+                time.sleep(0.01)
+            try:
+                saver.after_step()
+                code = None
+            except SystemExit as e:                  # the one expected exit
+                code = e.code
+        marker = os.path.join(auto_dir, CheckpointAutoSaver.PREEMPT_MARKER)
+        with open(marker) as f:
+            marked = f.read()
+        disk()
+        if code != 128 + signal.SIGTERM or marked != "global_step6":
+            raise AssertionError(f"[ckpt] autosaver exit {code}, marker {marked!r}")
+        del b
+        gc.collect()
+        c = ckpt_engine(device, 2)
+        cpath, _ = CheckpointAutoSaver(c, auto_dir).resume()
+        wrong = [k for k, v in host_tree(c).items() if not torch.equal(v, saved_b[k])]
+        if os.path.basename(cpath) != "global_step6" or os.path.exists(marker) or wrong:
+            raise AssertionError(f"[ckpt] autosaver resume: {cpath}, marker left "
+                                 f"{os.path.exists(marker)}, differing {wrong[:5]}")
+        print(f"[ckpt] autosaver: SIGTERM -> save global_step6 -> marker -> exit {code}; "
+              "resume() restored it bit for bit and cleared the marker", flush=True)
+        del c, saved_b
+        gc.collect()
+        shutil.rmtree(auto_dir)
+
+        # ---------------------------------------------------------------- (b)
+        kill_dir = os.path.join(root, "kill")
+        os.makedirs(kill_dir)
+        here = os.path.abspath(__file__)
+        t0 = time.perf_counter()
+        crash = subprocess.run([sys.executable, here, "--ckpt-child", kill_dir, "crash"],
+                               capture_output=True, text=True, timeout=300)
+        disk()
+        if crash.returncode != -signal.SIGKILL:
+            raise AssertionError(f"[ckpt] crash child exited {crash.returncode}, not by "
+                                 f"SIGKILL:\n{crash.stdout[-3000:]}\n{crash.stderr[-3000:]}")
+        with open(os.path.join(kill_dir, "latest")) as f:
+            latest = f.read()
+        if os.path.exists(os.path.join(kill_dir, "bad")) or latest != "good":
+            raise AssertionError(f"[ckpt] after the kill: bad visible or latest {latest!r}")
+        validate_manifest(os.path.join(kill_dir, "good"), strict=True)
+        resume = subprocess.run([sys.executable, here, "--ckpt-child", kill_dir, "resume"],
+                                capture_output=True, text=True, timeout=300)
+        if resume.returncode != 0:
+            raise AssertionError(f"[ckpt] resume child exited {resume.returncode}:\n"
+                                 f"{resume.stdout[-3000:]}\n{resume.stderr[-3000:]}")
+        with open(os.path.join(kill_dir, "expected.txt")) as f:
+            expected = float(f.read())
+        with open(os.path.join(kill_dir, "resumed.txt")) as f:
+            resumed = float(f.read())
+        print(f"[ckpt] kill mid-save: the child died by SIGKILL inside a shard write of "
+              f"'bad' (staged {os.path.exists(os.path.join(kill_dir, 'bad.tmp'))}, not "
+              f"visible), latest 'good' validates; step 3 loss {resumed!r} resumed vs "
+              f"{expected!r} before the kill ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not abs(resumed - expected) <= det_loss:
+            raise AssertionError(f"[ckpt] step 3 after the kill: {resumed} != {expected}")
+        shutil.rmtree(kill_dir)
+
+        # ---------------------------------------------------------------- (d) serving
+        cfg = gpt2_train_cfg()
+        masters = zero_to_fp32.get_fp32_state_dict_from_zero_checkpoint(save_dir)
+        scfg, sd = convert_training_model(cfg, masters)
+        ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (4, PROMPT))
+        serve_new = 32
+        engine = dst.init_inference((scfg, sd), {"dtype": "bfloat16", "max_out_tokens": 1024},
+                                    device=device)
+        op_builder.reset_launch_counts()
+        tokens = engine.generate(ids, max_new_tokens=serve_new)
+        n_gen = op_builder.launch_counts()
+        served = engine.forward(ids)
+        n_fwd = op_builder.launch_counts()
+        with torch.no_grad():
+            params = {k: v.to(device, torch.bfloat16) for k, v in masters.items()}
+            trained = gpt2_model(cfg).apply_fn(params, {"input_ids": torch.as_tensor(
+                ids, device=device)})
+        n_all = op_builder.launch_counts()
+        want = [expect(flash_fwd=12, decode_attention=12 * (serve_new - 1)),
+                expect(flash_fwd=24, decode_attention=12 * (serve_new - 1)),
+                expect(flash_fwd=36, decode_attention=12 * (serve_new - 1))]
+        if [n_gen, n_fwd, n_all] != want:
+            raise AssertionError(f"[ckpt] serving launch counts {[n_gen, n_fwd, n_all]} != "
+                                 f"{want}")
+        add(n_all)
+        serve_err = float((served - trained).abs().max())
+        finite = bool(torch.isfinite(served).all())
+        print(f"[ckpt] served global_step3 (zero_to_fp32 -> convert_training_model -> "
+              f"init_inference bf16): 4 x {PROMPT} prompts, {serve_new} new, launches "
+              f"{n_gen}; prefill logits vs the training forward max |diff| "
+              f"{serve_err:.4e} (tol {LOGITS_TOL})", flush=True)
+        if not finite or not serve_err <= LOGITS_TOL or tokens.shape != (4, PROMPT + serve_new):
+            raise AssertionError(f"[ckpt] serving: finite {finite}, err {serve_err}, "
+                                 f"shape {tokens.shape}")
+        del served, trained, params
+        serve_dir = os.path.join(root, "serve")
+        writer = TorchCheckpointEngine()
+        staged = writer.begin_tag(serve_dir, "serve")
+        writer.save({"params": sd}, os.path.join(staged, "state"))
+        writer.commit_tag(serve_dir, "serve")
+        write_latest_pointer(serve_dir, "serve")
+        disk()
+        loaded = dst.init_inference(scfg, {"dtype": "bfloat16", "max_out_tokens": 1024},
+                                    device=device)             # seeded random weights
+        loaded.load_checkpoint(serve_dir)
+        op_builder.reset_launch_counts()
+        tokens2 = loaded.generate(ids, max_new_tokens=serve_new)
+        n_load = op_builder.launch_counts()
+        if n_load != want[0] or not np.array_equal(tokens, tokens2):
+            raise AssertionError(f"[ckpt] InferenceEngine.load_checkpoint: launches {n_load}, "
+                                 f"tokens equal {np.array_equal(tokens, tokens2)}")
+        add(n_load)
+        print("[ckpt] InferenceEngine.load_checkpoint of a tag with the serving names: "
+              "tokens equal to the engine built from the same weights", flush=True)
+        del engine, loaded, sd, masters
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---------------------------------------------------------------- (e), (f)
+        hashed = save_t.get("manifest_s", 0.0)
+        print(f"[ckpt] {smi}: save {written / 1e9:.3f} GB in {save_s:.3f} s "
+              f"({written / save_s / 1e9:.3f} GB/s): device-to-host "
+              f"{save_t.get('d2h_s', 0.0):.3f} s, write {save_t.get('write_s', 0.0):.3f} s, "
+              f"hash + fsync {hashed:.3f} s, commit {save_t.get('rename_s', 0.0):.3f} s; "
+              f"load {load_s:.3f} s ({written / load_s / 1e9:.3f} GB/s): validate "
+              f"{load_t.get('validate_s', 0.0):.3f} s, read {load_t.get('read_s', 0.0):.3f} s, "
+              f"host-to-device {load_t.get('h2d_s', 0.0):.3f} s; disk free "
+              f"{free0 / 1e9:.2f} GB, peak use {peak_disk[0] / 1e9:.3f} GB", flush=True)
+        print(f"[ckpt] peak device memory above the level before: save "
+              f"{save_peak / 1e6:.1f} MB, load {load_peak / 1e6:.1f} MB (limit 2 x the "
+              f"largest tensor, {2 * largest / 1e6:.1f} MB)", flush=True)
+        if not (save_peak <= 2 * largest and load_peak <= 2 * largest):
+            raise AssertionError(f"[ckpt] device memory: save {save_peak}, load "
+                                 f"{load_peak} > {2 * largest}")
+        out.update({"bytes_written": written, "save_s": save_s, "load_s": load_s,
+                    "save_gb_per_s": written / save_s / 1e9,
+                    "load_gb_per_s": written / load_s / 1e9,
+                    **{f"save_{k}": v for k, v in save_t.items()},
+                    **{f"load_{k}": v for k, v in load_t.items()},
+                    "save_peak_extra_bytes": save_peak, "load_peak_extra_bytes": load_peak,
+                    "largest_tensor_bytes": largest, "disk_peak_bytes": peak_disk[0],
+                    "det_loss_diff": det_loss, "det_master_diff": det_master,
+                    "resume_loss_diff": res_loss, "resume_master_diff": res_master,
+                    "losses_a": losses_a, "losses_b": losses_b,
+                    "kill_loss": [expected, resumed], "serve_logit_err": serve_err,
+                    "launches": totals})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1961,6 +2407,9 @@ def main() -> int:
     sparse = sparse_path(device, smi, train["step_ms"])
     gc.collect()
     torch.cuda.empty_cache()
+    ckpt = ckpt_path(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     wq = wq_path(device, smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1994,6 +2443,10 @@ def main() -> int:
         if name == "flash_fwd":
             entry["serve_launches"] = serve["launches"][name]
             entry["train_launches"] = train["launches"][name]
+        # [ckpt]: every training step of its engines (K1, K3, K4) and its
+        # served generates and forwards (K1, K2), in this process
+        if name in ("flash_fwd", "decode_attention", "flash_bwd_dq", "flash_bwd_dkv"):
+            entry["ckpt_launches"] = ckpt["launches"][name]
         # [spec]: the n-gram lane's target (K1; K5 none), the draft-model
         # lane's draft engine (K2), the int8 lane's verify rounds (K6)
         if name in ("flash_fwd", "paged_decode_attention"):
@@ -2035,6 +2488,7 @@ def main() -> int:
                                              "k1_k4_traced_ms", "k3_traced_ms")
                        if k in train},
         "sparse_train_path": {k: v for k, v in sparse.items() if k not in ("launches", "trace")},
+        "ckpt_path": {k: v for k, v in ckpt.items() if k != "launches"},
         "hd_path": {
             "refusals": hd["refusals"],
             **{f"{m}_{part}": {k: v for k, v in hd[m][part].items()
@@ -2051,4 +2505,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ckpt-child"]:
+        sys.exit(ckpt_child(sys.argv[2:]))
     sys.exit(main())

@@ -6,7 +6,8 @@ or a path to a ``.json`` file. It takes the batch triple, resolved as the JAX
 config resolves it (here with ``dp_world_size = 1``: one card), the optimizer
 and scheduler blocks, bf16 and fp16 (with dynamic loss scaling), ZeRO stage 0
 or 1 (on one card the stage-1 optimizer-state partition is the whole state),
-gradient clipping, gradient prescaling and ``steps_per_print``.
+gradient clipping, gradient prescaling, ``steps_per_print`` and the
+``checkpoint`` block (of which the engine reads ``async_save``).
 
 An unknown key raises ``ValueError``. A key the JAX config knows whose feature
 is not ported yet, set to anything but its default, raises
@@ -29,7 +30,7 @@ UNPORTED_KEYS = {
     "comms_logger": "item 9", "tensorboard": "item 9", "wandb": "item 9",
     "csv_monitor": "item 9", "jsonl_monitor": "item 9", "flops_profiler": "item 9",
     "wall_clock_breakdown": "item 9", "memory_breakdown": "item 9", "dump_state": "item 9",
-    "checkpoint": "item 12", "aio": "item 12", "disable_allgather": "item 12",
+    "aio": "item 12", "disable_allgather": "item 12",
     "fp16_master_weights_and_gradients": "item 12",
     "pipeline": "item 13", "sparse_gradients": "item 13", "progressive_layer_drop": "item 13",
     "eigenvalue": "item 13", "elasticity": "item 13", "compression_training": "item 13",
@@ -99,6 +100,26 @@ class ZeroConfig:
 
 
 @dataclasses.dataclass
+class CheckpointConfig:
+    """The ``checkpoint`` block. ``async_save`` overlaps a save's shard writes
+    on a writer thread. The JAX config accepts the other four keys, but its
+    engine never reads them, so here each raises set away from its default."""
+    tag_validation: str = "Warn"        # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    checkpoint_in_cpu: bool = False
+    async_save: bool = False
+
+    def __post_init__(self):
+        unread = [f.name for f in dataclasses.fields(self)
+                  if f.name != "async_save" and getattr(self, f.name) != f.default]
+        if unread:
+            raise NotImplementedError(
+                f"checkpoint keys {unread} are not read by the JAX engine either (it "
+                "accepts and ignores them); set away from their defaults they are refused")
+
+
+@dataclasses.dataclass
 class OptimizerConfig:
     """An Adam-family optimizer's hyperparameters (``optimizer.params``)."""
     lr: float = 1e-3
@@ -127,7 +148,7 @@ class DeepSpeedConfig:
     KNOWN = ("train_batch_size", "train_micro_batch_size_per_gpu",
              "gradient_accumulation_steps", "optimizer", "scheduler", "fp16", "bf16",
              "bfloat16", "zero_optimization", "gradient_clipping", "prescale_gradients",
-             "gradient_predivide_factor", "steps_per_print")
+             "gradient_predivide_factor", "steps_per_print", "checkpoint")
 
     def __init__(self, config: Union[str, dict], dp_world_size: int = 1):
         pd = _resolve_config_dict(config)
@@ -144,6 +165,8 @@ class DeepSpeedConfig:
         if self.fp16.enabled and self.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
         self.zero_config = ZeroConfig.from_dict(pd.get("zero_optimization", {}))
+        self.checkpoint_config = from_dict(CheckpointConfig, pd.get("checkpoint") or {},
+                                           "checkpoint")
 
         self.optimizer_name: Optional[str] = None
         self.optimizer_params = OptimizerConfig()

@@ -93,8 +93,10 @@ class DeepSpeedInferenceConfig:
             # fails at construction, before any model is built ('triton', 'XLA')
             check_moe_decode_impl(self.moe_decode_impl)
         if self.checkpoint is not None:
-            raise NotImplementedError("checkpoint loading is not ported yet: "
-                                      "ROADMAP.md queue 1 item 12")
+            # the JAX config accepts the key and its engine never reads it
+            raise NotImplementedError("the inference config's checkpoint key is not read, "
+                                      "as in the JAX package: load a training tag with "
+                                      "InferenceEngine.load_checkpoint(ckpt_dir, tag)")
         if self.enable_cuda_graph:
             raise NotImplementedError("CUDA-graph capture of the decode step is not "
                                       "ported yet: ROADMAP.md queue 1 item 3")

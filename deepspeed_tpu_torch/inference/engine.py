@@ -10,10 +10,12 @@ projections and MoE expert stacks are then quantized, as the JAX engine's
 kernel. ``moe_decode_impl`` overrides the model's before the module is
 built. ``generate`` runs the prefill, then a Python decode loop, and
 records ``ttft``, ``tpot`` and ``decode_tps``, each bracketed by a device
-synchronise on the card.
+synchronise on the card. ``load_checkpoint`` takes the weights of a training
+tag written with the serving model's names and places them again.
 """
 
 import dataclasses
+import os
 import time
 from typing import Dict, Optional
 
@@ -26,6 +28,9 @@ from ..models.causal_lm import (QUANT_NAMES, CausalLM, CausalLMConfig, Dense, Ex
 from ..ops.attention.flash import kernel_width
 from ..ops.quantizer import (dense_weight_bytes, make_quant_node, node_logical_shape,
                              node_weight_bytes, quantize_with_audit, validate_quant_config)
+from ..runtime.checkpoint_engine.checkpoint_engine import (TorchCheckpointEngine,
+                                                           resolve_tag_dir,
+                                                           validate_manifest)
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
 from .decode_fns import decode_loop, make_select_fn, prefill
@@ -166,6 +171,43 @@ class InferenceEngine:
             log_dist(f"weight_quant: int{wq.bits} group={wq.group} — {n_q} matrices "
                      f"quantized, {len(audit) - n_q} kept fp (outlier_threshold={threshold})",
                      ranks=[0])
+
+    def load_checkpoint(self, ckpt_dir: str, tag: Optional[str] = None) -> str:
+        """Serve the ``params`` of a training tag (JAX ``inference/engine.py:495``):
+        ``tag``, else the one ``latest`` names, else ``ckpt_dir`` is the tag's
+        directory. The tag is validated against its manifest and its names and
+        shapes must be this engine's ``CausalLM``'s in full (a mismatch raises
+        naming the keys), before the current weights are dropped; then the
+        placement runs again (the serve-dtype cast and, with ``weight_quant``,
+        the quantization), as at construction. A GPT-2 training tag is served
+        as ``utils.zero_to_fp32`` -> ``module_inject.convert_training_model``
+        -> ``init_inference``. Returns the tag's directory."""
+        path = resolve_tag_dir(ckpt_dir, tag)
+        validate_manifest(path)
+        params = TorchCheckpointEngine().load_subtree(os.path.join(path, "state"), "params")
+        want = {k: v.shape for k, v in
+                CausalLM(self.model_config, device="meta").state_dict().items()}
+        missing = sorted(set(want) - set(params))
+        extra = sorted(set(params) - set(want))
+        if missing or extra:
+            raise ValueError(
+                f"checkpoint {path} does not hold this engine's {self.model_config.name} "
+                f"weights: missing {missing[:8]}{'...' if len(missing) > 8 else ''}, "
+                f"unexpected {extra[:8]}{'...' if len(extra) > 8 else ''} (a GPT-2 training "
+                "tag is served through zero_to_fp32 -> convert_training_model -> "
+                "init_inference)")
+        bad = [f"{k} {tuple(params[k].shape)} != {tuple(s)}" for k, s in want.items()
+               if params[k].shape != s]
+        if bad:
+            raise ValueError(f"checkpoint {path}: shapes differ from this engine's: {bad[:8]}")
+        self.module = None                       # the old weights leave the device first
+        module = CausalLM(self.model_config, device=self.device)
+        module.load_state_dict(params)
+        self.module = module
+        self._place_params()
+        self.module.requires_grad_(False).eval()
+        log_dist(f"inference weights loaded from {path}", ranks=[0])
+        return path
 
     def weight_stream_report(self) -> Dict[str, float]:
         """Modeled device-memory weight bytes of one full pass over the

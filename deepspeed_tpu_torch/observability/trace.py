@@ -20,6 +20,7 @@ from collections import deque
 from typing import Dict, List, Optional
 
 CAT_SERVING = "serving"
+CAT_TRAIN = "train"
 
 
 class SpanContext:

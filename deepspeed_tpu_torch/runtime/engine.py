@@ -15,23 +15,42 @@ a value back to the host except the log line of a ``steps_per_print`` step:
 
 The ``forward``/``backward``/``step`` triple does the same work a
 micro-batch at a time. ZeRO stage 1 on one card partitions the optimizer state
-over a data-parallel group of one, so it is stage 0. Not ported yet (each
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` queue-1 item): ZeRO
-stages 2 and 3, offload and checkpoints (item 12), the monitor and flops
-profiler (item 9), pipelines (item 13), data parallelism (item 11), and
-``training_data`` (the dataloader, item 5).
+over a data-parallel group of one, so it is stage 0.
+
+``save_checkpoint`` and ``load_checkpoint`` follow the JAX engine's protocol
+(``runtime/checkpoint_engine``): a tag holds every tensor of ``TrainState``
+(``state/``, torch shards written from host copies) and the host counters,
+the LR schedule and the client state (``client_state.pkl``), and is published
+by one atomic rename before ``latest`` moves. A load validates the manifest,
+reads everything to the host and checks it against the engine's state before
+it copies a tensor in, so it never leaves half a state; the copies go into the
+engine's own tensors. :class:`CheckpointAutoSaver` saves on an interval and on
+SIGTERM. Not ported yet (each raises ``NotImplementedError`` naming its
+``ROADMAP.md`` queue-1 item): ZeRO stages 2 and 3 and offload (item 12), the
+monitor and flops profiler (item 9), pipelines (item 13), data parallelism
+(item 11), and ``training_data`` (the dataloader, item 5).
 """
 
-from typing import Any, Dict, List, NamedTuple, Optional
+import os
+import signal
+import threading
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
 from ..accelerator import resolve_device
 from ..config.config import ADAM_TYPES, DeepSpeedConfig
 from ..models.base import Model
+from ..observability.trace import CAT_TRAIN, get_tracer
 from ..ops.adam.fused_adam import fused_adam
 from ..ops.optimizer import Optimizer
-from ..utils.logging import log_dist
+from ..utils.fault_injection import fault_point
+from ..utils.logging import log_dist, logger
+from .checkpoint_engine.checkpoint_engine import (LATEST_FILE, CheckpointCorruptionError,
+                                                  find_latest_committed_tag,
+                                                  is_committed_tag, make_checkpoint_engine,
+                                                  validate_manifest, write_latest_pointer)
 from .fp16.loss_scaler import LossScaleState, create_loss_scaler
 from .lr_schedules import get_lr_scheduler
 from .utils import clip_by_global_norm, count_parameters, global_norm
@@ -47,6 +66,53 @@ class TrainState(NamedTuple):
 
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1 {item}")
+
+
+def state_tree(x) -> Any:
+    """``TrainState`` as the nested dict of tensors a tag holds: each NamedTuple
+    (the state, ``AdamState``, ``LossScaleState``) becomes a dict of its
+    fields."""
+    if isinstance(x, tuple) and hasattr(x, "_asdict"):
+        x = x._asdict()
+    if isinstance(x, dict):
+        return {k: state_tree(v) for k, v in x.items()}
+    return x
+
+
+def _check_like(current, restored, where: str, path: str = "") -> None:
+    """``restored`` has ``current``'s keys, shapes and dtypes, or this raises
+    naming what differs."""
+    if isinstance(current, torch.Tensor):
+        if not isinstance(restored, torch.Tensor) or restored.shape != current.shape \
+                or restored.dtype != current.dtype:
+            got = (f"{tuple(restored.shape)} {restored.dtype}"
+                   if isinstance(restored, torch.Tensor) else type(restored).__name__)
+            raise ValueError(f"checkpoint {where}: {path} is {got}, the engine's is "
+                             f"{tuple(current.shape)} {current.dtype}")
+        return
+    if not isinstance(restored, dict):
+        raise ValueError(f"checkpoint {where}: {path} is a {type(restored).__name__}, "
+                         "not a dict")
+    missing = sorted(set(current) - set(restored))
+    extra = sorted(set(restored) - set(current))
+    if missing or extra:
+        raise ValueError(f"checkpoint {where} does not match the engine's state at "
+                         f"{path or 'the top'}: missing {missing[:8]}"
+                         f"{'...' if len(missing) > 8 else ''}, unexpected {extra[:8]}"
+                         f"{'...' if len(extra) > 8 else ''}")
+    for key in current:
+        _check_like(current[key], restored[key], where, f"{path}.{key}" if path else key)
+
+
+@torch.no_grad()
+def _copy_into(current, restored) -> None:
+    """Write ``restored`` (host tensors) into the engine's own tensors, so any
+    reference to them stays valid and no second copy lands on the device."""
+    if isinstance(current, torch.Tensor):
+        current.copy_(restored)
+        return
+    for key in current:
+        _copy_into(current[key], restored[key])
 
 
 class DeepSpeedEngine:
@@ -78,6 +144,7 @@ class DeepSpeedEngine:
         self.optimizer = self._configure_optimizer(optimizer)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
         self._build_state(scaler_state0, seed)
+        self.checkpoint_engine = make_checkpoint_engine(self._config.checkpoint_config)
         self.training_dataloader = None
 
         self.micro_steps = 0
@@ -300,8 +367,218 @@ class DeepSpeedEngine:
         return (self.train_batch_size(), self.train_micro_batch_size_per_gpu(),
                 self.gradient_accumulation_steps())
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise _unported("save_checkpoint", "item 12")
+    # ------------------------------------------------------------ checkpointing
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None, save_latest: bool = True) -> str:
+        """Reference ``engine.py:3085``. Every tensor of the state (staged under
+        ``<save_dir>/<tag>.tmp/state``, from host copies taken before this
+        returns) and the host-side counters, LR schedule and ``client_state``
+        (``client_state.pkl``); then ``commit_tag`` (manifest + fsync + one
+        atomic rename) and only after it the ``latest`` pointer, so a kill at
+        any point leaves the previous committed tag loadable. Returns the tag's
+        directory."""
+        tag = tag or f"global_step{self.global_steps}"
+        ckpt = self.checkpoint_engine
+        path = ckpt.begin_tag(save_dir, tag)
+        fault_point("ckpt.save.begin")
+        ckpt.save(state_tree(self.state), os.path.join(path, "state"))
+        side = {
+            "global_step": self.global_steps,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "lr_scheduler": (self.lr_scheduler.state_dict()
+                             if self.lr_scheduler is not None else None),
+            "client_state": client_state or {},
+        }
+        ckpt.save(side, os.path.join(path, "client_state.pkl"))
+        tracer = get_tracer()
+        span = tracer.begin("checkpoint_commit", cat=CAT_TRAIN,
+                            attrs={"tag": str(tag), "step": self._host_steps})
+        final = ckpt.commit_tag(save_dir, tag)
+        if save_latest:
+            t0 = time.perf_counter()
+            write_latest_pointer(save_dir, tag)
+            ckpt.add_time("rename_s", t0)
+        tracer.end_span(span)
+        return final
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise _unported("load_checkpoint", "item 12")
+    def _resolve_load_tag(self, load_dir: str, tag: Optional[str]) -> Optional[str]:
+        """An explicit ``tag`` is trusted (validation still runs at load);
+        otherwise follow ``latest``, and when it names a missing or uncommitted
+        tag fall back to the newest committed tag on disk."""
+        if tag is not None:
+            return str(tag)
+        latest_path = os.path.join(load_dir, LATEST_FILE)
+        pointed = None
+        if os.path.isfile(latest_path):
+            with open(latest_path) as f:
+                pointed = f.read().strip()
+        if pointed and is_committed_tag(load_dir, pointed):
+            return pointed
+        fallback = find_latest_committed_tag(load_dir, exclude=pointed)
+        if fallback is not None:
+            if pointed:
+                logger.error(f"[ckpt] '{LATEST_FILE}' points at {pointed!r} which is "
+                             "missing or uncommitted — falling back to newest committed "
+                             f"tag {fallback!r}")
+            return fallback
+        # nothing committed to fall back to: a torn tag surfaces at load
+        return pointed or None
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False,
+                        validate: bool = True):
+        """Reference ``engine.py:2725``. Returns ``(path, client_state)``, or
+        ``(None, {})`` when ``load_dir`` holds no committed tag.
+
+        The manifest is validated first (``CheckpointCorruptionError`` names the
+        offending file); then the state and side data are read to the host and
+        checked against the engine's state; only then is anything copied in.
+        ``load_module_only`` or ``load_optimizer_states=False`` take the
+        parameters and ``global_step`` and keep the engine's optimizer state,
+        loss scaler and skipped-step count, as the JAX engine does. The host
+        step mirror and ``micro_steps`` follow the checkpoint; the LR schedule
+        too unless ``load_lr_scheduler_states=False``."""
+        resolved = self._resolve_load_tag(load_dir, tag)
+        if resolved is None:
+            logger.warning(f"No '{LATEST_FILE}' file at {load_dir} and no committed tags "
+                           "found; nothing loaded")
+            return None, {}
+        path = os.path.join(load_dir, resolved)
+        if not os.path.isdir(path):
+            raise CheckpointCorruptionError(f"checkpoint tag {resolved!r} does not exist "
+                                            f"under {load_dir}")
+        ckpt = self.checkpoint_engine
+        ckpt.timings = {}
+        t0 = time.perf_counter()
+        if validate:
+            validate_manifest(path)
+        ckpt.add_time("validate_s", t0)
+        fault_point("ckpt.load.begin")
+        restored = ckpt.load(os.path.join(path, "state"))
+        side = ckpt.load(os.path.join(path, "client_state.pkl"))
+        current = state_tree(self.state)
+        if load_module_only or not load_optimizer_states:
+            current = {k: current[k] for k in ("params", "global_step")}
+            restored = {k: restored.get(k) for k in current}
+        _check_like(current, restored, path)
+        t0 = time.perf_counter()
+        _copy_into(current, restored)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        ckpt.add_time("h2d_s", t0)
+        self._host_steps = int(self.state.global_step)
+        self.micro_steps = side.get("micro_steps", 0)
+        if load_lr_scheduler_states and self.lr_scheduler is not None \
+                and side.get("lr_scheduler") is not None:
+            self.lr_scheduler.load_state_dict(side["lr_scheduler"])
+        log_dist(f"loaded checkpoint {path} at global_step={self._host_steps}", ranks=[0])
+        return path, side.get("client_state", {})
+
+
+class CheckpointAutoSaver:
+    """Preemption-aware automatic checkpointing around a :class:`DeepSpeedEngine`
+    (JAX ``runtime/engine.py:1580``).
+
+    - every ``interval_steps`` optimizer steps, ``after_step()`` saves a tag;
+    - on SIGTERM the handler only sets a flag; the save happens at the next
+      ``after_step()``, a step boundary where the state is consistent; then a
+      ``preempted`` marker naming the tag is written and
+      ``SystemExit(128 + SIGTERM)`` is raised so the scheduler restarts the job,
+      which resumes through ``resume()``.
+
+    Usage::
+
+        saver = CheckpointAutoSaver(engine, save_dir, interval_steps=100)
+        saver.resume()                     # load the latest committed tag, if any
+        with saver:                        # installs the SIGTERM handler
+            for batch in data:
+                engine.train_batch(batch)
+                saver.after_step()
+    """
+
+    PREEMPT_MARKER = "preempted"
+
+    def __init__(self, engine, save_dir: str, interval_steps: int = 0,
+                 tag_prefix: str = "global_step", exit_on_preempt: bool = True,
+                 client_state_fn: Optional[Callable[[], dict]] = None):
+        self.engine = engine
+        self.save_dir = save_dir
+        self.interval_steps = int(interval_steps)
+        self.tag_prefix = tag_prefix
+        self.exit_on_preempt = exit_on_preempt
+        self.client_state_fn = client_state_fn
+        self._preempt = threading.Event()
+        self._prev_handler = None
+        self._installed = False
+        self.last_saved_tag: Optional[str] = None
+
+    def install(self) -> "CheckpointAutoSaver":
+        """Install the SIGTERM handler (main thread only; it only sets a flag)."""
+        self._prev_handler = signal.signal(signal.SIGTERM, self._on_sigterm)
+        self._installed = True
+        return self
+
+    def uninstall(self):
+        if self._installed:
+            signal.signal(signal.SIGTERM, self._prev_handler or signal.SIG_DFL)
+            self._installed = False
+
+    def __enter__(self) -> "CheckpointAutoSaver":
+        return self.install()
+
+    def __exit__(self, *exc):
+        self.uninstall()
+        return False
+
+    def _on_sigterm(self, signum, frame):
+        logger.warning("[autosave] SIGTERM received — checkpoint at next step boundary, "
+                       "then exit for scheduler restart")
+        self._preempt.set()
+
+    @property
+    def preempted(self) -> bool:
+        return self._preempt.is_set()
+
+    def save(self, mark_preempted: bool = False) -> str:
+        tag = f"{self.tag_prefix}{self.engine.global_steps}"
+        client_state = self.client_state_fn() if self.client_state_fn else None
+        path = self.engine.save_checkpoint(self.save_dir, tag=tag, client_state=client_state)
+        self.last_saved_tag = tag
+        if mark_preempted:
+            marker = os.path.join(self.save_dir, self.PREEMPT_MARKER)
+            with open(marker + ".tmp", "w") as f:
+                f.write(tag)
+            os.rename(marker + ".tmp", marker)
+        return path
+
+    def after_step(self) -> Optional[str]:
+        """Call once per optimizer step. Saves when the interval elapses or a
+        preemption is pending; on preemption also exits (``exit_on_preempt``).
+        Returns the saved path, or None when no save was due."""
+        if self._preempt.is_set():
+            path = self.save(mark_preempted=True)
+            if self.exit_on_preempt:
+                raise SystemExit(128 + signal.SIGTERM)
+            self._preempt.clear()
+            return path
+        steps = self.engine.global_steps
+        if self.interval_steps > 0 and steps > 0 and steps % self.interval_steps == 0 \
+                and self.last_saved_tag != f"{self.tag_prefix}{steps}":
+            return self.save()
+        return None
+
+    def resume(self):
+        """Load the newest committed checkpoint (``latest``, with the torn-tag
+        fallback) and clear any preemption marker. Returns ``(path,
+        client_state)``, or ``(None, {})`` when nothing is saved yet."""
+        path, client_state = self.engine.load_checkpoint(self.save_dir)
+        marker = os.path.join(self.save_dir, self.PREEMPT_MARKER)
+        if os.path.isfile(marker):
+            with open(marker) as f:
+                logger.info(f"[autosave] resuming after preemption (marker tag "
+                            f"{f.read().strip()!r})")
+            os.unlink(marker)
+        return path, client_state

@@ -53,7 +53,12 @@ class _Schedule:
         return {"last_batch_iteration": self.last_batch_iteration}
 
     def load_state_dict(self, sd):
+        """Restore the position; the last lr follows it, so a resumed engine
+        reads the saved schedule's lr without stepping it again (the JAX
+        package's keeps its stale last lr here)."""
         self.last_batch_iteration = sd["last_batch_iteration"]
+        if self.last_batch_iteration >= 0:
+            self._last_lr = self.get_lr()
 
 
 class LRRangeTest(_Schedule):

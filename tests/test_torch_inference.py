@@ -81,7 +81,8 @@ def test_sampling_is_seeded_and_top_k_1_is_greedy():
     # MoE serving is ported (queue 1 item 10); an impl outside ("pallas", "xla")
     # is a ValueError, as in the JAX engine
     ({"moe_decode_impl": "triton"}, "moe_decode_impl='triton' is not one of"),
-    ({"checkpoint": "/ckpt"}, "queue 1 item 12"),
+    # the JAX engine never reads the key: a tag is loaded by load_checkpoint
+    ({"checkpoint": "/ckpt"}, "InferenceEngine.load_checkpoint"),
     ({"enable_cuda_graph": True}, "queue 1 item 3"),
 ])
 def test_refused_configs_raise(config, match):

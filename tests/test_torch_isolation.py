@@ -46,7 +46,8 @@ def test_no_forbidden_import(path):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, deepspeed_tpu_torch, deepspeed_tpu_torch.ops.kernel_checks, "
-            "deepspeed_tpu_torch.inference.speculative; "
+            "deepspeed_tpu_torch.inference.speculative, deepspeed_tpu_torch.checkpoint, "
+            "deepspeed_tpu_torch.module_inject, deepspeed_tpu_torch.utils.zero_to_fp32; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
