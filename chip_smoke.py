@@ -165,7 +165,32 @@ non-zero:
    load seconds (validate, read, host-to-device), GB/s, free and peak disk
    beside the ``nvidia-smi`` line. (f) Peak device memory during the save
    and during the load at most 2 x the largest tensor (``wte`` in f32) above
-   the level before.
+   the level before;
+12. activation checkpointing and the chunked-vocab loss (``[remat]``, right
+   after ``[train]``, before ``[sparse]``): ``[train]``'s GPT-2 125M and
+   configuration through the same ``train_run`` in five engines from one
+   seed, 3 warm-up and 10 timed steps each: no remat, ``remat=True`` with
+   ``remat_policy="full"``, ``"dots"``, ``"dots"`` with
+   ``vocab_chunk=8192``, and ``"offload_dots"`` (dots' products in pinned
+   host memory). Launch counts exact (the flash forward 24 a step under
+   remat, 12 without; both backward kernels 12); every run's losses finite
+   and falling; under full, dots and offload_dots the 13 losses and every
+   final master equal to the no-remat engine's bit for bit, or within the
+   spread of a second no-remat run; the chunked loss's first loss within
+   1e-4 of dots', and on its final weights the loss and every gradient of a
+   micro-batch of 4 against the full-logits loss's (the limit between two
+   readings printed beside it: the full-logits loss against itself, and the
+   chunked backward with its ``dwte`` planted at zero) and the kernels
+   against their plain versions as in 6; peak memory full < dots < no
+   remat, offload_dots < dots, and dots + chunk at least one f32 ``(b, t,
+   V)`` buffer (4.61 GiB) below dots; step ms, tokens/s, MFU (model FLOPs,
+   no recompute), peak memory and each step over the no-remat step; one
+   traced full and one traced dots step, with the flash forward's device
+   time beside ``[train]``'s. Then ``bench.py``'s long-sequence setting: seq
+   32,768, micro-batch 1, ``remat_policy="full"``, ``vocab_chunk=8192``, 2 +
+   3 steps: launch counts exact, losses finite and falling, peak memory at
+   most 16 GiB, printed beside the peak predicted without the two knobs (not
+   run).
 
 The last lines are a JSON line of the main paths' metrics, a JSON line on the
 kernels, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -197,6 +222,15 @@ MOE_TF_BATCH, MOE_TF_STEPS = 16, 8   # [moe]'s teacher-forced batch: n = 16 a Mo
 WQ_PARITY_INT8 = 0.98   # bench.py's int8 acceptance: teacher-forced greedy parity vs bf16
 WQ_REDUCTION = {8: 1.9, 4: 3.5}   # bench.py's modeled weight-byte reduction gates
 GRAD_RTOL = 5e-2   # bf16 whole-model gradients, kernel vs plain attention: see train_path()
+# [remat]: warm-up and timed steps of each engine, the vocab slice; the long
+# sequence's length, warm-up and timed steps and its peak-memory limit
+REMAT_WARMUP, REMAT_STEPS, REMAT_CHUNK = 3, 10, 8192
+LONG_SEQ, LONG_WARMUP, LONG_STEPS, LONG_PEAK_GIB = 32768, 2, 3, 16.0
+CHUNK_LOSS_TOL = 1e-4   # first loss, chunked vocab vs full logits (f32 summation order)
+# chunked vs full-logits gradients (chunk_vs_full): on the H100 the worst tensor
+# reads 3.7e-3 (dx rounded to bf16 a slice, against the full head's one rounding)
+# and 0.71 with dwte planted at zero; 5e-2 lies near their geometric mean
+CHUNK_GRAD_RTOL = 5e-2
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 SPIN_CYCLES = 2_000_000   # ~1.1 ms at the H100's 1.98 GHz boost: longer than any enqueue
 # [hd]: GPT-2 2.7B's scheduler requests, GPT-J-6B's new tokens and requests,
@@ -1132,30 +1166,33 @@ def spec_path(device, smi: str, serve: dict) -> dict:
     return out
 
 
-def grads_of(engine, batch):
+def grads_of(engine, batch, loss_fn=None):
     """Loss and gradients of one micro-batch, from the engine's masters cast to
-    the compute dtype, as a training step takes them."""
+    the compute dtype, as a training step takes them (through ``loss_fn``,
+    default the engine's model's)."""
     import torch
     names = list(engine.state.params)
-    loss = engine.module.loss_fn({k: p.to(engine.compute_dtype)
-                                  for k, p in engine.state.params.items()}, batch)
+    loss = (loss_fn or engine.module.loss_fn)({k: p.to(engine.compute_dtype)
+                                               for k, p in engine.state.params.items()}, batch)
     grads = torch.autograd.grad(loss, [engine.state.params[k] for k in names])
     return loss.detach(), dict(zip(names, grads))
 
 
-def train_run(device, smi: str, label: str, cfg, per_step: dict, plain, beside,
-              micro: int = TRAIN_MICRO, steps: int = TRAIN_STEPS, warmup: int = TRAIN_WARMUP):
+def train_run(device, smi: str, label: str, cfg, per_step: dict, check, beside=None,
+              micro: int = TRAIN_MICRO, seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS,
+              warmup: int = TRAIN_WARMUP):
     """``initialize`` on the GPT-2 ``cfg`` at ``bench.py``'s training
-    configuration (micro-batch 24, seq 1024, bf16 AdamW lr 2e-4, weight decay
-    0.01, ZeRO stage 1, clipping 1.0; seeded random weights, no remat), then 3
-    warm-up and 20 timed ``train_batch`` steps on one seeded batch. The launch
-    counts over the timed steps must be ``per_step`` (kernel -> launches a
-    step) times 20 and 0 for every other kernel; the losses finite and the last
-    below the first; the loss and every parameter's gradient of one
-    micro-batch of 4 within ``GRAD_RTOL`` of the same engine under ``plain()``
-    (the plain versions of the path's kernels); one more ``train_batch`` is
-    traced. Prints the step line, with ``beside(tokens_per_s)`` appended, and
-    returns the metrics. ``[hd]`` passes its own micro-batch and step counts."""
+    configuration (``train_config(micro)``; seeded random weights), then
+    ``warmup`` warm-up and ``steps`` timed ``train_batch`` steps on one
+    seeded ``(micro, seq)`` batch. The launch counts over the timed steps
+    must be ``per_step`` (kernel -> launches a step) times ``steps`` and 0
+    for every other kernel; every loss, warm-up and timed, finite and the
+    last below the first. Prints the step line, with ``beside(tokens_per_s)``
+    appended, then adds what ``check(engine, ids)`` returns to the metrics
+    (``plain_and_traced`` holds the kernels to their plain versions and
+    traces one more step). Returns the losses, step ms, tokens/s, the peak
+    memory over the timed steps, the memory held between steps and the
+    launch counts."""
     import numpy as np
     import torch
 
@@ -1163,50 +1200,86 @@ def train_run(device, smi: str, label: str, cfg, per_step: dict, plain, beside,
     from deepspeed_tpu_torch.models import gpt2_model
     from deepspeed_tpu_torch.ops import op_builder
 
-    config = {"train_batch_size": micro, "train_micro_batch_size_per_gpu": micro,
-              "optimizer": {"type": "AdamW", "params": {"lr": 2e-4, "weight_decay": 0.01}},
-              "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
-              "gradient_clipping": 1.0, "steps_per_print": 10**9}
     t0 = time.perf_counter()
-    engine, _, _, _ = dst.initialize(model=gpt2_model(cfg), config=config, device=device)
+    engine, _, _, _ = dst.initialize(model=gpt2_model(cfg), config=train_config(micro),
+                                     device=device)
     torch.cuda.synchronize()
     print(f"[{label}] initialize {time.perf_counter() - t0:.2f} s", flush=True)
-    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (micro, TRAIN_SEQ))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (micro, seq))
     batch = {"input_ids": ids}
 
-    for _ in range(warmup):
-        engine.train_batch(batch)
+    losses = [engine.train_batch(batch) for _ in range(warmup)]
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     op_builder.reset_launch_counts()
     t0 = time.perf_counter()
-    losses = [engine.train_batch(batch) for _ in range(steps)]
+    losses += [engine.train_batch(batch) for _ in range(steps)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = op_builder.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     want = expect(**{name: n * steps for name, n in per_step.items()})
-    print(f"[{label}] launches {launches} (expected {want})", flush=True)
+    print(f"[{label}] launches {nonzero(launches)} (expected {nonzero(want)})", flush=True)
     if launches != want:
         raise AssertionError(f"[{label}] launch counts {launches} != {want}")
     losses = [float(x) for x in losses]
-    print(f"[{label}] losses {losses[0]:.5f} -> {losses[-1]:.5f} over {steps} steps",
-          flush=True)
+    print(f"[{label}] losses {losses[0]:.6f} -> {losses[-1]:.6f} over {warmup} + {steps} "
+          "steps", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"[{label}] losses not finite and falling: {losses}")
     step_ms = dt / steps * 1e3
-    tokens_per_s = micro * TRAIN_SEQ * steps / dt
+    tokens_per_s = micro * seq * steps / dt
     print(f"[{label}] {smi}: step {step_ms:.2f} ms, {tokens_per_s:.1f} tokens/s"
-          f"{beside(tokens_per_s)}, peak "
-          f"memory {peak / 2**30:.2f} GiB (micro-batch {micro}, seq {TRAIN_SEQ})",
+          f"{beside(tokens_per_s) if beside else ''}, peak memory {peak / 2**30:.3f} GiB "
+          f"(held between steps {held / 2**30:.3f} GiB; micro-batch {micro}, seq {seq})",
           flush=True)
+    out = {"losses": losses, "step_ms": step_ms, "tokens_per_s": tokens_per_s,
+           "peak_memory_bytes": peak, "held_bytes": held,
+           "first_loss": losses[0], "last_loss": losses[-1], "launches": launches}
+    out.update(check(engine, ids))
+    return out
 
-    # the whole model on one micro-batch of 4, same weights: kernels vs plain
-    # versions. bf16 activations through 12 layers, with rounding at other
-    # points in the kernels than in the plain versions, move each gradient by
-    # about 1% of its norm; GRAD_RTOL = 5e-2 leaves room for that and fails on
-    # any real disagreement (a dropped or misplaced attention gradient moves a
-    # tensor's gradient by its whole norm).
+
+def plain_and_traced(device, plain, label: str):
+    """``train_run``'s check for ``[train]``, ``[sparse]`` and ``[hd]``: the
+    loss and every gradient of one micro-batch of 4 through the kernels
+    within ``GRAD_RTOL`` of the same under ``plain()`` (``kernels_vs_plain``),
+    then one more ``train_batch`` traced."""
+    import torch
+
+    def check(engine, ids):
+        loss_err, grad_err = kernels_vs_plain(engine, ids, device, plain, label)
+
+        def traced_step():
+            engine.train_batch({"input_ids": ids})
+            torch.cuda.synchronize()
+
+        return {"trace": profile_call(f"{label} train_batch", traced_step, top=30),
+                "grad_rel_err_max": grad_err, "loss_err": loss_err}
+    return check
+
+
+def train_config(micro: int) -> dict:
+    """``bench.py``'s training configuration at micro-batch ``micro``: bf16
+    AdamW lr 2e-4, weight decay 0.01, ZeRO stage 1, clipping 1.0."""
+    return {"train_batch_size": micro, "train_micro_batch_size_per_gpu": micro,
+            "optimizer": {"type": "AdamW", "params": {"lr": 2e-4, "weight_decay": 0.01}},
+            "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
+            "gradient_clipping": 1.0, "steps_per_print": 10**9}
+
+
+def kernels_vs_plain(engine, ids, device, plain, label: str):
+    """The whole model on one micro-batch of 4 (the first rows of ``ids``),
+    same weights: the loss and every gradient through the kernels against
+    the same under ``plain()``. bf16 activations through 12 layers, with
+    rounding at other points in the kernels than in the plain versions, move
+    each gradient by about 1% of its norm; GRAD_RTOL = 5e-2 leaves room for
+    that and fails on any real disagreement (a dropped or misplaced attention
+    gradient moves a tensor's gradient by its whole norm). Returns (loss
+    |diff|, worst relative gradient error)."""
+    import numpy as np
+    import torch
     small = {"input_ids": torch.from_numpy(ids[:4]).to(device)}
     loss_k, grads_k = grads_of(engine, small)
     with plain():
@@ -1223,17 +1296,18 @@ def train_run(device, smi: str, label: str, cfg, per_step: dict, plain, beside,
     if not loss_err <= 1e-2 or not rel[worst] <= GRAD_RTOL:
         raise AssertionError(f"[{label}] kernels vs plain: loss diff {loss_err}, gradient "
                              f"{worst} {rel[worst]}")
-    del grads_k, grads_p
+    return loss_err, rel[worst]
 
-    def traced_step():
-        engine.train_batch(batch)
-        torch.cuda.synchronize()
 
-    trace = profile_call(f"{label} train_batch", traced_step, top=30)
-    return {"trace": trace, "step_ms": step_ms, "tokens_per_s": tokens_per_s,
-            "peak_memory_bytes": peak,
-            "first_loss": losses[0], "last_loss": losses[-1], "grad_rel_err_max": rel[worst],
-            "loss_err": loss_err, "launches": launches}
+def flash_traced_ms(trace) -> dict:
+    """K1's, K3's and K4's device time in a ``profile_call`` trace (their
+    16-bit kernels are wgmma_fwd, wgmma_dq and wgmma_dkv, the f32 ones
+    flash_fwd_kernel, flash_bwd_dq_kernel and flash_bwd_dkv_kernel)."""
+    by_kernel = trace["by_kernel"]
+    return {name: sum(us for key, us in by_kernel.items() if any(k in key for k in keys)) / 1e3
+            for name, keys in (("flash_fwd", ("wgmma_fwd", "flash_fwd_kernel")),
+                               ("flash_bwd_dq", ("wgmma_dq", "flash_bwd_dq_kernel")),
+                               ("flash_bwd_dkv", ("wgmma_dkv", "flash_bwd_dkv_kernel")))}
 
 
 def gpt2_train_cfg(**kw):
@@ -1254,19 +1328,14 @@ def train_path(device, smi: str):
         return tokens_per_s * cfg.flops_per_token() / PEAK_BF16_FLOPS
 
     out = train_run(device, smi, "train", cfg,
-                    {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}, plain_attention,
+                    {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n},
+                    plain_and_traced(device, plain_attention, "train"),
                     lambda tps: f", MFU {mfu(tps):.4f} (6N + attention FLOPs against 989 "
                                 "TFLOP/s)")
     out["mfu"] = mfu(out["tokens_per_s"])
     if out["trace"] is not None:
-        # the traced step's device time in K1, K3 and K4 (their 16-bit kernels
-        # are wgmma_fwd, wgmma_dq and wgmma_dkv, the f32 ones flash_fwd_kernel,
-        # flash_bwd_dq_kernel and flash_bwd_dkv_kernel)
-        by_kernel = out["trace"]["by_kernel"]
-        ms = {name: sum(us for key, us in by_kernel.items() if any(k in key for k in keys)) / 1e3
-              for name, keys in (("flash_fwd", ("wgmma_fwd", "flash_fwd_kernel")),
-                                 ("flash_bwd_dq", ("wgmma_dq", "flash_bwd_dq_kernel")),
-                                 ("flash_bwd_dkv", ("wgmma_dkv", "flash_bwd_dkv_kernel")))}
+        ms = flash_traced_ms(out["trace"])
+        out["k1_traced_ms"] = ms["flash_fwd"]
         out["k1_k4_traced_ms"] = ms["flash_fwd"] + ms["flash_bwd_dkv"]
         out["k3_traced_ms"] = ms["flash_bwd_dq"]
         print(f"[train] traced step: K1 {ms['flash_fwd']:.3f} ms + K4 {ms['flash_bwd_dkv']:.3f} "
@@ -1290,7 +1359,8 @@ def sparse_path(device, smi: str, dense_step_ms: float):
     n = cfg.n_layer
     out = train_run(device, smi, "sparse", cfg,
                     {"block_sparse_fwd": n, "block_sparse_bwd_dq": n, "block_sparse_bwd_dkv": n},
-                    plain_sparse, lambda _: f" (dense [train] step {dense_step_ms:.2f} ms)")
+                    plain_and_traced(device, plain_sparse, "sparse"),
+                    lambda _: f" (dense [train] step {dense_step_ms:.2f} ms)")
     out["dense_step_ms"] = dense_step_ms
     if out["trace"] is not None:
         # the traced step's device time in K8, K9 and K10 (their 16-bit
@@ -1306,6 +1376,227 @@ def sparse_path(device, smi: str, dense_step_ms: float):
         print(f"[sparse] traced step: K8 {ms['k8']:.3f} ms, K9 {ms['k9']:.3f} ms, K10 "
               f"{ms['k10']:.3f} ms of device time", flush=True)
     return out
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def remat_path(device, smi: str, train: dict) -> dict:
+    """``[remat]``: activation checkpointing and the chunked-vocab loss on
+    ``[train]``'s GPT-2 125M and configuration, each engine through
+    ``train_run`` (launch counts exact: K1 24 a step under remat, since the
+    backward runs every block's forward again, 12 without; K3 and K4 12;
+    every loss finite and falling). (a) At ``[train]``'s shape, five engines
+    from one seed, 3 + 10 steps each: no remat; ``remat=True`` under
+    ``"full"``; ``"dots"``; ``"dots"`` with ``vocab_chunk`` 8192;
+    ``"offload_dots"`` (dots' products in pinned host memory). Under full,
+    dots and offload_dots the 13 losses and every final master equal the
+    no-remat engine's bit for bit, or, where they do not, within the spread
+    of a second no-remat run (the first differing tensor is printed). The
+    chunked loss: its first loss within ``CHUNK_LOSS_TOL`` of dots'; on its
+    final weights, the loss and every gradient of a micro-batch of 4 against
+    the full-logits loss's (``chunk_vs_full``) and the kernels against their
+    plain versions (``kernels_vs_plain``). Peak memory full < dots < no
+    remat, offload_dots < dots, and dots + chunk at least one f32 ``(b, t,
+    V)`` buffer below dots; one full and one dots step traced (K1 beside
+    ``[train]``'s).
+    (b) ``bench.py``'s long-sequence setting: seq 32768, micro-batch 1,
+    ``remat_policy="full"``, ``vocab_chunk`` 8192, 2 + 3 steps: peak at most
+    ``LONG_PEAK_GIB``; the peak without the two knobs is predicted from (a)
+    (not run)."""
+    import dataclasses
+
+    import torch
+
+    def collect():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def run(label, cfg, check=None, **kw):
+        n = cfg.n_layer
+        per_step = {"flash_fwd": (2 if cfg.remat else 1) * n, "flash_bwd_dq": n,
+                    "flash_bwd_dkv": n}
+        kw = {"micro": TRAIN_MICRO, "seq": TRAIN_SEQ, "warmup": REMAT_WARMUP,
+              "steps": REMAT_STEPS, **kw}
+        out = train_run(device, smi, f"remat {label}", cfg, per_step, check or masters,
+                        lambda tps: f", MFU {tps * cfg.flops_per_token() / PEAK_BF16_FLOPS:.4f}",
+                        **kw)
+        out["mfu"] = out["tokens_per_s"] * cfg.flops_per_token() / PEAK_BF16_FLOPS
+        collect()
+        return out
+
+    def masters(engine, ids):
+        return {"masters": {k: p.detach().to("cpu", copy=True)
+                            for k, p in engine.state.params.items()}}
+
+    def traced(label):
+        def check(engine, ids):
+            out = masters(engine, ids)
+
+            def step():
+                engine.train_batch({"input_ids": ids})
+                torch.cuda.synchronize()
+            out["trace"] = profile_call(f"remat {label} train_batch", step, top=30)
+            return out
+        return check
+
+    base = gpt2_train_cfg()
+    dots_cfg = dataclasses.replace(base, remat=True, remat_policy="dots")
+    chunk_cfg = dataclasses.replace(dots_cfg, vocab_chunk=REMAT_CHUNK)
+    ref = run("no remat", base)
+    spread = {}
+
+    def hold(label: str, got: dict) -> None:
+        first, worst = first_difference(ref["masters"], got["masters"])
+        loss_diff = max(abs(a - b) for a, b in zip(ref["losses"], got["losses"]))
+        if first is None and loss_diff == 0.0:
+            print(f"[remat] {label}: {len(got['losses'])} losses and {len(got['masters'])} "
+                  "masters equal the no-remat run's bit for bit", flush=True)
+            return
+        if not spread:
+            again = run("no remat, again", base)
+            d_first, d_worst = first_difference(ref["masters"], again["masters"])
+            spread.update(loss=max(abs(a - b) for a, b in zip(ref["losses"], again["losses"])),
+                          master=d_worst, first=d_first)
+            print(f"[remat] two identical no-remat runs: losses max |diff| {spread['loss']:.3e}, "
+                  f"masters max |diff| {spread['master']:.3e}, first differing tensor "
+                  f"{spread['first']}", flush=True)
+        print(f"[remat] {label} vs no remat: losses max |diff| {loss_diff:.3e} (limit "
+              f"{spread['loss']:.3e}), masters max |diff| {worst:.3e} (limit "
+              f"{spread['master']:.3e}), first differing tensor {first}", flush=True)
+        if not (loss_diff <= spread["loss"] and worst <= spread["master"]):
+            raise AssertionError(f"[remat] {label}: outside the spread of two identical "
+                                 f"no-remat runs; first differing tensor {first}")
+
+    # full and dots each trace one step: device time and busy share side by side
+    full = run("full", dataclasses.replace(base, remat=True), traced("full"))
+    hold("full", full)
+    dots = run("dots", dots_cfg, traced("dots"))
+    hold("dots", dots)
+
+    def chunk_checks(engine, ids):
+        out = chunk_vs_full(engine, ids, device, dataclasses.replace(chunk_cfg, vocab_chunk=0))
+        out["loss_err"], out["grad_rel_err_max"] = kernels_vs_plain(
+            engine, ids, device, plain_attention, "remat")
+        return out
+
+    chunk = run(f"dots + vocab_chunk {REMAT_CHUNK}", chunk_cfg, chunk_checks)
+    first_err = abs(chunk["losses"][0] - dots["losses"][0])
+    print(f"[remat] chunked-vocab loss: first loss {chunk['losses'][0]:.7f} vs full logits "
+          f"{dots['losses'][0]:.7f} (|diff| {first_err:.3e}, tol {CHUNK_LOSS_TOL}); 13 losses "
+          f"max |diff| {max(abs(a - b) for a, b in zip(chunk['losses'], dots['losses'])):.3e}",
+          flush=True)
+    if not first_err <= CHUNK_LOSS_TOL:
+        raise AssertionError(f"[remat] chunked loss: first |diff| {first_err}")
+
+    offload = run("offload_dots", dataclasses.replace(base, remat=True,
+                                                      remat_policy="offload_dots"))
+    hold("offload_dots", offload)
+
+    runs = {"none": ref, "full": full, "dots": dots, "dots_chunk": chunk,
+            "offload_dots": offload}
+    for name, res in runs.items():
+        print(f"[remat] {smi}: {name:>12}: step {res['step_ms']:8.2f} ms "
+              f"({res['step_ms'] / ref['step_ms']:.3f} x no remat), "
+              f"{res['tokens_per_s']:9.1f} tokens/s, MFU {res['mfu']:.4f}, peak "
+              f"{res['peak_memory_bytes'] / 2**30:7.3f} GiB", flush=True)
+    peak = {name: res["peak_memory_bytes"] for name, res in runs.items()}
+    logits_f32 = TRAIN_MICRO * TRAIN_SEQ * base.vocab_size * 4
+    print(f"[remat] peaks: full < dots < no remat: {peak['full'] < peak['dots'] < peak['none']}; "
+          f"offload_dots < dots: {peak['offload_dots'] < peak['dots']}; dots - dots + chunk "
+          f"{(peak['dots'] - peak['dots_chunk']) / 2**30:.3f} GiB (at least one f32 (b, t, V) "
+          f"buffer, {logits_f32 / 2**30:.3f} GiB)", flush=True)
+    if not (peak["full"] < peak["dots"] < peak["none"] and peak["offload_dots"] < peak["dots"]
+            and peak["dots"] - peak["dots_chunk"] >= logits_f32):
+        raise AssertionError(f"[remat] peak memory out of order: {peak}")
+    out = {name: {k: v for k, v in res.items() if k not in ("masters", "trace", "losses")}
+           for name, res in runs.items()}
+    for name, res in runs.items():
+        out[name]["step_ratio"] = res["step_ms"] / ref["step_ms"]
+    for name in ("full", "dots"):
+        trace = runs[name]["trace"]
+        if trace is None:
+            continue
+        k1 = flash_traced_ms(trace)["flash_fwd"]
+        out[name].update(k1_traced_ms=k1, traced_device_ms=trace["device_us"] / 1e3,
+                         traced_wall_ms=trace["wall_us"] / 1e3)
+        print(f"[remat] traced {name} step: device {trace['device_us'] / 1e3:.2f} of "
+              f"{trace['wall_us'] / 1e3:.2f} ms; K1 {k1:.3f} ms of device time ([train]'s "
+              f"traced K1 {train.get('k1_traced_ms', float('nan')):.3f} ms, ratio "
+              f"{k1 / train.get('k1_traced_ms', float('nan')):.3f})", flush=True)
+    del runs, ref, full, dots, chunk, offload
+
+    # (b) the long sequence
+    long_cfg = dataclasses.replace(base, n_positions=LONG_SEQ, remat=True, remat_policy="full",
+                                   vocab_chunk=REMAT_CHUNK)
+    long = run(f"seq {LONG_SEQ}, full + vocab_chunk {REMAT_CHUNK}", long_cfg,
+               lambda engine, ids: {}, micro=1, seq=LONG_SEQ, warmup=LONG_WARMUP,
+               steps=LONG_STEPS)
+    # without remat and vocab_chunk, memory above what is held between steps
+    # grows with the tokens of a step (flash attention is linear in t)
+    per_token = (out["none"]["peak_memory_bytes"] - out["none"]["held_bytes"]) / (
+        TRAIN_MICRO * TRAIN_SEQ)
+    predicted = long["held_bytes"] + per_token * LONG_SEQ
+    print(f"[remat] seq {LONG_SEQ} {smi}: peak {long['peak_memory_bytes'] / 2**30:.3f} GiB "
+          f"(limit {LONG_PEAK_GIB}); predicted without remat and vocab_chunk "
+          f"{predicted / 2**30:.2f} GiB (not run)", flush=True)
+    if not long["peak_memory_bytes"] <= LONG_PEAK_GIB * 2**30:
+        raise AssertionError(f"[remat] seq {LONG_SEQ}: peak {long['peak_memory_bytes']}")
+    out["long"] = {k: v for k, v in long.items() if k != "losses"}
+    out["long"]["predicted_peak_without_knobs_bytes"] = predicted
+    return out
+
+
+def chunk_vs_full(engine, ids, device, full_cfg) -> dict:
+    """The chunked-vocab loss's backward on the card: on the engine's
+    weights, the loss and every gradient of one micro-batch of 4 (the first
+    rows of ``ids``) through ``ChunkedVocabCrossEntropy`` against the same
+    through the full ``(b, t, V)`` logits (``full_cfg``, the same model with
+    ``vocab_chunk`` 0). Two readings frame the limit: the full-logits loss
+    against itself (the run-to-run spread) and a planted fault, the
+    chunked backward with its ``dwte`` left at zero (a fault that
+    ``kernels_vs_plain`` cannot see, since both of its sides take the same
+    chunked backward). The worst relative gradient error must be within
+    ``CHUNK_GRAD_RTOL`` and the fault's above it."""
+    import torch
+
+    from deepspeed_tpu_torch.models import gpt2_model
+    from deepspeed_tpu_torch.runtime.zero import tiling
+
+    small = {"input_ids": torch.from_numpy(ids[:4]).to(device)}
+    full_loss = gpt2_model(full_cfg).loss_fn
+
+    def worst(a, b):
+        rel = {k: float((a[1][k].float() - g.float()).norm() / g.float().norm())
+               for k, g in b[1].items()}
+        name = max(rel, key=rel.get)
+        return abs(float(a[0]) - float(b[0])), rel[name], name
+
+    want = grads_of(engine, small, full_loss)
+    spread = worst(grads_of(engine, small, full_loss), want)
+    got = worst(grads_of(engine, small), want)
+    backward = tiling.ChunkedVocabCrossEntropy.backward
+
+    def dwte_left_at_zero(ctx, grad):
+        dx, dwte, *rest = backward(ctx, grad)
+        return (dx, torch.zeros_like(dwte), *rest)
+
+    tiling.ChunkedVocabCrossEntropy.backward = staticmethod(dwte_left_at_zero)
+    try:
+        fault = worst(grads_of(engine, small), want)
+    finally:
+        tiling.ChunkedVocabCrossEntropy.backward = staticmethod(backward)
+    for what, (loss_diff, rel, name) in (("full logits twice", spread),
+                                         ("chunked vs full logits", got),
+                                         ("planted fault, dwte 0", fault)):
+        print(f"[remat] micro-batch 4, {what}: loss |diff| {loss_diff:.3e}; gradients, "
+              f"max relative error {rel:.3e} ({name}) (tol {CHUNK_GRAD_RTOL})", flush=True)
+    if not (got[0] <= CHUNK_LOSS_TOL and got[1] <= CHUNK_GRAD_RTOL < fault[1]):
+        raise AssertionError(f"[remat] chunked loss's backward: {got} against the full "
+                             f"logits', planted fault {fault}, tol {CHUNK_GRAD_RTOL}")
+    return {"chunk_loss_err": got[0], "chunk_grad_rel_err_max": got[1],
+            "chunk_grad_spread": spread[1], "chunk_grad_fault": fault[1]}
 
 
 def hd_refusals(device) -> dict:
@@ -1411,14 +1702,15 @@ def hd_path(device, smi: str) -> dict:
     n = 24
     dense = train_run(device, smi, "hd gpt2-760m train", gpt2_760m(),
                       {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n},
-                      plain_attention, lambda _: "", micro=HD_MICRO, steps=HD_STEPS,
-                      warmup=HD_WARMUP)
+                      plain_and_traced(device, plain_attention, "hd gpt2-760m train"),
+                      micro=HD_MICRO, steps=HD_STEPS, warmup=HD_WARMUP)
     gc.collect()
     name, kw = GPT2_760M_SPARSE
     sparse = train_run(device, smi, "hd gpt2-760m sparse", gpt2_760m(
         attention_impl=make_sparse_attention_impl(getattr(sparse_attention, name)(**kw))),
         {"block_sparse_fwd": n, "block_sparse_bwd_dq": n, "block_sparse_bwd_dkv": n},
-        plain_sparse, lambda _: f" (dense step {dense['step_ms']:.2f} ms)", micro=HD_MICRO,
+        plain_and_traced(device, plain_sparse, "hd gpt2-760m sparse"),
+        lambda _: f" (dense step {dense['step_ms']:.2f} ms)", micro=HD_MICRO,
         steps=HD_SPARSE_STEPS, warmup=HD_SPARSE_WARMUP)
     out["gpt2_760m_train"], out["gpt2_760m_sparse"] = dense, sparse
     gc.collect()
@@ -2404,6 +2696,10 @@ def main() -> int:
     gc.collect()
     train = train_path(device, smi)
     gc.collect()
+    torch.cuda.empty_cache()
+    remat = remat_path(device, smi, train)
+    gc.collect()
+    torch.cuda.empty_cache()
     sparse = sparse_path(device, smi, train["step_ms"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -2443,6 +2739,9 @@ def main() -> int:
         if name == "flash_fwd":
             entry["serve_launches"] = serve["launches"][name]
             entry["train_launches"] = train["launches"][name]
+        # [remat]: each of its engines' timed steps
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            entry["remat_launches"] = {run: res["launches"][name] for run, res in remat.items()}
         # [ckpt]: every training step of its engines (K1, K3, K4) and its
         # served generates and forwards (K1, K2), in this process
         if name in ("flash_fwd", "decode_attention", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -2487,14 +2786,17 @@ def main() -> int:
                                              "grad_rel_err_max", "loss_err",
                                              "k1_k4_traced_ms", "k3_traced_ms")
                        if k in train},
-        "sparse_train_path": {k: v for k, v in sparse.items() if k not in ("launches", "trace")},
+        "remat_path": {run: {k: v for k, v in res.items() if k != "launches"}
+                       for run, res in remat.items()},
+        "sparse_train_path": {k: v for k, v in sparse.items()
+                              if k not in ("launches", "trace", "losses")},
         "ckpt_path": {k: v for k, v in ckpt.items() if k != "launches"},
         "hd_path": {
             "refusals": hd["refusals"],
             **{f"{m}_{part}": {k: v for k, v in hd[m][part].items()
                                if k not in ("launches", "int8", "tokens")}
                for m in ("gpt2_2.7b", "gptj_6b") for part in ("generate", "serve")},
-            **{m: {k: v for k, v in hd[m].items() if k not in ("launches", "trace")}
+            **{m: {k: v for k, v in hd[m].items() if k not in ("launches", "trace", "losses")}
                for m in ("gpt2_760m_train", "gpt2_760m_sparse")}}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

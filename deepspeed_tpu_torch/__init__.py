@@ -14,6 +14,7 @@ __version__ = "0.1.0"
 
 from .config import DeepSpeedConfig  # noqa: F401
 from .inference import DeepSpeedInferenceConfig, InferenceEngine  # noqa: F401
+from .runtime.activation_checkpointing import checkpointing  # noqa: F401
 from .runtime.engine import DeepSpeedEngine  # noqa: F401
 from .utils.logging import logger  # noqa: F401
 

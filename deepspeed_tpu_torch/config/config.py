@@ -6,8 +6,10 @@ or a path to a ``.json`` file. It takes the batch triple, resolved as the JAX
 config resolves it (here with ``dp_world_size = 1``: one card), the optimizer
 and scheduler blocks, bf16 and fp16 (with dynamic loss scaling), ZeRO stage 0
 or 1 (on one card the stage-1 optimizer-state partition is the whole state),
-gradient clipping, gradient prescaling, ``steps_per_print`` and the
-``checkpoint`` block (of which the engine reads ``async_save``).
+gradient clipping, gradient prescaling, ``steps_per_print``, the
+``checkpoint`` block (of which the engine reads ``async_save``) and the
+``activation_checkpointing`` block (which ``checkpointing.configure`` reads,
+as in the JAX package; the engine does not).
 
 An unknown key raises ``ValueError``. A key the JAX config knows whose feature
 is not ported yet, set to anything but its default, raises
@@ -19,6 +21,7 @@ import json
 import os
 from typing import Any, Dict, Optional, Union
 
+from ..runtime.activation_checkpointing.checkpointing import POLICIES
 from .config_utils import from_dict, is_off
 
 _ITEM5 = "item 5 (remainder)"
@@ -26,7 +29,7 @@ _ITEM5 = "item 5 (remainder)"
 #: top-level keys of the JAX config whose features are not ported, by item
 UNPORTED_KEYS = {
     "mesh": "item 11", "comm_overlap": "item 11", "communication_data_type": "item 11",
-    "activation_checkpointing": _ITEM5, "dataloader_drop_last": _ITEM5,
+    "dataloader_drop_last": _ITEM5,
     "comms_logger": "item 9", "tensorboard": "item 9", "wandb": "item 9",
     "csv_monitor": "item 9", "jsonl_monitor": "item 9", "flops_profiler": "item 9",
     "wall_clock_breakdown": "item 9", "memory_breakdown": "item 9", "dump_state": "item 9",
@@ -120,6 +123,38 @@ class CheckpointConfig:
 
 
 @dataclasses.dataclass
+class ActivationCheckpointingConfig:
+    """The ``activation_checkpointing`` block, read by
+    ``checkpointing.configure`` (JAX ``ActivationCheckpointingConfig``).
+    ``policy`` names a ``checkpointing.POLICIES`` entry; ``cpu_checkpointing``
+    promotes it to ``offload_dots``. The JAX package never acts on the other
+    five keys (``partition_activations`` it only logs), so here each raises
+    set away from its default."""
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    policy: str = "nothing_saveable"
+
+    def __post_init__(self):
+        if self.policy not in POLICIES:
+            raise ValueError(f"unknown activation_checkpointing.policy {self.policy!r}; "
+                             f"known: {sorted(POLICIES)}")
+        unread = [f.name for f in dataclasses.fields(self)
+                  if f.name not in ("cpu_checkpointing", "policy")
+                  and getattr(self, f.name) != f.default]
+        if unread:
+            raise NotImplementedError(
+                f"activation_checkpointing keys {unread} are not read by the JAX package "
+                "either (it accepts and ignores them); set away from their defaults they are "
+                "refused" + ("; partitioned activations are a tensor-parallel feature: "
+                             "ROADMAP.md queue 1 item 11"
+                             if "partition_activations" in unread else ""))
+
+
+@dataclasses.dataclass
 class OptimizerConfig:
     """An Adam-family optimizer's hyperparameters (``optimizer.params``)."""
     lr: float = 1e-3
@@ -148,7 +183,8 @@ class DeepSpeedConfig:
     KNOWN = ("train_batch_size", "train_micro_batch_size_per_gpu",
              "gradient_accumulation_steps", "optimizer", "scheduler", "fp16", "bf16",
              "bfloat16", "zero_optimization", "gradient_clipping", "prescale_gradients",
-             "gradient_predivide_factor", "steps_per_print", "checkpoint")
+             "gradient_predivide_factor", "steps_per_print", "checkpoint",
+             "activation_checkpointing")
 
     def __init__(self, config: Union[str, dict], dp_world_size: int = 1):
         pd = _resolve_config_dict(config)
@@ -167,6 +203,9 @@ class DeepSpeedConfig:
         self.zero_config = ZeroConfig.from_dict(pd.get("zero_optimization", {}))
         self.checkpoint_config = from_dict(CheckpointConfig, pd.get("checkpoint") or {},
                                            "checkpoint")
+        self.activation_checkpointing = from_dict(
+            ActivationCheckpointingConfig, pd.get("activation_checkpointing") or {},
+            "activation_checkpointing")
 
         self.optimizer_name: Optional[str] = None
         self.optimizer_params = OptimizerConfig()

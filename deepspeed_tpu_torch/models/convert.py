@@ -4,7 +4,9 @@
 ``deepspeed_tpu.models.causal_lm.CausalLM`` (as numpy arrays, e.g.
 ``jax.device_get(engine.params)``) into a ``state_dict`` for this package's
 :class:`~.causal_lm.CausalLM`; :func:`gpt2_params_from_jax` does the same for
-``deepspeed_tpu.models.gpt2.GPT2`` and this package's :class:`~.gpt2.GPT2`. A flax ``kernel`` ``(in, out)`` becomes a
+``deepspeed_tpu.models.gpt2.GPT2`` and this package's :class:`~.gpt2.GPT2`;
+:func:`tiled_dense_params_from_jax` carries a JAX ``TiledDense`` tree to
+``runtime/zero/tiling.py:TiledDense``. A flax ``kernel`` ``(in, out)`` becomes a
 ``weight`` ``(out, in)`` (transposed); ``scale`` becomes ``weight``; embeddings
 keep their layout. Values keep their dtype: the engine casts to the serve dtype.
 A weight-quantized tree (``jax.device_get`` of a JAX engine serving with
@@ -110,4 +112,18 @@ def gpt2_params_from_jax(params: Dict[str, Any], cfg: GPT2Config) -> Dict[str, t
             _norm(sd, f"h.{i}.{name}", block[name])
         for name in qkv + _GPT2_DENSES:
             _dense(sd, f"h.{i}.{name}", block[name])
+    return sd
+
+
+def tiled_dense_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``TiledDense`` tree (``kernel_{i}_{o}`` ``(in_i, out_o)``,
+    ``bias_{o}``) → :class:`~..runtime.zero.tiling.TiledDense`'s parameters:
+    each tile becomes ``weight_{i}_{o}`` ``(out_o, in_i)``, transposed as a
+    ``Dense`` kernel is; biases keep their layout. f32 on the CPU."""
+    sd = {}
+    for name, leaf in params.items():
+        if name.startswith("kernel_"):
+            sd["weight_" + name[len("kernel_"):]] = _t(leaf).t().contiguous()
+        else:
+            sd[name] = _t(leaf)
     return sd

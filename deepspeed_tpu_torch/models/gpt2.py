@@ -19,13 +19,27 @@ Attention comes from ``ops/transformer/attention.py:get_attention_impl``:
 Parameters follow the JAX tree's names (``models/convert.py`` carries them
 across): a Dense ``weight`` is ``(out, in)``, the flax ``kernel`` transposed.
 The blocks are ``h.0`` .. ``h.{n_layer-1}`` whether the JAX model scanned its
-layers or not, so ``scan_layers`` has no counterpart here. Not ported yet
-(each raises ``NotImplementedError``): dropout, remat and the chunked-vocab
-loss (ROADMAP.md queue 1 item 5); the TP and SP block variants and
-``gpt2_param_specs`` (item 11).
+layers or not, so ``scan_layers`` has no counterpart here.
+
+``remat=True`` runs each block through ``checkpointing.checkpoint``
+(``runtime/activation_checkpointing``): ``remat_policy="full"`` saves nothing
+and recomputes the block in the backward, ``"dots"`` saves the projections'
+products (``dots_with_no_batch_dims_saveable``, as JAX's) and recomputes the
+rest, and ``"offload_dots"`` keeps dots' products in pinned host memory;
+the flash forward runs again in the backward under each. The model never
+reads ``checkpointing.configure``'s settings: the config alone names the
+policy. The block takes its parameters as arguments and binds them itself,
+because the recompute runs after ``functional_call`` has unbound the
+model's. ``vocab_chunk > 0`` takes
+the training loss through ``runtime/zero/tiling.py:
+chunked_vocab_cross_entropy`` from ``GPT2(..., return_hidden=True)``, without
+the ``(b, t, V)`` logits. Not ported yet (each raises
+``NotImplementedError``): dropout (ROADMAP.md queue 1 item 5); the TP and SP
+block variants and ``gpt2_param_specs`` (item 11).
 """
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -35,9 +49,14 @@ from torch.func import functional_call
 
 from ..ops.attention.flash import kernel_width
 from ..ops.transformer.attention import get_attention_impl
+from ..runtime.activation_checkpointing import checkpointing
+from ..runtime.zero.tiling import chunked_vocab_cross_entropy
 from .base import Model, Params
 
 _ITEM5 = "ROADMAP.md queue 1 item 5 (remainder)"
+#: ``GPT2Config.remat_policy`` -> the ``checkpointing`` policy of a block
+_BLOCK_POLICY = {"full": "nothing_saveable", "dots": "dots_with_no_batch_dims_saveable",
+                 "offload_dots": "offload_dots"}
 
 
 @dataclasses.dataclass
@@ -50,19 +69,25 @@ class GPT2Config:
     dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16       # compute dtype
     remat: bool = False
+    # full | dots (save the projections' products) | offload_dots (dots' products
+    # kept in pinned host memory)
+    remat_policy: str = "full"
     attention_impl: str = "auto"
     init_std: float = 0.02
     split_qkv: bool = False
+    # > 0: the training loss through the chunked-vocab cross-entropy over vocab
+    # slices of this size, without the (b, t, V) logits (6.6 GB in f32 at seq
+    # 32k and vocab 50k)
     vocab_chunk: int = 0
 
     def __post_init__(self):
         if self.dropout > 0.0:
             raise NotImplementedError(f"GPT2Config(dropout > 0) is not ported yet: {_ITEM5}")
-        if self.remat:
-            raise NotImplementedError(f"GPT2Config(remat=True) is not ported yet: {_ITEM5}")
-        if self.vocab_chunk:
-            raise NotImplementedError("GPT2Config(vocab_chunk > 0), the chunked-vocab loss, "
-                                      f"is not ported yet: {_ITEM5}")
+        if self.remat_policy not in _BLOCK_POLICY:
+            raise ValueError(f"GPT2Config.remat_policy must be one of {sorted(_BLOCK_POLICY)}, "
+                             f"got {self.remat_policy!r}")
+        if self.vocab_chunk < 0:
+            raise ValueError(f"GPT2Config.vocab_chunk must be >= 0, got {self.vocab_chunk}")
         get_attention_impl(self.attention_impl)     # an unported impl raises here
 
     @property
@@ -170,15 +195,29 @@ class GPT2(nn.Module):
         self.h = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg.n_embd, device)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """``input_ids (b, t)`` → f32 logits ``(b, t, vocab)``."""
-        dt = self.cfg.dtype
+    def forward(self, input_ids: torch.Tensor, return_hidden: bool = False):
+        """``input_ids (b, t)`` → f32 logits ``(b, t, vocab)``; with
+        ``return_hidden``, ``(f32 hidden states after ln_f, wte)`` for the
+        chunked-vocab loss."""
+        cfg = self.cfg
+        dt = cfg.dtype
         t = input_ids.shape[1]
         x = F.embedding(input_ids.long(), self.wte).to(dt) + self.wpe[:t][None].to(dt)
         for block in self.h:
-            x = block(x)
+            if cfg.remat:
+                x = checkpointing.checkpoint(functools.partial(_run_block, block), x,
+                                             dict(block.named_parameters()),
+                                             policy=_BLOCK_POLICY[cfg.remat_policy])
+            else:
+                x = block(x)
         x = self.ln_f(x)
+        if return_hidden:
+            return x, self.wte
         return torch.matmul(x.to(dt), self.wte.to(dt).t()).float()
+
+
+def _run_block(block: Block, x: torch.Tensor, params: Params) -> torch.Tensor:
+    return functional_call(block, params, (x,))
 
 
 def init_params(cfg: GPT2Config, seed: int, device) -> Params:
@@ -233,6 +272,12 @@ def gpt2_model(config: GPT2Config, sample_seq_len: Optional[int] = None) -> Mode
     t = sample_seq_len or config.n_positions
 
     def loss_fn(params: Params, batch) -> torch.Tensor:
+        if config.vocab_chunk:
+            hidden, wte = functional_call(module, params, (batch["input_ids"],),
+                                          {"return_hidden": True})
+            return chunked_vocab_cross_entropy(hidden, wte, shift_labels(batch),
+                                               chunk=config.vocab_chunk,
+                                               compute_dtype=config.dtype)
         logits = functional_call(module, params, (batch["input_ids"],))
         return cross_entropy_loss(logits, shift_labels(batch))
 

@@ -144,10 +144,17 @@ def test_init_follows_the_jax_scheme():
     assert all(torch.equal(params[k], again[k]) for k in params)
 
 
-@pytest.mark.parametrize("kw,item", [({"dropout": 0.1}, "item 5"), ({"remat": True}, "item 5"),
-                                     ({"vocab_chunk": 4096}, "item 5"),
+@pytest.mark.parametrize("kw,item", [({"dropout": 0.1}, "item 5"),
+                                     ({"dropout": 0.1, "remat": True}, "item 5"),
                                      ({"attention_impl": "ring"}, "item 13"),
                                      ({"attention_impl": "ulysses"}, "item 13")])
 def test_unported_model_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         torch_gpt2.GPT2Config(**TINY, **kw)
+
+
+def test_unknown_remat_policy_raises():
+    """JAX quietly takes full remat for any policy but "dots"; the port
+    refuses every name but its three."""
+    with pytest.raises(ValueError, match="'dots', 'full', 'offload_dots'"):
+        torch_gpt2.GPT2Config(**TINY, remat=True, remat_policy="dots_saveable")

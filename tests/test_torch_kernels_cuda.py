@@ -418,6 +418,39 @@ def test_block_sparse_attention_gradients_and_launches_on_card():
                             n_heads=h)
 
 
+@pytest.mark.parametrize("policy", ["dots", "offload_dots"])
+def test_gpt2_remat_launches_and_gradients_on_card(policy):
+    """A tiny GPT-2 (head_dim 64, 2 layers, seq 256, bf16) on the card: the
+    loss and every gradient of one micro-batch under remat ("dots";
+    "offload_dots", which keeps dots' products in pinned host memory) equal
+    the no-remat ones bit for bit; K1 launches 2 a step without remat
+    and 4 with it (the backward runs each block's forward again), K3 and K4
+    2 either way."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import op_builder
+    device = _card()
+    base = gpt2.GPT2Config(vocab_size=512, n_positions=256, n_embd=128, n_layer=2, n_head=2)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 256))).to(device)
+
+    def step(cfg):
+        params = {k: v.requires_grad_() for k, v in gpt2.init_params(cfg, 0, device).items()}
+        op_builder.reset_launch_counts()
+        loss = gpt2.gpt2_model(cfg).loss_fn({k: p.to(torch.bfloat16) for k, p in params.items()},
+                                            {"input_ids": ids})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        counts = op_builder.launch_counts()
+        kernels = ("flash_fwd",) + kernel_checks.BWD_KERNELS
+        return loss.detach(), grads, [counts[n] for n in kernels]
+
+    want = step(base)
+    got = step(dataclasses.replace(base, remat=True, remat_policy=policy))
+    assert want[2] == [2, 2, 2] and got[2] == [4, 2, 2], (want[2], got[2])
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+
 def test_block_sparse_refuses_unsupported_shapes_on_card():
     """A head_dim or layout block the kernels do not take raises ValueError
     before any launch, and does not fall back (d 84, not a multiple of 8; d

@@ -7,7 +7,8 @@ the same GPT-2 weights (the JAX engine's initial parameters, copied to numpy
 before its first step, which donates its state) and take 5 ``train_batch``
 steps of AdamW with gradient accumulation 2, clipping 1.0 and WarmupLR on the
 same batches, in f32, bf16 and fp16 (dynamic loss scaling; and a scale so
-large that every step overflows and is skipped). The JAX engine shards each
+large that every step overflows and is skipped); and again in f32 and bf16
+with ``remat`` (full; dots with the chunked-vocab loss). The JAX engine shards each
 batch over the 8 virtual CPU devices; its micro-batch of 8 sequences is the
 port's.
 
@@ -179,14 +180,17 @@ LOSS_TOL = {"float32": 1e-5, "bfloat16": 1e-3, "float16": 1e-4, "float16-overflo
 UPDATE_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "float16": 1e-2}
 
 
-def _engines(precision):
-    """A JAX engine and a port engine on the CPU, from the same weights."""
+def _engines(precision, **model_kw):
+    """A JAX engine and a port engine on the CPU, from the same weights;
+    ``model_kw`` (e.g. ``remat``, ``vocab_chunk``) goes to both GPT-2
+    configs."""
     dtype = precision.split("-")[0]
     config = _config(PRECISIONS[precision])
-    jcfg = jax_gpt2.GPT2Config(**TINY, dtype=getattr(jnp, dtype), attention_impl="xla")
+    jcfg = jax_gpt2.GPT2Config(**TINY, dtype=getattr(jnp, dtype), attention_impl="xla",
+                               **model_kw)
     jengine, _, _, _ = ds.initialize(model=jax_gpt2.gpt2_model(jcfg), config=dict(config))
     start = jax.tree_util.tree_map(np.array, jax.device_get(jengine.state.params))
-    tcfg = torch_gpt2.GPT2Config(**TINY, dtype=getattr(torch, dtype))
+    tcfg = torch_gpt2.GPT2Config(**TINY, dtype=getattr(torch, dtype), **model_kw)
     sd = gpt2_params_from_jax(start, tcfg)
     model = dataclasses.replace(torch_gpt2.gpt2_model(tcfg),
                                 init_fn=lambda seed, device: sd)
@@ -210,7 +214,25 @@ def _without_key_bias(name, x):
 
 @pytest.mark.parametrize("precision", list(PRECISIONS))
 def test_engine_trajectory_matches_jax(precision):
-    jengine, tengine, tcfg, start = _engines(precision)
+    check_trajectory(precision)
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model_kw", [{"remat": True, "remat_policy": "full"},
+                                      {"remat": True, "remat_policy": "dots",
+                                       "vocab_chunk": 48}],
+                         ids=["remat-full", "remat-dots-chunk48"])
+def test_engine_trajectory_with_remat_matches_jax(model_kw, precision):
+    """The same trajectory with remat on both sides, and the chunked-vocab
+    loss (vocab 128 = 48 + 48 + 32), at the same tolerances."""
+    check_trajectory(precision, **model_kw)
+
+
+def check_trajectory(precision, **model_kw):
+    """5 ``train_batch`` steps of both engines (``_engines``):
+    losses within ``LOSS_TOL``, step counters, loss scale and lr equal, each
+    tensor's update within ``UPDATE_TOL``."""
+    jengine, tengine, tcfg, start = _engines(precision, **model_kw)
     jloss, tloss = [], []
     for ids in _batches():
         jloss.append(float(jengine.train_batch({"input_ids": ids})))
@@ -283,7 +305,7 @@ BASE = {"train_batch_size": 4}
     ({"compression_training": {"weight_quantization": {}}}, "item 13"),
     ({"curriculum_learning": {"enabled": True}}, "item 13"),
     ({"progressive_layer_drop": {"enabled": True}}, "item 13"),
-    ({"activation_checkpointing": {"partition_activations": True}}, "item 5"),
+    ({"activation_checkpointing": {"partition_activations": True}}, "item 11"),
     ({"optimizer": {"type": "Lamb", "params": {}}}, "item 5"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "item 5"),
     ({"optimizer": {"type": "Adagrad", "params": {}}}, "item 5"),
@@ -311,6 +333,8 @@ def test_config_resolves_batch_and_off_blocks_pass():
                            "zero_optimization": {"stage": 1}, "bf16": {"enabled": True}})
     assert (cfg.train_batch_size, cfg.train_micro_batch_size_per_gpu,
             cfg.gradient_accumulation_steps) == (24, 8, 3)
+    assert DeepSpeedConfig({"train_batch_size": 4, "activation_checkpointing": {
+        "policy": "dots"}}).activation_checkpointing.policy == "dots"
     with pytest.raises(Exception, match="train_batch_size"):
         DeepSpeedConfig({"train_batch_size": 24, "train_micro_batch_size_per_gpu": 8,
                          "gradient_accumulation_steps": 2})
