@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and checkpoint paths on one NVIDIA card.
+"""Drive the PyTorch port's serving, training, offload and checkpoint paths on one
+NVIDIA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and
@@ -192,6 +193,31 @@ non-zero:
    most 16 GiB, printed beside the peak predicted without the two knobs (not
    run).
 
+13. ZeRO-Offload (``[offload]``, right after ``[remat]``): (A) GPT-2 1.3B as
+   ``bench.py``'s 1.3B lane trains it (vocab 50304, seq 1024, width 2048, 24
+   layers, 16 heads, remat ``dots``, micro-batch 4, bf16 AdamW lr 1e-4,
+   weight decay 0.01, clip 1.0, ZeRO stage 3 with ``offload_optimizer:
+   cpu``) on its seeded batch, 2 warm-up and 3 timed steps through
+   ``train_run``, beside the same without offload: launch counts exact (K1
+   48, K3 and K4 24 a step); losses finite and falling; the C++ Adam step
+   within 1e-7 + 1e-6 |plain| of its plain version on every element of the
+   first step; after 5 steps the per-tensor relative distance of the
+   updates from the in-device engine's at most 5e-2 in the median over the
+   tensors and 0.25 at the worst tensor, and a planted fault (the host
+   moments never written) above both; the masters and moments pinned, the
+   device parameters bf16; the offload engine's peak device memory at least
+   8 bytes a parameter below the in-device engine's; step ms (mean, and
+   median of 3 with a synchronise after each step), tokens/s,
+   MFU, both peaks, the tier's host bytes; one traced offload step split
+   into compute, copies each way and busy share, beside the tier's host
+   times. (B) ``[train]``'s GPT-2 125M at micro-batch 8, stage 3 with
+   offload, 3 steps: ``device: nvme`` under a temporary directory equal to
+   ``cpu`` bit for bit (losses, masters, moments; the filesystem and whether
+   O_DIRECT held printed); a save after step 2 resumed in a fresh engine,
+   step 3 bit for bit, cpu and nvme; offload Adagrad's update within 5e-2
+   of device Adagrad's for every tensor; fp16 with ``initial_scale_power``
+   40 skips its first step and leaves the masters unchanged.
+
 The last lines are a JSON line of the main paths' metrics, a JSON line on the
 kernels, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
@@ -232,6 +258,22 @@ CHUNK_LOSS_TOL = 1e-4   # first loss, chunked vocab vs full logits (f32 summatio
 # and 0.71 with dwte planted at zero; 5e-2 lies near their geometric mean
 CHUNK_GRAD_RTOL = 5e-2
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+# [offload]: bench.py's 1.3B lane (bench.py:237-272): preset, micro-batch, warm-up
+# and timed steps, lr; lane B's micro-batch (GPT-2 125M)
+OFFLOAD_PRESET, OFFLOAD_MICRO, OFFLOAD_WARMUP, OFFLOAD_STEPS, OFFLOAD_LR = (
+    "gpt2-1.3b", 4, 2, 3, 1e-4)
+OFFLOAD_B_MICRO = 8
+# per tensor |dp_offload - dp_device| / |dp_device| after the steps: the CPU
+# trajectory test's bf16 limit, on the median over the tensors, and on every
+# tensor for lane B's Adagrad. Lane A's worst tensor has its own limit: on the
+# H100 at GPT-2 1.3B, seed 0, offload reads median 5.7e-3 and max 8.0e-2
+# (c_attn.weight, whose q/k gradients sit at the noise floor at init), the
+# planted fault (host moments never written) median 0.66 and max 0.82; 0.25
+# lies near the geometric mean of the two maxima
+OFFLOAD_PARITY, OFFLOAD_PARITY_MAX = 5e-2, 0.25
+# the C++ Adam step against its plain version: it may contract a multiply and
+# an add into one rounding, a few f32 ulps
+HOST_RTOL, HOST_ATOL = 1e-6, 1e-7
 SPIN_CYCLES = 2_000_000   # ~1.1 ms at the H100's 1.98 GHz boost: longer than any enqueue
 # [hd]: GPT-2 2.7B's scheduler requests, GPT-J-6B's new tokens and requests,
 # GPT-2 760M's training (micro-batch, warm-up and timed steps dense, then
@@ -1180,11 +1222,14 @@ def grads_of(engine, batch, loss_fn=None):
 
 def train_run(device, smi: str, label: str, cfg, per_step: dict, check, beside=None,
               micro: int = TRAIN_MICRO, seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS,
-              warmup: int = TRAIN_WARMUP):
-    """``initialize`` on the GPT-2 ``cfg`` at ``bench.py``'s training
-    configuration (``train_config(micro)``; seeded random weights), then
-    ``warmup`` warm-up and ``steps`` timed ``train_batch`` steps on one
-    seeded ``(micro, seq)`` batch. The launch counts over the timed steps
+              warmup: int = TRAIN_WARMUP, config=None, ids=None, setup=None,
+              model=None, median: bool = False):
+    """``initialize`` on the GPT-2 ``cfg`` (or ``model``) at ``bench.py``'s
+    training configuration (``train_config(micro)``, or ``config``; seeded
+    random weights), ``setup(engine)`` if given, then ``warmup`` warm-up and
+    ``steps`` timed ``train_batch`` steps on one seeded ``(micro, seq)`` batch
+    (or ``ids``); with ``median`` each timed step ends in a synchronise and
+    the median step time is returned too. The launch counts over the timed steps
     must be ``per_step`` (kernel -> launches a step) times ``steps`` and 0
     for every other kernel; every loss, warm-up and timed, finite and the
     last below the first. Prints the step line, with ``beside(tokens_per_s)``
@@ -1201,12 +1246,15 @@ def train_run(device, smi: str, label: str, cfg, per_step: dict, check, beside=N
     from deepspeed_tpu_torch.ops import op_builder
 
     t0 = time.perf_counter()
-    engine, _, _, _ = dst.initialize(model=gpt2_model(cfg), config=train_config(micro),
-                                     device=device)
+    engine, _, _, _ = dst.initialize(model=model or gpt2_model(cfg),
+                                     config=config or train_config(micro), device=device)
     torch.cuda.synchronize()
     print(f"[{label}] initialize {time.perf_counter() - t0:.2f} s", flush=True)
-    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (micro, seq))
+    if ids is None:
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (micro, seq))
     batch = {"input_ids": ids}
+    if setup is not None:
+        setup(engine)
 
     losses = [engine.train_batch(batch) for _ in range(warmup)]
     torch.cuda.synchronize()
@@ -1214,7 +1262,12 @@ def train_run(device, smi: str, label: str, cfg, per_step: dict, check, beside=N
     torch.cuda.reset_peak_memory_stats()
     op_builder.reset_launch_counts()
     t0 = time.perf_counter()
-    losses += [engine.train_batch(batch) for _ in range(steps)]
+    marks = [t0]
+    for _ in range(steps):
+        losses.append(engine.train_batch(batch))
+        if median:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = op_builder.launch_counts()
@@ -1237,6 +1290,8 @@ def train_run(device, smi: str, label: str, cfg, per_step: dict, check, beside=N
     out = {"losses": losses, "step_ms": step_ms, "tokens_per_s": tokens_per_s,
            "peak_memory_bytes": peak, "held_bytes": held,
            "first_loss": losses[0], "last_loss": losses[-1], "launches": launches}
+    if median:
+        out["step_ms_median"] = 1e3 * statistics.median(b - a for a, b in zip(marks, marks[1:]))
     out.update(check(engine, ids))
     return out
 
@@ -1260,12 +1315,16 @@ def plain_and_traced(device, plain, label: str):
     return check
 
 
-def train_config(micro: int) -> dict:
+def train_config(micro: int, lr: float = 2e-4, zero=None, optimizer: str = "AdamW",
+                 precision=None) -> dict:
     """``bench.py``'s training configuration at micro-batch ``micro``: bf16
-    AdamW lr 2e-4, weight decay 0.01, ZeRO stage 1, clipping 1.0."""
+    AdamW lr 2e-4, weight decay 0.01, ZeRO stage 1, clipping 1.0; ``lr``,
+    ``zero`` (the ``zero_optimization`` block), ``optimizer`` and
+    ``precision`` (in place of the bf16 block) change it."""
     return {"train_batch_size": micro, "train_micro_batch_size_per_gpu": micro,
-            "optimizer": {"type": "AdamW", "params": {"lr": 2e-4, "weight_decay": 0.01}},
-            "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
+            "optimizer": {"type": optimizer, "params": {"lr": lr, "weight_decay": 0.01}},
+            **(precision or {"bf16": {"enabled": True}}),
+            "zero_optimization": zero or {"stage": 1},
             "gradient_clipping": 1.0, "steps_per_print": 10**9}
 
 
@@ -1545,6 +1604,394 @@ def remat_path(device, smi: str, train: dict) -> dict:
         raise AssertionError(f"[remat] seq {LONG_SEQ}: peak {long['peak_memory_bytes']}")
     out["long"] = {k: v for k, v in long.items() if k != "losses"}
     out["long"]["predicted_peak_without_knobs_bytes"] = predicted
+    return out
+
+
+def key_bias_cut(name: str, x, n_embd: int):
+    """``x`` without the key bias's third of ``c_attn.bias``: its exact
+    gradient is 0 (a softmax is blind to a constant added to a row), each run
+    leaves rounding noise there, and Adam and Adagrad turn noise of either
+    sign into full-size steps (as ``tests/test_torch_training.py`` leaves it
+    out)."""
+    if name.endswith("c_attn.bias"):
+        x = x.clone()
+        x[n_embd:2 * n_embd] = 0.0
+    return x
+
+
+def offload_masters(engine) -> dict:
+    """An offload engine's f32 masters by name, as host copies."""
+    return {n: m.clone() for n, m in engine._offload_tier.named_masters().items()}
+
+
+def update_parity(start: dict, want: dict, got: dict, n_embd: int, device) -> dict:
+    """Per tensor ``|dp_got - dp_want| / |dp_want|`` of the updates ``dp = p -
+    start`` (key bias cut, ``key_bias_cut``), computed on ``device`` a tensor
+    at a time, by name."""
+    rel = {}
+    for name, s in start.items():
+        s = s.to(device)
+        dw = key_bias_cut(name, want[name].to(device) - s, n_embd)
+        dg = key_bias_cut(name, got[name].to(device) - s, n_embd)
+        rel[name] = float((dg - dw).norm() / dw.norm())
+    return rel
+
+
+def hold_to_device(label: str, start: dict, dev: dict, got: dict, n_embd: int, device,
+                   max_limit: float, fault=None) -> dict:
+    """``[offload]``'s update parity (``update_parity``) of the masters ``got``
+    against the in-device engine's (``dev``): the median over the tensors at
+    most ``OFFLOAD_PARITY`` and the worst tensor at most ``max_limit``; a
+    planted ``fault`` must exceed both limits. Returns the readings."""
+    import numpy as np
+    readings = {"": update_parity(start, dev, got, n_embd, device)}
+    if fault is not None:
+        readings["fault_"] = update_parity(start, dev, fault, n_embd, device)
+    out = {}
+    for key, rel in readings.items():
+        worst = max(rel, key=rel.get)
+        out.update({f"{key}parity_max": rel[worst], f"{key}parity_worst": worst,
+                    f"{key}parity_median": float(np.median(list(rel.values())))})
+    print(f"[offload] {label}: per tensor |dp - dp_device| / |dp_device| against the in-device "
+          f"engine over {len(readings['']):,} tensors: median {out['parity_median']:.3e} (limit "
+          f"{OFFLOAD_PARITY}), max {out['parity_max']:.3e} ({out['parity_worst']}; limit "
+          f"{max_limit})", flush=True)
+    ok = out["parity_median"] <= OFFLOAD_PARITY and out["parity_max"] <= max_limit
+    if fault is not None:
+        print(f"[offload] {label}: planted fault (the host moments never written): median "
+              f"{out['fault_parity_median']:.3e}, max {out['fault_parity_max']:.3e} "
+              f"({out['fault_parity_worst']}); each must exceed its limit", flush=True)
+        ok = (ok and out["fault_parity_median"] > OFFLOAD_PARITY
+              and out["fault_parity_max"] > max_limit)
+    if not ok:
+        raise AssertionError(f"[offload] {label}: update parity {out}")
+    return out
+
+
+def host_step_check(engine, out: dict, device):
+    """``train_run``'s setup for ``[offload]``: over the engine's first step, each
+    leaf's C++ Adam step (``cpu_adam.adam_step``) is held to its plain version
+    on the same inputs, run on ``device`` (a tensor op a rounding, as on the
+    host); ``out`` gets the elements outside ``HOST_ATOL + HOST_RTOL *
+    |plain|``, the largest error over that limit and the elements compared.
+    The C++ op is restored after the step's last leaf."""
+    from deepspeed_tpu_torch.ops.adam import cpu_adam
+    real, n_leaves = cpu_adam.adam_step, len(engine._offload_tier.masters)
+    out.update(leaves=0, elements=0, outside=0, max_err_over_limit=0.0, max_abs_err=0.0,
+               seconds=0.0)
+
+    def checked(p, m, v, g, *args):
+        t0 = time.perf_counter()
+        plain = [t.to(device, copy=True) for t in (p, m, v)]
+        g0 = g.to(device, copy=True)
+        t1 = time.perf_counter()
+        real(p, m, v, g, *args)
+        t2 = time.perf_counter()
+        cpu_adam.adam_step_plain(*plain, g0, *args)
+        for got, want in zip((p, m, v), plain):
+            err = (got.to(device) - want).abs()
+            limit = HOST_ATOL + HOST_RTOL * want.abs()
+            out["outside"] += int((err > limit).sum())
+            out["max_err_over_limit"] = max(out["max_err_over_limit"],
+                                            float((err / limit).max()))
+            out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+        out["seconds"] += time.perf_counter() - t0 - (t2 - t1)
+        out["leaves"] += 1
+        out["elements"] += p.numel()
+        if out["leaves"] == n_leaves:
+            cpu_adam.adam_step = real
+
+    cpu_adam.adam_step = checked
+
+
+def offload_lane_a(device, smi: str, seed: int = 0) -> dict:
+    """``[offload]`` lane A, as ``bench.py:237-272`` trains: GPT-2 1.3B (vocab
+    50304, seq 1024, width 2048, 24 layers, 16 heads), remat ``dots``,
+    micro-batch 4, AdamW lr 1e-4 weight decay 0.01, bf16, clip 1.0, ZeRO
+    stage 3 with ``offload_optimizer: cpu``, on ``bench.py``'s seeded batch
+    (``seed`` 0; another ``seed`` draws the batch from it and the weights
+    from 42 + ``seed``), 2 + 3 steps through ``train_run`` (K1 48, K3 24, K4
+    24 a step, exact), beside the same configuration without offload. The
+    C++ step is held to its plain version over the first step
+    (``host_step_check``). After the 5 steps the updates are held to the
+    in-device engine's, and a planted fault (the host moments never
+    written) must fail the same gate (``hold_to_device``, worst tensor at
+    ``OFFLOAD_PARITY_MAX``). The offload engine's peak device memory must
+    lie at least 8 bytes a parameter below the in-device engine's. One more
+    offload step is traced: device time, its copies each way and the busy
+    share, beside the tier's host times of the last untraced step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models import gpt2_model
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_config, init_params
+    from deepspeed_tpu_torch.ops.adam import cpu_adam
+
+    cfg = gpt2_config(OFFLOAD_PRESET, vocab_size=50304, n_positions=TRAIN_SEQ, dropout=0.0,
+                      remat=True, remat_policy="dots")
+    n = cfg.n_layer
+    per_step = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    # bench.py's batch: rng.integers(0, 50304, size=(micro, seq), dtype=np.int32)
+    ids = np.random.default_rng(seed).integers(0, 50304, size=(OFFLOAD_MICRO, TRAIN_SEQ),
+                                               dtype=np.int32)
+    model = gpt2_model(cfg)
+    model = dataclasses.replace(model, init_fn=lambda _, dev, init=model.init_fn: init(
+        42 + seed, dev))
+    offload = {"stage": 3, "offload_optimizer": {"device": "cpu"}}
+
+    def mfu(tps):
+        return tps * cfg.flops_per_token() / PEAK_BF16_FLOPS
+
+    def run(label, zero, check, setup=None, median=False):
+        res = train_run(device, smi, f"offload {label}", cfg, per_step, check,
+                        lambda tps: f", MFU {mfu(tps):.4f}", micro=OFFLOAD_MICRO,
+                        warmup=OFFLOAD_WARMUP, steps=OFFLOAD_STEPS, ids=ids, setup=setup,
+                        config=train_config(OFFLOAD_MICRO, lr=OFFLOAD_LR, zero=zero),
+                        model=model, median=median)
+        res["mfu"] = mfu(res["tokens_per_s"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    def device_masters(engine, _):
+        return {"masters": {k: p.detach().to("cpu", copy=True)
+                            for k, p in engine.state.params.items()}}
+
+    def offload_check(engine, _):
+        tier = engine._offload_tier
+        out = {"masters": offload_masters(engine), "host_bytes": tier.host_bytes(),
+               "host_step_s": dict(tier.last_step_s), "n_params": sum(
+                   m.numel() for m in tier.masters),
+               "device_param_dtypes": sorted({str(p.dtype) for p in
+                                              engine.state.params.values()}),
+               "pinned": all(m.is_pinned() for m in tier.masters + tier.opt.m + tier.opt.v)}
+
+        def step():
+            engine.train_batch({"input_ids": ids})
+            torch.cuda.synchronize()
+        out["trace"] = profile_call("offload train_batch", step, top=20)
+        out["traced_host_step_s"] = dict(tier.last_step_s)
+        return out
+
+    dev = run("in-device (stage 3, no offload)", {"stage": 3}, device_masters, median=True)
+    check = {}
+    off = run("stage 3 + offload_optimizer cpu", offload, offload_check,
+              setup=lambda engine: host_step_check(engine, check, device), median=True)
+    print(f"[offload] {smi}: the C++ step over the first step's gradients against its plain "
+          f"version: {check['leaves']} leaves, {check['elements']:,} elements, "
+          f"{check['outside']} outside {HOST_ATOL} + {HOST_RTOL} |plain| (max abs "
+          f"{check['max_abs_err']:.3e}; the largest error {check['max_err_over_limit']:.3f} of "
+          f"its limit; the plain version on the card, {check['seconds']:.1f} s of copies and "
+          "checks)", flush=True)
+    if check["leaves"] != len(off["masters"]) or check["outside"]:
+        raise AssertionError(f"[offload] the C++ step vs its plain version: {check}")
+    hs = off["host_step_s"]
+    print(f"[offload] {smi}: the tier's host times in the last timed step: waiting on the "
+          f"gradients {1e3 * hs['d2h_wait_s']:.1f} ms, host Adam + casts + pushes "
+          f"{1e3 * hs['host_update_s']:.1f} ms; step {off['step_ms']:.1f} ms", flush=True)
+
+    real = cpu_adam.adam_step
+
+    def unwritten_moments(engine):
+        # the planted fault: the C++ step writes its moments into copies
+        cpu_adam.adam_step = lambda p, m, v, *a: real(p, m.clone(), v.clone(), *a)
+    try:
+        fault = run("planted fault: host moments unwritten", offload,
+                    lambda engine, _: {"masters": offload_masters(engine)},
+                    setup=unwritten_moments)
+    finally:
+        cpu_adam.adam_step = real
+
+    start = {k: v.to("cpu") for k, v in init_params(cfg, 42 + seed, device).items()}
+    torch.cuda.empty_cache()
+    n_params = off["n_params"]
+    parity = hold_to_device("offload", start, dev["masters"], off["masters"], cfg.n_embd,
+                            device, OFFLOAD_PARITY_MAX, fault=fault["masters"])
+    if not off["pinned"] or off["device_param_dtypes"] != ["torch.bfloat16"]:
+        raise AssertionError(f"[offload] masters and moments pinned: {off['pinned']}; device "
+                             f"parameters {off['device_param_dtypes']}")
+    saved = dev["peak_memory_bytes"] - off["peak_memory_bytes"]
+    print(f"[offload] {smi}: peak device memory in-device {dev['peak_memory_bytes'] / 2**30:.3f} "
+          f"GiB, offload {off['peak_memory_bytes'] / 2**30:.3f} GiB: {saved / 2**30:.3f} GiB "
+          f"less, {saved / n_params:.2f} B a parameter (gate >= 8 B x {n_params:,} = "
+          f"{8 * n_params / 2**30:.3f} GiB); held between steps {dev['held_bytes'] / 2**30:.3f} "
+          f"vs {off['held_bytes'] / 2**30:.3f} GiB; the tier's host memory "
+          f"{off['host_bytes'] / 2**30:.3f} GiB (pinned)", flush=True)
+    if not saved >= 8 * n_params:
+        raise AssertionError(f"[offload] peak saved {saved} < 8 B x {n_params}")
+    steps = {"in_device": dev, "offload": off}
+    for name, res in steps.items():
+        print(f"[offload] {smi}: {name:>9}: step {res['step_ms']:9.2f} ms (median of 3 "
+              f"{res['step_ms_median']:9.2f}), {res['tokens_per_s']:9.1f} tokens/s, MFU "
+              f"{res['mfu']:.4f}, peak {res['peak_memory_bytes'] / 2**30:7.3f} GiB", flush=True)
+    out = {name: {k: v for k, v in res.items() if k not in ("masters", "trace", "losses")}
+           for name, res in steps.items()}
+    out["offload"].update(parity, host_step_check=check,
+                          peak_saved_bytes=saved, peak_saved_per_param=saved / n_params)
+    trace = off["trace"]
+    if trace is not None:
+        by = trace["by_kernel"]
+        d2h = sum(us for k, us in by.items() if "DtoH" in k) / 1e3
+        h2d = sum(us for k, us in by.items() if "HtoD" in k) / 1e3
+        device_ms = trace["device_us"] / 1e3
+        ths = off["traced_host_step_s"]
+        out["offload"].update(traced_wall_ms=trace["wall_us"] / 1e3, traced_device_ms=device_ms,
+                              traced_d2h_ms=d2h, traced_h2d_ms=h2d,
+                              traced_compute_ms=device_ms - d2h - h2d,
+                              traced_busy_share=trace["device_us"] / trace["wall_us"],
+                              traced_host_update_s=ths["host_update_s"],
+                              traced_d2h_wait_s=ths["d2h_wait_s"])
+        print(f"[offload] {smi}: traced offload step: wall {trace['wall_us'] / 1e3:.2f} ms, "
+              f"device {device_ms:.2f} ms (compute {device_ms - d2h - h2d:.2f}, D2H copies "
+              f"{d2h:.2f}, H2D copies {h2d:.2f}), busy share "
+              f"{trace['device_us'] / trace['wall_us']:.3f}; the tier's host times: waiting on "
+              f"the gradients {1e3 * ths['d2h_wait_s']:.1f} ms, host Adam + casts + pushes "
+              f"{1e3 * ths['host_update_s']:.1f} ms (untraced step: "
+              f"{1e3 * hs['d2h_wait_s']:.1f} and {1e3 * hs['host_update_s']:.1f} ms)",
+              flush=True)
+    return out
+
+
+def offload_lane_b(device, smi: str) -> dict:
+    """``[offload]`` lane B, ``[train]``'s GPT-2 125M (micro-batch 8, cut from
+    24 to save time) with ZeRO stage 3 and ``offload_optimizer``, a distinct
+    seeded batch a step, in a temporary directory it removes: (a) ``device:
+    nvme`` equal to ``cpu`` bit for bit over 3 steps (losses, masters,
+    moments), with the filesystem's type and whether O_DIRECT held; (b) a
+    save after step 2 resumed in a fresh engine: step 3 equal to the
+    uninterrupted run bit for bit, for cpu and for nvme; (c) offload Adagrad
+    held to device Adagrad over 3 steps (``hold_to_device``: every tensor's
+    update within ``OFFLOAD_PARITY`` of the in-device engine's); (d) fp16
+    with ``initial_scale_power`` 40: the first step skipped, the masters
+    unchanged bit for bit. Every step launches K1, K3 and K4 12 times."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import gpt2_model
+    from deepspeed_tpu_torch.ops import op_builder
+
+    cfg = gpt2_train_cfg()
+    root = tempfile.mkdtemp(prefix="ds-offload-")
+    fs = subprocess.run(["stat", "-f", "-c", "%T", root], capture_output=True, text=True,
+                        timeout=60).stdout.strip()
+    out, launches = {"filesystem": fs}, {}
+
+    def engine(zero, optimizer="AdamW", precision=None):
+        return dst.initialize(model=gpt2_model(cfg), device=device, config=train_config(
+            OFFLOAD_B_MICRO, zero=zero, optimizer=optimizer, precision=precision))[0]
+
+    def batch(step):
+        rng = np.random.default_rng(2000 + step)
+        return {"input_ids": rng.integers(0, 50304, (OFFLOAD_B_MICRO, TRAIN_SEQ))}
+
+    def steps(e, first, last, label):
+        op_builder.reset_launch_counts()
+        losses = [e.train_batch(batch(s)) for s in range(first, last + 1)]
+        torch.cuda.synchronize()
+        got, k = op_builder.launch_counts(), 12 * (last - first + 1)
+        if got != expect(flash_fwd=k, flash_bwd_dq=k, flash_bwd_dkv=k):
+            raise AssertionError(f"[offload] {label}: launch counts {nonzero(got)}")
+        for name, v in got.items():
+            launches[name] = launches.get(name, 0) + v
+        return [float(x) for x in losses]
+
+    def tier_state(e):
+        sd = e._offload_tier.state_dict()
+        return {f"{part}.{k}": v.clone() for part in ("masters", "m", "v") for k, v in
+                sd[part].items()}
+
+    def nvme(path):
+        return {"stage": 3, "offload_optimizer": {"device": "nvme", "nvme_path": path}}
+
+    cpu_zero = {"stage": 3, "offload_optimizer": {"device": "cpu"}}
+    try:
+        runs = {}
+        for kind, zero in (("cpu", cpu_zero), ("nvme", nvme(os.path.join(root, "swap-a")))):
+            e = engine(zero)
+            losses = steps(e, 1, 2, f"{kind} steps 1-2")
+            t0 = time.perf_counter()
+            e.save_checkpoint(os.path.join(root, kind))
+            save_s = time.perf_counter() - t0
+            losses += steps(e, 3, 3, f"{kind} step 3")
+            runs[kind] = {"losses": losses, "state": tier_state(e), "save_s": save_s}
+            if kind == "nvme":
+                handle = e._offload_tier.nvme.handle
+                out["o_direct_held"] = handle.o_direct and not handle.direct_refused
+            del e
+            gc.collect()
+        first, worst = first_difference(runs["cpu"]["state"], runs["nvme"]["state"])
+        same = runs["cpu"]["losses"] == runs["nvme"]["losses"] and first is None
+        print(f"[offload] nvme vs cpu over 3 steps ({fs} under {root}, O_DIRECT held: "
+              f"{out['o_direct_held']}): losses {runs['nvme']['losses']} vs "
+              f"{runs['cpu']['losses']}, {len(runs['cpu']['state'])} masters and moments "
+              f"equal bit for bit: {same} (first differing {first}, max |diff| {worst:.3e}); "
+              f"save {runs['cpu']['save_s']:.2f} s cpu, {runs['nvme']['save_s']:.2f} s nvme",
+              flush=True)
+        if not same:
+            raise AssertionError(f"[offload] nvme differs from cpu: {first}")
+        for kind, zero in (("cpu", cpu_zero), ("nvme", nvme(os.path.join(root, "swap-b")))):
+            e = engine(zero)
+            e.load_checkpoint(os.path.join(root, kind))
+            loss = steps(e, 3, 3, f"{kind} resumed step 3")
+            first, worst = first_difference(runs[kind]["state"], tier_state(e))
+            print(f"[offload] {kind}: resumed from global_step2, step 3 loss {loss[0]:.6f} vs "
+                  f"{runs[kind]['losses'][2]:.6f} uninterrupted; masters and moments equal bit "
+                  f"for bit: {first is None} (first differing {first})", flush=True)
+            if loss[0] != runs[kind]["losses"][2] or first is not None:
+                raise AssertionError(f"[offload] {kind} resume differs: {first}")
+            out[f"{kind}_resume_equal"] = True
+            del e
+            gc.collect()
+        start = {k: v.to("cpu") for k, v in gpt2_model(cfg).init(42, device).items()}
+        masters, ada_losses = {}, {}
+        for kind, zero in (("offload", cpu_zero), ("device", {"stage": 3})):
+            e = engine(zero, optimizer="Adagrad")
+            ada_losses[kind] = steps(e, 1, 3, f"{kind} Adagrad")
+            masters[kind] = (offload_masters(e) if kind == "offload" else
+                             {k: p.detach().to("cpu", copy=True)
+                              for k, p in e.state.params.items()})
+            del e
+            gc.collect()
+        print(f"[offload] Adagrad over 3 steps, losses: offload {ada_losses['offload']}, "
+              f"in-device {ada_losses['device']}", flush=True)
+        out["adagrad"] = hold_to_device("Adagrad", start, masters["device"], masters["offload"],
+                                        cfg.n_embd, device, OFFLOAD_PARITY)
+        e = engine(cpu_zero, precision={"fp16": {"enabled": True, "initial_scale_power": 40}})
+        before = offload_masters(e)
+        loss = steps(e, 1, 1, "fp16 overflow")
+        first, _ = first_difference(before, offload_masters(e))
+        print(f"[offload] fp16, initial_scale_power 40: loss {loss[0]:.4f}, skipped steps "
+              f"{e.skipped_steps}, host steps {e._offload_tier.step_count}, loss scale "
+              f"{e.loss_scale():.0f}; masters unchanged bit for bit: {first is None}",
+              flush=True)
+        if e.skipped_steps != 1 or e._offload_tier.step_count != 0 or first is not None:
+            raise AssertionError("[offload] the fp16 overflow step was not skipped cleanly")
+        out.update(fp16_skipped=True, nvme_equal_cpu=True)
+        del e
+        gc.collect()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
+def offload_path(device, smi: str) -> dict:
+    """``[offload]``: the ZeRO-Offload optimizer tier, lanes A and B
+    (``offload_lane_a``, ``offload_lane_b``)."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"lane_a": offload_lane_a(device, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lane_b"] = offload_lane_b(device, smi)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[offload] phase {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -2700,6 +3147,9 @@ def main() -> int:
     remat = remat_path(device, smi, train)
     gc.collect()
     torch.cuda.empty_cache()
+    offload = offload_path(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     sparse = sparse_path(device, smi, train["step_ms"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -2742,6 +3192,10 @@ def main() -> int:
         # [remat]: each of its engines' timed steps
         if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             entry["remat_launches"] = {run: res["launches"][name] for run, res in remat.items()}
+            # [offload]: lane A's offload engine's timed steps (GPT-2 1.3B,
+            # remat dots) and every lane B step
+            entry["offload_launches"] = offload["lane_a"]["offload"]["launches"][name]
+            entry["offload_lane_b_launches"] = offload["lane_b"]["launches"][name]
         # [ckpt]: every training step of its engines (K1, K3, K4) and its
         # served generates and forwards (K1, K2), in this process
         if name in ("flash_fwd", "decode_attention", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -2788,6 +3242,11 @@ def main() -> int:
                        if k in train},
         "remat_path": {run: {k: v for k, v in res.items() if k != "launches"}
                        for run, res in remat.items()},
+        "offload_path": {"lane_a": {run: {k: v for k, v in res.items() if k != "launches"}
+                                    for run, res in offload["lane_a"].items()},
+                         "lane_b": {k: v for k, v in offload["lane_b"].items()
+                                    if k != "launches"},
+                         "seconds": offload["seconds"]},
         "sparse_train_path": {k: v for k, v in sparse.items()
                               if k not in ("launches", "trace", "losses")},
         "ckpt_path": {k: v for k, v in ckpt.items() if k != "launches"},

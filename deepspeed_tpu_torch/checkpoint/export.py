@@ -16,8 +16,10 @@ engine's state out so a run can move to reference DeepSpeed tooling.
 Names are the engine's parameter names (``h.0.c_attn.weight``, ...). The
 iteration is ``engine.global_steps``, not Adam's step: under fp16 a skipped
 step advances the former only, and a resumed run schedules its LR and data
-by the former. The offload tiers' exports, ``consolidate_partitioned_checkpoint``
-and the pipeline export wait for ROADMAP.md queue 1 items 12, 11 and 13.
+by the former. An offload engine's f32 masters and moments come from its
+host tier (its device parameters are compute-dtype copies), as in JAX's
+``export.py:95-115``. ``consolidate_partitioned_checkpoint`` and the pipeline
+export wait for ROADMAP.md queue 1 items 12b (with 11) and 13.
 """
 
 import os
@@ -42,13 +44,33 @@ def _host_f32(named: Named) -> Named:
     return {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in named.items()}
 
 
+def _engine_masters(engine) -> Named:
+    """The engine's f32 weights by name: the host tier's masters under offload."""
+    tier = getattr(engine, "_offload_tier", None)
+    if tier is None:
+        return _host_f32(engine.state.params)
+    return {n: m.clone() for n, m in tier.named_masters().items()}
+
+
 def _gather_engine_state(engine) -> Tuple[Named, Optional[Named], Optional[Named], int]:
     """(f32 params, exp_avg, exp_avg_sq, iteration), by parameter name."""
-    state = engine.state
-    params = _host_f32(state.params)
-    opt = state.opt_state
-    if hasattr(opt, "exp_avg") and hasattr(opt, "exp_avg_sq"):
-        return params, _host_f32(opt.exp_avg), _host_f32(opt.exp_avg_sq), engine.global_steps
+    params = _engine_masters(engine)
+    tier = getattr(engine, "_offload_tier", None)
+    if tier is not None:
+        ms = vs = None
+        if tier.nvme is not None:
+            ms, vs = tier.nvme.read_moments()
+        elif tier.kind == "adam":
+            ms, vs = tier.opt.m, tier.opt.v
+        if ms is not None:
+            return (params, {n: m.view(params[n].shape).clone() for n, m in zip(params, ms)},
+                    {n: v.view(params[n].shape).clone() for n, v in zip(params, vs)},
+                    engine.global_steps)
+    else:
+        opt = engine.state.opt_state
+        if hasattr(opt, "exp_avg") and hasattr(opt, "exp_avg_sq"):
+            return (params, _host_f32(opt.exp_avg), _host_f32(opt.exp_avg_sq),
+                    engine.global_steps)
     logger.warning("universal export: optimizer state has no exp_avg/exp_avg_sq — the "
                    "checkpoint carries weights only and a torch-side resume restarts "
                    "optimizer state from zero")
@@ -110,7 +132,7 @@ def export_universal_checkpoint(engine, save_dir: str, tag: str = "universal") -
 def export_fp32_state_dict(engine, out_file: str) -> Named:
     """The engine's f32 weights as one torch state dict file (``zero_to_fp32``'s
     ``pytorch_model.bin`` format). Returns the dict."""
-    sd = OrderedDict(_host_f32(engine.state.params))
+    sd = OrderedDict(_engine_masters(engine))
     os.makedirs(os.path.dirname(os.path.abspath(out_file)), exist_ok=True)
     torch.save(sd, out_file)
     logger.info(f"fp32 state dict ({len(sd)} tensors) written to {out_file}")

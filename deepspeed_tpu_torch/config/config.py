@@ -4,9 +4,11 @@ Counterpart of ``deepspeed_tpu/config/config.py`` (and of its ZeRO block,
 ``runtime/zero/config.py``), with DeepSpeed's JSON key names, built from a dict
 or a path to a ``.json`` file. It takes the batch triple, resolved as the JAX
 config resolves it (here with ``dp_world_size = 1``: one card), the optimizer
-and scheduler blocks, bf16 and fp16 (with dynamic loss scaling), ZeRO stage 0
-or 1 (on one card the stage-1 optimizer-state partition is the whole state),
-gradient clipping, gradient prescaling, ``steps_per_print``, the
+and scheduler blocks, bf16 and fp16 (with dynamic loss scaling), ZeRO stages
+0-3 (on one card the data-parallel group is one, so every partition of
+optimizer state, gradients or parameters is the whole), ZeRO-Offload's
+``offload_optimizer`` (``cpu`` or ``nvme``) and the ``aio`` block, gradient
+clipping, gradient prescaling, ``steps_per_print``, the
 ``checkpoint`` block (of which the engine reads ``async_save``) and the
 ``activation_checkpointing`` block (which ``checkpointing.configure`` reads,
 as in the JAX package; the engine does not).
@@ -33,17 +35,17 @@ UNPORTED_KEYS = {
     "comms_logger": "item 9", "tensorboard": "item 9", "wandb": "item 9",
     "csv_monitor": "item 9", "jsonl_monitor": "item 9", "flops_profiler": "item 9",
     "wall_clock_breakdown": "item 9", "memory_breakdown": "item 9", "dump_state": "item 9",
-    "aio": "item 12", "disable_allgather": "item 12",
-    "fp16_master_weights_and_gradients": "item 12",
+    "disable_allgather": "item 12", "fp16_master_weights_and_gradients": "item 12",
     "pipeline": "item 13", "sparse_gradients": "item 13", "progressive_layer_drop": "item 13",
     "eigenvalue": "item 13", "elasticity": "item 13", "compression_training": "item 13",
     "quantize_training": "item 13", "data_efficiency": "item 13",
     "curriculum_learning": "item 13", "autotuning": "item 13",
 }
 #: optimizers the JAX engine builds that are not ported yet
-UNPORTED_OPTIMIZERS = ("lamb", "fusedlamb", "onebitadam", "zerooneadam", "onebitlamb",
-                       "adagrad")
+UNPORTED_OPTIMIZERS = ("lamb", "fusedlamb", "onebitadam", "zerooneadam", "onebitlamb")
 ADAM_TYPES = ("adam", "adamw", "fusedadam")
+OPTIMIZERS = ADAM_TYPES + ("adagrad",)
+_ITEM12B = "item 12b"
 
 
 class DeepSpeedConfigError(Exception):
@@ -81,25 +83,132 @@ class BF16Config:
     enabled: bool = False
 
 
+def _refuse_unread(block, where: str, read) -> None:
+    """The JAX config takes these keys and its engine never reads them: set
+    away from their defaults they are refused, as the ``checkpoint`` block's
+    are."""
+    unread = [f.name for f in dataclasses.fields(block)
+              if f.name not in read and getattr(block, f.name) != f.default]
+    if unread:
+        raise NotImplementedError(
+            f"{where} keys {unread} are not read by the JAX engine either (it accepts and "
+            "ignores them); set away from their defaults they are refused")
+
+
 @dataclasses.dataclass
-class ZeroConfig:
-    stage: int = 0
+class OffloadOptimizerConfig:
+    """``zero_optimization.offload_optimizer`` (JAX
+    ``DeepSpeedZeroOffloadOptimizerConfig``): ``device`` none | cpu | nvme, and
+    the moment files' directory for nvme."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
 
     def __post_init__(self):
-        if self.stage in (2, 3):
-            raise _unported(f"ZeRO stage {self.stage}", "item 12")
-        if self.stage not in (0, 1):
+        if self.device not in ("none", "cpu", "nvme"):
+            raise DeepSpeedConfigError(f"offload_optimizer.device must be none, cpu or nvme, "
+                                       f"got {self.device!r}")
+        if self.device == "nvme" and not self.nvme_path:
+            raise DeepSpeedConfigError("offload_optimizer.device=nvme requires nvme_path")
+        _refuse_unread(self, "zero_optimization.offload_optimizer", ("device", "nvme_path"))
+
+    @property
+    def enabled(self) -> bool:
+        return self.device != "none"
+
+
+@dataclasses.dataclass
+class ZeroConfig:
+    """``zero_optimization`` (JAX ``runtime/zero/config.py``). Stages 0-3 are
+    taken: on one card the partitions are whole, so a stage changes nothing
+    (as on a one-device JAX mesh). ``offload_optimizer`` (or the deprecated
+    ``cpu_offload: true``) moves the f32 masters and the optimizer state to
+    the host. ``offload_param`` and ``stage3_param_persistence_threshold``
+    (read by JAX's partition specs only) raise set (item 12b); so does every
+    other key the JAX engine takes but never reads, set away from its
+    default."""
+    stage: int = 0
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
+    cpu_offload: Optional[bool] = None
+    offload_param: Optional[dict] = None
+    cpu_offload_param: Optional[bool] = None
+    # read by JAX's partition specs only (item 12b): refused away from its default
+    stage3_param_persistence_threshold: int = int(1e5)
+    # taken and never read by the JAX engine
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = int(5e8)
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = int(5e8)
+    overlap_comm: Optional[bool] = None
+    load_from_fp32_weights: bool = True
+    elastic_checkpoint: bool = False
+    sub_group_size: int = int(1e9)
+    cpu_offload_use_pin_memory: Optional[bool] = None
+    stage3_prefetch_bucket_size: int = int(5e7)
+    stage3_model_persistence_threshold: int = int(1e15)
+    stage3_max_live_parameters: int = int(1e9)
+    stage3_max_reuse_distance: int = int(1e9)
+    stage3_gather_16bit_weights_on_model_save: bool = False
+    ignore_unused_parameters: bool = True
+    legacy_stage1: bool = False
+    round_robin_gradients: bool = False
+
+    def __post_init__(self):
+        if self.stage not in (0, 1, 2, 3):
             raise DeepSpeedConfigError(f"zero_optimization.stage must be 0..3, "
                                        f"got {self.stage}")
+        if (self.offload_param and (self.offload_param.get("device") or "none") != "none") \
+                or self.cpu_offload_param:
+            raise _unported("zero_optimization.offload_param (ZeRO-3 parameter offload)",
+                            _ITEM12B)
+        if self.stage3_param_persistence_threshold != int(1e5):
+            raise _unported("zero_optimization.stage3_param_persistence_threshold (read by "
+                            "the ZeRO-3 partition specs)", _ITEM12B)
+        if self.offload_optimizer is None and self.cpu_offload:
+            self.offload_optimizer = OffloadOptimizerConfig(device="cpu")
+        elif isinstance(self.offload_optimizer, dict):
+            self.offload_optimizer = from_dict(OffloadOptimizerConfig, self.offload_optimizer,
+                                               "zero_optimization.offload_optimizer")
+        self.offload_optimizer = self.offload_optimizer or OffloadOptimizerConfig()
+        _refuse_unread(self, "zero_optimization",
+                       ("stage", "offload_optimizer", "cpu_offload", "offload_param",
+                        "cpu_offload_param", "stage3_param_persistence_threshold"))
 
     @classmethod
     def from_dict(cls, data: Dict[str, Any]) -> "ZeroConfig":
-        # every other key of the JAX ZeRO block (offload tiers, buckets,
-        # persistence thresholds) belongs to the unported ZeRO work
-        other = sorted(k for k, v in data.items() if k != "stage" and not is_off(v))
-        if other:
-            raise _unported(f"zero_optimization keys {other}", "item 12")
-        return cls(stage=int(data.get("stage", 0)))
+        data = dict(data)
+        for key in [k for k in data if k in _ZERO_ALIASES]:
+            data[_ZERO_ALIASES[key]] = data.pop(key)
+        return from_dict(cls, data, "zero_optimization")
+
+
+#: JAX's field names for the stage-3 keys (it takes either spelling)
+_ZERO_ALIASES = {k[len("stage3_"):]: k for k in (
+    "stage3_param_persistence_threshold", "stage3_prefetch_bucket_size",
+    "stage3_model_persistence_threshold", "stage3_max_live_parameters",
+    "stage3_max_reuse_distance", "stage3_gather_16bit_weights_on_model_save")}
+
+
+@dataclasses.dataclass
+class AIOConfig:
+    """The ``aio`` block (JAX ``AIOConfig``). The engine passes
+    ``thread_count``, ``block_size`` and ``queue_depth`` to the NVMe tier's
+    handle, as the JAX engine does; the other two it never reads."""
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+
+    def __post_init__(self):
+        if self.block_size <= 0 or self.queue_depth <= 0 or self.thread_count <= 0:
+            raise DeepSpeedConfigError(f"invalid aio block {self}")
+        _refuse_unread(self, "aio", ("block_size", "queue_depth", "thread_count"))
 
 
 @dataclasses.dataclass
@@ -114,12 +223,7 @@ class CheckpointConfig:
     async_save: bool = False
 
     def __post_init__(self):
-        unread = [f.name for f in dataclasses.fields(self)
-                  if f.name != "async_save" and getattr(self, f.name) != f.default]
-        if unread:
-            raise NotImplementedError(
-                f"checkpoint keys {unread} are not read by the JAX engine either (it "
-                "accepts and ignores them); set away from their defaults they are refused")
+        _refuse_unread(self, "checkpoint", ("async_save",))
 
 
 @dataclasses.dataclass
@@ -184,7 +288,7 @@ class DeepSpeedConfig:
              "gradient_accumulation_steps", "optimizer", "scheduler", "fp16", "bf16",
              "bfloat16", "zero_optimization", "gradient_clipping", "prescale_gradients",
              "gradient_predivide_factor", "steps_per_print", "checkpoint",
-             "activation_checkpointing")
+             "activation_checkpointing", "aio")
 
     def __init__(self, config: Union[str, dict], dp_world_size: int = 1):
         pd = _resolve_config_dict(config)
@@ -200,7 +304,8 @@ class DeepSpeedConfig:
         self.bf16 = from_dict(BF16Config, pd.get("bf16", pd.get("bfloat16", {})), "bf16")
         if self.fp16.enabled and self.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
-        self.zero_config = ZeroConfig.from_dict(pd.get("zero_optimization", {}))
+        self.zero_config = ZeroConfig.from_dict(pd.get("zero_optimization") or {})
+        self.aio_config = from_dict(AIOConfig, pd.get("aio") or {}, "aio")
         self.checkpoint_config = from_dict(CheckpointConfig, pd.get("checkpoint") or {},
                                            "checkpoint")
         self.activation_checkpointing = from_dict(
@@ -218,8 +323,10 @@ class DeepSpeedConfig:
             self.optimizer_name = name.lower() if name else None
             if self.optimizer_name in UNPORTED_OPTIMIZERS:
                 raise _unported(f"optimizer {name!r}", _ITEM5)
-            if self.optimizer_name not in (None,) + ADAM_TYPES:
-                raise ValueError(f"unknown optimizer {name!r} (ported: {ADAM_TYPES})")
+            if self.optimizer_name not in (None,) + OPTIMIZERS:
+                raise ValueError(f"unknown optimizer {name!r} (ported: {OPTIMIZERS})")
+            if self.optimizer_name == "adagrad" and "eps" not in params:
+                params = {**params, "eps": 1e-10}      # JAX engine.py:244
             self.optimizer_params = from_dict(OptimizerConfig, params, "optimizer.params")
         self.scheduler_name: Optional[str] = None
         self.scheduler_params: Dict[str, Any] = {}

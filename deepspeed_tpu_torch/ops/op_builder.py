@@ -1,4 +1,4 @@
-"""Build and bind the port's hand-written CUDA kernels.
+"""Build and bind the port's hand-written CUDA kernels and its host C++ ops.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, and loaded with ``ctypes``: no PyTorch headers,
@@ -12,9 +12,21 @@ together.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises if that is not 0, since
 a refused launch never runs and a later synchronise does not report it.
+
+The host ops of the ZeRO-Offload tier (``csrc/adam/cpu_adam.cpp``,
+``csrc/aio/deepspeed_aio.cpp``) are built by :func:`load_host_op` with ``g++``
+and ``HOST_FLAGS``, the first rung of the JAX package's flag ladder
+(``deepspeed_tpu/ops/op_builder.py``), so both packages compile one source the
+same way on one machine. There is no ladder and no fallback here: a failed
+build raises :class:`KernelBuildError`. Each library is named by a hash of its
+source, its flags and the CPU that ``-march=native`` resolves to (a build
+directory copied to another machine is not reused there), built at first use
+and published by an atomic rename, so processes building at once never load a
+half-written file.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,12 +39,14 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+HOST_FLAGS = ("-shared", "-fPIC", "-std=c++17", "-O3", "-march=native", "-fopenmp")
 
 #: every kernel the port defines, by name; ``chip_smoke.py`` zeroes and reads
 #: their launch counts around the main path
 KERNELS: Dict[str, "CudaKernel"] = {}
 
 _lock = threading.Lock()
+_host_ops: Dict[str, ctypes.CDLL] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -100,6 +114,51 @@ def build(sources: Iterable[str]) -> Dict[str, float]:
     if failed:
         raise KernelBuildError("nvcc failed for " + "\n".join(failed))
     return seconds
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise KernelBuildError("g++ not found: the host ops cannot be built")
+    return gxx
+
+
+@functools.cache
+def _native_arch() -> str:
+    """What ``-march=native`` means on this machine (``g++ -Q --help=target``)."""
+    out = subprocess.run([_gxx(), "-march=native", "-Q", "--help=target"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return " ".join(line.split()[-1] for line in out.splitlines()
+                    if line.split()[:1] == ["-march="])
+
+
+def load_host_op(source: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """The host library of ``csrc/<source>`` (a ``.cpp`` with a plain C
+    interface), built with ``g++ HOST_FLAGS extra_flags`` into
+    ``build_dir()/<stem>-<hash>.so`` if it is not there yet, and loaded once
+    per process. Raises :class:`KernelBuildError` with the compiler's output
+    if the build fails."""
+    with _lock:
+        if source in _host_ops:
+            return _host_ops[source]
+        path = os.path.join(CSRC_DIR, source)
+        flags = [*HOST_FLAGS, *extra_flags]
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            h.update(f.read())
+        h.update(" ".join(flags + [_native_arch()]).encode())
+        stem = os.path.splitext(os.path.basename(source))[0]
+        so = os.path.join(build_dir(), f"{stem}-{h.hexdigest()[:16]}.so")
+        if not os.path.exists(so):
+            os.makedirs(build_dir(), exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.run([_gxx(), *HOST_FLAGS, *extra_flags, path, "-o", tmp],
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise KernelBuildError(f"g++ failed for {source}:\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, so)
+        _host_ops[source] = ctypes.CDLL(so)
+        return _host_ops[source]
 
 
 class CudaKernel:

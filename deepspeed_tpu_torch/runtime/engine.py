@@ -14,8 +14,20 @@ a value back to the host except the log line of a ``steps_per_print`` step:
 ``train_batch`` returns the mean loss as a device tensor.
 
 The ``forward``/``backward``/``step`` triple does the same work a
-micro-batch at a time. ZeRO stage 1 on one card partitions the optimizer state
-over a data-parallel group of one, so it is stage 0.
+micro-batch at a time. ZeRO stages 1-3 on one card partition over a
+data-parallel group of one, so each is stage 0.
+
+ZeRO-Offload (``zero_optimization.offload_optimizer``, device ``cpu`` or
+``nvme``; JAX ``engine.py:139-145, 398-423``) hands the freshly built f32
+parameters to ``runtime/zero/offload.py:OffloadOptimizerTier``, which keeps
+the masters and the optimizer state in host memory; ``TrainState.params``
+become compute-dtype leaves and ``opt_state`` is empty. A step differentiates
+with respect to those leaves, sums the gradients in f32 on the device, and
+``_finalize_grads_offload`` unscales, prescales, takes the norm and overflow,
+clips and updates the loss scaler there, then casts the gradients to the
+transfer dtype; ``_host_optimizer_step`` runs the host step, which pushes each
+updated leaf back. Under fp16 it reads the overflow flag on the host (its one
+synchronise) and a skipped step leaves the masters alone.
 
 ``save_checkpoint`` and ``load_checkpoint`` follow the JAX engine's protocol
 (``runtime/checkpoint_engine``): a tag holds every tensor of ``TrainState``
@@ -25,8 +37,9 @@ by one atomic rename before ``latest`` moves. A load validates the manifest,
 reads everything to the host and checks it against the engine's state before
 it copies a tensor in, so it never leaves half a state; the copies go into the
 engine's own tensors. :class:`CheckpointAutoSaver` saves on an interval and on
-SIGTERM. Not ported yet (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` queue-1 item): ZeRO stages 2 and 3 and offload (item 12), the
+SIGTERM. An offload engine's tags hold the tier's state too
+(``offload_state``). Not ported yet (each raises ``NotImplementedError``
+naming its ``ROADMAP.md`` queue-1 item): parameter offload (item 12b), the
 monitor and flops profiler (item 9), pipelines (item 13), data parallelism
 (item 11), and ``training_data`` (the dataloader, item 5).
 """
@@ -43,6 +56,7 @@ from ..accelerator import resolve_device
 from ..config.config import ADAM_TYPES, DeepSpeedConfig
 from ..models.base import Model
 from ..observability.trace import CAT_TRAIN, get_tracer
+from ..ops.adagrad import adagrad
 from ..ops.adam.fused_adam import fused_adam
 from ..ops.optimizer import Optimizer
 from ..utils.fault_injection import fault_point
@@ -57,8 +71,8 @@ from .utils import clip_by_global_norm, count_parameters, global_norm
 
 
 class TrainState(NamedTuple):
-    params: Dict[str, torch.Tensor]     # f32 masters, requires_grad
-    opt_state: Any
+    params: Dict[str, torch.Tensor]     # f32 masters (offload: compute dtype), requires_grad
+    opt_state: Any                      # offload: {} (the state is on the host)
     scaler: LossScaleState
     global_step: torch.Tensor           # i32 0-d
     skipped_steps: torch.Tensor         # i32 0-d
@@ -132,6 +146,8 @@ class DeepSpeedEngine:
         self._config = (config if isinstance(config, DeepSpeedConfig)
                         else DeepSpeedConfig(config))
         self.zero_stage = self._config.zero_config.stage
+        self.offload_enabled = self._config.zero_config.offload_optimizer.enabled
+        self._offload_tier = None
 
         if self._config.fp16.enabled:
             self.compute_dtype = torch.float16
@@ -160,17 +176,26 @@ class DeepSpeedEngine:
                  f"{self.gradient_accumulation_steps()})", ranks=[0])
 
     # ------------------------------------------------------------------ config
-    def _configure_optimizer(self, optimizer) -> Optimizer:
+    def _configure_optimizer(self, optimizer) -> Optional[Optimizer]:
+        """The device optimizer; None under offload, whose tier is built in
+        ``_build_state``."""
         if optimizer is not None:
+            if self.offload_enabled:
+                raise ValueError("zero_optimization.offload_optimizer needs a config-declared "
+                                 "optimizer (adam/adamw/adagrad), not an optimizer object")
             if isinstance(optimizer, Optimizer):
                 return optimizer
             raise TypeError(f"unsupported optimizer object {optimizer!r}: pass a "
                             "deepspeed_tpu_torch.ops.optimizer.Optimizer or configure one")
         name = self._config.optimizer_name or "adam"
-        if name not in ADAM_TYPES:
-            raise ValueError(f"unknown optimizer {name!r}")
         oc = self._config.optimizer_params
         self._base_lr = oc.lr
+        if self.offload_enabled:
+            return None
+        if name == "adagrad":
+            return adagrad(eps=oc.eps, weight_decay=oc.weight_decay)
+        if name not in ADAM_TYPES:
+            raise ValueError(f"unknown optimizer {name!r}")
         adam_w = name == "adamw" or bool(oc.adam_w_mode)
         return fused_adam(betas=oc.betas, eps=oc.eps, weight_decay=oc.weight_decay,
                           adam_w_mode=adam_w, bias_correction=oc.bias_correction)
@@ -185,12 +210,40 @@ class DeepSpeedEngine:
 
     def _build_state(self, scaler_state0: LossScaleState, seed: int) -> None:
         params = self.module.init(seed, self.device)
-        params = {k: p.detach().to(self.device, torch.float32, copy=True).requires_grad_()
-                  for k, p in params.items()}
+        params = {k: p.detach().to(self.device, torch.float32, copy=True).requires_grad_(
+                  not self.offload_enabled) for k, p in params.items()}
+        if self.offload_enabled:
+            self._offload_tier = self._build_offload_tier(params)
+            del params          # the tier holds the masters; the device frees the f32 copies
+            params = {k: p.requires_grad_()
+                      for k, p in self._offload_tier.initial_device_params().items()}
+            opt_state = {}
+        else:
+            opt_state = self.optimizer.init(params)
         self.state = TrainState(
-            params=params, opt_state=self.optimizer.init(params), scaler=scaler_state0,
+            params=params, opt_state=opt_state, scaler=scaler_state0,
             global_step=torch.zeros((), dtype=torch.int32, device=self.device),
             skipped_steps=torch.zeros((), dtype=torch.int32, device=self.device))
+
+    def _build_offload_tier(self, params: Dict[str, torch.Tensor]):
+        """JAX ``engine.py:398-423``: the host tier from the optimizer block and
+        ``offload_optimizer`` (nvme: Adam only, moments under ``nvme_path``)."""
+        from .zero.offload import OffloadOptimizerTier
+        name = self._config.optimizer_name or "adam"
+        oc = self._config.optimizer_params
+        off = self._config.zero_config.offload_optimizer
+        kind = "adagrad" if name == "adagrad" else "adam"
+        if off.device == "nvme" and kind != "adam":
+            raise ValueError("nvme offload supports adam/adamw only")
+        aio = self._config.aio_config
+        return OffloadOptimizerTier(
+            params, self.compute_dtype, kind=kind, betas=oc.betas, eps=oc.eps,
+            weight_decay=oc.weight_decay,
+            adam_w_mode=name == "adamw" or bool(oc.adam_w_mode),
+            bias_correction=oc.bias_correction,
+            nvme_path=off.nvme_path if off.device == "nvme" else None,
+            aio_config={"thread_count": aio.thread_count, "block_size": aio.block_size,
+                        "queue_depth": aio.queue_depth})
 
     # --------------------------------------------------------------- internals
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -209,14 +262,16 @@ class DeepSpeedEngine:
         return out
 
     def _loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The micro-batch loss, from the masters cast to the compute dtype."""
+        """The micro-batch loss, from the masters cast to the compute dtype (under
+        offload the parameters are in it already)."""
         cast = {k: p.to(self.compute_dtype) for k, p in self.state.params.items()}
         loss = self.module.loss_fn(cast, batch)
         return loss[0] if isinstance(loss, tuple) else loss
 
     def _accumulate(self, loss: torch.Tensor) -> None:
-        """Gradients of ``loss * scale`` with respect to the masters, summed in
-        f32 into the accumulator."""
+        """Gradients of ``loss * scale`` with respect to the parameters (the
+        masters, or under offload the compute-dtype leaves), summed in f32 into
+        the accumulator."""
         scale = self.state.scaler.cur_scale
         grads = torch.autograd.grad(loss * scale.to(loss.dtype),
                                     list(self.state.params.values()))
@@ -226,11 +281,11 @@ class DeepSpeedEngine:
             for acc, g in zip(self._grad_acc, grads):
                 acc.add_(g.float())
 
-    def _apply_update(self, lr: float, n_micro: int) -> Dict[str, torch.Tensor]:
-        """Unscale, prescale, global norm, overflow check, clip, optimizer step,
-        scaler step; every decision stays on the device."""
-        cfg, state = self._config, self.state
-        scale = state.scaler.cur_scale
+    def _unscale_clip_and_check(self, n_micro: int):
+        """Both update paths' device-side start (JAX ``engine.py:540``): unscale
+        the accumulator by ``scale * n_micro``, prescale, global norm, fp16's
+        overflow flag, clip. Returns (grads, norm, overflow)."""
+        cfg, scale = self._config, self.state.scaler.cur_scale
         grads = [g / (scale * float(n_micro)) for g in self._grad_acc]
         self._grad_acc = None
         if cfg.prescale_gradients:
@@ -243,13 +298,52 @@ class DeepSpeedEngine:
         if cfg.gradient_clipping > 0:
             safe_norm = torch.where(torch.isfinite(norm), norm, torch.ones_like(norm))
             grads = clip_by_global_norm(grads, cfg.gradient_clipping, norm=safe_norm)
-        # bf16 and f32 cannot overflow-skip: their keep-old would be a no-op
-        self.optimizer.update(dict(zip(state.params, grads)), state.opt_state, state.params,
-                              lr, keep=overflow if cfg.fp16.enabled else None)
+        return grads, norm, overflow
+
+    def _step_counters(self, overflow: torch.Tensor) -> None:
+        state = self.state
         self.state = state._replace(scaler=self.loss_scaler.update(state.scaler, overflow),
                                     global_step=state.global_step + 1,
                                     skipped_steps=state.skipped_steps + overflow.int())
+
+    def _apply_update(self, lr: float, n_micro: int) -> Dict[str, torch.Tensor]:
+        """Unscale, prescale, global norm, overflow check, clip, optimizer step,
+        scaler step; every decision stays on the device."""
+        state, scale = self.state, self.state.scaler.cur_scale
+        grads, norm, overflow = self._unscale_clip_and_check(n_micro)
+        # bf16 and f32 cannot overflow-skip: their keep-old would be a no-op
+        self.optimizer.update(dict(zip(state.params, grads)), state.opt_state, state.params,
+                              lr, keep=overflow if self._config.fp16.enabled else None)
+        self._step_counters(overflow)
         return {"grad_norm": norm, "overflow": overflow, "loss_scale": scale}
+
+    def _finalize_grads_offload(self, n_micro: int):
+        """The offload step's device side (JAX ``engine.py:580-600``): as
+        :meth:`_apply_update` up to the clip, then the scaler and the step
+        counters, and the gradients cast to the transfer dtype (bf16 for bf16
+        runs; fp16's narrow exponent would flush small gradients, so fp16 and
+        f32 runs send f32). Returns (gradients, metrics)."""
+        scale = self.state.scaler.cur_scale
+        grads, norm, overflow = self._unscale_clip_and_check(n_micro)
+        self._step_counters(overflow)
+        dtype = self._offload_tier.transfer_dtype
+        return [g.to(dtype) for g in grads], {"grad_norm": norm, "overflow": overflow,
+                                              "loss_scale": scale}
+
+    def _host_optimizer_step(self, grads, lr: float, metrics) -> None:
+        """The host step (JAX ``engine.py:1052-1061``). Under fp16 the overflow
+        flag is read on the host, the step's one synchronise; a skipped step
+        leaves the masters and the tier's step count alone."""
+        skip = bool(metrics["overflow"]) if self._config.fp16.enabled else False
+        self._offload_tier.step(grads, lr, skip=skip)
+
+    def _update(self, lr: float, n_micro: int) -> Dict[str, torch.Tensor]:
+        """The optimizer step at a boundary: on the device, or through the tier."""
+        if not self.offload_enabled:
+            return self._apply_update(lr, n_micro)
+        grads, metrics = self._finalize_grads_offload(n_micro)
+        self._host_optimizer_step(grads, lr, metrics)
+        return metrics
 
     def _finish_step(self, metrics: Dict[str, torch.Tensor]) -> None:
         self._host_steps += 1
@@ -280,7 +374,7 @@ class DeepSpeedEngine:
             loss = self._loss(micro)
             self._accumulate(loss)
             losses.append(loss.detach())
-        metrics = self._apply_update(lr, gas)
+        metrics = self._update(lr, gas)
         metrics["loss"] = torch.stack(losses).mean()
         self.micro_steps += gas
         self._finish_step(metrics)
@@ -319,8 +413,7 @@ class DeepSpeedEngine:
             return
         if self._grad_acc is None:
             raise RuntimeError("step() called with no accumulated gradients")
-        self._finish_step(self._apply_update(self.get_lr_value(),
-                                             self.gradient_accumulation_steps()))
+        self._finish_step(self._update(self.get_lr_value(), self.gradient_accumulation_steps()))
 
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
@@ -382,6 +475,10 @@ class DeepSpeedEngine:
         path = ckpt.begin_tag(save_dir, tag)
         fault_point("ckpt.save.begin")
         ckpt.save(state_tree(self.state), os.path.join(path, "state"))
+        if self.offload_enabled:
+            # the host tier's masters and state (JAX engine.py:1422-1427); the
+            # NVMe tier copies its moment files, never through host memory
+            self._offload_tier.save_to(ckpt, os.path.join(path, "offload_state"))
         side = {
             "global_step": self.global_steps,
             "micro_steps": self.micro_steps,
@@ -440,7 +537,11 @@ class DeepSpeedEngine:
         parameters and ``global_step`` and keep the engine's optimizer state,
         loss scaler and skipped-step count, as the JAX engine does. The host
         step mirror and ``micro_steps`` follow the checkpoint; the LR schedule
-        too unless ``load_lr_scheduler_states=False``."""
+        too unless ``load_lr_scheduler_states=False``. An offload engine
+        restores its tier from the tag's ``offload_state`` (read and checked
+        with the rest, before anything is copied) and pushes the masters;
+        for a module-only load, or a tag without the tier, it reseeds the
+        masters from the loaded parameters (JAX ``engine.py:1548-1561``)."""
         resolved = self._resolve_load_tag(load_dir, tag)
         if resolved is None:
             logger.warning(f"No '{LATEST_FILE}' file at {load_dir} and no committed tags "
@@ -460,12 +561,31 @@ class DeepSpeedEngine:
         restored = ckpt.load(os.path.join(path, "state"))
         side = ckpt.load(os.path.join(path, "client_state.pkl"))
         current = state_tree(self.state)
+        if self.offload_enabled and isinstance(restored.get("params"), dict):
+            # an in-device engine's tag holds f32 masters: they load as the
+            # compute-dtype device copies, which reseed the masters below
+            restored["params"] = {k: v.to(self.compute_dtype) if isinstance(v, torch.Tensor)
+                                  and v.dtype == torch.float32 else v
+                                  for k, v in restored["params"].items()}
         if load_module_only or not load_optimizer_states:
             current = {k: current[k] for k in ("params", "global_step")}
             restored = {k: restored.get(k) for k in current}
         _check_like(current, restored, path)
+        offload = None
+        if self.offload_enabled and load_optimizer_states and not load_module_only \
+                and self._offload_tier.has_checkpoint(os.path.join(path, "offload_state")):
+            offload = self._offload_tier.read_checkpoint(ckpt, os.path.join(path,
+                                                                             "offload_state"))
         t0 = time.perf_counter()
         _copy_into(current, restored)
+        if offload is not None:
+            # the masters are the truth under offload: the device copies follow them
+            self._offload_tier.install(offload)
+            self._offload_tier.push()
+        elif self.offload_enabled:
+            # else the next host step would overwrite the loaded weights with
+            # the init-time masters
+            self._offload_tier.reseed_from_device(self.state.params)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         ckpt.add_time("h2d_s", t0)

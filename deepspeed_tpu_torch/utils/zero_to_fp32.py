@@ -4,7 +4,10 @@ Counterpart of ``deepspeed_tpu/utils/zero_to_fp32.py`` (the reference's
 ``deepspeed/utils/zero_to_fp32.py``, the script that turns a ZeRO checkpoint
 into a plain ``pytorch_model.bin``). On one card the tag already holds whole
 f32 masters, so consolidation reads the tag's ``params`` shard (validated
-against its manifest first) and writes it out flat.
+against its manifest first) and writes it out flat. A ZeRO-Offload tag holds
+compute-dtype device parameters in ``state`` and the f32 masters in
+``offload_state``: the masters are read from there. (JAX's consolidator reads
+only ``state``, so for such a tag it returns the bf16 device parameters.)
 
 CLI: ``python -m deepspeed_tpu_torch.utils.zero_to_fp32 <checkpoint_dir>
 <output_file> [--tag TAG]`` (``checkpoint_dir`` is the engine's save dir,
@@ -36,7 +39,16 @@ def get_fp32_state_dict_from_zero_checkpoint(checkpoint_dir: str,
     if not os.path.isdir(state_path):
         raise FileNotFoundError(f"no engine state at {state_path}")
     validate_manifest(path)
-    params = TorchCheckpointEngine().load_subtree(state_path, "params")
+    engine = TorchCheckpointEngine()
+    params = engine.load_subtree(state_path, "params")
+    offload_path = os.path.join(path, "offload_state")
+    if os.path.isdir(offload_path):
+        masters = engine.load_subtree(offload_path, "masters")
+        if len(masters) != len(params):
+            raise ValueError(f"{offload_path} holds {len(masters)} masters for "
+                             f"{len(params)} parameters")
+        # leaf{i} is the i-th parameter of the engine's (and the state's) order
+        return {k: masters[f"leaf{i}"].to(torch.float32) for i, k in enumerate(params)}
     return {k: v.to(torch.float32) for k, v in params.items()}
 
 

@@ -291,11 +291,12 @@ BASE = {"train_batch_size": 4}
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"zero_optimization": {"stage": 2}}, "item 12"),
-    ({"zero_optimization": {"stage": 3}}, "item 12"),
-    ({"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}}, "item 12"),
+    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme",
+                                                          "nvme_path": "x"}}}, "item 12"),
+    ({"wandb": {"enabled": True}}, "item 9"),
+    ({"csv_monitor": {"enabled": True}}, "item 9"),
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}}, "item 12"),
-    ({"aio": {"queue_depth": 16}}, "item 12"),
+    ({"eigenvalue": {"enabled": True}}, "item 13"),
     ({"tensorboard": {"enabled": True}}, "item 9"),
     ({"jsonl_monitor": {"enabled": True, "output_path": "x"}}, "item 9"),
     ({"flops_profiler": {"enabled": True}}, "item 9"),
@@ -308,7 +309,7 @@ BASE = {"train_batch_size": 4}
     ({"activation_checkpointing": {"partition_activations": True}}, "item 11"),
     ({"optimizer": {"type": "Lamb", "params": {}}}, "item 5"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "item 5"),
-    ({"optimizer": {"type": "Adagrad", "params": {}}}, "item 5"),
+    ({"fp16_master_weights_and_gradients": True}, "item 12"),
     ({"fp16": {"enabled": True, "auto_cast": True}}, "item 5"),
 ])
 def test_unported_config_raises_naming_its_item(extra, item):
