@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, offload and checkpoint paths on one
-NVIDIA card.
+"""Drive the PyTorch port's serving, training, offload, checkpoint and training-feature
+paths on one NVIDIA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and
@@ -218,6 +218,32 @@ non-zero:
    of device Adagrad's for every tensor; fp16 with ``initial_scale_power``
    40 skips its first step and leaves the masters unchanged.
 
+14. the training features (right after ``[ckpt]``), each through ``initialize``
+   and ``train_batch``, launch counts exact and losses finite and falling in
+   every run: ``[lm-train]``, ``causal_lm_model`` at seq 1024, micro-batch 4,
+   bf16 AdamW, 3 + 5 steps: BLOOM-560M at its published widths (24 layers,
+   width 1,024, 16 heads, vocab 250,880, ALiBi: K1, K3 and K4 24 a step with
+   the slopes inside) and TinyLlama-1.1B's widths (GQA, 32 heads over 4, FFN
+   5,632, vocab 32,000) cut to 4 layers, each held to the plain attention on
+   one micro-batch as in 6; ``[moe-train]``, ``[moe]``'s GPT-2 125M + 8
+   experts under ``GPT2MoEConfig``'s defaults (every 2nd layer, top-1,
+   capacity 1.25, RSample, aux coefficient 0.01), micro-batch 8, 3 + 10
+   steps, the aux loss and expert counts printed, then
+   ``convert_training_model`` -> ``init_inference`` -> ``generate`` (K1 12,
+   K2 12 x 15, K7 6 x 15) and the served prefill logits within LOGITS_TOL
+   of the training forward in eval mode, its routing replayed; the served
+   router's own choices differing on at most 4 % and on none with a gate
+   margin above 0.05, a planted swapped-gate fault breaking both;
+   ``[dropout]``, ``[train]``'s GPT-2 125M at dropout 0.1 through
+   ``training_data``, micro-batch 8: no flash launch (attention dropout runs
+   the plain attention), a second run from the seed, a remat-full run and a
+   run resumed from a mid-run tag all bit for bit equal to the first;
+   ``[optim]``, the same model at micro-batch 8 with LAMB, 1-bit Adam
+   (``freeze_step`` 3), 0/1 Adam and 1-bit LAMB (``freeze_step`` 3), 3 + 5
+   steps each: one update of six tensors on the card within 1e-6 + 1e-5
+   |cpu| of the same update on CPU copies, and an fp16 overflow step that
+   keeps every parameter and state tensor bit for bit.
+
 The last lines are a JSON line of the main paths' metrics, a JSON line on the
 kernels, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
@@ -280,6 +306,26 @@ SPIN_CYCLES = 2_000_000   # ~1.1 ms at the H100's 1.98 GHz boost: longer than an
 # block-sparse)
 HD_GPT2_REQUESTS, HD_GPTJ_NEW, HD_GPTJ_REQUESTS = 16, 32, 8
 HD_MICRO, HD_WARMUP, HD_STEPS, HD_SPARSE_WARMUP, HD_SPARSE_STEPS = 8, 3, 10, 3, 3
+# [lm-train]: micro-batch and timed steps (after TRAIN_WARMUP); TinyLlama's depth cut
+LM_MICRO, LM_STEPS, LM_TINYLLAMA_LAYERS = 4, 5, 4
+# [moe-train]: micro-batch, timed steps, new tokens of the served generate
+MOE_TRAIN_MICRO, MOE_TRAIN_STEPS, MOE_TRAIN_NEW = 8, 10, 16
+# [moe-train]'s served router against the training forward's choices (the
+# latter replayed): the share of its own choices that may differ, and the
+# recorded top-1 lead over the top-2 gate logit above which none may. On the
+# H100 the sound router reads 0.72 % (89 of 12,288), its widest flipped
+# margin 1.8e-2; the planted fault 23.3 %, 2,182 above 0.05; 0.04 lies near
+# the geometric mean of the two shares
+ROUTING_FLIP_LIMIT, ROUTER_MARGIN = 0.04, 0.05
+# [dropout]: GPT-2's published dropout, micro-batch, steps of each engine
+DROPOUT, DROPOUT_MICRO, DROPOUT_STEPS = 0.1, 8, 6
+# [optim]: micro-batch, timed steps, each optimizer's extra keys, the fp16
+# engine's steps before its overflow, the tensors updated on the card and the CPU
+OPTIM_MICRO, OPTIM_STEPS, OPTIM_FP16_STEPS = 8, 5, 2
+OPTIM_CASES = (("lamb", {}), ("onebitadam", {"freeze_step": 3}), ("zerooneadam", {}),
+               ("onebitlamb", {"freeze_step": 3}))
+OPTIM_CHECK_NAMES = ("wpe", "h.0.ln_1.weight", "h.0.c_attn.bias", "h.5.c_fc.weight",
+                     "h.11.mlp_c_proj.bias", "ln_f.weight")
 
 
 def nvidia_smi_line() -> str:
@@ -1328,15 +1374,17 @@ def train_config(micro: int, lr: float = 2e-4, zero=None, optimizer: str = "Adam
             "gradient_clipping": 1.0, "steps_per_print": 10**9}
 
 
-def kernels_vs_plain(engine, ids, device, plain, label: str):
+def kernels_vs_plain(engine, ids, device, plain, label: str, exclude=None):
     """The whole model on one micro-batch of 4 (the first rows of ``ids``),
     same weights: the loss and every gradient through the kernels against
     the same under ``plain()``. bf16 activations through 12 layers, with
     rounding at other points in the kernels than in the plain versions, move
     each gradient by about 1% of its norm; GRAD_RTOL = 5e-2 leaves room for
     that and fails on any real disagreement (a dropped or misplaced attention
-    gradient moves a tensor's gradient by its whole norm). Returns (loss
-    |diff|, worst relative gradient error)."""
+    gradient moves a tensor's gradient by its whole norm). Tensors for which
+    ``exclude(name)`` holds (a gradient that is 0 in exact arithmetic, all
+    rounding) are printed beside and not gated. Returns (loss |diff|, worst
+    relative gradient error)."""
     import numpy as np
     import torch
     small = {"input_ids": torch.from_numpy(ids[:4]).to(device)}
@@ -1346,6 +1394,11 @@ def kernels_vs_plain(engine, ids, device, plain, label: str):
     loss_err = abs(float(loss_k) - float(loss_p))
     rel = {k: float((grads_k[k].float() - g.float()).norm() / g.float().norm())
            for k, g in grads_p.items()}
+    if exclude is not None:
+        left_out = {k: rel.pop(k) for k in [k for k in rel if exclude(k)]}
+        if left_out:
+            print(f"[{label}] not gated (exact gradient 0): {len(left_out)} tensors, max "
+                  f"relative error {max(left_out.values()):.3e}", flush=True)
     worst = max(rel, key=rel.get)
     print(f"[{label}] micro-batch 4, kernels vs plain versions: loss {float(loss_k):.6f} vs "
           f"{float(loss_p):.6f} (|diff| {loss_err:.3e}); gradients, relative error "
@@ -1371,10 +1424,10 @@ def flash_traced_ms(trace) -> dict:
 
 def gpt2_train_cfg(**kw):
     """GPT-2 125M as ``bench.py`` trains it: vocab 50304, seq 1024, width 768,
-    12 layers, 12 heads, no dropout."""
+    12 layers, 12 heads, no dropout (``kw`` overrides)."""
     from deepspeed_tpu_torch.models import GPT2Config
     return GPT2Config(vocab_size=50304, n_positions=TRAIN_SEQ, n_embd=768, n_layer=12,
-                      n_head=12, dropout=0.0, **kw)
+                      n_head=12, **{"dropout": 0.0, **kw})
 
 
 def train_path(device, smi: str):
@@ -2548,6 +2601,81 @@ def moe_path(device, smi: str):
     return out
 
 
+class replayed_routing:
+    """Context manager over ``sharded_moe.choose_expert``, the call through
+    which every gate of the port picks its experts (``top1gating``,
+    ``top2gating``, ``topk_select``). Until :meth:`replay` each call records
+    its choices; after it, each call is given the recorded choices of its rows
+    in call order (a model whose calls split the same rows in chunks, as the
+    serving prefill does, walks the same record), and the program's own gate
+    builds everything else from them: weights, dispatch, combine, aux loss.
+    Where the call's own choice differs it is counted (``flips`` of
+    ``choices``), with the recorded top-1 lead over the top-2 score of each
+    row (its margin). The router is not what a kernel-vs-plain or a
+    served-vs-trained comparison holds: a gate near-tie flips on a bf16
+    rounding in the layers below, and that token's FFN output then changes
+    by its whole size."""
+
+    def __enter__(self):
+        from unittest import mock
+
+        from deepspeed_tpu_torch.moe import sharded_moe
+        self._own = sharded_moe.choose_expert
+        self._routes, self._margins, self._flat, self._diffs = [], [], None, []
+        self.recorded, self.choices, self._cursor = 0, 0, 0
+        self._patch = mock.patch.object(sharded_moe, "choose_expert", self._call)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+        return False
+
+    def replay(self):
+        """Replay the record from its start (again, if called again)."""
+        import torch
+        self._flat = torch.cat(self._routes)
+        self._margin = torch.cat(self._margins)
+        self._diffs, self.choices, self._cursor = [], 0, 0
+
+    def _flipped(self):
+        import torch
+        return (torch.cat(self._diffs) if self._diffs else
+                torch.zeros(0, dtype=torch.bool, device=self._flat.device))
+
+    @property
+    def flips(self) -> int:
+        return int(self._flipped().sum())
+
+    def flips_above(self, margin: float) -> int:
+        """Flips of the replay where the recorded margin exceeds ``margin``."""
+        return int((self._flipped() & (self._margin[:self._cursor] > margin)).sum())
+
+    @property
+    def max_flip_margin(self) -> float:
+        """The largest recorded margin among the replay's flips (0 if none)."""
+        m = self._margin[:self._cursor][self._flipped()]
+        return float(m.max()) if m.numel() else 0.0
+
+    def _call(self, scores):
+        own = self._own(scores)
+        if self._flat is None:
+            top2 = scores.float().topk(2, dim=-1).values
+            self._routes.append(own)
+            self._margins.append(top2[:, 0] - top2[:, 1])
+            self.recorded += own.shape[0]
+            return own
+        s = own.shape[0]
+        idx = self._flat[self._cursor:self._cursor + s]
+        if idx.shape[0] != s:
+            raise AssertionError(f"routing replay: {self._cursor + s} rows asked of "
+                                 f"{self.recorded} recorded")
+        self._cursor += s
+        self.choices += s
+        self._diffs.append(own != idx)
+        return idx
+
+
 def teacher_forced(engine, prompts, forced, n_moe: int, counted):
     """``forced (b, steps)`` (the plain FFN's greedy tokens, the prefill's
     first) fed step by step through the decode step twice from one prefill
@@ -2565,32 +2693,17 @@ def teacher_forced(engine, prompts, forced, n_moe: int, counted):
     FFN; the K7 run's own choices are counted where they differ. Launch
     counts are exact on both runs."""
     from contextlib import nullcontext
-    from unittest import mock
 
     import numpy as np
     import torch
 
     from deepspeed_tpu_torch.inference.decode_fns import prefill
-    from deepspeed_tpu_torch.models import causal_lm, init_cache
+    from deepspeed_tpu_torch.models import init_cache
 
     cfg, device = engine.model_config, engine.device
     b, steps = forced.shape
     lens = torch.full((b,), prompts.shape[1], dtype=torch.int32, device=device)
     forced_dev = torch.from_numpy(np.ascontiguousarray(forced)).to(device)
-    own_topk = causal_lm.topk_select
-    routes, flips = [], []
-
-    def record(logits, k):
-        idx, gates = own_topk(logits, k)
-        routes.append(idx)
-        return idx, gates
-
-    def replay(logits, k):
-        own, _ = own_topk(logits, k)
-        idx = routes[len(flips)]
-        flips.append((own != idx).any(-1).sum())
-        gates = torch.softmax(logits.float(), dim=-1).gather(-1, idx)
-        return idx, gates if k == 1 else gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
 
     with torch.inference_mode():
         base = init_cache(cfg, b, prompts.shape[1] + steps, device=device)
@@ -2599,20 +2712,22 @@ def teacher_forced(engine, prompts, forced, n_moe: int, counted):
         def chain(plain):
             pages = [{k: v.clone() for k, v in c.items()} for c in base]
             logits = []
-            with plain_moe() if plain else nullcontext(), \
-                    mock.patch.object(causal_lm, "topk_select", record if plain else replay):
+            with plain_moe() if plain else nullcontext():
                 for s in range(steps):
                     out, _ = engine.module(forced_dev[:, s:s + 1], positions=(lens + s)[:, None],
                                            caches=pages, cache_lens=lens + s)
                     logits.append(out[:, -1])
             return torch.stack(logits, dim=1)                        # (b, steps, V)
 
-        ref, _ = counted(lambda: chain(True), expect(decode_attention=cfg.n_layer * steps))
-        k7, _ = counted(lambda: chain(False), expect(decode_attention=cfg.n_layer * steps,
-                                                      moe_decode_ffn=n_moe * steps))
-    if len(routes) != n_moe * steps or len(flips) != len(routes):
-        raise AssertionError(f"[moe] teacher-forced batch {b}: {len(routes)} routings recorded, "
-                             f"{len(flips)} replayed, for {n_moe * steps} MoE layer steps")
+        with replayed_routing() as routing:
+            ref, _ = counted(lambda: chain(True), expect(decode_attention=cfg.n_layer * steps))
+            routing.replay()
+            k7, _ = counted(lambda: chain(False), expect(decode_attention=cfg.n_layer * steps,
+                                                          moe_decode_ffn=n_moe * steps))
+    if not routing.recorded == routing.choices == b * n_moe * steps:
+        raise AssertionError(f"[moe] teacher-forced batch {b}: {routing.recorded} routings "
+                             f"recorded, {routing.choices} replayed, for {b * n_moe * steps} "
+                             "token x MoE layer steps")
     if not bool(torch.isfinite(k7).all()):
         raise AssertionError(f"[moe] teacher-forced batch {b}: non-finite K7 logits")
     err = (k7 - ref).abs().amax(dim=(0, 2))                          # (steps,)
@@ -2622,7 +2737,7 @@ def teacher_forced(engine, prompts, forced, n_moe: int, counted):
     res = {"steps": steps, "batch": b, "max_abs_err": float(err.max()),
            "worst_step": int(err.argmax()), "agreement": float(same.float().mean()),
            "excluded_by_margin": int((~decided).sum()), "positions": b * steps,
-           "own_routing_differs": int(sum(int(f) for f in flips)),
+           "own_routing_differs": routing.flips,
            "routing_choices": b * n_moe * steps,
            "plain_vs_generate": float((ref.argmax(-1)[:, :-1] == forced_dev[:, 1:]).float()
                                       .mean()) if steps > 1 else 1.0}
@@ -3107,6 +3222,404 @@ def ckpt_path(device, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- training features
+def bloom_560m_cfg():
+    """BLOOM-560M at its published widths (``bigscience/bloom-560m``: 24 layers,
+    width 1024, 16 heads, vocab 250,880, ALiBi, embedding LayerNorm, tied
+    head), bf16."""
+    from deepspeed_tpu_torch.models import bloom_cfg
+    return bloom_cfg(vocab_size=250880, max_seq_len=2048, n_embd=1024, n_layer=24, n_head=16)
+
+
+def tinyllama_cfg():
+    """TinyLlama-1.1B's widths (width 2048, 32 heads over 4 KV heads, FFN 5632,
+    vocab 32,000, RMSNorm, SwiGLU, rotary), cut from 22 layers to
+    ``LM_TINYLLAMA_LAYERS`` for time, bf16."""
+    from deepspeed_tpu_torch.models import llama_cfg
+    return llama_cfg(vocab_size=32000, max_seq_len=2048, n_embd=2048, n_layer=LM_TINYLLAMA_LAYERS,
+                     n_head=32, n_kv_head=4, d_ff=5632, ln_eps=1e-5)
+
+
+def lm_train_path(device, smi: str) -> dict:
+    """``[lm-train]``: ``causal_lm_model`` trained through ``train_run``
+    (``train_config(LM_MICRO)``: bf16 AdamW, clip 1.0) at seq 1024,
+    ``TRAIN_WARMUP`` + ``LM_STEPS`` steps: BLOOM-560M (K1, K3 and K4 with the
+    ALiBi slopes, 24 a step each) and TinyLlama's widths at 4 layers (GQA,
+    4 a step). Each is held to the plain attention on one micro-batch
+    (``kernels_vs_plain``; the key projection's bias, whose exact gradient is
+    0, reported beside)."""
+    import torch
+
+    from deepspeed_tpu_torch.models import causal_lm_model
+
+    out = {}
+    for label, cfg in (("bloom-560m", bloom_560m_cfg()), ("tinyllama-4l", tinyllama_cfg())):
+        n = cfg.n_layer
+
+        def check(engine, ids, label=label):
+            loss_err, grad_err = kernels_vs_plain(engine, ids, device, plain_attention,
+                                                  f"lm-train {label}",
+                                                  exclude=lambda k: k.endswith("k_proj.bias"))
+            return {"grad_rel_err_max": grad_err, "loss_err": loss_err}
+
+        res = train_run(device, smi, f"lm-train {label}", cfg,
+                        {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}, check,
+                        lambda tps, cfg=cfg: f", {cfg.num_params() / 1e6:.1f} M parameters",
+                        micro=LM_MICRO, seq=TRAIN_SEQ, steps=LM_STEPS, model=causal_lm_model(cfg),
+                        config=train_config(LM_MICRO))
+        out[label] = res
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_cfg(**kw):
+    """``[moe]``'s GPT-2 125M with 8 experts, trained under ``GPT2MoEConfig``'s
+    defaults: every 2nd layer, top-1, capacity 1.25, RSample, aux loss
+    coefficient 0.01."""
+    from deepspeed_tpu_torch.models import GPT2MoEConfig
+    return GPT2MoEConfig(vocab_size=50304, n_positions=TRAIN_SEQ, n_embd=768, n_layer=12,
+                         n_head=12, num_experts=8, **kw)
+
+
+def moe_train_path(device, smi: str) -> dict:
+    """``[moe-train]``: ``gpt2_moe_model`` through ``train_run`` (micro-batch
+    ``MOE_TRAIN_MICRO``, seq 1024, ``TRAIN_WARMUP`` + ``MOE_TRAIN_STEPS``
+    steps; K1, K3, K4 12 a step). Then the aux loss and the expert counts of
+    one micro-batch (training gates, with their noise), and the trained
+    masters served: ``convert_training_model`` -> ``init_inference`` (bf16)
+    -> ``generate`` on 4 prompts of ``PROMPT`` tokens, ``MOE_TRAIN_NEW`` new
+    (K1 12, K2 12 x (new - 1), K7 6 x (new - 1)); the prefill logits within
+    LOGITS_TOL of the training forward in eval mode on the same weights
+    (its eval capacity raised to the expert count so that no token drops, as
+    serving never drops), the training forward's routing replayed in the
+    served one (:class:`replayed_routing`), as ``[moe]``'s teacher-forced
+    steps replay theirs. The served router's own choices are held too: at
+    most ``ROUTING_FLIP_LIMIT`` of them may differ from the training
+    forward's, and none where the recorded margin exceeds ``ROUTER_MARGIN``;
+    a planted fault (the served gate's columns of experts 0 and 1 swapped)
+    must break both."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import gpt2_moe_model
+    from deepspeed_tpu_torch.models.gpt2_moe import moe_stats
+    from deepspeed_tpu_torch.module_inject import convert_training_model
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.runtime import rng as rng_stream
+
+    cfg = moe_train_cfg()
+    n = cfg.n_layer
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(n))
+
+    def check(engine, ids):
+        masters = {k: p.detach() for k, p in engine.state.params.items()}
+        cast = {k: p.to(engine.compute_dtype) for k, p in masters.items()}
+        batch = {"input_ids": torch.as_tensor(ids, device=device)}
+        aux, counts = moe_stats(cfg, cast, batch, rng_stream.root_key(SEED))
+        counts = [c.to("cpu", torch.int64).tolist() for c in counts]
+        tokens = ids.size
+        cap = int(np.ceil(tokens / cfg.num_experts * cfg.capacity_factor))
+        print(f"[moe-train] trained, one micro-batch with the training gates: sum of "
+              f"l_aux {float(aux):.6f} over {n_moe} MoE layers (loss term "
+              f"{cfg.moe_loss_coef * float(aux):.6f}); expert counts a layer (of {tokens} "
+              f"tokens, capacity {cap}): {counts}", flush=True)
+        scfg, sd = convert_training_model(cfg, masters)
+        served_engine = dst.init_inference((scfg, sd), {"dtype": "bfloat16",
+                                                         "max_out_tokens": 1024}, device=device)
+        prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (4, PROMPT))
+        op_builder.reset_launch_counts()
+        out_tokens = served_engine.generate(prompts, max_new_tokens=MOE_TRAIN_NEW)
+        torch.cuda.synchronize()
+        launches = op_builder.launch_counts()
+        want = expect(flash_fwd=n, decode_attention=n * (MOE_TRAIN_NEW - 1),
+                      moe_decode_ffn=n_moe * (MOE_TRAIN_NEW - 1))
+        if launches != want or out_tokens.shape != (4, PROMPT + MOE_TRAIN_NEW):
+            raise AssertionError(f"[moe-train] serving: launches {launches} != {want} or "
+                                 f"shape {out_tokens.shape}")
+        eval_cfg = dataclasses.replace(cfg, eval_capacity_factor=float(cfg.num_experts))
+        # the planted fault: the served gate's columns of experts 0 and 1 swapped
+        swap = [1, 0, *range(2, cfg.num_experts)]
+        fault_sd = {k: v[..., swap] if k.endswith("moe_gate") else v for k, v in sd.items()}
+        with replayed_routing() as routing:
+            with torch.no_grad():
+                trained = gpt2_moe_model(eval_cfg).apply_fn(
+                    cast, {"input_ids": torch.as_tensor(prompts, device=device)})
+            routing.replay()
+            served = served_engine.forward(prompts)
+            flips, choices = routing.flips, routing.choices
+            clear, widest = routing.flips_above(ROUTER_MARGIN), routing.max_flip_margin
+            del served_engine
+            gc.collect()
+            faulty = dst.init_inference((scfg, fault_sd), {"dtype": "bfloat16",
+                                                            "max_out_tokens": 1024}, device=device)
+            routing.replay()
+            faulty.forward(prompts)
+            fault_flips, fault_clear = routing.flips, routing.flips_above(ROUTER_MARGIN)
+            fault_choices = routing.choices
+            del faulty, fault_sd
+        err = float((served - trained).abs().max())
+        finite = bool(torch.isfinite(served).all())
+        rate, fault_rate = flips / max(choices, 1), fault_flips / max(fault_choices, 1)
+        print(f"[moe-train] served (convert_training_model -> init_inference bf16): 4 x "
+              f"{PROMPT} prompts, {MOE_TRAIN_NEW} new, launches {nonzero(launches)}; prefill "
+              f"logits vs the training forward in eval mode, the training forward's routing "
+              f"replayed, max |diff| {err:.4e} (tol {LOGITS_TOL}); the served router's own "
+              f"choice differed in {flips} of {choices} tokens x MoE layers ({rate:.4%}, "
+              f"limit {ROUTING_FLIP_LIMIT:.2%}), {clear} of them with a recorded margin above "
+              f"{ROUTER_MARGIN} (must be 0; widest flipped margin {widest:.4e}); planted "
+              f"fault (gate columns of experts 0 and 1 swapped): {fault_flips} of "
+              f"{fault_choices} ({fault_rate:.4%}), {fault_clear} above the margin", flush=True)
+        if not finite or not err <= LOGITS_TOL or not choices == fault_choices == \
+                routing.recorded == n_moe * prompts.size:
+            raise AssertionError(f"[moe-train] served logits: finite {finite}, err {err}, "
+                                 f"{routing.recorded} routings recorded, {choices} and "
+                                 f"{fault_choices} replayed")
+        if not rate <= ROUTING_FLIP_LIMIT or clear:
+            raise AssertionError(f"[moe-train] the served router chose otherwise on {rate:.4%} "
+                                 f"of its choices (limit {ROUTING_FLIP_LIMIT:.2%}), {clear} "
+                                 f"with a margin above {ROUTER_MARGIN}")
+        if not (fault_rate > ROUTING_FLIP_LIMIT and fault_clear):
+            raise AssertionError(f"[moe-train] the planted gate fault went unseen: "
+                                 f"{fault_rate:.4%} flips, {fault_clear} above the margin")
+        return {"aux_loss": float(aux), "expert_counts": counts, "serve_logit_err": err,
+                "serve_launches": launches, "serve_routing_flips": flips,
+                "serve_routing_choices": choices, "serve_routing_flips_above_margin": clear,
+                "serve_routing_widest_flip_margin": widest,
+                "fault_routing_flips": fault_flips, "fault_routing_flips_above_margin": fault_clear}
+
+    return train_run(device, smi, "moe-train", cfg,
+                     {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}, check,
+                     micro=MOE_TRAIN_MICRO, seq=TRAIN_SEQ, steps=MOE_TRAIN_STEPS,
+                     model=gpt2_moe_model(cfg),
+                     config=train_config(MOE_TRAIN_MICRO))
+
+
+def dropout_path(device, smi: str) -> dict:
+    """``[dropout]``: ``[train]``'s GPT-2 125M with dropout ``DROPOUT`` (GPT-2's
+    published ``resid/embd/attn_pdrop``), ``train_config(DROPOUT_MICRO)``,
+    fed through ``training_data`` (one seeded batch of ``DROPOUT_MICRO``
+    sequences of 1024 tokens, as ``[train]``'s, listed once a step;
+    ``train_batch()`` draws them). Engine A
+    (weights from seed 0) takes ``DROPOUT_STEPS`` steps and saves a tag after
+    half of them; A2 repeats A; R is A under ``remat_policy="full"``; B
+    (weights from seed 1) loads A's tag and takes the second half on the rest
+    of the data. Gates: no flash kernel launches in any step (attention
+    dropout goes to the plain attention: JAX's rule); A's losses finite and
+    falling; A2, R and B equal to A bit for bit, every loss and every final
+    master (two runs from one seed; remat's recompute redraws the same masks;
+    the keys resume with the step counter)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import gpt2_model
+    from deepspeed_tpu_torch.models.gpt2 import init_params
+    from deepspeed_tpu_torch.ops import op_builder
+
+    # one seeded batch repeated for every step, as [train] trains on one batch
+    batch = np.random.default_rng(SEED).integers(0, 50304, (DROPOUT_MICRO, TRAIN_SEQ))
+    data = [{"input_ids": batch[i % DROPOUT_MICRO]} for i in range(DROPOUT_STEPS * DROPOUT_MICRO)]
+    half = DROPOUT_STEPS // 2
+    root = tempfile.mkdtemp(prefix="ds-dropout-")
+    runs = {}
+
+    def engine(seed, training_data, **kw):
+        cfg = gpt2_train_cfg(dropout=DROPOUT, **kw)
+        model = dataclasses.replace(gpt2_model(cfg),
+                                    init_fn=lambda _, dev: init_params(cfg, seed, dev))
+        return dst.initialize(model=model, config=train_config(DROPOUT_MICRO),
+                              training_data=training_data, device=device)[0]
+
+    def run(label, e, first, last, save_at=None):
+        """Steps ``first``..``last``; no flash launch (the counts kept in
+        ``runs``); returns (losses, s)."""
+        op_builder.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0, spent, losses = time.perf_counter(), 0.0, []
+        for step in range(first, last + 1):
+            losses.append(e.train_batch())
+            if step == save_at:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                e.save_checkpoint(root, tag="mid")
+                spent += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0 - spent
+        launches = op_builder.launch_counts()
+        if launches != expect():
+            raise AssertionError(f"[dropout] {label}: launches {nonzero(launches)}, expected none")
+        runs[label] = launches
+        return [float(x) for x in losses], dt
+
+    def masters(e):
+        return {k: p.detach().to("cpu", copy=True) for k, p in e.state.params.items()}
+
+    out = {}
+    try:
+        a = engine(SEED, data)
+        losses_a, _ = run("A", a, 1, DROPOUT_STEPS, save_at=half)
+        want = masters(a)
+        del a
+        print(f"[dropout] A: losses {losses_a[0]:.6f} -> {losses_a[-1]:.6f} over "
+              f"{DROPOUT_STEPS} steps (tag saved after step {half}); no flash launch",
+              flush=True)
+        if not all(np.isfinite(losses_a)) or not losses_a[-1] < losses_a[0]:
+            raise AssertionError(f"[dropout] losses not finite and falling: {losses_a}")
+        torch.cuda.reset_peak_memory_stats()
+        a2 = engine(SEED, data)
+        losses_a2, dt = run("A2", a2, 1, DROPOUT_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = dt / DROPOUT_STEPS * 1e3
+        tps = DROPOUT_MICRO * TRAIN_SEQ * DROPOUT_STEPS / dt
+        print(f"[dropout] {smi}: step {step_ms:.2f} ms, {tps:.1f} tokens/s, peak memory "
+              f"{peak / 2**30:.3f} GiB (micro-batch {DROPOUT_MICRO}, seq {TRAIN_SEQ}, "
+              f"attention on the plain path)", flush=True)
+        checks = {"A2 (same seed)": (losses_a2, masters(a2))}
+        del a2
+        r = engine(SEED, data, remat=True, remat_policy="full")
+        losses_r, _ = run("R", r, 1, DROPOUT_STEPS)
+        checks["R (remat full)"] = (losses_r, masters(r))
+        del r
+        b = engine(SEED + 1, data[half * DROPOUT_MICRO:])
+        b.load_checkpoint(root, tag="mid")
+        losses_b, _ = run("B", b, half + 1, DROPOUT_STEPS)
+        checks["B (resumed)"] = ([*losses_a[:half], *losses_b], masters(b))
+        del b
+        for label, (losses, got) in checks.items():
+            first, worst = first_difference(want, got)
+            print(f"[dropout] {label} vs A: losses equal {losses == losses_a}, masters "
+                  f"first difference {first} (max |diff| {worst:.3e})", flush=True)
+            if losses != losses_a or first is not None:
+                raise AssertionError(f"[dropout] {label} is not A bit for bit: losses "
+                                     f"{losses} vs {losses_a}, first difference {first}")
+        out.update(launches=runs, losses=losses_a, step_ms=step_ms, tokens_per_s=tps,
+                   peak_memory_bytes=peak, first_loss=losses_a[0], last_loss=losses_a[-1])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def state_slice(state, names, device):
+    """The optimizer state of the parameters ``names`` (every per-parameter
+    dict sliced, every counter copied) on ``device``, as its own tuple."""
+    fields = {}
+    for field, value in state._asdict().items():
+        if isinstance(value, dict):
+            fields[field] = {k: value[k].detach().to(device, copy=True) for k in names}
+        else:
+            fields[field] = value.detach().to(device, copy=True)
+    return type(state)(**fields)
+
+
+def optim_update_vs_cpu(engine, ids, device, label: str) -> float:
+    """One update of ``OPTIM_CHECK_NAMES`` on the card (copies of their masters
+    and state, the gradients of one micro-batch of 4) against the same update
+    on CPU copies: every element of the parameters and of every state tensor
+    within 1e-6 + 1e-5 |cpu|. Returns the worst |diff| / limit."""
+    import torch
+    _, grads = grads_of(engine, {"input_ids": torch.from_numpy(ids[:4]).to(device)})
+    lr = engine.get_lr_value()
+    runs = []
+    for where in (device, torch.device("cpu")):
+        params = {k: engine.state.params[k].detach().to(where, copy=True)
+                  for k in OPTIM_CHECK_NAMES}
+        state = state_slice(engine.state.opt_state, OPTIM_CHECK_NAMES, where)
+        engine.optimizer.update({k: grads[k].to(where) for k in OPTIM_CHECK_NAMES}, state,
+                                params, lr)
+        flat = {f"params.{k}": v for k, v in params.items()}
+        for field, value in state._asdict().items():
+            items = value.items() if isinstance(value, dict) else [("", value)]
+            flat.update({f"{field}.{k}".rstrip("."): v for k, v in items})
+        runs.append({k: v.to("cpu").double() for k, v in flat.items()})
+    card, host = runs
+    worst, where_worst = 0.0, None
+    for name, cpu in host.items():
+        ratio = float(((card[name] - cpu).abs() / (1e-6 + 1e-5 * cpu.abs())).max())
+        if ratio > worst:
+            worst, where_worst = ratio, name
+    step = int(engine.state.opt_state.step)
+    print(f"[{label}] one update at step {step + 1} of {len(OPTIM_CHECK_NAMES)} tensors "
+          f"({len(host)} parameter and state tensors), card vs CPU: worst |diff| / "
+          f"(1e-6 + 1e-5 |cpu|) {worst:.3e} ({where_worst})", flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"[{label}] card vs CPU update: {where_worst} {worst}")
+    return worst
+
+
+def optim_overflow_keeps_state(device, name: str, extra: dict, ids, label: str) -> int:
+    """An fp16 engine of the optimizer takes ``OPTIM_FP16_STEPS`` steps at a
+    small loss scale, then one at a scale of 2^40 (an overflow): the step is
+    skipped and every parameter and optimizer state tensor keeps its bits.
+    Returns the number of tensors compared."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import gpt2_model
+
+    config = train_config(OPTIM_MICRO, optimizer=name,
+                          precision={"fp16": {"enabled": True, "initial_scale_power": 8}})
+    config["optimizer"]["params"].update(extra)
+    engine = dst.initialize(model=gpt2_model(gpt2_train_cfg()), config=config,
+                            device=device)[0]
+    batch = {"input_ids": ids}
+    for _ in range(OPTIM_FP16_STEPS):
+        engine.train_batch(batch)
+    skipped = engine.skipped_steps
+    scaler = engine.state.scaler
+    engine.state = engine.state._replace(scaler=scaler._replace(
+        cur_scale=torch.full_like(scaler.cur_scale, 2.0 ** 40)))
+    before = host_tree(engine)
+    engine.train_batch(batch)
+    after = host_tree(engine)
+    kept = [k for k in before if k.startswith(("params.", "opt_state."))]
+    changed = [k for k in kept if not torch.equal(before[k], after[k])]
+    print(f"[{label}] fp16 overflow step (loss scale 2^40 after {OPTIM_FP16_STEPS} steps, "
+          f"{skipped} skipped before): skipped {engine.skipped_steps - skipped}, "
+          f"{len(kept) - len(changed)} of {len(kept)} parameter and state tensors kept bit for "
+          f"bit", flush=True)
+    if engine.skipped_steps != skipped + 1 or changed:
+        raise AssertionError(f"[{label}] overflow step: skipped "
+                             f"{engine.skipped_steps - skipped}, changed {changed[:8]}")
+    return len(kept)
+
+
+def optim_path(device, smi: str) -> dict:
+    """``[optim]``: ``[train]``'s GPT-2 125M at micro-batch ``OPTIM_MICRO``
+    through ``train_run`` (``TRAIN_WARMUP`` + ``OPTIM_STEPS`` steps; K1, K3,
+    K4 12 a step) with each of ``OPTIM_CASES`` (the 1-bit Adam and 1-bit LAMB
+    at ``freeze_step`` 3, so the compressed stage runs); then one update on
+    the card against CPU copies (:func:`optim_update_vs_cpu`) and an fp16
+    overflow step (:func:`optim_overflow_keeps_state`)."""
+    cfg = gpt2_train_cfg()
+    n = cfg.n_layer
+    out = {}
+    for name, extra in OPTIM_CASES:
+        label = f"optim {name}"
+        config = train_config(OPTIM_MICRO, optimizer=name)
+        config["optimizer"]["params"].update(extra)
+
+        def check(engine, ids, name=name, extra=extra, label=label):
+            return {"update_vs_cpu": optim_update_vs_cpu(engine, ids, device, label),
+                    "overflow_tensors_kept": optim_overflow_keeps_state(device, name, extra,
+                                                                        ids, label)}
+
+        out[name] = train_run(device, smi, label, cfg,
+                              {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}, check,
+                              micro=OPTIM_MICRO, seq=TRAIN_SEQ, steps=OPTIM_STEPS,
+                              config=config)
+        gc.collect()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3156,6 +3669,18 @@ def main() -> int:
     ckpt = ckpt_path(device, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    lm_train = lm_train_path(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train = moe_train_path(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dropout = dropout_path(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    optim = optim_path(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     wq = wq_path(device, smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3200,6 +3725,18 @@ def main() -> int:
         # served generates and forwards (K1, K2), in this process
         if name in ("flash_fwd", "decode_attention", "flash_bwd_dq", "flash_bwd_dkv"):
             entry["ckpt_launches"] = ckpt["launches"][name]
+        # [lm-train], [moe-train], [optim]: each run's timed steps; [dropout]:
+        # every step of each run, none (attention dropout runs the plain
+        # attention); [moe-train]'s served generate (K1, K2, K7)
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            entry["lm_train_launches"] = {run: res["launches"][name]
+                                          for run, res in lm_train.items()}
+            entry["moe_train_launches"] = moe_train["launches"][name]
+            entry["optim_launches"] = {run: res["launches"][name] for run, res in optim.items()}
+            entry["dropout_launches"] = {run: counts[name]
+                                         for run, counts in dropout["launches"].items()}
+        if name in ("flash_fwd", "decode_attention", "moe_decode_ffn"):
+            entry["moe_train_serve_launches"] = moe_train["serve_launches"][name]
         # [spec]: the n-gram lane's target (K1; K5 none), the draft-model
         # lane's draft engine (K2), the int8 lane's verify rounds (K6)
         if name in ("flash_fwd", "paged_decode_attention"):
@@ -3250,6 +3787,13 @@ def main() -> int:
         "sparse_train_path": {k: v for k, v in sparse.items()
                               if k not in ("launches", "trace", "losses")},
         "ckpt_path": {k: v for k, v in ckpt.items() if k != "launches"},
+        "lm_train_path": {run: {k: v for k, v in res.items() if k not in ("launches", "losses")}
+                          for run, res in lm_train.items()},
+        "moe_train_path": {k: v for k, v in moe_train.items()
+                           if k not in ("launches", "losses", "serve_launches")},
+        "dropout_path": {k: v for k, v in dropout.items() if k not in ("losses", "launches")},
+        "optim_path": {run: {k: v for k, v in res.items() if k not in ("launches", "losses")}
+                       for run, res in optim.items()},
         "hd_path": {
             "refusals": hd["refusals"],
             **{f"{m}_{part}": {k: v for k, v in hd[m][part].items()

@@ -1,7 +1,9 @@
 """deepspeed_tpu_torch — the PyTorch/CUDA port of ``deepspeed_tpu``.
 
-It trains a model through ``initialize(model=..., config=...)`` and
-``engine.train_batch(batch)``, and serves a causal LM through
+It trains a model (GPT-2, GPT-2 MoE, the causal-LM families) through
+``initialize(model=..., config=...)`` and ``engine.train_batch(batch)`` (or
+``train_batch()`` over ``training_data``), with dropout, Adam, Adagrad, LAMB
+and the 1-bit optimizers, and serves a causal LM through
 ``init_inference(model, config)`` and ``engine.generate(...)`` (in bf16, or
 with int8/int4 weights), on one NVIDIA card, with hand-written Hopper kernels:
 the flash forward and its two backward kernels, dense and paged decode
@@ -25,10 +27,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     """Create a training engine for a :class:`~.models.base.Model` (e.g.
     ``models.gpt2_model(cfg)``) from a config dict, a :class:`DeepSpeedConfig`
     or a ``.json`` path (``config``, ``config_params`` or
-    ``args.deepspeed_config``). Returns ``(engine, optimizer, None,
-    lr_scheduler)``, as DeepSpeed's ``initialize`` does; the third item is the
-    dataloader, which is not ported (ROADMAP.md queue 1 item 5). ``device``
-    defaults to ``cuda:0`` and raises where there is no CUDA."""
+    ``args.deepspeed_config``). Returns ``(engine, optimizer, dataloader,
+    lr_scheduler)``, as DeepSpeed's ``initialize`` does: the dataloader is the
+    engine's loader over ``training_data`` (``collate_fn``), else None.
+    ``device`` defaults to ``cuda:0`` and raises where there is no CUDA."""
     config = config if config is not None else config_params
     if config is None and getattr(args, "deepspeed_config", None) is not None:
         config = args.deepspeed_config

@@ -4,7 +4,10 @@ Counterpart of ``deepspeed_tpu/config/config.py`` (and of its ZeRO block,
 ``runtime/zero/config.py``), with DeepSpeed's JSON key names, built from a dict
 or a path to a ``.json`` file. It takes the batch triple, resolved as the JAX
 config resolves it (here with ``dp_world_size = 1``: one card), the optimizer
-and scheduler blocks, bf16 and fp16 (with dynamic loss scaling), ZeRO stages
+(Adam, AdamW, Adagrad, LAMB and the three 1-bit optimizers, with their
+``freeze_step``, ``var_freeze_step``, ``var_update_scaler`` and LAMB's
+coefficient bounds) and scheduler blocks, bf16 and fp16 (with dynamic loss
+scaling), ``dataloader_drop_last``, ZeRO stages
 0-3 (on one card the data-parallel group is one, so every partition of
 optimizer state, gradients or parameters is the whole), ZeRO-Offload's
 ``offload_optimizer`` (``cpu`` or ``nvme``) and the ``aio`` block, gradient
@@ -26,12 +29,9 @@ from typing import Any, Dict, Optional, Union
 from ..runtime.activation_checkpointing.checkpointing import POLICIES
 from .config_utils import from_dict, is_off
 
-_ITEM5 = "item 5 (remainder)"
-
 #: top-level keys of the JAX config whose features are not ported, by item
 UNPORTED_KEYS = {
     "mesh": "item 11", "comm_overlap": "item 11", "communication_data_type": "item 11",
-    "dataloader_drop_last": _ITEM5,
     "comms_logger": "item 9", "tensorboard": "item 9", "wandb": "item 9",
     "csv_monitor": "item 9", "jsonl_monitor": "item 9", "flops_profiler": "item 9",
     "wall_clock_breakdown": "item 9", "memory_breakdown": "item 9", "dump_state": "item 9",
@@ -41,10 +41,10 @@ UNPORTED_KEYS = {
     "quantize_training": "item 13", "data_efficiency": "item 13",
     "curriculum_learning": "item 13", "autotuning": "item 13",
 }
-#: optimizers the JAX engine builds that are not ported yet
-UNPORTED_OPTIMIZERS = ("lamb", "fusedlamb", "onebitadam", "zerooneadam", "onebitlamb")
 ADAM_TYPES = ("adam", "adamw", "fusedadam")
-OPTIMIZERS = ADAM_TYPES + ("adagrad",)
+LAMB_TYPES = ("lamb", "fusedlamb")
+ONEBIT_TYPES = ("onebitadam", "zerooneadam", "onebitlamb")
+OPTIMIZERS = ADAM_TYPES + ("adagrad",) + LAMB_TYPES + ONEBIT_TYPES
 _ITEM12B = "item 12b"
 
 
@@ -67,11 +67,11 @@ class FP16Config:
     min_loss_scale: float = 1.0
 
     def __post_init__(self):
-        if self.auto_cast:
-            raise _unported("fp16.auto_cast", _ITEM5)
         if self.loss_scale < 0 or self.initial_scale_power < 0 or self.hysteresis < 0 \
                 or self.loss_scale_window <= 0 or self.min_loss_scale < 0:
             raise DeepSpeedConfigError(f"invalid fp16 block {self}")
+        _refuse_unread(self, "fp16", [f.name for f in dataclasses.fields(self)
+                                      if f.name != "auto_cast"])
 
     @property
     def dynamic(self) -> bool:
@@ -260,13 +260,21 @@ class ActivationCheckpointingConfig:
 
 @dataclasses.dataclass
 class OptimizerConfig:
-    """An Adam-family optimizer's hyperparameters (``optimizer.params``)."""
+    """An optimizer's hyperparameters (``optimizer.params``), with the JAX
+    engine's defaults (``engine.py:_parse_optimizer_config``): LAMB's and 1-bit
+    LAMB's trust-ratio bounds, and the 1-bit optimizers' keys that JAX reads
+    from its ``extra`` dict."""
     lr: float = 1e-3
     betas: tuple = (0.9, 0.999)
     eps: float = 1e-8
     weight_decay: float = 0.0
     adam_w_mode: Optional[bool] = None       # default: True for adamw
     bias_correction: bool = True
+    max_coeff: float = 10.0
+    min_coeff: float = 0.01
+    freeze_step: int = 100                   # onebitadam, onebitlamb
+    var_freeze_step: int = 100000            # zerooneadam
+    var_update_scaler: int = 16              # zerooneadam
 
     def __post_init__(self):
         self.betas = tuple(self.betas)
@@ -288,7 +296,7 @@ class DeepSpeedConfig:
              "gradient_accumulation_steps", "optimizer", "scheduler", "fp16", "bf16",
              "bfloat16", "zero_optimization", "gradient_clipping", "prescale_gradients",
              "gradient_predivide_factor", "steps_per_print", "checkpoint",
-             "activation_checkpointing", "aio")
+             "activation_checkpointing", "aio", "dataloader_drop_last")
 
     def __init__(self, config: Union[str, dict], dp_world_size: int = 1):
         pd = _resolve_config_dict(config)
@@ -321,8 +329,6 @@ class DeepSpeedConfig:
             if block:
                 raise ValueError(f"unknown optimizer key(s) {sorted(block)}")
             self.optimizer_name = name.lower() if name else None
-            if self.optimizer_name in UNPORTED_OPTIMIZERS:
-                raise _unported(f"optimizer {name!r}", _ITEM5)
             if self.optimizer_name not in (None,) + OPTIMIZERS:
                 raise ValueError(f"unknown optimizer {name!r} (ported: {OPTIMIZERS})")
             if self.optimizer_name == "adagrad" and "eps" not in params:
@@ -342,6 +348,7 @@ class DeepSpeedConfig:
         self.gradient_predivide_factor: float = float(pd.get("gradient_predivide_factor",
                                                              1.0))
         self.steps_per_print: int = int(pd.get("steps_per_print", 10))
+        self.dataloader_drop_last: bool = bool(pd.get("dataloader_drop_last", False))
 
         self.train_batch_size: Optional[int] = pd.get("train_batch_size")
         self.train_micro_batch_size_per_gpu: Optional[int] = pd.get(

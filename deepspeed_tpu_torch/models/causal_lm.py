@@ -33,6 +33,14 @@ a decode step runs only the selected experts, through the selected-expert FFN
 kernel (``ops/moe/decode_ffn.py``); prefill routes through JAX's chunked
 one-hot dispatch. Tensor parallelism and expert parallelism are not ported
 (ROADMAP.md queue 1 item 11).
+
+:func:`causal_lm_model` trains every family (JAX ``causal_lm.py:880-909``):
+the loss over shifted labels through the full-sequence forward with no
+caches (``train=True``), which writes nothing in place, attends through the
+flash kernels under autograd (ALiBi slopes inside them; GQA repeats the kv
+heads first) and routes every MoE layer through the dispatch branch with
+eval-mode gating, as JAX's MoE layers of a ``CausalLMConfig`` train: the
+decode fast path's kernel has no backward and is never taken there.
 """
 
 import dataclasses
@@ -43,15 +51,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.func import functional_call
+
 from ..accelerator import resolve_device
 from ..moe.sharded_moe import TopKGate, topk_select
 from ..ops.attention.decode import decode_attention
-from ..ops.attention.flash import flash_attention
+from ..ops.attention.flash import flash_attention, kernel_width
 from ..ops.moe import (ACTIVATIONS, moe_decode_ffn, moe_decode_ffn_quant,
                        moe_decode_ffn_xla)
 from ..ops.paged_attention import gather_kv_dense, paged_attention, paged_cache_update
 from ..ops.quantizer import (dequantize_node, is_quant_node, make_quant_node, node_bits,
                              node_qs, quant_dense_apply)
+from .base import Model, Params
 
 
 @dataclasses.dataclass
@@ -382,7 +393,7 @@ class CausalLMLayer(nn.Module):
             h = self.act(self.fc_in(h))
         return self.fc_out(h)
 
-    def _moe_mlp(self, h):
+    def _moe_mlp(self, h, train: bool = False):
         """Gated expert-mixture FFN for serving, JAX's three branches in JAX's
         order. Eval-mode gating: deterministic, no token drops.
 
@@ -397,7 +408,8 @@ class CausalLMLayer(nn.Module):
           of ``MOE_CHUNK`` are dispatched to every expert's ``cap`` slots by
           one-hot tensors (capacity = chunk, so nothing drops), every expert
           runs on its slots, and the combine weights sum the outputs back in
-          f32; quantized stacks are dequantized first."""
+          f32; quantized stacks are dequantized first. A training forward
+          (``train``) always takes this branch."""
         cfg = self.cfg
         b, t, d = h.shape
         s = b * t
@@ -407,7 +419,7 @@ class CausalLMLayer(nn.Module):
         cdtype = cfg.dtype
         k = cfg.moe_top_k
         quant = is_quant_node(w1) or is_quant_node(w2)
-        fast = t == 1 and cfg.moe_decode_fastpath and cfg.num_experts > k
+        fast = not train and t == 1 and cfg.moe_decode_fastpath and cfg.num_experts > k
         if fast:
             # dispatch-time re-validation: a config changed after construction
             # must not fall through to the kernel
@@ -450,7 +462,8 @@ class CausalLMLayer(nn.Module):
 
     def forward(self, x, positions, cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_len: Optional[torch.Tensor] = None, prefix_fill: bool = False,
-                page_table: Optional[torch.Tensor] = None, kv_cap: Optional[int] = None):
+                page_table: Optional[torch.Tensor] = None, kv_cap: Optional[int] = None,
+                train: bool = False):
         """x ``(b, t, d)``. With ``cache`` and t == 1 (decode): write this step's
         K/V at row ``cache_len`` and attend over rows ``[0, cache_len]``; with
         ``page_table`` ``(b, max_pages)`` the cache holds global pages
@@ -461,7 +474,8 @@ class CausalLMLayer(nn.Module):
         rows ``[0, cache_len)``; write the t suffix rows at ``cache_len + i``
         and attend each over every row at or before its position. With
         ``cache`` otherwise (prefill): attend over the prompt and write its K/V
-        into rows ``[0, t)``."""
+        into rows ``[0, t)``. ``train``: a training forward (no cache; see
+        :meth:`_moe_mlp`)."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd, hk = cfg.head_dim, cfg.kv_heads
@@ -506,7 +520,9 @@ class CausalLMLayer(nn.Module):
                 cache["v"][:, :, :t] = v.transpose(1, 2)
         attn_out = self.o_proj(o.reshape(b, t, cfg.n_embd))
 
-        mlp = self._moe_mlp if self.is_moe else self._mlp
+        def mlp(h):
+            return self._moe_mlp(h, train) if self.is_moe else self._mlp(h)
+
         if cfg.parallel_residual:
             return x + attn_out + mlp(self.ln_mlp(x).to(cfg.dtype))
         x = x + attn_out
@@ -645,13 +661,16 @@ class CausalLM(nn.Module):
                 cache_lens: Optional[torch.Tensor] = None,
                 logits_positions: Optional[torch.Tensor] = None,
                 prefix_fill: bool = False, page_table: Optional[torch.Tensor] = None,
-                kv_cap: Optional[int] = None):
+                kv_cap: Optional[int] = None, train: bool = False):
         """``input_ids (b, t)`` → f32 logits ``(b, t, V)``, or ``(b, 1, V)`` read
         only at ``logits_positions (b,)``. With ``caches`` (from
         :func:`init_cache`, or a paged pool's pages with ``page_table``; updated
         in place) returns ``(logits, caches)``. ``prefix_fill``: suffix prefill
         at offset ``cache_lens``; the caller passes ``positions = cache_lens +
-        arange(t)``. See :meth:`CausalLMLayer.forward`."""
+        arange(t)``. ``train``: a training forward, with no caches. See
+        :meth:`CausalLMLayer.forward`."""
+        if train and caches is not None:
+            raise ValueError("a training forward takes no KV caches")
         cfg = self.cfg
         b, t = input_ids.shape
         if positions is None:
@@ -667,7 +686,7 @@ class CausalLM(nn.Module):
             x = self.ln_embed(x).to(cfg.dtype)
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, None if caches is None else caches[i], cache_lens,
-                      prefix_fill, page_table, kv_cap)
+                      prefix_fill, page_table, kv_cap, train)
         x = self.ln_f(x)
         if logits_positions is not None:
             x = x[torch.arange(b, device=x.device), logits_positions.long()][:, None]
@@ -690,3 +709,50 @@ def init_cache(cfg: CausalLMConfig, batch_size: int, max_len: Optional[int] = No
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(cfg.n_layer)]
+
+
+def causal_lm_model(cfg: CausalLMConfig, sample_seq_len: Optional[int] = None) -> Model:
+    """A :class:`Model` for the training engine (JAX ``causal_lm_model``):
+    batch = ``{"input_ids": (B, T)}`` with optional ``"labels"`` (default: the
+    shifted input ids), f32 cross-entropy on the logits of the full-sequence
+    forward (``train=True``), run on the engine's parameter dict through
+    ``functional_call``. The ALiBi slopes are not parameters: the loss hands
+    the module each layer's slopes on the parameters' device. Seeded weights
+    from :meth:`CausalLM.init_weights`; on a CUDA device a head_dim the
+    training kernels do not take raises ``ValueError`` before anything is
+    allocated there. The model draws nothing, so it ignores ``rng``.
+    ``causal_lm_segments`` (ZeRO-3 parameter offload) waits for ROADMAP.md
+    queue 1 item 12b."""
+    from .gpt2 import cross_entropy_loss, shift_labels
+    module = CausalLM(cfg, device="meta")
+    t = sample_seq_len or min(cfg.max_seq_len, 1024)
+    slopes = {}
+
+    def buffers(device) -> Dict[str, torch.Tensor]:
+        if cfg.pos_emb != "alibi":
+            return {}
+        if device not in slopes:
+            one = torch.from_numpy(alibi_slopes(cfg.n_head)).to(device)
+            slopes[device] = {f"layers.{i}.alibi": one for i in range(cfg.n_layer)}
+        return slopes[device]
+
+    def init_fn(seed: int, device) -> Params:
+        if torch.device(device).type == "cuda":
+            kernel_width(cfg.head_dim, training=True)
+        model = CausalLM(cfg, device=device)
+        model.init_weights(seed)
+        return {k: p.detach() for k, p in model.named_parameters()}
+
+    def loss_fn(params: Params, batch, rng: Optional[int] = None) -> torch.Tensor:
+        ids = batch["input_ids"]
+        logits = functional_call(module, {**params, **buffers(ids.device)}, (ids,),
+                                 {"train": True})
+        return cross_entropy_loss(logits, shift_labels(batch))
+
+    def apply_fn(params: Params, batch, rng: Optional[int] = None) -> torch.Tensor:
+        ids = batch["input_ids"] if isinstance(batch, dict) else batch
+        return functional_call(module, {**params, **buffers(ids.device)}, (ids,),
+                               {"train": True})
+
+    return Model(loss_fn=loss_fn, init_fn=init_fn, apply_fn=apply_fn, name=cfg.name,
+                 flops_per_sample=6.0 * cfg.num_params() * t)

@@ -4,7 +4,9 @@
 ``deepspeed_tpu.models.causal_lm.CausalLM`` (as numpy arrays, e.g.
 ``jax.device_get(engine.params)``) into a ``state_dict`` for this package's
 :class:`~.causal_lm.CausalLM`; :func:`gpt2_params_from_jax` does the same for
-``deepspeed_tpu.models.gpt2.GPT2`` and this package's :class:`~.gpt2.GPT2`;
+``deepspeed_tpu.models.gpt2.GPT2`` and this package's :class:`~.gpt2.GPT2`,
+and :func:`gpt2_moe_params_from_jax` for ``GPT2MoE`` and
+:class:`~.gpt2_moe.GPT2MoE`;
 :func:`tiled_dense_params_from_jax` carries a JAX ``TiledDense`` tree to
 ``runtime/zero/tiling.py:TiledDense``. A flax ``kernel`` ``(in, out)`` becomes a
 ``weight`` ``(out, in)`` (transposed); ``scale`` becomes ``weight``; embeddings
@@ -108,10 +110,40 @@ def gpt2_params_from_jax(params: Dict[str, Any], cfg: GPT2Config) -> Dict[str, t
                      for name, node in params["h"].items()}
         else:
             block = params[f"h_{i}"]
-        for name in _GPT2_NORMS:
-            _norm(sd, f"h.{i}.{name}", block[name])
-        for name in qkv + _GPT2_DENSES:
-            _dense(sd, f"h.{i}.{name}", block[name])
+        _gpt2_block(sd, f"h.{i}", block, qkv)
+    return sd
+
+
+def _gpt2_block(sd, prefix: str, block: Dict[str, Any], qkv) -> None:
+    for name in _GPT2_NORMS:
+        _norm(sd, f"{prefix}.{name}", block[name])
+    for name in qkv + tuple(n for n in _GPT2_DENSES if n in block):
+        _dense(sd, f"{prefix}.{name}", block[name])
+
+
+def gpt2_moe_params_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The JAX ``GPT2MoE`` tree (``wte``, ``wpe``, ``ln_f``, dense blocks ``h_{i}``,
+    MoE blocks ``h_moe_{i}``) → this package's ``GPT2MoE`` parameter dict
+    (``h.{i}`` either way), f32 on the CPU. An MoE block's ``moe/gate_wg``
+    and ``moe/experts/{w1,b1,w2,b2}`` keep JAX's layout; residual MoE's
+    ``residual_fc1``, ``residual_fc2`` and ``coefficient`` are Denses."""
+    sd = {"wte": _t(params["wte"]), "wpe": _t(params["wpe"])}
+    _norm(sd, "ln_f", params["ln_f"])
+    for i in range(cfg.n_layer):
+        pre = f"h.{i}"
+        if f"h_moe_{i}" in params:
+            block = params[f"h_moe_{i}"]
+            _gpt2_block(sd, pre, block, ("c_attn",))
+            moe = block["moe"]
+            sd[f"{pre}.moe.gate_wg"] = _t(moe["gate_wg"])
+            for name, leaf in moe["experts"].items():
+                sd[f"{pre}.moe.experts.{name}"] = _t(leaf)
+            for name in ("residual_fc1", "residual_fc2", "coefficient"):
+                if name in moe:
+                    _dense(sd, f"{pre}.moe.{name}", moe[name])
+        else:
+            _gpt2_block(sd, pre, params[f"h_{i}"],
+                        ("q_attn", "k_attn", "v_attn") if cfg.split_qkv else ("c_attn",))
     return sd
 
 

@@ -16,6 +16,17 @@ Counterpart of ``deepspeed_tpu/models/gpt2.py`` (``GPT2Config``, ``Block``,
 Attention comes from ``ops/transformer/attention.py:get_attention_impl``:
 ``auto`` (the default) runs the flash kernels forward and backward.
 
+``dropout > 0`` applies dropout where the JAX model does (``gpt2.py:110-127,
+351``): after the embeddings, to the attention probabilities, after
+``c_proj`` and after the MLP, each mask drawn from a key of the engine's
+random stream (``runtime/rng.py``) folded with the layer and the site, so a
+recompute under remat draws the same masks. Attention dropout goes through
+the attention impl's ``dropout_rate``/``dropout_rng``: the flash impl sends it
+to the plain attention, as JAX's does, so no flash kernel launches in a
+training step with dropout. A forward without a key (``apply_fn``) is
+deterministic; the loss (``loss_fn``) applies dropout whenever it gets one,
+as JAX's ``deterministic=False`` loss does, in ``eval_batch`` too.
+
 Parameters follow the JAX tree's names (``models/convert.py`` carries them
 across): a Dense ``weight`` is ``(out, in)``, the flax ``kernel`` transposed.
 The blocks are ``h.0`` .. ``h.{n_layer-1}`` whether the JAX model scanned its
@@ -33,9 +44,8 @@ because the recompute runs after ``functional_call`` has unbound the
 model's. ``vocab_chunk > 0`` takes
 the training loss through ``runtime/zero/tiling.py:
 chunked_vocab_cross_entropy`` from ``GPT2(..., return_hidden=True)``, without
-the ``(b, t, V)`` logits. Not ported yet (each raises
-``NotImplementedError``): dropout (ROADMAP.md queue 1 item 5); the TP and SP
-block variants and ``gpt2_param_specs`` (item 11).
+the ``(b, t, V)`` logits. Not ported yet: the TP and SP block variants and
+``gpt2_param_specs`` (ROADMAP.md queue 1 item 11).
 """
 
 import dataclasses
@@ -50,13 +60,18 @@ from torch.func import functional_call
 from ..ops.attention.flash import kernel_width
 from ..ops.transformer.attention import get_attention_impl
 from ..runtime.activation_checkpointing import checkpointing
+from ..runtime.rng import dropout, site_key
 from ..runtime.zero.tiling import chunked_vocab_cross_entropy
 from .base import Model, Params
 
-_ITEM5 = "ROADMAP.md queue 1 item 5 (remainder)"
 #: ``GPT2Config.remat_policy`` -> the ``checkpointing`` policy of a block
 _BLOCK_POLICY = {"full": "nothing_saveable", "dots": "dots_with_no_batch_dims_saveable",
                  "offload_dots": "offload_dots"}
+#: dropout sites: under the forward's key, the embeddings' and each block's
+#: (folded with the layer index); under a block's key, its three sites and
+#: an MoE block's gating noise
+SITE_EMBD, SITE_BLOCKS = 0, 1
+SITE_ATTN, SITE_ATTN_OUT, SITE_MLP_OUT, SITE_GATING = 0, 1, 2, 3
 
 
 @dataclasses.dataclass
@@ -81,8 +96,8 @@ class GPT2Config:
     vocab_chunk: int = 0
 
     def __post_init__(self):
-        if self.dropout > 0.0:
-            raise NotImplementedError(f"GPT2Config(dropout > 0) is not ported yet: {_ITEM5}")
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"GPT2Config.dropout must be in [0, 1), got {self.dropout}")
         if self.remat_policy not in _BLOCK_POLICY:
             raise ValueError(f"GPT2Config.remat_policy must be one of {sorted(_BLOCK_POLICY)}, "
                              f"got {self.remat_policy!r}")
@@ -159,6 +174,7 @@ class Block(nn.Module):
         d, dt = cfg.n_embd, cfg.dtype
         self.attn = get_attention_impl(cfg.attention_impl)
         self.ln_1 = LayerNorm(d, device)
+        self.split_qkv = cfg.split_qkv
         if cfg.split_qkv:
             self.q_attn = Dense(d, d, dt, device)
             self.k_attn = Dense(d, d, dt, device)
@@ -170,20 +186,29 @@ class Block(nn.Module):
         self.c_fc = Dense(d, 4 * d, dt, device)
         self.mlp_c_proj = Dense(4 * d, d, dt, device)
 
-    def forward(self, x):
+    def attend(self, x, key: Optional[int]):
+        """``x`` plus the attention branch (dropout on the probabilities and
+        after ``c_proj`` under ``key``)."""
         cfg = self.cfg
         b, t, d = x.shape
         h = self.ln_1(x).to(cfg.dtype)
-        if cfg.split_qkv:
+        if self.split_qkv:
             q, k, v = self.q_attn(h), self.k_attn(h), self.v_attn(h)
         else:
             q, k, v = self.c_attn(h).split(d, dim=-1)
         shape = (b, t, cfg.n_head, cfg.head_dim)
-        o = self.attn(q.reshape(shape), k.reshape(shape), v.reshape(shape), causal=True)
-        x = x + self.c_proj(o.reshape(b, t, d))
+        rate = cfg.dropout if key is not None else 0.0
+        o = self.attn(q.reshape(shape), k.reshape(shape), v.reshape(shape), causal=True,
+                      dropout_rate=rate, dropout_rng=site_key(key, SITE_ATTN) if rate else None)
+        return x + dropout(self.c_proj(o.reshape(b, t, d)), cfg.dropout,
+                           site_key(key, SITE_ATTN_OUT))
+
+    def forward(self, x, key: Optional[int] = None):
+        cfg = self.cfg
+        x = self.attend(x, key)
         h = self.ln_2(x).to(cfg.dtype)
         h = self.mlp_c_proj(F.gelu(self.c_fc(h), approximate="tanh"))
-        return x + h
+        return x + dropout(h, cfg.dropout, site_key(key, SITE_MLP_OUT))
 
 
 class GPT2(nn.Module):
@@ -195,51 +220,70 @@ class GPT2(nn.Module):
         self.h = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg.n_embd, device)
 
-    def forward(self, input_ids: torch.Tensor, return_hidden: bool = False):
+    def forward(self, input_ids: torch.Tensor, return_hidden: bool = False,
+                rng: Optional[int] = None):
         """``input_ids (b, t)`` → f32 logits ``(b, t, vocab)``; with
         ``return_hidden``, ``(f32 hidden states after ln_f, wte)`` for the
-        chunked-vocab loss."""
+        chunked-vocab loss. ``rng``: the random stream's key (dropout), None
+        for a deterministic forward."""
         cfg = self.cfg
-        dt = cfg.dtype
-        t = input_ids.shape[1]
-        x = F.embedding(input_ids.long(), self.wte).to(dt) + self.wpe[:t][None].to(dt)
-        for block in self.h:
+        x = embed(self, input_ids, rng)
+        for i, block in enumerate(self.h):
+            key = site_key(rng, SITE_BLOCKS, i)
             if cfg.remat:
-                x = checkpointing.checkpoint(functools.partial(_run_block, block), x,
+                x = checkpointing.checkpoint(functools.partial(_run_block, block, key=key), x,
                                              dict(block.named_parameters()),
                                              policy=_BLOCK_POLICY[cfg.remat_policy])
             else:
-                x = block(x)
+                x = block(x, key)
         x = self.ln_f(x)
         if return_hidden:
             return x, self.wte
+        dt = cfg.dtype
         return torch.matmul(x.to(dt), self.wte.to(dt).t()).float()
 
 
-def _run_block(block: Block, x: torch.Tensor, params: Params) -> torch.Tensor:
-    return functional_call(block, params, (x,))
+def embed(model: nn.Module, input_ids: torch.Tensor, rng: Optional[int]) -> torch.Tensor:
+    """Token plus position embeddings in the compute dtype, then the
+    embeddings' dropout (``model`` holds ``wte``, ``wpe`` and ``cfg``)."""
+    cfg = model.cfg
+    t = input_ids.shape[1]
+    x = (F.embedding(input_ids.long(), model.wte).to(cfg.dtype)
+         + model.wpe[:t][None].to(cfg.dtype))
+    return dropout(x, cfg.dropout, site_key(rng, SITE_EMBD))
 
 
-def init_params(cfg: GPT2Config, seed: int, device) -> Params:
-    """Seeded f32 parameters with the JAX model's initialisers: normal with
-    ``init_std`` for the embeddings and projections, ``init_std / sqrt(2 *
-    n_layer)`` for the residual projections (``c_proj``, ``mlp_c_proj``), zero
-    biases, unit LayerNorm scales. One ``torch.Generator`` on ``device``.
-    On a CUDA device a head_dim the training kernels do not take raises
-    ``ValueError`` first, before anything reaches the card."""
+def _run_block(block: Block, x: torch.Tensor, params: Params,
+               key: Optional[int] = None) -> torch.Tensor:
+    return functional_call(block, params, (x, key))
+
+
+def init_params(cfg: GPT2Config, seed: int, device, module: Optional[nn.Module] = None
+                ) -> Params:
+    """Seeded f32 parameters of ``module`` (default: GPT-2 of ``cfg``, built on
+    the meta device) with the JAX model's initialisers: normal with
+    ``init_std`` for the embeddings, projections, MoE gate and expert stacks,
+    ``init_std / sqrt(2 * n_layer)`` for the residual projections (``c_proj``,
+    ``mlp_c_proj``), lecun-normal scale ``1 / sqrt(fan_in)`` for residual MoE's
+    ``coefficient`` (flax's default kernel init; a plain normal, not
+    truncated), zero biases, unit LayerNorm scales. One ``torch.Generator``
+    on ``device``. On a CUDA device a head_dim the training kernels do not
+    take raises ``ValueError`` first, before anything reaches the card."""
     if torch.device(device).type == "cuda" and cfg.attention_impl != "xla":
         kernel_width(cfg.head_dim, training=True)
     gen = torch.Generator(device=device).manual_seed(seed)
     proj_std = cfg.init_std / (2 * cfg.n_layer) ** 0.5
     params = {}
-    for name, p in GPT2(cfg, device="meta").named_parameters():
+    for name, p in (module or GPT2(cfg, device="meta")).named_parameters():
         x = torch.empty(p.shape, dtype=torch.float32, device=device)
         module_name, _, kind = name.rpartition(".")
         owner = module_name.rsplit(".", 1)[-1]          # "" for wte and wpe
         if owner.startswith("ln_"):
             x.fill_(1.0) if kind == "weight" else x.zero_()
-        elif kind == "bias":
+        elif kind in ("bias", "b1", "b2"):
             x.zero_()
+        elif owner == "coefficient":
+            x.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
         else:
             std = proj_std if owner in ("c_proj", "mlp_c_proj") else cfg.init_std
             x.normal_(0.0, std, generator=gen)
@@ -271,17 +315,17 @@ def gpt2_model(config: GPT2Config, sample_seq_len: Optional[int] = None) -> Mode
     module = GPT2(config, device="meta")        # structure only; params come per call
     t = sample_seq_len or config.n_positions
 
-    def loss_fn(params: Params, batch) -> torch.Tensor:
+    def loss_fn(params: Params, batch, rng: Optional[int] = None) -> torch.Tensor:
         if config.vocab_chunk:
             hidden, wte = functional_call(module, params, (batch["input_ids"],),
-                                          {"return_hidden": True})
+                                          {"return_hidden": True, "rng": rng})
             return chunked_vocab_cross_entropy(hidden, wte, shift_labels(batch),
                                                chunk=config.vocab_chunk,
                                                compute_dtype=config.dtype)
-        logits = functional_call(module, params, (batch["input_ids"],))
+        logits = functional_call(module, params, (batch["input_ids"],), {"rng": rng})
         return cross_entropy_loss(logits, shift_labels(batch))
 
-    def apply_fn(params: Params, batch) -> torch.Tensor:
+    def apply_fn(params: Params, batch, rng: Optional[int] = None) -> torch.Tensor:
         ids = batch["input_ids"] if isinstance(batch, dict) else batch
         return functional_call(module, params, (ids,))
 

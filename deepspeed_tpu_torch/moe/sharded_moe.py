@@ -6,15 +6,16 @@ results: fp32 one-hot/cumsum math for capacity, random token selection and
 the load-balancing aux loss. Noise comes only from a ``torch.Generator`` the
 caller passes (JAX's ``rng`` key); without one, gating is deterministic.
 Serving uses the eval settings: no noise, no drops, ``capacity = s`` (top-1)
-or ``2 s`` (top-2). The dispatch/combine exchange across an expert mesh is
-not ported (ROADMAP.md queue 1 item 11).
+or ``2 s`` (top-2). :func:`moe_dispatch_combine` is the one-device branch of
+JAX's; the exchange across an expert mesh is not ported (ROADMAP.md queue 1
+item 11).
 
 ``s`` tokens, ``e`` experts, ``c`` capacity slots, ``m`` model width, as in
 the GShard paper and the JAX package.
 """
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,9 +36,19 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx.long()[..., None] == torch.arange(n, device=idx.device)).float()
 
 
+def choose_expert(scores: torch.Tensor) -> torch.Tensor:
+    """The expert each row of ``scores (s, e)`` picks: its first maximum, as
+    ``jnp.argmax`` takes it. Every routing decision of the gates below is this
+    call."""
+    return torch.argmax(scores, dim=-1)
+
+
 def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=device).clamp(1e-20, 1.0)
-    return -torch.log(-torch.log(u).clamp(min=1e-20))
+    """Standard Gumbel noise, ``-log(-log(u))`` with ``u`` uniform in ``[tiny,
+    1)`` (``jax.random.gumbel``)."""
+    u = torch.rand(shape, generator=generator, device=device).clamp(
+        min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
 def top1gating(logits: torch.Tensor,
@@ -64,7 +75,7 @@ def top1gating(logits: torch.Tensor,
         logits_w_noise = logits
 
     gates = torch.softmax(logits.float(), dim=1)
-    idx1 = torch.argmax(logits_w_noise, dim=1)
+    idx1 = choose_expert(logits_w_noise)
     mask1 = _one_hot(idx1, e)
     if used_token_mask is not None:
         mask1 = mask1 * used_token_mask[:, None].to(mask1.dtype)
@@ -113,14 +124,14 @@ def top2gating(logits: torch.Tensor,
                     if drop_tokens else 2 * s)
 
     gates = torch.softmax(logits.float(), dim=1)
-    idx1 = torch.argmax(gates, dim=1)
+    idx1 = choose_expert(gates)
     mask1 = _one_hot(idx1, e)
 
     logits2 = logits.float()
     if top2_2nd_expert_sampling and generator is not None:
         logits2 = logits2 + _gumbel(logits2.shape, generator, logits.device)
     logits2 = logits2.masked_fill(mask1 > 0, float("-inf"))
-    idx2 = torch.argmax(logits2, dim=1)
+    idx2 = choose_expert(logits2)
     mask2 = _one_hot(idx2, e)
 
     # positions: expert queues fill with first choices before second choices
@@ -165,11 +176,11 @@ def topk_select(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     e = logits.shape[-1]
     gates = torch.softmax(logits.float(), dim=-1)
     if k == 1:
-        idx = torch.argmax(logits, dim=-1)[:, None]                   # (s, 1)
+        idx = choose_expert(logits)[:, None]                          # (s, 1)
         return idx, gates.gather(-1, idx)
-    idx1 = torch.argmax(gates, dim=-1)
+    idx1 = choose_expert(gates)
     masked = logits.float().masked_fill(_one_hot(idx1, e) > 0, float("-inf"))
-    idx = torch.stack([idx1, torch.argmax(masked, dim=-1)], dim=-1)  # (s, 2)
+    idx = torch.stack([idx1, choose_expert(masked)], dim=-1)         # (s, 2)
     g = gates.gather(-1, idx)
     return idx, g / g.sum(-1, keepdim=True).clamp(min=1e-9)
 
@@ -211,3 +222,15 @@ class TopKGate:
         return top2gating(
             logits, cf, self.min_capacity, generator=generator, drop_tokens=self.drop_tokens,
             top2_2nd_expert_sampling=self.top2_2nd_expert_sampling and train)
+
+
+def moe_dispatch_combine(x: torch.Tensor, combine: torch.Tensor, dispatch: torch.Tensor,
+                         expert_fn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """Tokens ``x (s, m)`` to the experts' slots, ``expert_fn`` on ``(e, c,
+    m)``, and back (JAX ``sharded_moe.py:225-256``, one device): both products
+    with the ``(s, e, c)`` dispatch and combine tensors are taken in f32, the
+    experts' input cast to x's dtype, the output too."""
+    dtype = x.dtype
+    expert_in = torch.einsum("sec,sm->ecm", dispatch.float(), x.float()).to(dtype)
+    expert_out = expert_fn(expert_in)
+    return torch.einsum("sec,ecm->sm", combine.float(), expert_out.float()).to(dtype)

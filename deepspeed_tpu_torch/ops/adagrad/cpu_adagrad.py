@@ -11,7 +11,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from ..optimizer import Optimizer
+from ..optimizer import Optimizer, assigner
 
 
 class AdagradState(NamedTuple):
@@ -30,8 +30,7 @@ def adagrad(eps: float = 1e-10, weight_decay: float = 0.0) -> Optimizer:
     def update(grads: Dict[str, torch.Tensor], state: AdagradState,
                params: Dict[str, torch.Tensor], lr: float,
                keep: Optional[torch.Tensor] = None) -> None:
-        def assign(old, new):
-            old.copy_(new if keep is None else torch.where(keep, old, new))
+        assign = assigner(keep)
 
         for name, p in params.items():
             g = grads[name].float()

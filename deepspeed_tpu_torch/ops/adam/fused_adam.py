@@ -12,7 +12,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..optimizer import Optimizer
+from ..optimizer import Optimizer, assigner
 
 
 class AdamState(NamedTuple):
@@ -46,8 +46,7 @@ def fused_adam(betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
         else:
             bc1 = bc2 = 1.0
 
-        def assign(old, new):
-            old.copy_(new if keep is None else torch.where(keep, old, new))
+        assign = assigner(keep)
 
         for name, p in params.items():
             g = grads[name].float()

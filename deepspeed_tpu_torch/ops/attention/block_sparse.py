@@ -739,9 +739,11 @@ def make_sparse_attention_impl(config: SparsityConfig):
     layout is built and cached per sequence length, and its tables with the
     bf16/fp16 kernels' tile tables (forward and dq; dk/dv) as device tensors,
     one entry per (length, device), so a training step builds and copies no
-    table. A user ``mask`` or a q shorter than k keeps the sparsity pattern on
-    the masked dense path (``reference_attention`` with the layout's dense
-    mask), as the JAX impl does; attention dropout is not ported and raises."""
+    table. A user ``mask``, attention dropout (``dropout_rate > 0``) or a q
+    shorter than k keeps the sparsity pattern on the masked dense path
+    (``reference_attention`` with the layout's dense mask, and the dropout),
+    as the JAX impl does (``block_sparse.py:345-361``); no kernel launches
+    there."""
     layouts: Dict[int, np.ndarray] = {}
     tables: Dict[Tuple[int, torch.device], Tuple[Dict[str, torch.Tensor], Optional[TileTables],
                                                  Optional[BwdTileTables]]] = {}
@@ -754,11 +756,8 @@ def make_sparse_attention_impl(config: SparsityConfig):
     def impl(q, k, v, causal=True, mask=None, softmax_scale=None, dropout_rate=0.0,
              dropout_rng=None):
         from ..transformer.attention import reference_attention
-        if dropout_rate > 0.0:
-            raise NotImplementedError("attention dropout is not ported yet: ROADMAP.md "
-                                      "queue 1 item 5")
         uni = getattr(config, "attention", "bidirectional") == "unidirectional"
-        if mask is not None or q.shape[1] != k.shape[1]:
+        if mask is not None or dropout_rate > 0.0 or q.shape[1] != k.shape[1]:
             # features the kernels do not cover: keep the sparsity pattern on the
             # masked dense path (dense attention would change the architecture)
             t, s = q.shape[1], k.shape[1]
@@ -768,7 +767,8 @@ def make_sparse_attention_impl(config: SparsityConfig):
                 user = mask[:, None, None, :] if mask.ndim == 2 else mask
                 lmask = torch.logical_and(lmask, user.bool())
             return reference_attention(q, k, v, causal=causal or uni, mask=lmask,
-                                       softmax_scale=softmax_scale)
+                                       softmax_scale=softmax_scale, dropout_rate=dropout_rate,
+                                       dropout_rng=dropout_rng)
         t = q.shape[1]
         key = (t, q.device)
         if key not in tables:

@@ -293,12 +293,29 @@ class FlashAttnFunction(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-                    softmax_scale: Optional[float] = None,
+                    mask: Optional[torch.Tensor] = None,
+                    softmax_scale: Optional[float] = None, dropout_rate: float = 0.0,
+                    dropout_rng: Optional[int] = None,
                     alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention on ``(b, t, h, d)`` q/k/v → ``(b, t, h, d)``, through
     :class:`FlashAttnFunction`, so it is differentiable on the card as on the
     CPU. ``alibi_slopes`` ``(h,)`` adds the per-head ALiBi bias inside the
-    kernels."""
+    kernels.
+
+    The JAX function's rule for what its kernel does not cover (``flash.py:
+    462-469``): a ``mask``, attention dropout (``dropout_rate > 0``, with the
+    key ``dropout_rng``) or cross-attention (k longer or shorter than q) goes
+    to ``reference_attention``, and no kernel launches; ALiBi together with any
+    of them raises ``NotImplementedError``."""
+    if mask is not None or dropout_rate > 0.0 or q.shape[1] != k.shape[1]:
+        if alibi_slopes is not None:
+            raise NotImplementedError(
+                "alibi_slopes is kernel-only: combine it with mask/dropout/cross-attention "
+                "through a model-level bias on the plain path instead")
+        from ..transformer.attention import reference_attention
+        return reference_attention(q, k, v, causal=causal, mask=mask,
+                                   softmax_scale=softmax_scale, dropout_rate=dropout_rate,
+                                   dropout_rng=dropout_rng)
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention is self-attention: q/k/v must share one "

@@ -9,7 +9,9 @@ tensor) makes it keep every old value instead (the fp16 overflow skip), decided
 on the device.
 """
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
 
 
 class Optimizer(NamedTuple):
@@ -18,3 +20,11 @@ class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., None]
     name: str = "optimizer"
+
+
+def assigner(keep: Optional[torch.Tensor]) -> Callable[[torch.Tensor, torch.Tensor], None]:
+    """``assign(old, new)``: write ``new`` into ``old``, or with ``keep`` (a 0-d
+    bool tensor) keep ``old`` where it is set, decided on the device."""
+    def assign(old: torch.Tensor, new: torch.Tensor) -> None:
+        old.copy_(new if keep is None else torch.where(keep, old, new))
+    return assign

@@ -17,6 +17,20 @@ The ``forward``/``backward``/``step`` triple does the same work a
 micro-batch at a time. ZeRO stages 1-3 on one card partition over a
 data-parallel group of one, so each is stage 0.
 
+Every ``loss_fn`` call gets a key of the training random stream
+(``runtime/rng.py``), derived on the host as the JAX engine derives its
+threefry keys (``engine.py:607-613, 1174-1175, 1258-1263``): ``fold_in(base,
+step)`` and then the micro-batch's index (``train_batch``) or the count of
+micro-batches so far (``forward``), and a stream of its own for
+``eval_batch``. The step is the host counter ``_host_steps``, which advances
+on an fp16 overflow skip as ``global_step`` does and which
+``load_checkpoint`` restores, so no step reads the device for a key. Dropout
+and MoE gating noise draw from it.
+
+``training_data`` (with ``collate_fn`` and ``dataloader_drop_last``) builds a
+``runtime/dataloader.py:DeepSpeedDataLoader`` of micro-batches, one replica;
+``train_batch()`` with no batch draws ``gradient_accumulation_steps`` of them.
+
 ZeRO-Offload (``zero_optimization.offload_optimizer``, device ``cpu`` or
 ``nvme``; JAX ``engine.py:139-145, 398-423``) hands the freshly built f32
 parameters to ``runtime/zero/offload.py:OffloadOptimizerTier``, which keeps
@@ -40,8 +54,8 @@ engine's own tensors. :class:`CheckpointAutoSaver` saves on an interval and on
 SIGTERM. An offload engine's tags hold the tier's state too
 (``offload_state``). Not ported yet (each raises ``NotImplementedError``
 naming its ``ROADMAP.md`` queue-1 item): parameter offload (item 12b), the
-monitor and flops profiler (item 9), pipelines (item 13), data parallelism
-(item 11), and ``training_data`` (the dataloader, item 5).
+monitor and flops profiler (item 9), pipelines (item 13) and data
+parallelism (item 11).
 """
 
 import os
@@ -53,18 +67,22 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 import torch
 
 from ..accelerator import resolve_device
-from ..config.config import ADAM_TYPES, DeepSpeedConfig
+from ..config.config import ADAM_TYPES, LAMB_TYPES, DeepSpeedConfig
 from ..models.base import Model
 from ..observability.trace import CAT_TRAIN, get_tracer
 from ..ops.adagrad import adagrad
 from ..ops.adam.fused_adam import fused_adam
+from ..ops.lamb import fused_lamb
 from ..ops.optimizer import Optimizer
 from ..utils.fault_injection import fault_point
 from ..utils.logging import log_dist, logger
+from . import rng as rng_stream
 from .checkpoint_engine.checkpoint_engine import (LATEST_FILE, CheckpointCorruptionError,
                                                   find_latest_committed_tag,
                                                   is_committed_tag, make_checkpoint_engine,
                                                   validate_manifest, write_latest_pointer)
+from .dataloader import DeepSpeedDataLoader, RepeatingLoader, concat_micro_batches
+from .fp16.onebit import onebit_adam, onebit_lamb, zero_one_adam
 from .fp16.loss_scaler import LossScaleState, create_loss_scaler
 from .lr_schedules import get_lr_scheduler
 from .utils import clip_by_global_norm, count_parameters, global_norm
@@ -136,12 +154,13 @@ class DeepSpeedEngine:
         if not isinstance(model, Model):
             raise TypeError("model must be a deepspeed_tpu_torch.models.Model "
                             f"(see models.gpt2.gpt2_model), got {type(model).__name__}")
-        if training_data is not None or collate_fn is not None:
-            raise _unported("training_data= (the dataloader)", "item 5 (remainder)")
         if mpu is not None:
             raise _unported("mpu= (model parallelism)", "item 11")
         self.module = model
         self.args = args
+        self.collate_fn = collate_fn
+        self._base_key = rng_stream.root_key(seed)
+        self._eval_calls = 0
         self.device = resolve_device(device)
         self._config = (config if isinstance(config, DeepSpeedConfig)
                         else DeepSpeedConfig(config))
@@ -161,7 +180,8 @@ class DeepSpeedEngine:
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
         self._build_state(scaler_state0, seed)
         self.checkpoint_engine = make_checkpoint_engine(self._config.checkpoint_config)
-        self.training_dataloader = None
+        self.training_dataloader = self._configure_dataloader(training_data)
+        self._train_iter = None
 
         self.micro_steps = 0
         self._host_steps = 0        # host mirror of state.global_step (no device read)
@@ -191,14 +211,43 @@ class DeepSpeedEngine:
         oc = self._config.optimizer_params
         self._base_lr = oc.lr
         if self.offload_enabled:
+            if name not in ADAM_TYPES + ("adagrad",):
+                raise ValueError(f"offload tiers support adam/adamw/adagrad, got {name!r}")
             return None
+        adam_w = name == "adamw" or bool(oc.adam_w_mode)
         if name == "adagrad":
             return adagrad(eps=oc.eps, weight_decay=oc.weight_decay)
-        if name not in ADAM_TYPES:
-            raise ValueError(f"unknown optimizer {name!r}")
-        adam_w = name == "adamw" or bool(oc.adam_w_mode)
-        return fused_adam(betas=oc.betas, eps=oc.eps, weight_decay=oc.weight_decay,
-                          adam_w_mode=adam_w, bias_correction=oc.bias_correction)
+        if name in ADAM_TYPES:
+            return fused_adam(betas=oc.betas, eps=oc.eps, weight_decay=oc.weight_decay,
+                              adam_w_mode=adam_w, bias_correction=oc.bias_correction)
+        if name in LAMB_TYPES:
+            return fused_lamb(betas=oc.betas, eps=oc.eps, weight_decay=oc.weight_decay,
+                              max_coeff=oc.max_coeff, min_coeff=oc.min_coeff)
+        if name == "onebitadam":
+            return onebit_adam(betas=oc.betas, eps=oc.eps, weight_decay=oc.weight_decay,
+                               freeze_step=oc.freeze_step, adam_w_mode=adam_w)
+        if name == "onebitlamb":
+            return onebit_lamb(betas=oc.betas, eps=oc.eps, weight_decay=oc.weight_decay,
+                               freeze_step=oc.freeze_step, max_coeff=oc.max_coeff,
+                               min_coeff=oc.min_coeff)
+        if name == "zerooneadam":
+            return zero_one_adam(betas=oc.betas, eps=oc.eps, weight_decay=oc.weight_decay,
+                                 var_freeze_step=oc.var_freeze_step,
+                                 var_update_scaler=oc.var_update_scaler, adam_w_mode=adam_w)
+        raise ValueError(f"unknown optimizer {name!r}")
+
+    def _configure_dataloader(self, training_data):
+        """JAX ``engine.py:352-362`` with one replica: an iterable without
+        ``__getitem__`` repeats as it is; an indexable dataset is batched into
+        micro-batches."""
+        if training_data is None:
+            return None
+        if hasattr(training_data, "__iter__") and not hasattr(training_data, "__getitem__"):
+            return RepeatingLoader(training_data)
+        return DeepSpeedDataLoader(training_data,
+                                   batch_size=self.train_micro_batch_size_per_gpu(),
+                                   collate_fn=self.collate_fn,
+                                   drop_last=self._config.dataloader_drop_last)
 
     def _configure_lr_scheduler(self, lr_scheduler):
         if lr_scheduler is not None:
@@ -261,12 +310,26 @@ class DeepSpeedEngine:
             out[key] = x
         return out
 
-    def _loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The micro-batch loss, from the masters cast to the compute dtype (under
-        offload the parameters are in it already)."""
+    def _loss(self, batch: Dict[str, torch.Tensor], key: int) -> torch.Tensor:
+        """The micro-batch loss under the random stream's ``key``, from the
+        masters cast to the compute dtype (under offload the parameters are in
+        it already)."""
         cast = {k: p.to(self.compute_dtype) for k, p in self.state.params.items()}
-        loss = self.module.loss_fn(cast, batch)
+        loss = self.module.loss_fn(cast, batch, key)
         return loss[0] if isinstance(loss, tuple) else loss
+
+    def _step_key(self) -> int:
+        return rng_stream.fold_in(self._base_key, self._host_steps)
+
+    def _next_train_batch(self) -> Dict[str, Any]:
+        """``gradient_accumulation_steps`` micro-batches of the dataloader,
+        joined along the leading axis (JAX ``engine.py:1149-1155``)."""
+        if self._train_iter is None:
+            loader = self.training_dataloader
+            self._train_iter = (loader if hasattr(loader, "__next__")
+                                else iter(RepeatingLoader(loader)))
+        return concat_micro_batches([next(self._train_iter)
+                                     for _ in range(self.gradient_accumulation_steps())])
 
     def _accumulate(self, loss: torch.Tensor) -> None:
         """Gradients of ``loss * scale`` with respect to the parameters (the
@@ -357,9 +420,12 @@ class DeepSpeedEngine:
         the leading axis) and one optimizer step. Returns the mean micro-batch
         loss as a 0-d device tensor."""
         if batch is None:
-            if data_iter is None:
-                raise ValueError("train_batch needs batch= or data_iter=")
-            batch = next(data_iter)
+            if data_iter is not None:
+                batch = next(data_iter)
+            elif self.training_dataloader is not None:
+                batch = self._next_train_batch()
+            else:
+                raise ValueError("train_batch needs batch=, data_iter=, or training_data")
         gas = self.gradient_accumulation_steps()
         batch = self._to_device(batch)
         for key, x in batch.items():
@@ -367,11 +433,12 @@ class DeepSpeedEngine:
                 raise ValueError(f"train_batch: {key!r} leading dim {x.shape[0]} is not "
                                  f"divisible by gradient_accumulation_steps {gas}")
         lr = self.get_lr_value()
+        step_key = self._step_key()
         losses = []
         for i in range(gas):
             micro = {k: x.reshape(gas, x.shape[0] // gas, *x.shape[1:])[i]
                      for k, x in batch.items()}
-            loss = self._loss(micro)
+            loss = self._loss(micro, rng_stream.fold_in(step_key, i))
             self._accumulate(loss)
             losses.append(loss.detach())
         metrics = self._update(lr, gas)
@@ -385,8 +452,10 @@ class DeepSpeedEngine:
 
     def forward(self, batch) -> torch.Tensor:
         """The loss of one micro-batch, with its autograd graph to the masters
-        (consumed by :meth:`backward`)."""
-        self._cached_loss = self._loss(self._to_device(batch))
+        (consumed by :meth:`backward`). Its key folds the count of
+        micro-batches so far into the step's, as JAX's ``forward`` does."""
+        key = rng_stream.fold_in(self._step_key(), self.micro_steps)
+        self._cached_loss = self._loss(self._to_device(batch), key)
         return self._cached_loss
 
     __call__ = forward
@@ -417,7 +486,13 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
-        return self._loss(self._to_device(batch))
+        """The loss of ``batch`` without a step. As in the JAX engine,
+        ``loss_fn`` runs as in training (dropout on) under a key of the eval
+        stream, disjoint from every training step's."""
+        self._eval_calls += 1
+        key = rng_stream.fold_in(rng_stream.fold_in(self._base_key, rng_stream.EVAL_STREAM),
+                                 self._eval_calls)
+        return self._loss(self._to_device(batch), key)
 
     # ------------------------------------------------------------- accessors
     @property

@@ -48,6 +48,7 @@ from deepspeed_tpu_torch.models.convert import gpt2_params_from_jax
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops.attention import block_sparse as tbs
 from deepspeed_tpu_torch.ops.kernel_checks import hand_made_layout
+from deepspeed_tpu_torch.ops.transformer.attention import reference_attention
 
 B, T, H, D = 2, 128, 4, 64
 BLOCK = 16
@@ -277,10 +278,21 @@ def test_impl_masked_dense_branch_matches_jax(case):
 
 
 def test_impl_refuses_attention_dropout():
-    impl = tbs.make_sparse_attention_impl(tsa.FixedSparsityConfig(H, BLOCK))
-    q = torch.zeros(B, T, H, D)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        impl(q, q, q, dropout_rate=0.1)
+    """Attention dropout is no longer refused: as in the JAX impl, it keeps
+    the sparsity pattern on the masked dense path (the plain attention with
+    the layout's dense mask) and draws its mask there; no kernel wrapper is
+    called."""
+    config = tsa.FixedSparsityConfig(H, BLOCK)
+    impl = tbs.make_sparse_attention_impl(config)
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, T, H, D)).astype(np.float32))
+               for _ in range(3))
+    lmask = torch.from_numpy(tbs.layout_to_dense_mask(config.make_layout(T), BLOCK))[None]
+    got = impl(q, k, v, causal=True, dropout_rate=0.1, dropout_rng=7)
+    want = reference_attention(q, k, v, causal=True, mask=lmask, dropout_rate=0.1,
+                               dropout_rng=7)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, impl(q, k, v, causal=True))
 
 
 # ------------------------------------------------------------------ training

@@ -36,7 +36,8 @@ from deepspeed_tpu_torch.checkpoint import (DeepSpeedCheckpoint,  # noqa: E402
                                             export_fp32_state_dict,
                                             export_universal_checkpoint)
 from deepspeed_tpu_torch.config import DeepSpeedConfig  # noqa: E402
-from deepspeed_tpu_torch.models import GPT2Config, gpt2_model  # noqa: E402
+from deepspeed_tpu_torch.models import (GPT2Config, GPT2MoEConfig, gpt2_model,  # noqa: E402
+                                        gpt2_moe_model)
 from deepspeed_tpu_torch.models.gpt2 import init_params  # noqa: E402
 from deepspeed_tpu_torch.module_inject import convert_training_model  # noqa: E402
 from deepspeed_tpu_torch.observability.trace import get_tracer  # noqa: E402
@@ -486,8 +487,11 @@ def test_a_trained_checkpoint_is_served(tmp_path, quant):
                                   built.generate(ids, max_new_tokens=4))
     with pytest.raises(ValueError, match="missing .*layers.0.fc_in.bias"):
         served.load_checkpoint(str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        convert_training_model(type("MoEConfig", (), {"num_experts": 4})(), sd)
+    # MoE serving of a trained GPT2MoE is ported; residual MoE is refused, as in JAX
+    moe_cfg = GPT2MoEConfig(vocab_size=64, n_positions=16, n_embd=16, n_layer=2, n_head=2,
+                            num_experts=2, use_residual=True)
+    with pytest.raises(NotImplementedError, match="residual-MoE"):
+        convert_training_model(moe_cfg, gpt2_moe_model(moe_cfg).init(0, "cpu"))
 
 
 if __name__ == "__main__":

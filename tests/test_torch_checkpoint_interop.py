@@ -23,6 +23,9 @@
   ``causal_lm_params_from_jax`` of JAX's ``convert_training_model`` exactly,
   and so does its config, but for the LayerNorm epsilon (the port keeps the
   training model's 1e-6).
+- 1-bit Adam and 0/1 Adam tags (error feedback and counters) written by
+  either package, carried into the other's format by renaming parameters,
+  load there bit for bit and resume as the writer resumes.
 """
 
 import dataclasses
@@ -57,6 +60,7 @@ from deepspeed_tpu_torch.models import (GPT2Config, causal_lm_params_from_jax, g
 from deepspeed_tpu_torch.models.causal_lm import CausalLMConfig
 from deepspeed_tpu_torch.module_inject import convert_training_model
 from deepspeed_tpu_torch.runtime.checkpoint_engine import checkpoint_engine as torch_ckpt
+from deepspeed_tpu_torch.runtime.engine import state_tree
 from tests.unit.checkpoint.test_reference_import import (CFG as MEGATRON_CFG, _fuse_qkv,
                                                          _write_reference_checkpoint)
 
@@ -288,3 +292,151 @@ def test_convert_training_model_matches_jax(runs):
     assert sd.keys() == want.keys()
     for name in want:
         assert torch.equal(sd[name], want[name]), name
+
+
+# ------------------------------------------------- 1-bit optimizer tags across
+ONEBIT = {"OneBitAdam": {"freeze_step": 1, "weight_decay": 0.01},
+          "ZeroOneAdam": {"var_freeze_step": 4, "var_update_scaler": 2}}
+_PER_PARAM = ("params", "exp_avg", "exp_avg_sq", "error")
+
+
+def _port_tree(jstate, tcfg):
+    """A JAX ``TrainState`` dict (host arrays) as the port's ``state_tree``:
+    per-parameter trees renamed by ``gpt2_params_from_jax``, every counter a
+    0-d tensor of its dtype. The field names are the same on both sides."""
+    def convert(name, x):
+        if isinstance(x, tuple) and hasattr(x, "_asdict"):
+            x = x._asdict()
+        if isinstance(x, dict) and ("wte" in x or name in _PER_PARAM):
+            return gpt2_params_from_jax(x, tcfg)
+        if isinstance(x, dict):
+            return {k: convert(k, v) for k, v in x.items()}
+        return torch.from_numpy(np.array(x))
+    return {k: convert(k, v) for k, v in jstate.items()}
+
+
+def _jax_tree(tree, template):
+    """The inverse, onto the JAX state's structure (``h_{i}`` blocks): a Dense
+    ``weight`` goes back to a ``kernel`` (transposed), a norm's to ``scale``."""
+    def back(x, jx, prefix=""):
+        if isinstance(jx, dict) and "wte" in jx:
+            out = {}
+            for key, node in jx.items():
+                tname = key.replace("h_", "h.")
+                if not isinstance(node, dict):
+                    out[key] = np.asarray(x[tname])
+                    continue
+                out[key] = {}
+                for sub, leaf in node.items():
+                    if not isinstance(leaf, dict):          # ln_f
+                        w = x[f"{tname}.{'weight' if sub == 'scale' else sub}"]
+                        out[key][sub] = np.asarray(w)
+                        continue
+                    out[key][sub] = {}
+                    for k in leaf:
+                        w = x[f"{tname}.{sub}.{'bias' if k == 'bias' else 'weight'}"]
+                        out[key][sub][k] = np.asarray(w.t() if k == "kernel" else w)
+            return out
+        if isinstance(jx, dict):
+            return {k: back(x[k], v) for k, v in jx.items()}
+        if isinstance(jx, tuple) and hasattr(jx, "_asdict"):
+            return type(jx)(**{k: back(x[k], v) for k, v in jx._asdict().items()})
+        return np.asarray(x)
+    return back(tree, template)
+
+
+def _flat(tree, prefix=""):
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    return {k: v for key, sub in tree.items()
+            for k, v in _flat(sub, f"{prefix}.{key}" if prefix else key).items()}
+
+
+def _write_port_tag(save_dir, tag, tree, side):
+    writer = torch_ckpt.TorchCheckpointEngine()
+    staged = writer.begin_tag(save_dir, tag)
+    writer.save(tree, os.path.join(staged, "state"))
+    writer.save(side, os.path.join(staged, "client_state.pkl"))
+    writer.commit_tag(save_dir, tag)
+    torch_ckpt.write_latest_pointer(save_dir, tag)
+
+
+@pytest.mark.parametrize("name", list(ONEBIT))
+def test_onebit_tags_load_across_and_resume(name, tmp_path):
+    """Both engines take 2 steps from one start under the optimizer (its
+    compressed stage runs) and save. Each tag is carried into the other
+    package's own format (the port's torch shards, JAX's Orbax) by renaming
+    the parameters alone, since the state trees share their field names
+    (error feedback, the step, 0/1 Adam's ``last_var_update`` and
+    ``var_interval``, the loss scaler), and loaded there: every tensor equal
+    to what was saved, bit for bit. The receiving engine's next step then
+    matches the writing engine's own resumed step: the loss within 1e-5 and
+    every counter equal. (Further steps part at the rounding noise, see
+    ``test_torch_optimizers.py``.)"""
+    from deepspeed_tpu.runtime.engine import TrainState as JaxTrainState
+    config = dict(CONFIG, optimizer={"type": name, "params": {"lr": 1e-3, **ONEBIT[name]}})
+    jcfg = jax_gpt2.GPT2Config(**TINY, dtype=jnp.float32, attention_impl="xla",
+                               scan_layers=False)
+    jengine, _, _, _ = ds.initialize(model=jax_gpt2.gpt2_model(jcfg), config=dict(config))
+    tcfg = GPT2Config(**TINY, dtype=torch.float32)
+    start = gpt2_params_from_jax(
+        jax.tree_util.tree_map(np.array, jax.device_get(jengine.state.params)), tcfg)
+
+    def port_engine(init):
+        model = dataclasses.replace(gpt2_model(tcfg), init_fn=lambda seed, device: init)
+        return dst.initialize(model=model, config=dict(config), device="cpu")[0]
+
+    tengine = port_engine(start)
+    batches = _batches()
+    for ids in batches[:2]:
+        jengine.train_batch({"input_ids": ids})
+        tengine.train_batch({"input_ids": ids})
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jengine.save_checkpoint(jdir, tag="t")
+    tengine.save_checkpoint(tdir, tag="t")
+    # each writer's own resumed step
+    want_t = tengine.train_batch({"input_ids": batches[2]}).item()
+    tengine.load_checkpoint(tdir, tag="t")
+    assert tengine.train_batch({"input_ids": batches[2]}).item() == want_t
+    jengine.load_checkpoint(jdir, tag="t")
+    want_j = float(jengine.train_batch({"input_ids": batches[2]}))
+    counters_j = state_tree(jax.device_get(jengine.state.opt_state))
+    # JAX's tag -> the port
+    jsaved = jengine.checkpoint_engine.load(os.path.join(jdir, "t", "state"),
+                                            template=jengine.state._asdict())
+    jside = jengine.checkpoint_engine.load(os.path.join(jdir, "t", "client_state.pkl"))
+    tree = _port_tree(jax.tree_util.tree_map(np.asarray, jax.device_get(jsaved)), tcfg)
+    _write_port_tag(str(tmp_path / "from-jax"), "t", tree, jside)
+    receiver = port_engine({k: torch.zeros_like(v) for k, v in start.items()})
+    receiver.load_checkpoint(str(tmp_path / "from-jax"))
+    got = _flat(state_tree(receiver.state))
+    assert sorted(got) == sorted(_flat(tree)) and "opt_state.error.wte" in got
+    for key, value in _flat(tree).items():
+        assert torch.equal(got[key], value), key
+    assert abs(receiver.train_batch({"input_ids": batches[2]}).item() - want_j) <= LOSS_TOL
+    counters = state_tree(receiver.state.opt_state)
+    for key in ("step", "last_var_update", "var_interval"):
+        if key in counters_j:
+            assert int(counters[key]) == int(counters_j[key]), key
+    assert receiver.global_steps == jengine.global_steps == 3
+    # the port's tag -> JAX
+    tsaved = torch_ckpt.TorchCheckpointEngine().load(os.path.join(tdir, "t", "state"))
+    tside = torch_ckpt.TorchCheckpointEngine().load(os.path.join(tdir, "t",
+                                                                 "client_state.pkl"))
+    template = jax.device_get(jengine.state._asdict())
+    jtree = _jax_tree(tsaved, template)
+    jengine.state = JaxTrainState(**jax.device_put(jtree, jengine._state_shardings._asdict()))
+    jengine._host_steps = tside["global_step"]
+    jengine.save_checkpoint(str(tmp_path / "from-port"), tag="t")
+    jengine.train_batch({"input_ids": batches[3]})          # a step the load must undo
+    jengine.load_checkpoint(str(tmp_path / "from-port"))
+    loaded = _flat(_port_tree(jax.tree_util.tree_map(np.asarray,
+                                                     jax.device_get(jengine.state._asdict())),
+                              tcfg))
+    for key, value in _flat(tsaved).items():
+        assert torch.equal(loaded[key], value), key
+    assert abs(float(jengine.train_batch({"input_ids": batches[2]})) - want_t) <= LOSS_TOL
+    counters_j = state_tree(jax.device_get(jengine.state.opt_state))
+    for key in ("step", "last_var_update", "var_interval"):
+        if key in counters_j:
+            assert int(counters_j[key]) == int(state_tree(tengine.state.opt_state)[key]), key

@@ -144,13 +144,20 @@ def test_init_follows_the_jax_scheme():
     assert all(torch.equal(params[k], again[k]) for k in params)
 
 
-@pytest.mark.parametrize("kw,item", [({"dropout": 0.1}, "item 5"),
-                                     ({"dropout": 0.1, "remat": True}, "item 5"),
-                                     ({"attention_impl": "ring"}, "item 13"),
+@pytest.mark.parametrize("kw,item", [({"attention_impl": "ring"}, "item 13"),
                                      ({"attention_impl": "ulysses"}, "item 13")])
 def test_unported_model_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         torch_gpt2.GPT2Config(**TINY, **kw)
+
+
+@pytest.mark.parametrize("kw", [{"dropout": 0.1}, {"dropout": 0.1, "remat": True}])
+def test_dropout_options_are_taken(kw):
+    """Dropout, with and without remat, was refused until it was ported; a
+    rate outside [0, 1) is a ValueError."""
+    assert torch_gpt2.GPT2Config(**TINY, **kw).dropout == 0.1
+    with pytest.raises(ValueError, match="dropout"):
+        torch_gpt2.GPT2Config(**TINY, **dict(kw, dropout=1.0))
 
 
 def test_unknown_remat_policy_raises():

@@ -101,9 +101,9 @@ def test_unknown_config_keys_raise():
 
 
 def test_refused_models_and_beams():
-    # MoE serving is ported; MoE training (the layer and experts modules) is not
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        from deepspeed_tpu_torch.moe import MoE  # noqa: F401
+    # MoE serving and training are ported; the expert-parallel token mappings are not
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        from deepspeed_tpu_torch.moe import gather_tokens  # noqa: F401
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         dst.init_inference(torch.nn.Linear(2, 2), device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):

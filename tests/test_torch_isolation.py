@@ -22,7 +22,7 @@ def _port_files():
              os.path.join(REPO, "tests", "test_torch_kernels_cuda.py")]
     files += [os.path.join(REPO, "benchmarks", "torch", n)
               for n in ("dq_ties.py", "offload_6p7b.py", "offload_parity.py",
-                        "qmm_versions.py", "train_versions.py")]
+                        "qmm_versions.py", "train_features.py", "train_versions.py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "deepspeed_tpu_torch")):
         dirs.sort()                     # one order for every xdist worker
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
@@ -49,7 +49,10 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, deepspeed_tpu_torch, deepspeed_tpu_torch.ops.kernel_checks, "
             "deepspeed_tpu_torch.inference.speculative, deepspeed_tpu_torch.checkpoint, "
             "deepspeed_tpu_torch.module_inject, deepspeed_tpu_torch.utils.zero_to_fp32, "
-            "deepspeed_tpu_torch.runtime.zero.offload, deepspeed_tpu_torch.ops.aio.aio_handle; "
+            "deepspeed_tpu_torch.runtime.zero.offload, deepspeed_tpu_torch.ops.aio.aio_handle, "
+            "deepspeed_tpu_torch.runtime.fp16.onebit, deepspeed_tpu_torch.ops.lamb, "
+            "deepspeed_tpu_torch.runtime.dataloader, deepspeed_tpu_torch.runtime.rng, "
+            "deepspeed_tpu_torch.moe.layer, deepspeed_tpu_torch.models.gpt2_moe; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -122,8 +122,11 @@ def test_capacity_matches_jax():
 
 
 def test_training_names_are_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        from deepspeed_tpu_torch.moe import MoE  # noqa: F401
+    """The training names are ported; the expert/tensor-parallel mappings
+    (identity on one card) still raise."""
+    from deepspeed_tpu_torch.moe import MoE  # noqa: F401
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        from deepspeed_tpu_torch.moe import gather_tokens  # noqa: F401
     with pytest.raises(AttributeError):
         torch_moe.no_such_name
 

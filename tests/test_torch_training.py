@@ -307,10 +307,8 @@ BASE = {"train_batch_size": 4}
     ({"curriculum_learning": {"enabled": True}}, "item 13"),
     ({"progressive_layer_drop": {"enabled": True}}, "item 13"),
     ({"activation_checkpointing": {"partition_activations": True}}, "item 11"),
-    ({"optimizer": {"type": "Lamb", "params": {}}}, "item 5"),
-    ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "item 5"),
     ({"fp16_master_weights_and_gradients": True}, "item 12"),
-    ({"fp16": {"enabled": True, "auto_cast": True}}, "item 5"),
+    ({"fp16": {"enabled": True, "auto_cast": True}}, "not read by the JAX engine"),
 ])
 def test_unported_config_raises_naming_its_item(extra, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -346,8 +344,6 @@ def test_config_resolves_batch_and_off_blocks_pass():
 
 def test_initialize_rejects_unported_arguments(tmp_path):
     model = torch_gpt2.gpt2_model(torch_gpt2.GPT2Config(**TINY))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        dst.initialize(model=model, config=BASE, training_data=[1, 2], device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         dst.initialize(model=model, config=BASE, mpu=object(), device="cpu")
 
