@@ -4,10 +4,11 @@
     python3 benchmarks/torch/train_features.py [phase ...]
 
 Builds the kernels, then calls the phase functions of ``chip_smoke.py``
-(default all four: ``lm_train_path``, ``moe_train_path``, ``dropout_path``,
-``optim_path``) with their gates; prints each phase's seconds and one JSON
-line of their results with the card's name and power limit. Exits non-zero
-if a phase fails a gate. About 2 minutes on an H100.
+(default all five: ``lm_train_path``, ``moe_train_path``, ``dropout_path``,
+``optim_path``, ``param_offload_path``) with their gates; prints each
+phase's seconds and one JSON line of their results with the card's name and
+power limit. Exits non-zero if a phase fails a gate. About 2 minutes on an
+H100 for the first four.
 """
 
 import gc
@@ -17,7 +18,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-PHASES = ("lm_train_path", "moe_train_path", "dropout_path", "optim_path")
+PHASES = ("lm_train_path", "moe_train_path", "dropout_path", "optim_path",
+          "param_offload_path")
 
 
 def main() -> int:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, offload, checkpoint and training-feature
-paths on one NVIDIA card.
+"""Drive the PyTorch port's serving, training, offload (optimizer and parameter),
+checkpoint and training-feature paths on one NVIDIA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and
@@ -244,6 +244,35 @@ non-zero:
    |cpu| of the same update on CPU copies, and an fp16 overflow step that
    keeps every parameter and state tensor bit for bit.
 
+15. ZeRO-3 parameter offload (``[param-offload]``, right after ``[offload]``):
+   (A) GPT-2 1.3B's widths as ``bench.py:237-241`` sets them up (vocab
+   50304, seq 1024, width 2048, 24 layers, 16 heads) through
+   ``causal_lm_model(cfg, layers_per_group=1)``, bf16 AdamW lr 1e-4, weight
+   decay 0.01, clip 1.0, micro-batch 4 on ``bench.py``'s batch: the resident
+   engine (stage 3), then the streamed engine (``offload_param: cpu``, no
+   byte on the card before its first step) from the resident engine's
+   initial weights, 1 + 3 steps each. K1 144, K3 72, K4 72 in the 3 timed
+   streamed steps (the forward stream and the recompute each run K1); every
+   loss within 2e-2 of the resident one; the per-tensor update parity
+   against the resident engine after 2 and 4 steps, with a planted fault
+   (the embed segment pushed from the previous step's masters) outside the
+   gate; every push of one step read back equal to its masters cast (the
+   planted fault's not); the streamed peak at most 0.25 of the resident
+   one; the window's
+   ``peak_live_bytes`` equal to the largest adjacent pair of segments, from
+   the shapes. Step ms, tokens/s, MFU, host bytes, bytes each way a step,
+   the host split (push, accumulate, update) and one traced step's busy
+   share printed. The trained masters served through ``init_inference``
+   (K1 24, K2 24 x 15 in a 16-token ``generate``), prefill logits within
+   LOGITS_TOL of ``apply_fn`` on the same masters in bf16. (A2) the same
+   widths at 48 layers, streamed, 1 + 1 steps: launches exact, the same
+   ``peak_live_bytes``, the peak at most lane A's plus the 24 extra boundary
+   carries plus 0.25 GiB. (B) GPT-2 125M's widths through
+   ``causal_lm_model``, micro-batch 8, gradient accumulation 2: ``nvme``
+   equal to ``cpu`` bit for bit over 3 steps; a save after step 2 resumed
+   in a fresh engine, step 3 bit for bit, cpu and nvme; an fp16 overflow
+   skipped with every master kept; Adagrad's loss falling.
+
 The last lines are a JSON line of the main paths' metrics, a JSON line on the
 kernels, the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
@@ -297,6 +326,25 @@ OFFLOAD_B_MICRO = 8
 # planted fault (host moments never written) median 0.66 and max 0.82; 0.25
 # lies near the geometric mean of the two maxima
 OFFLOAD_PARITY, OFFLOAD_PARITY_MAX = 5e-2, 0.25
+# [param-offload]: warm-up and timed steps of lane A's engines; the streamed
+# losses' distance from the resident ones; the streamed peak over the resident
+# one; lane A2's depth and its peak's slack over lane A's plus the extra
+# boundary carries; the served lane's new tokens; lane B's micro-batch
+PARAM_OFFLOAD_WARMUP, PARAM_OFFLOAD_STEPS = 1, 3
+PARAM_OFFLOAD_LOSS_TOL, PARAM_OFFLOAD_PEAK_RATIO = 2e-2, 0.25
+PARAM_OFFLOAD_A2_LAYERS, PARAM_OFFLOAD_A2_SLACK = 48, 0.25 * 2**30
+PARAM_OFFLOAD_SERVE_NEW, PARAM_OFFLOAD_B_MICRO = 16, 8
+# per tensor |dp_streamed - dp_resident| / |dp_resident| (update_parity, the key
+# biases left out): the median over the tensors and the worst tensor; every
+# sound run within both, the planted fault (the embed segment pushed from the
+# previous step's masters) outside them. The first step's gradients are the
+# resident engine's bit for bit but wte's (its two contributions summed in bf16
+# by autograd there, in f32 on the host here); bf16 rounding spreads that. On
+# the H100 the sound runs read median 5.26e-3 (2 steps) and 5.58e-3 (4 steps),
+# worst 4.60e-2 and 6.88e-2 (q/k projections); the fault 1.169e-2, worst
+# 8.46e-2: 8e-3 lies near the geometric mean of 5.58e-3 and 1.169e-2, and the
+# worst tensor's limit only catches a blow-up
+PARAM_OFFLOAD_PARITY, PARAM_OFFLOAD_PARITY_MAX = 8e-3, 0.25
 # the C++ Adam step against its plain version: it may contract a multiply and
 # an add into one rounding, a few f32 ulps
 HOST_RTOL, HOST_ATOL = 1e-6, 1e-7
@@ -2048,6 +2096,543 @@ def offload_path(device, smi: str) -> dict:
     return out
 
 
+def param_offload_cfg(n_layer: int = 24):
+    """GPT-2 1.3B's widths as ``bench.py:237-241`` sets them up ("North-star
+    config 3"): vocab 50304, seq 1024, width 2048, 16 heads, bf16, as a
+    ``causal_lm_model`` (``n_layer`` layers)."""
+    from deepspeed_tpu_torch.models import gpt2_cfg
+    return gpt2_cfg(vocab_size=50304, max_seq_len=TRAIN_SEQ, n_embd=2048, n_layer=n_layer,
+                    n_head=16)
+
+
+def streamed_window_bytes(co) -> int:
+    """The compute-dtype bytes of the largest pair of adjacent segments, from
+    the coordinator's shapes: what its window holds at most."""
+    import torch
+    size = torch.tensor([], dtype=co.compute_dtype).element_size()
+    seg = [size * sum(torch.Size(s).numel() for k in g.param_keys for s in co.key_shapes[k])
+           for g in co.segments]
+    return max(a + b for a, b in zip(seg, seg[1:]))
+
+
+def param_offload_parity(label: str, start: dict, want: dict, got: dict, n_embd: int,
+                         device) -> dict:
+    """``update_parity`` of ``got`` against the resident engine's ``want`` over
+    every tensor but the key projections' biases (their exact gradient is 0:
+    each run's update there is rounding noise, ``[lm-train]`` reports them
+    apart). Returns the median, the worst tensor and its reading."""
+    import numpy as np
+    names = [k for k in start if not k.endswith("k_proj.bias")]
+    rel = update_parity({k: start[k] for k in names}, want, got, n_embd, device)
+    worst = max(rel, key=rel.get)
+    out = {"parity_median": float(np.median(list(rel.values()))), "parity_max": rel[worst],
+           "parity_worst": worst}
+    print(f"[param-offload] {label}: per tensor |dp - dp_resident| / |dp_resident| over "
+          f"{len(rel):,} tensors: median {out['parity_median']:.3e}, max "
+          f"{out['parity_max']:.3e} ({worst})", flush=True)
+    return out
+
+
+def witnessed_step(engine, batch) -> dict:
+    """One ``train_batch`` of a streamed engine with every push checked: once
+    a pushed key's copy has landed, each of its tensors is read back and
+    compared on the host with its master cast as a push casts it
+    (``cast_master_to``). Returns the loss, the keys checked and the names of
+    the tensors that differ (a stale, torn or misplaced push)."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime.zero.offload import cast_master_to
+    co = engine._param_offload
+    real, differ, keys = co.cache._push, set(), [0]
+
+    def push(si):
+        pushed = real(si)
+        if pushed.event is not None:
+            pushed.event.synchronize()
+        for key, params in zip(co.segments[si].param_keys, pushed.params):
+            for i, (name, t) in zip(co._leaf_index[key], params.items()):
+                want = cast_master_to(co.masters[i], t.shape, co.compute_dtype)
+                if not torch.equal(t.detach().cpu(), want):
+                    differ.add(name)
+            keys[0] += 1
+        return pushed
+
+    co.cache._push = push
+    try:
+        loss = float(engine.train_batch(batch))
+    finally:
+        co.cache._push = real
+    return {"loss": loss, "keys_checked": keys[0], "differ": sorted(differ)}
+
+
+def param_offload_lane_a(device, smi: str) -> dict:
+    """``[param-offload]`` lane A: GPT-2 1.3B's widths at full depth
+    (``param_offload_cfg``, one layer a segment), bf16 AdamW lr 1e-4 weight
+    decay 0.01, clip 1.0, micro-batch 4 x seq 1024 on ``bench.py``'s batch;
+    the resident engine (stage 3, 1 + 3 steps), then the streamed engine
+    (``offload_param: cpu``) from the resident engine's initial weights
+    (``load_full_params``), 1 + 3 steps. Gates: K1 144, K3 72, K4 72 in the
+    3 timed streamed steps; every streamed loss within PARAM_OFFLOAD_LOSS_TOL
+    of the resident one; the update parity after 2 and 4 steps within
+    PARAM_OFFLOAD_PARITY (median) and PARAM_OFFLOAD_PARITY_MAX (worst), a
+    planted fault (the embed segment pushed from the previous step's
+    masters) outside them after 2 steps; every push of one step read back
+    equal to its cast masters (``witnessed_step``), the planted fault's
+    not; the streamed peak at most
+    PARAM_OFFLOAD_PEAK_RATIO of the resident one; ``peak_live_bytes`` equal
+    to ``streamed_window_bytes``. Printed: step ms, tokens/s, MFU, host
+    bytes, bytes each way a step, the host split, one traced step's busy
+    share. Then the trained masters served (``init_inference``): K1 24 and
+    K2 24 x 15 in a 16-token ``generate``, prefill logits within LOGITS_TOL
+    of ``apply_fn`` on the same masters in bf16."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import causal_lm_model
+    from deepspeed_tpu_torch.ops import op_builder
+
+    cfg = param_offload_cfg()
+    n, n_params = cfg.n_layer, cfg.num_params()
+    ids = np.random.default_rng(0).integers(0, 50304, size=(OFFLOAD_MICRO, TRAIN_SEQ),
+                                            dtype=np.int32)
+    batch = {"input_ids": ids}
+    config = train_config(OFFLOAD_MICRO, lr=OFFLOAD_LR, zero={"stage": 3})
+    streamed_config = train_config(OFFLOAD_MICRO, lr=OFFLOAD_LR, zero={
+        "stage": 3, "offload_param": {"device": "cpu"}})
+    steps = PARAM_OFFLOAD_WARMUP + PARAM_OFFLOAD_STEPS
+
+    def host(params):
+        return {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in params.items()}
+
+    def run(engine, label, masters_at=(), last=steps, timed=True):
+        """Steps 1 .. ``last`` (the first PARAM_OFFLOAD_WARMUP untimed), each
+        loss read on the host; host copies of the masters after the steps in
+        ``masters_at`` (outside the timing); the launch counts and the peak
+        over the timed steps; with ``timed`` the step time and, for a
+        streamed engine, one more step traced."""
+        co = engine._param_offload
+        losses, masters, copy_s = [], {}, 0.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for step in range(1, last + 1):
+            if step == PARAM_OFFLOAD_WARMUP + 1:
+                op_builder.reset_launch_counts()
+                t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            if step in masters_at:
+                t1 = time.perf_counter()
+                masters[step] = (co.full_params_host() if co is not None
+                                 else host(engine.state.params))
+                copy_s += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0 - copy_s
+        res = {"losses": losses, "masters": masters, "launches": op_builder.launch_counts(),
+               "peak": torch.cuda.max_memory_allocated()}
+        if co is not None:
+            res.update(host_step_s=dict(co.last_step_s), step_bytes=dict(co.last_step_bytes))
+        if not timed:
+            return res
+        n_timed = last - PARAM_OFFLOAD_WARMUP
+        tps = OFFLOAD_MICRO * TRAIN_SEQ * n_timed / dt
+        res.update(step_ms=1e3 * dt / n_timed, tokens_per_s=tps,
+                   mfu=6 * n_params * tps / PEAK_BF16_FLOPS)
+        print(f"[param-offload] {smi}: {label}: losses {', '.join(f'{x:.6f}' for x in losses)}; "
+              f"step {res['step_ms']:.2f} ms, {tps:.1f} tokens/s, MFU {res['mfu']:.4f}, peak "
+              f"{res['peak'] / 2**30:.3f} GiB; launches {nonzero(res['launches'])}", flush=True)
+
+        if co is not None:
+            def traced_step():
+                engine.train_batch(batch)
+                torch.cuda.synchronize()
+            res["trace"] = profile_call(f"param-offload {label} train_batch", traced_step,
+                                        top=20)
+        return res
+
+    t0 = time.perf_counter()
+    engine = dst.initialize(model=causal_lm_model(cfg), config=config, device=device)[0]
+    start = host(engine.state.params)
+    print(f"[param-offload] resident engine: {n_params:,} parameters, initialize "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    resident = run(engine, "resident (stage 3)", masters_at=(2, steps))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def streamed_engine(layers: int = n):
+        c = cfg if layers == n else param_offload_cfg(layers)
+        t0 = time.perf_counter()
+        e = dst.initialize(model=causal_lm_model(c, layers_per_group=1), config=streamed_config,
+                           device=device)[0]
+        print(f"[param-offload] streamed engine ({layers} layers): initialize "
+              f"{time.perf_counter() - t0:.2f} s, {e._param_offload.host_bytes() / 2**30:.3f} "
+              f"GiB of host memory", flush=True)
+        return e
+
+    before = torch.cuda.memory_allocated()
+    engine = streamed_engine()
+    co = engine._param_offload
+    held = torch.cuda.memory_allocated() - before
+    if held != 0 or engine.state is not None or engine.optimizer is not None:
+        raise AssertionError(f"[param-offload] the streamed engine holds {held} bytes on the "
+                             "card before its first step")
+    co.load_full_params(start)
+    streamed = run(engine, "streamed (offload_param cpu)", masters_at=(2, steps))
+    witness = {"sound": witnessed_step(engine, batch)}
+    # the readings now, so each run's host copies go before the next engine
+    readings = {f"streamed after {k} steps": param_offload_parity(
+        f"streamed after {k} steps", start,
+        resident["masters"][k] if k == 2 else resident["masters"].pop(k),
+        streamed["masters"].pop(k), cfg.n_embd, device) for k in (2, steps)}
+    want = expect(flash_fwd=2 * n * PARAM_OFFLOAD_STEPS, flash_bwd_dq=n * PARAM_OFFLOAD_STEPS,
+                  flash_bwd_dkv=n * PARAM_OFFLOAD_STEPS)
+    if streamed["launches"] != want:
+        raise AssertionError(f"[param-offload] launch counts {nonzero(streamed['launches'])} != "
+                             f"{nonzero(want)}")
+    loss_err = max(abs(a - b) for a, b in zip(streamed["losses"], resident["losses"]))
+    print(f"[param-offload] streamed vs resident losses, max |diff| {loss_err:.3e} (tol "
+          f"{PARAM_OFFLOAD_LOSS_TOL})", flush=True)
+    if not loss_err <= PARAM_OFFLOAD_LOSS_TOL:
+        raise AssertionError(f"[param-offload] losses {streamed['losses']} vs "
+                             f"{resident['losses']}")
+    out = {"n_layer": n, "n_params": n_params, "loss_err": loss_err,
+           "host_bytes": co.host_bytes(), "host_step_s": streamed["host_step_s"],
+           "step_bytes": streamed["step_bytes"], "peak_live_bytes": co.cache.peak_live_bytes,
+           "window_bytes": streamed_window_bytes(co),
+           "launches": streamed["launches"],
+           **{f"resident_{k}": resident[k] for k in ("step_ms", "tokens_per_s", "mfu", "peak")},
+           **{k: streamed[k] for k in ("step_ms", "tokens_per_s", "mfu", "peak")}}
+    trace = streamed["trace"]
+    if trace is not None:
+        by = trace["by_kernel"]
+        out.update(traced_wall_ms=trace["wall_us"] / 1e3, traced_device_ms=trace["device_us"] / 1e3,
+                   traced_busy_share=trace["device_us"] / trace["wall_us"],
+                   traced_h2d_ms=sum(us for k, us in by.items() if "HtoD" in k) / 1e3,
+                   traced_d2h_ms=sum(us for k, us in by.items() if "DtoH" in k) / 1e3)
+    hs, sb = out["host_step_s"], out["step_bytes"]
+    print(f"[param-offload] {smi}: streamed step {out['step_ms']:.2f} ms against resident "
+          f"{out['resident_step_ms']:.2f} ms; host: push {1e3 * hs['push_s']:.1f} ms, "
+          f"accumulate {1e3 * hs['accumulate_s']:.1f} ms, update {1e3 * hs['update_s']:.1f} ms "
+          f"(last untraced step); {sb['pushed'] / 1e9:.3f} GB pushed to the card, "
+          f"{sb['pulled'] / 1e9:.3f} GB copied back a step; host memory "
+          f"{out['host_bytes'] / 2**30:.3f} GiB"
+          + (f"; traced step: wall {out['traced_wall_ms']:.2f} ms, device "
+             f"{out['traced_device_ms']:.2f} ms (H2D {out['traced_h2d_ms']:.2f}, D2H "
+             f"{out['traced_d2h_ms']:.2f}), busy share {out['traced_busy_share']:.3f}"
+             if trace is not None else ""), flush=True)
+    if out["peak_live_bytes"] != out["window_bytes"]:
+        raise AssertionError(f"[param-offload] peak_live_bytes {out['peak_live_bytes']} != the "
+                             f"largest adjacent pair {out['window_bytes']}")
+    ratio = streamed["peak"] / resident["peak"]
+    out["peak_ratio"] = ratio
+    print(f"[param-offload] {smi}: peak device memory streamed {streamed['peak'] / 2**30:.3f} GiB, "
+          f"resident {resident['peak'] / 2**30:.3f} GiB: {ratio:.4f} (gate <= "
+          f"{PARAM_OFFLOAD_PEAK_RATIO}); window {out['peak_live_bytes'] / 2**20:.1f} MiB "
+          f"(= the largest adjacent pair of segments)", flush=True)
+    if not ratio <= PARAM_OFFLOAD_PEAK_RATIO:
+        raise AssertionError(f"[param-offload] streamed peak {ratio:.4f} x the resident one")
+
+    # ---- serving the trained masters
+    masters = co.full_params_host()
+    del engine, co
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompt = np.random.default_rng(SEED).integers(0, 50304, (1, PROMPT))
+    served_engine = dst.init_inference((cfg, masters), {"dtype": "bfloat16",
+                                                        "max_out_tokens": 1024}, device=device)
+    op_builder.reset_launch_counts()
+    tokens = served_engine.generate(prompt, max_new_tokens=PARAM_OFFLOAD_SERVE_NEW)
+    serve_launches = op_builder.launch_counts()
+    served = served_engine.forward(prompt)
+    del served_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        trained = causal_lm_model(cfg).apply_fn(
+            {k: v.to(device, torch.bfloat16) for k, v in masters.items()},
+            {"input_ids": torch.as_tensor(prompt, device=device)})
+    serve_err = float((served.float() - trained.float()).abs().max())
+    want = expect(flash_fwd=n, decode_attention=n * (PARAM_OFFLOAD_SERVE_NEW - 1))
+    print(f"[param-offload] served the trained masters (init_inference bf16): 1 x {PROMPT} "
+          f"prompt, {PARAM_OFFLOAD_SERVE_NEW} new, launches {nonzero(serve_launches)}; prefill "
+          f"logits vs apply_fn on the masters in bf16 max |diff| {serve_err:.4e} (tol "
+          f"{LOGITS_TOL})", flush=True)
+    if serve_launches != want or not serve_err <= LOGITS_TOL \
+            or tokens.shape != (1, PROMPT + PARAM_OFFLOAD_SERVE_NEW):
+        raise AssertionError(f"[param-offload] serving: launches {nonzero(serve_launches)}, err "
+                             f"{serve_err}, shape {tokens.shape}")
+    out.update(serve_err=serve_err, serve_launches=serve_launches)
+    del served, trained, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the planted fault: the embed segment pushed from the previous step's masters
+    engine = streamed_engine()
+    co = engine._param_offload
+    co.load_full_params(start)
+    seg0 = [i for k in co.segments[0].param_keys for i in co._leaf_index[k]]
+    stale, real_push, real_update = {}, co._push_segment, co._host_update
+
+    def stale_push(si):
+        """Segment 0 cast from the masters as they were before the last update."""
+        if si != 0 or not stale:
+            return real_push(si)
+        fresh = {i: co.masters[i] for i in seg0}
+        for i in seg0:
+            co.masters[i] = stale[i]
+        try:
+            return real_push(si)
+        finally:
+            for i, t in fresh.items():
+                co.masters[i] = t
+
+    def keep_stale(*args):
+        stale.update({i: co.masters[i].clone() for i in seg0})
+        return real_update(*args)
+
+    co.cache._push, co._host_update = stale_push, keep_stale
+    run(engine, "planted fault", last=1, timed=False)
+    witness["planted fault"] = witnessed_step(engine, batch)
+    fault_masters = co.full_params_host()
+    del engine, co
+    gc.collect()
+    torch.cuda.empty_cache()
+    readings["planted fault after 2 steps"] = param_offload_parity(
+        "planted fault after 2 steps", start, resident["masters"][2], fault_masters,
+        cfg.n_embd, device)
+    del fault_masters
+    print(f"[param-offload] every push of one step read back against its cast masters: "
+          f"sound run (step {steps + 2}) {witness['sound']['keys_checked']} keys, differing "
+          f"{witness['sound']['differ']}; planted fault (step 2) "
+          f"{witness['planted fault']['keys_checked']} keys, differing "
+          f"{witness['planted fault']['differ']}", flush=True)
+    if witness["sound"]["differ"] or not witness["sound"]["keys_checked"] \
+            or not witness["planted fault"]["differ"]:
+        raise AssertionError(f"[param-offload] push witness {witness}")
+    out["push_witness"] = witness
+    passes = {k: r["parity_median"] <= PARAM_OFFLOAD_PARITY
+              and r["parity_max"] <= PARAM_OFFLOAD_PARITY_MAX for k, r in readings.items()}
+    ok = all(v for k, v in passes.items() if not k.startswith("planted")) \
+        and not passes["planted fault after 2 steps"]
+    print(f"[param-offload] update parity gate (median <= {PARAM_OFFLOAD_PARITY}, worst <= "
+          f"{PARAM_OFFLOAD_PARITY_MAX}): {passes}; the sound runs pass and the planted fault "
+          f"fails: {ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"[param-offload] update parity {readings}")
+    out["parity"] = readings
+    del resident, streamed, start
+    gc.collect()
+    return out
+
+
+def param_offload_lane_a2(device, smi: str, lane_a: dict) -> dict:
+    """``[param-offload]`` lane A2: lane A's widths at PARAM_OFFLOAD_A2_LAYERS
+    layers, streamed only, 1 + 1 steps: K1, K3, K4 exact in the timed step;
+    ``peak_live_bytes`` equal to lane A's; the peak at most lane A's plus the
+    boundary carries of the extra layers (micro-batch x seq x width x 2 B
+    each) plus PARAM_OFFLOAD_A2_SLACK: the card's memory does not grow with
+    depth."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import causal_lm_model
+    from deepspeed_tpu_torch.ops import op_builder
+
+    cfg = param_offload_cfg(PARAM_OFFLOAD_A2_LAYERS)
+    n = cfg.n_layer
+    ids = np.random.default_rng(0).integers(0, 50304, size=(OFFLOAD_MICRO, TRAIN_SEQ),
+                                            dtype=np.int32)
+    t0 = time.perf_counter()
+    engine = dst.initialize(model=causal_lm_model(cfg, layers_per_group=1), device=device,
+                            config=train_config(OFFLOAD_MICRO, lr=OFFLOAD_LR, zero={
+                                "stage": 3, "offload_param": {"device": "cpu"}}))[0]
+    init_s = time.perf_counter() - t0
+    co = engine._param_offload
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(engine.train_batch({"input_ids": ids}))]
+    torch.cuda.synchronize()
+    op_builder.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses.append(float(engine.train_batch({"input_ids": ids})))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = op_builder.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    carries = (n - lane_a["n_layer"]) * OFFLOAD_MICRO * TRAIN_SEQ * cfg.n_embd * 2
+    limit = lane_a["peak"] + carries + PARAM_OFFLOAD_A2_SLACK
+    out = {"n_layer": n, "n_params": cfg.num_params(), "initialize_s": init_s,
+           "step_ms": 1e3 * step_s, "peak": peak, "peak_limit": limit,
+           "peak_live_bytes": co.cache.peak_live_bytes, "host_bytes": co.host_bytes(),
+           "losses": losses, "launches": launches}
+    print(f"[param-offload] {smi}: {n} layers ({cfg.num_params():,} parameters) streamed: "
+          f"initialize {init_s:.2f} s, losses {losses}, step {1e3 * step_s:.2f} ms, peak "
+          f"{peak / 2**30:.3f} GiB (lane A {lane_a['peak'] / 2**30:.3f} GiB + "
+          f"{n - lane_a['n_layer']} carries "
+          f"{carries / 2**30:.3f} GiB + slack {PARAM_OFFLOAD_A2_SLACK / 2**30:.2f} GiB = limit "
+          f"{limit / 2**30:.3f} GiB), window {co.cache.peak_live_bytes:,} B (lane A "
+          f"{lane_a['peak_live_bytes']:,} B), host memory {out['host_bytes'] / 2**30:.3f} GiB; "
+          f"launches {nonzero(launches)}", flush=True)
+    want = expect(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n)
+    if launches != want or not peak <= limit \
+            or co.cache.peak_live_bytes != lane_a["peak_live_bytes"] \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f"[param-offload] lane A2: {out}")
+    del engine, co
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def param_offload_lane_b(device, smi: str) -> dict:
+    """``[param-offload]`` lane B, GPT-2 125M's widths through
+    ``causal_lm_model`` (vocab 50304, width 768, 12 layers, micro-batch 8,
+    seq 1024, bf16 AdamW), in a temporary directory it removes: (a)
+    ``offload_param: nvme`` equal to ``cpu`` bit for bit over 3 steps with
+    gradient accumulation 2 (losses, masters, moments); (b) a save after step
+    2 resumed in a fresh engine: step 3 equal to the uninterrupted one bit for
+    bit, cpu and nvme; (c) fp16 with ``initial_scale_power`` 40: the step
+    skipped, every master unchanged; (d) Adagrad under ``cpu``: the loss
+    falls over 3 steps on one batch. Every micro-batch launches K1 24, K3 and
+    K4 12."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import causal_lm_model, gpt2_cfg
+    from deepspeed_tpu_torch.ops import op_builder
+
+    cfg = gpt2_cfg(vocab_size=50304, max_seq_len=TRAIN_SEQ, n_embd=768, n_layer=12, n_head=12)
+    gas = 2
+    root = tempfile.mkdtemp(prefix="ds-param-offload-")
+    fs = subprocess.run(["stat", "-f", "-c", "%T", root], capture_output=True, text=True,
+                        timeout=60).stdout.strip()
+    out, launches = {"filesystem": fs}, {}
+
+    def engine(offload, optimizer="AdamW", precision=None, micro_steps=gas):
+        zero = {"stage": 3, "offload_param": offload}
+        config = train_config(PARAM_OFFLOAD_B_MICRO, zero=zero, optimizer=optimizer,
+                              precision=precision)
+        config.update(train_batch_size=PARAM_OFFLOAD_B_MICRO * micro_steps,
+                      gradient_accumulation_steps=micro_steps)
+        return dst.initialize(model=causal_lm_model(cfg, layers_per_group=2), config=config,
+                              device=device)[0]
+
+    def batch(step, rows=PARAM_OFFLOAD_B_MICRO * gas):
+        rng = np.random.default_rng(3000 + step)
+        return {"input_ids": rng.integers(0, 50304, (rows, TRAIN_SEQ))}
+
+    def steps(e, first, last, label, micro=gas, same=False):
+        op_builder.reset_launch_counts()
+        losses = [float(e.train_batch(batch(first if same else s, PARAM_OFFLOAD_B_MICRO * micro)))
+                  for s in range(first, last + 1)]
+        torch.cuda.synchronize()
+        got, k = op_builder.launch_counts(), 12 * micro * (last - first + 1)
+        if got != expect(flash_fwd=2 * k, flash_bwd_dq=k, flash_bwd_dkv=k):
+            raise AssertionError(f"[param-offload] {label}: launch counts {nonzero(got)}")
+        for name, v in got.items():
+            launches[name] = launches.get(name, 0) + v
+        return losses
+
+    def state(e):
+        sd = e._param_offload.state_dict()
+        return {f"{part}.{k}": v.clone() for part in ("masters", "m", "v") for k, v in
+                sd[part].items()}
+
+    def nvme(path):
+        return {"device": "nvme", "nvme_path": path}
+
+    try:
+        runs = {}
+        for kind, offload in (("cpu", {"device": "cpu"}), ("nvme", nvme(os.path.join(root, "a")))):
+            e = engine(offload)
+            losses = steps(e, 1, 2, f"{kind} steps 1-2")
+            t0 = time.perf_counter()
+            e.save_checkpoint(os.path.join(root, kind))
+            save_s = time.perf_counter() - t0
+            losses += steps(e, 3, 3, f"{kind} step 3")
+            runs[kind] = {"losses": losses, "state": state(e), "save_s": save_s,
+                          "host_bytes": e._param_offload.host_bytes()}
+            if kind == "nvme":
+                handle = e._param_offload.param_tier.handle
+                out["o_direct_held"] = handle.o_direct and not handle.direct_refused
+            del e
+            gc.collect()
+        first, worst = first_difference(runs["cpu"]["state"], runs["nvme"]["state"])
+        same = runs["cpu"]["losses"] == runs["nvme"]["losses"] and first is None
+        print(f"[param-offload] nvme vs cpu over 3 steps, gradient accumulation {gas} ({fs} "
+              f"under {root}, O_DIRECT held: {out['o_direct_held']}): losses "
+              f"{runs['nvme']['losses']} vs {runs['cpu']['losses']}; "
+              f"{len(runs['cpu']['state'])} masters and moments equal bit for bit: {same} "
+              f"(first differing {first}, max |diff| {worst:.3e}); host memory cpu "
+              f"{runs['cpu']['host_bytes'] / 2**30:.3f} GiB, nvme "
+              f"{runs['nvme']['host_bytes'] / 2**30:.3f} GiB; save {runs['cpu']['save_s']:.2f} s "
+              f"cpu, {runs['nvme']['save_s']:.2f} s nvme", flush=True)
+        if not same:
+            raise AssertionError(f"[param-offload] nvme differs from cpu: {first}")
+        out.update(nvme_equal_cpu=True, host_bytes_cpu=runs["cpu"]["host_bytes"],
+                   host_bytes_nvme=runs["nvme"]["host_bytes"])
+        for kind, offload in (("cpu", {"device": "cpu"}), ("nvme", nvme(os.path.join(root, "b")))):
+            e = engine(offload)
+            e.load_checkpoint(os.path.join(root, kind))
+            loss = steps(e, 3, 3, f"{kind} resumed step 3")
+            first, _ = first_difference(runs[kind]["state"], state(e))
+            print(f"[param-offload] {kind}: resumed from global_step2, step 3 loss {loss[0]:.6f} "
+                  f"vs {runs[kind]['losses'][2]:.6f} uninterrupted; masters and moments equal "
+                  f"bit for bit: {first is None} (first differing {first})", flush=True)
+            if loss[0] != runs[kind]["losses"][2] or first is not None:
+                raise AssertionError(f"[param-offload] {kind} resume differs: {first}")
+            out[f"{kind}_resume_equal"] = True
+            del e
+            gc.collect()
+        e = engine({"device": "cpu"}, precision={"fp16": {"enabled": True,
+                                                          "initial_scale_power": 40}})
+        before = e._param_offload.full_params_host()
+        loss = steps(e, 1, 1, "fp16 overflow")
+        first, _ = first_difference(before, e._param_offload.full_params_host())
+        print(f"[param-offload] fp16, initial_scale_power 40: loss {loss[0]:.4f}, skipped steps "
+              f"{e.skipped_steps}, host steps {e._param_offload.step_count}, loss scale "
+              f"{e.loss_scale():.0f}; masters unchanged bit for bit: {first is None}", flush=True)
+        if e.skipped_steps != 1 or e._param_offload.step_count != 0 or first is not None:
+            raise AssertionError("[param-offload] the fp16 overflow step was not skipped cleanly")
+        out["fp16_skipped"] = True
+        del e, before
+        gc.collect()
+        e = engine({"device": "cpu"}, optimizer="Adagrad", micro_steps=1)
+        ada = steps(e, 1, 3, "Adagrad", micro=1, same=True)
+        print(f"[param-offload] Adagrad (offload_param cpu), one batch 3 times: losses {ada}",
+              flush=True)
+        if not all(np.isfinite(ada)) or not ada[-1] < ada[0]:
+            raise AssertionError(f"[param-offload] Adagrad losses not falling: {ada}")
+        out["adagrad_losses"] = ada
+        del e
+        gc.collect()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
+def param_offload_path(device, smi: str) -> dict:
+    """``[param-offload]``: ZeRO-3 parameter offload, lanes A, A2 and B."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"lane_a": param_offload_lane_a(device, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lane_a2"] = param_offload_lane_a2(device, smi, out["lane_a"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lane_b"] = param_offload_lane_b(device, smi)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[param-offload] phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def chunk_vs_full(engine, ids, device, full_cfg) -> dict:
     """The chunked-vocab loss's backward on the card: on the engine's
     weights, the loss and every gradient of one micro-batch of 4 (the first
@@ -3663,6 +4248,9 @@ def main() -> int:
     offload = offload_path(device, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    param_offload = param_offload_path(device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     sparse = sparse_path(device, smi, train["step_ms"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -3721,6 +4309,13 @@ def main() -> int:
             # remat dots) and every lane B step
             entry["offload_launches"] = offload["lane_a"]["offload"]["launches"][name]
             entry["offload_lane_b_launches"] = offload["lane_b"]["launches"][name]
+            # [param-offload]: lane A's 3 timed streamed steps (GPT-2 1.3B's
+            # widths, 24 layers: the forward stream and the recompute run K1)
+            entry["param_offload_launches"] = param_offload["lane_a"]["launches"][name]
+        # [param-offload]: the trained masters served (K1, K2)
+        if name in ("flash_fwd", "decode_attention"):
+            entry["param_offload_serve_launches"] = \
+                param_offload["lane_a"]["serve_launches"][name]
         # [ckpt]: every training step of its engines (K1, K3, K4) and its
         # served generates and forwards (K1, K2), in this process
         if name in ("flash_fwd", "decode_attention", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -3784,6 +4379,12 @@ def main() -> int:
                          "lane_b": {k: v for k, v in offload["lane_b"].items()
                                     if k != "launches"},
                          "seconds": offload["seconds"]},
+        "param_offload_path": {
+            "lane_a": {k: v for k, v in param_offload["lane_a"].items()
+                       if k not in ("launches", "serve_launches")},
+            **{lane: {k: v for k, v in param_offload[lane].items() if k != "launches"}
+               for lane in ("lane_a2", "lane_b")},
+            "seconds": param_offload["seconds"]},
         "sparse_train_path": {k: v for k, v in sparse.items()
                               if k not in ("launches", "trace", "losses")},
         "ckpt_path": {k: v for k, v in ckpt.items() if k != "launches"},

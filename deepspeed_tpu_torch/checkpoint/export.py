@@ -18,8 +18,10 @@ iteration is ``engine.global_steps``, not Adam's step: under fp16 a skipped
 step advances the former only, and a resumed run schedules its LR and data
 by the former. An offload engine's f32 masters and moments come from its
 host tier (its device parameters are compute-dtype copies), as in JAX's
-``export.py:95-115``. ``consolidate_partitioned_checkpoint`` and the pipeline
-export wait for ROADMAP.md queue 1 items 12b (with 11) and 13.
+``export.py:95-115``; a ZeRO-3 parameter-offload engine's from its
+coordinator (JAX ``export.py:62-80``; Adagrad's ``sq_sum`` is left out, as
+there). ``consolidate_partitioned_checkpoint`` and the pipeline export wait
+for ROADMAP.md queue 1 items 11 and 13.
 """
 
 import os
@@ -44,9 +46,16 @@ def _host_f32(named: Named) -> Named:
     return {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in named.items()}
 
 
+def _host_tier(engine):
+    """The host tier that holds the engine's masters: parameter offload's
+    coordinator or the optimizer tier, else None."""
+    return (getattr(engine, "_param_offload", None)
+            or getattr(engine, "_offload_tier", None))
+
+
 def _engine_masters(engine) -> Named:
     """The engine's f32 weights by name: the host tier's masters under offload."""
-    tier = getattr(engine, "_offload_tier", None)
+    tier = _host_tier(engine)
     if tier is None:
         return _host_f32(engine.state.params)
     return {n: m.clone() for n, m in tier.named_masters().items()}
@@ -55,12 +64,12 @@ def _engine_masters(engine) -> Named:
 def _gather_engine_state(engine) -> Tuple[Named, Optional[Named], Optional[Named], int]:
     """(f32 params, exp_avg, exp_avg_sq, iteration), by parameter name."""
     params = _engine_masters(engine)
-    tier = getattr(engine, "_offload_tier", None)
+    tier = _host_tier(engine)
     if tier is not None:
         ms = vs = None
         if tier.nvme is not None:
             ms, vs = tier.nvme.read_moments()
-        elif tier.kind == "adam":
+        elif tier.opt is not None:
             ms, vs = tier.opt.m, tier.opt.v
         if ms is not None:
             return (params, {n: m.view(params[n].shape).clone() for n, m in zip(params, ms)},

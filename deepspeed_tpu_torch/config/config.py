@@ -10,7 +10,8 @@ coefficient bounds) and scheduler blocks, bf16 and fp16 (with dynamic loss
 scaling), ``dataloader_drop_last``, ZeRO stages
 0-3 (on one card the data-parallel group is one, so every partition of
 optimizer state, gradients or parameters is the whole), ZeRO-Offload's
-``offload_optimizer`` (``cpu`` or ``nvme``) and the ``aio`` block, gradient
+``offload_optimizer`` (``cpu`` or ``nvme``), ZeRO-3 parameter offload's
+``offload_param`` (``cpu`` or ``nvme``) and the ``aio`` block, gradient
 clipping, gradient prescaling, ``steps_per_print``, the
 ``checkpoint`` block (of which the engine reads ``async_save``) and the
 ``activation_checkpointing`` block (which ``checkpointing.configure`` reads,
@@ -45,7 +46,6 @@ ADAM_TYPES = ("adam", "adamw", "fusedadam")
 LAMB_TYPES = ("lamb", "fusedlamb")
 ONEBIT_TYPES = ("onebitadam", "zerooneadam", "onebitlamb")
 OPTIMIZERS = ADAM_TYPES + ("adagrad",) + LAMB_TYPES + ONEBIT_TYPES
-_ITEM12B = "item 12b"
 
 
 class DeepSpeedConfigError(Exception):
@@ -122,21 +122,49 @@ class OffloadOptimizerConfig:
 
 
 @dataclasses.dataclass
+class OffloadParamConfig:
+    """``zero_optimization.offload_param`` (JAX
+    ``DeepSpeedZeroOffloadParamConfig``): ``device`` none | cpu | nvme (ZeRO-3
+    parameter offload, ``runtime/zero/param_offload.py``), and the directory of
+    the on-disk masters for nvme (the engine refuses nvme without it, as
+    JAX's does). The JAX engine never reads the other four keys."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = int(1e8)
+    max_in_cpu: int = int(1e9)
+    pin_memory: bool = False
+
+    def __post_init__(self):
+        if self.device not in ("none", "cpu", "nvme"):
+            raise DeepSpeedConfigError(f"offload_param.device must be none, cpu or nvme, "
+                                       f"got {self.device!r}")
+        _refuse_unread(self, "zero_optimization.offload_param", ("device", "nvme_path"))
+
+    @property
+    def enabled(self) -> bool:
+        return self.device != "none"
+
+
+@dataclasses.dataclass
 class ZeroConfig:
     """``zero_optimization`` (JAX ``runtime/zero/config.py``). Stages 0-3 are
     taken: on one card the partitions are whole, so a stage changes nothing
     (as on a one-device JAX mesh). ``offload_optimizer`` (or the deprecated
     ``cpu_offload: true``) moves the f32 masters and the optimizer state to
-    the host. ``offload_param`` and ``stage3_param_persistence_threshold``
-    (read by JAX's partition specs only) raise set (item 12b); so does every
+    the host. ``offload_param`` (or the deprecated ``cpu_offload_param:
+    true``) streams the parameters from the host or a disk (ZeRO-3 parameter
+    offload; the engine requires stage 3). ``stage3_param_persistence_threshold``
+    (read by JAX's partition specs only, which mean something with a
+    data-parallel group of more than one) raises set (item 11); so does every
     other key the JAX engine takes but never reads, set away from its
     default."""
     stage: int = 0
     offload_optimizer: Optional[OffloadOptimizerConfig] = None
     cpu_offload: Optional[bool] = None
-    offload_param: Optional[dict] = None
+    offload_param: Optional[OffloadParamConfig] = None
     cpu_offload_param: Optional[bool] = None
-    # read by JAX's partition specs only (item 12b): refused away from its default
+    # read by JAX's partition specs only (item 11): refused away from its default
     stage3_param_persistence_threshold: int = int(1e5)
     # taken and never read by the JAX engine
     contiguous_gradients: bool = True
@@ -162,13 +190,15 @@ class ZeroConfig:
         if self.stage not in (0, 1, 2, 3):
             raise DeepSpeedConfigError(f"zero_optimization.stage must be 0..3, "
                                        f"got {self.stage}")
-        if (self.offload_param and (self.offload_param.get("device") or "none") != "none") \
-                or self.cpu_offload_param:
-            raise _unported("zero_optimization.offload_param (ZeRO-3 parameter offload)",
-                            _ITEM12B)
         if self.stage3_param_persistence_threshold != int(1e5):
             raise _unported("zero_optimization.stage3_param_persistence_threshold (read by "
-                            "the ZeRO-3 partition specs)", _ITEM12B)
+                            "the ZeRO-3 partition specs of a data-parallel group)", "item 11")
+        if self.offload_param is None and self.cpu_offload_param:
+            self.offload_param = OffloadParamConfig(device="cpu")
+        elif isinstance(self.offload_param, dict):
+            self.offload_param = from_dict(OffloadParamConfig, self.offload_param,
+                                           "zero_optimization.offload_param")
+        self.offload_param = self.offload_param or OffloadParamConfig()
         if self.offload_optimizer is None and self.cpu_offload:
             self.offload_optimizer = OffloadOptimizerConfig(device="cpu")
         elif isinstance(self.offload_optimizer, dict):

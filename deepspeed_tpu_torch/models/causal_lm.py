@@ -607,6 +607,33 @@ def decode_attention_alibi_plain(q, k_cache, v_cache, cache_len, slopes):
     return o.reshape(b, h, d).to(q.dtype)
 
 
+@torch.no_grad()
+def init_module(module: nn.Module, cfg: CausalLMConfig, gen: torch.Generator) -> None:
+    """The JAX model's initialisers over ``module``'s submodules in order:
+    normal with ``init_std`` for projections, ``init_std / sqrt(2 *
+    n_layer)`` for ``o_proj``/``fc_out``, zero biases, unit norm scales; MoE
+    layers: gate and both expert stacks normal with ``init_std``, zero expert
+    biases; every draw from ``gen``."""
+    proj_std = cfg.init_std / (2 * cfg.n_layer) ** 0.5
+    for name, mod in module.named_modules():
+        if isinstance(mod, (LayerNorm, RMSNorm)):
+            mod.weight.fill_(1.0)
+            if isinstance(mod, LayerNorm):
+                mod.bias.zero_()
+        elif isinstance(mod, Dense):
+            std = proj_std if name.endswith(("o_proj", "fc_out")) else cfg.init_std
+            mod.weight.normal_(0.0, std, generator=gen)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, CausalLMLayer) and mod.is_moe:
+            mod.moe_gate.normal_(0.0, cfg.init_std, generator=gen)
+        elif isinstance(mod, ExpertWeights):
+            for w in (mod.w1, mod.w2):
+                w.normal_(0.0, cfg.init_std, generator=gen)
+            mod.b1.zero_()
+            mod.b2.zero_()
+
+
 class CausalLM(nn.Module):
     def __init__(self, cfg: CausalLMConfig, device=None):
         super().__init__()
@@ -626,35 +653,42 @@ class CausalLM(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
-        """Seeded random weights with the JAX model's initialisers: normal with
-        ``init_std`` for embeddings and projections, ``init_std / sqrt(2 *
-        n_layer)`` for ``o_proj``/``fc_out``, zero biases, unit norm scales;
-        MoE layers: gate and both expert stacks normal with ``init_std``, zero
-        expert biases. One ``torch.Generator`` on the parameters' device,
-        seeded with ``seed``."""
+        """Seeded random weights with the JAX model's initialisers
+        (:func:`init_module`), drawn from one ``torch.Generator`` on the
+        parameters' device, seeded with ``seed``: the submodules in order,
+        then ``wte`` and ``wpe``."""
         cfg = self.cfg
         gen = torch.Generator(device=self.wte.device).manual_seed(seed)
-        proj_std = cfg.init_std / (2 * cfg.n_layer) ** 0.5
-        for name, mod in self.named_modules():
-            if isinstance(mod, (LayerNorm, RMSNorm)):
-                mod.weight.fill_(1.0)
-                if isinstance(mod, LayerNorm):
-                    mod.bias.zero_()
-            elif isinstance(mod, Dense):
-                std = proj_std if name.endswith(("o_proj", "fc_out")) else cfg.init_std
-                mod.weight.normal_(0.0, std, generator=gen)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, CausalLMLayer) and mod.is_moe:
-                mod.moe_gate.normal_(0.0, cfg.init_std, generator=gen)
-            elif isinstance(mod, ExpertWeights):
-                for w in (mod.w1, mod.w2):
-                    w.normal_(0.0, cfg.init_std, generator=gen)
-                mod.b1.zero_()
-                mod.b2.zero_()
+        init_module(self, cfg, gen)
         self.wte.normal_(0.0, cfg.init_std, generator=gen)
         if cfg.pos_emb == "learned":
             self.wpe.normal_(0.0, cfg.init_std, generator=gen)
+
+    def embed(self, input_ids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Token (and learned position) embeddings, in ``cfg.dtype``."""
+        cfg = self.cfg
+        x = F.embedding(input_ids.long(), self.wte).to(cfg.dtype)
+        if cfg.pos_emb == "learned":
+            # out-of-range indices: the pad rows of a right-padded suffix bucket
+            # can pass the last learned position, where JAX's take fills and a
+            # PyTorch lookup asserts; their outputs are never read, so clamp
+            pos = positions.long().clamp(0, cfg.max_seq_len - 1)
+            x = x + F.embedding(pos, self.wpe).to(cfg.dtype)
+        if cfg.embed_layernorm:
+            x = self.ln_embed(x).to(cfg.dtype)
+        return x
+
+    def head(self, x: torch.Tensor,
+             logits_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The final norm and the f32 head: logits ``(b, t, V)``, or ``(b, 1,
+        V)`` read only at ``logits_positions (b,)``."""
+        x = self.ln_f(x)
+        if logits_positions is not None:
+            b = x.shape[0]
+            x = x[torch.arange(b, device=x.device), logits_positions.long()][:, None]
+        if self.cfg.tie_word_embeddings:
+            return x.float() @ self.wte.float().t()
+        return self.lm_head(x.float())
 
     def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 caches: Optional[List[Dict[str, torch.Tensor]]] = None,
@@ -671,29 +705,14 @@ class CausalLM(nn.Module):
         :meth:`CausalLMLayer.forward`."""
         if train and caches is not None:
             raise ValueError("a training forward takes no KV caches")
-        cfg = self.cfg
         b, t = input_ids.shape
         if positions is None:
             positions = torch.arange(t, device=input_ids.device)[None].expand(b, t)
-        x = F.embedding(input_ids.long(), self.wte).to(cfg.dtype)
-        if cfg.pos_emb == "learned":
-            # out-of-range indices: the pad rows of a right-padded suffix bucket
-            # can pass the last learned position, where JAX's take fills and a
-            # PyTorch lookup asserts; their outputs are never read, so clamp
-            pos = positions.long().clamp(0, cfg.max_seq_len - 1)
-            x = x + F.embedding(pos, self.wpe).to(cfg.dtype)
-        if cfg.embed_layernorm:
-            x = self.ln_embed(x).to(cfg.dtype)
+        x = self.embed(input_ids, positions)
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, None if caches is None else caches[i], cache_lens,
                       prefix_fill, page_table, kv_cap, train)
-        x = self.ln_f(x)
-        if logits_positions is not None:
-            x = x[torch.arange(b, device=x.device), logits_positions.long()][:, None]
-        if cfg.tie_word_embeddings:
-            logits = x.float() @ self.wte.float().t()
-        else:
-            logits = self.lm_head(x.float())
+        logits = self.head(x, logits_positions)
         if caches is None:
             return logits
         return logits, caches
@@ -711,7 +730,166 @@ def init_cache(cfg: CausalLMConfig, batch_size: int, max_len: Optional[int] = No
             for _ in range(cfg.n_layer)]
 
 
-def causal_lm_model(cfg: CausalLMConfig, sample_seq_len: Optional[int] = None) -> Model:
+def _positions(ids: torch.Tensor) -> torch.Tensor:
+    b, t = ids.shape
+    return torch.arange(t, device=ids.device)[None].expand(b, t)
+
+
+def _alibi_buffers(cfg: CausalLMConfig):
+    """``device -> {"layers.{i}.alibi": slopes}``: the ALiBi slopes are not
+    parameters, so a functional call on a ``meta`` module is handed them on
+    the parameters' device (none without ALiBi)."""
+    slopes: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+    def buffers(device) -> Dict[str, torch.Tensor]:
+        if cfg.pos_emb != "alibi":
+            return {}
+        if device not in slopes:
+            one = torch.from_numpy(alibi_slopes(cfg.n_head)).to(device)
+            slopes[device] = {f"layers.{i}.alibi": one for i in range(cfg.n_layer)}
+        return slopes[device]
+    return buffers
+
+
+class _Part(nn.Module):
+    """Some of a :class:`CausalLM`'s parameters and submodules under their own
+    names, whose forward is ``method`` run on this view: a functional call on
+    it binds a segment's tensors by the whole model's names and runs the
+    resident forward's own code (``CausalLM.embed``, the layers,
+    ``CausalLM.head``)."""
+
+    def __init__(self, lm: "CausalLM", names, method):
+        super().__init__()
+        self.cfg = lm.cfg
+        for name in names:
+            setattr(self, name, getattr(lm, name))
+        self._method = method
+
+    def forward(self, *args):
+        return self._method(self, *args)
+
+
+def _run_layers(part: _Part, x: torch.Tensor, positions: torch.Tensor, lo: int,
+                hi: int) -> torch.Tensor:
+    """Layers ``[lo, hi)`` of a training forward (``CausalLM.forward`` with
+    ``train=True``, no caches)."""
+    for i in range(lo, hi):
+        x = part.layers[i](x, positions, None, None, False, None, None, True)
+    return x
+
+
+def causal_lm_segments(cfg: CausalLMConfig, layers_per_group: int = 2):
+    """:class:`CausalLM` cut into host-streamable :class:`~.base.Segment`
+    slices for ZeRO-3 parameter offload (JAX ``causal_lm.py:747-878``): an
+    ``embed`` segment (``wte``, ``wpe``, ``ln_embed``), groups of
+    ``layers_per_group`` layers (``layers.{i}``), and a ``final`` segment
+    (``ln_f`` and the head, then the loss over shifted labels). The keys are
+    prefixes of the resident model's parameter names, and the union of the
+    segments' parameters is exactly :func:`causal_lm_model`'s dict, so
+    streamed and resident engines exchange checkpoints. A tied ``wte`` is in
+    the final segment's ``param_keys``, not its ``init_keys``: its gradient
+    gathers both ends' contributions, as the resident backward does.
+
+    Each forward is the resident forward's code on a ``meta`` module
+    (:class:`_Part`), its parameters bound by ``functional_call``; each
+    layer group gets the ALiBi slopes as the resident loss gets them. Each
+    init key draws from a generator of its own, seeded by ``fold_in(seed,
+    j)`` for the segment's j-th key (the engine passes ``fold_in(seed,
+    segment index)``, as JAX folds its key), with :func:`init_module`'s
+    initialisers, on the device it is given: one segment at a time, never
+    the whole model. The model draws nothing, so ``rng`` is ignored."""
+    from ..runtime import rng as rng_stream
+    from .base import Segment
+    from .gpt2 import cross_entropy_loss, shift_labels
+    lm = CausalLM(cfg, device="meta")
+    buffers = _alibi_buffers(cfg)
+
+    def merged(params):
+        out = {}
+        for p in params:
+            out.update(p)
+        return out
+
+    def init_for(keys, make):
+        """``init_fn`` of a segment whose key ``k`` is built by ``make(k,
+        device)`` (a module holding it under its own names) and initialised
+        with its own generator."""
+        def init_fn(seed: int, device):
+            device = torch.device(device)
+            if device.type == "cuda":
+                kernel_width(cfg.head_dim, training=True)
+            out = []
+            for j, key in enumerate(keys):
+                mod = make(key, device)
+                if device.type != "meta":
+                    gen = rng_stream.generator(rng_stream.fold_in(seed, j), device)
+                    init_module(mod, cfg, gen)
+                    if key in ("wte", "wpe"):
+                        with torch.no_grad():
+                            getattr(mod, key).normal_(0.0, cfg.init_std, generator=gen)
+                out.append({n: p.detach() for n, p in mod.named_parameters()})
+            return tuple(out)
+        return init_fn
+
+    def make(key: str, device) -> nn.Module:
+        """A module holding ``key``'s parameters under the resident names."""
+        holder = nn.Module()
+        if key in ("wte", "wpe"):
+            rows = cfg.vocab_size if key == "wte" else cfg.max_seq_len
+            setattr(holder, key, nn.Parameter(torch.empty(rows, cfg.n_embd, device=device)))
+        elif key in ("ln_embed", "ln_f"):
+            setattr(holder, key, _norm(cfg, device))
+        elif key == "lm_head":
+            holder.lm_head = Dense(cfg.n_embd, cfg.vocab_size, cfg.lm_head_bias,
+                                   torch.float32, device)
+        else:
+            i = int(key.split(".")[1])
+            holder.layers = nn.ModuleDict({str(i): CausalLMLayer(cfg, device,
+                                                                 cfg.is_moe_layer(i))})
+        return holder
+
+    segs = []
+    embed_keys = tuple(k for k in ("wte", "wpe", "ln_embed") if hasattr(lm, k))
+    embed = _Part(lm, embed_keys, CausalLM.embed)
+
+    def embed_apply(params, batch, rng=None):
+        ids = batch["input_ids"]
+        return functional_call(embed, merged(params), (ids, _positions(ids)))
+
+    segs.append(Segment(name="embed", kind="first", param_keys=embed_keys,
+                        init_keys=embed_keys, init_fn=init_for(embed_keys, make),
+                        apply_fn=embed_apply))
+
+    layers = _Part(lm, ("layers",), _run_layers)
+    for lo in range(0, cfg.n_layer, layers_per_group):
+        hi = min(lo + layers_per_group, cfg.n_layer)
+        keys = tuple(f"layers.{i}" for i in range(lo, hi))
+
+        def group_apply(params, x, batch, rng=None, lo=lo, hi=hi):
+            return functional_call(layers, {**merged(params), **buffers(x.device)},
+                                   (x, _positions(batch["input_ids"]), lo, hi))
+
+        segs.append(Segment(name=f"layers[{lo}:{hi}]", kind="mid", param_keys=keys,
+                            init_keys=keys, init_fn=init_for(keys, make),
+                            apply_fn=group_apply))
+
+    tied = cfg.tie_word_embeddings
+    final_init = ("ln_f",) if tied else ("ln_f", "lm_head")
+    final_keys = ("ln_f", "wte") if tied else final_init
+    head = _Part(lm, final_keys, CausalLM.head)
+
+    def final_apply(params, x, batch, rng=None):
+        return cross_entropy_loss(functional_call(head, merged(params), (x,)),
+                                  shift_labels(batch))
+
+    segs.append(Segment(name="final", kind="last", param_keys=final_keys,
+                        init_keys=final_init, init_fn=init_for(final_init, make),
+                        apply_fn=final_apply))
+    return segs
+
+
+def causal_lm_model(cfg: CausalLMConfig, sample_seq_len: Optional[int] = None,
+                    layers_per_group: int = 2) -> Model:
     """A :class:`Model` for the training engine (JAX ``causal_lm_model``):
     batch = ``{"input_ids": (B, T)}`` with optional ``"labels"`` (default: the
     shifted input ids), f32 cross-entropy on the logits of the full-sequence
@@ -721,20 +899,12 @@ def causal_lm_model(cfg: CausalLMConfig, sample_seq_len: Optional[int] = None) -
     from :meth:`CausalLM.init_weights`; on a CUDA device a head_dim the
     training kernels do not take raises ``ValueError`` before anything is
     allocated there. The model draws nothing, so it ignores ``rng``.
-    ``causal_lm_segments`` (ZeRO-3 parameter offload) waits for ROADMAP.md
-    queue 1 item 12b."""
+    ``segments`` is :func:`causal_lm_segments` at ``layers_per_group``, the
+    granularity of ZeRO-3 parameter offload's streaming."""
     from .gpt2 import cross_entropy_loss, shift_labels
     module = CausalLM(cfg, device="meta")
     t = sample_seq_len or min(cfg.max_seq_len, 1024)
-    slopes = {}
-
-    def buffers(device) -> Dict[str, torch.Tensor]:
-        if cfg.pos_emb != "alibi":
-            return {}
-        if device not in slopes:
-            one = torch.from_numpy(alibi_slopes(cfg.n_head)).to(device)
-            slopes[device] = {f"layers.{i}.alibi": one for i in range(cfg.n_layer)}
-        return slopes[device]
+    buffers = _alibi_buffers(cfg)
 
     def init_fn(seed: int, device) -> Params:
         if torch.device(device).type == "cuda":
@@ -755,4 +925,5 @@ def causal_lm_model(cfg: CausalLMConfig, sample_seq_len: Optional[int] = None) -
                                {"train": True})
 
     return Model(loss_fn=loss_fn, init_fn=init_fn, apply_fn=apply_fn, name=cfg.name,
-                 flops_per_sample=6.0 * cfg.num_params() * t)
+                 flops_per_sample=6.0 * cfg.num_params() * t,
+                 segments=causal_lm_segments(cfg, layers_per_group))

@@ -52,10 +52,21 @@ reads everything to the host and checks it against the engine's state before
 it copies a tensor in, so it never leaves half a state; the copies go into the
 engine's own tensors. :class:`CheckpointAutoSaver` saves on an interval and on
 SIGTERM. An offload engine's tags hold the tier's state too
-(``offload_state``). Not ported yet (each raises ``NotImplementedError``
-naming its ``ROADMAP.md`` queue-1 item): parameter offload (item 12b), the
-monitor and flops profiler (item 9), pipelines (item 13) and data
-parallelism (item 11).
+(``offload_state``).
+
+ZeRO-3 parameter offload (``zero_optimization.offload_param``, device ``cpu``
+or ``nvme``, stage 3, a model with ``segments``; JAX ``engine.py:146-162,
+452-509, 1010-1047``) keeps no parameter and no optimizer state on the
+device: ``runtime/zero/param_offload.py:ParamOffloadCoordinator`` owns the
+f32 masters, the optimizer and the loss scaler on the host (or a disk) and
+streams the model a segment at a time. ``state`` and ``optimizer`` are None;
+``train_batch`` and ``eval_batch`` go to the coordinator, the
+``forward``/``backward``/``step`` triple raises, the step counters, loss
+scale and gradient norm are host values, and a tag holds the coordinator's
+state (``offload_state``) and the host counters. Not ported yet (each raises
+``NotImplementedError`` naming its ``ROADMAP.md`` queue-1 item): the monitor
+and flops profiler (item 9), pipelines (item 13) and data parallelism, with
+the partitioned parameter offload of several processes (item 11).
 """
 
 import os
@@ -167,6 +178,18 @@ class DeepSpeedEngine:
         self.zero_stage = self._config.zero_config.stage
         self.offload_enabled = self._config.zero_config.offload_optimizer.enabled
         self._offload_tier = None
+        # ZeRO-3 parameter offload (JAX engine.py:146-162): the coordinator owns
+        # the masters and the optimizer, so the optimizer tier stays off
+        self.param_offload_enabled = self._config.zero_config.offload_param.enabled
+        self._param_offload = None
+        if self.param_offload_enabled:
+            if self.zero_stage != 3:
+                raise ValueError("zero_optimization.offload_param requires stage 3 "
+                                 f"(got stage {self.zero_stage})")
+            if model.segments is None:
+                raise ValueError("offload_param requires a segmented model (Model.segments, "
+                                 "see models.causal_lm.causal_lm_segments); this model has none")
+            self.offload_enabled = False
 
         if self._config.fp16.enabled:
             self.compute_dtype = torch.float16
@@ -188,8 +211,10 @@ class DeepSpeedEngine:
         self._grad_acc: Optional[List[torch.Tensor]] = None
         self._cached_loss: Optional[torch.Tensor] = None
         self._last_metrics: Dict[str, Any] = {}
+        n_params = (self._param_offload.total_params if self.param_offload_enabled
+                    else count_parameters(self.state.params))
         log_dist(f"engine ready: model={model.name} "
-                 f"params={count_parameters(self.state.params):,} zero_stage={self.zero_stage} "
+                 f"params={n_params:,} zero_stage={self.zero_stage} "
                  f"dtype={str(self.compute_dtype)[6:]} device={self.device} "
                  f"batch={self.train_batch_size()}(micro="
                  f"{self.train_micro_batch_size_per_gpu()}×gas="
@@ -197,9 +222,12 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------ config
     def _configure_optimizer(self, optimizer) -> Optional[Optimizer]:
-        """The device optimizer; None under offload, whose tier is built in
-        ``_build_state``."""
+        """The device optimizer; None under offload, whose tier (or parameter
+        offload's coordinator) is built in ``_build_state``."""
         if optimizer is not None:
+            if self.param_offload_enabled:
+                raise ValueError("zero_optimization.offload_param needs a config-declared "
+                                 "optimizer (adam/adamw/adagrad), not an optimizer object")
             if self.offload_enabled:
                 raise ValueError("zero_optimization.offload_optimizer needs a config-declared "
                                  "optimizer (adam/adamw/adagrad), not an optimizer object")
@@ -210,7 +238,7 @@ class DeepSpeedEngine:
         name = self._config.optimizer_name or "adam"
         oc = self._config.optimizer_params
         self._base_lr = oc.lr
-        if self.offload_enabled:
+        if self.offload_enabled or self.param_offload_enabled:
             if name not in ADAM_TYPES + ("adagrad",):
                 raise ValueError(f"offload tiers support adam/adamw/adagrad, got {name!r}")
             return None
@@ -258,6 +286,10 @@ class DeepSpeedEngine:
         return None
 
     def _build_state(self, scaler_state0: LossScaleState, seed: int) -> None:
+        if self.param_offload_enabled:
+            self._param_offload = self._build_param_offload(scaler_state0)
+            self.state = None
+            return
         params = self.module.init(seed, self.device)
         params = {k: p.detach().to(self.device, torch.float32, copy=True).requires_grad_(
                   not self.offload_enabled) for k, p in params.items()}
@@ -291,6 +323,35 @@ class DeepSpeedEngine:
             adam_w_mode=name == "adamw" or bool(oc.adam_w_mode),
             bias_correction=oc.bias_correction,
             nvme_path=off.nvme_path if off.device == "nvme" else None,
+            aio_config={"thread_count": aio.thread_count, "block_size": aio.block_size,
+                        "queue_depth": aio.queue_depth})
+
+    def _build_param_offload(self, scaler_state0: LossScaleState):
+        """JAX ``engine.py:452-509``: the coordinator from the optimizer block,
+        ``offload_param`` (nvme: Adam only, masters under its ``nvme_path``)
+        and ``offload_optimizer`` (nvme: the moments under its path), its
+        segments initialised from the engine's stream root."""
+        from .zero.param_offload import ParamOffloadCoordinator
+        name = self._config.optimizer_name or "adam"
+        oc = self._config.optimizer_params
+        kind = "adagrad" if name == "adagrad" else "adam"
+        op = self._config.zero_config.offload_param
+        off = self._config.zero_config.offload_optimizer
+        if op.device == "nvme" and not op.nvme_path:
+            raise ValueError("offload_param device=nvme requires nvme_path")
+        if kind != "adam" and (op.device == "nvme" or off.device == "nvme"):
+            raise ValueError("nvme offload supports adam/adamw only")
+        aio = self._config.aio_config
+        return ParamOffloadCoordinator(
+            self.module.segments, self._base_key, self.compute_dtype, self.device, kind=kind,
+            betas=oc.betas, eps=oc.eps, weight_decay=oc.weight_decay,
+            adam_w_mode=name == "adamw" or bool(oc.adam_w_mode),
+            bias_correction=oc.bias_correction,
+            gradient_clipping=self._config.gradient_clipping,
+            fp16_enabled=self._config.fp16.enabled, loss_scaler=self.loss_scaler,
+            scaler_state=scaler_state0,
+            nvme_path=off.nvme_path if off.device == "nvme" else None,
+            nvme_param_path=op.nvme_path if op.device == "nvme" else None,
             aio_config={"thread_count": aio.thread_count, "block_size": aio.block_size,
                         "queue_depth": aio.queue_depth})
 
@@ -434,15 +495,18 @@ class DeepSpeedEngine:
                                  f"divisible by gradient_accumulation_steps {gas}")
         lr = self.get_lr_value()
         step_key = self._step_key()
-        losses = []
-        for i in range(gas):
-            micro = {k: x.reshape(gas, x.shape[0] // gas, *x.shape[1:])[i]
-                     for k, x in batch.items()}
-            loss = self._loss(micro, rng_stream.fold_in(step_key, i))
-            self._accumulate(loss)
-            losses.append(loss.detach())
-        metrics = self._update(lr, gas)
-        metrics["loss"] = torch.stack(losses).mean()
+        micros = [{k: x.reshape(gas, x.shape[0] // gas, *x.shape[1:])[i]
+                   for k, x in batch.items()} for i in range(gas)]
+        if self.param_offload_enabled:
+            metrics = self._train_batch_param_offload(micros, lr, step_key)
+        else:
+            losses = []
+            for i, micro in enumerate(micros):
+                loss = self._loss(micro, rng_stream.fold_in(step_key, i))
+                self._accumulate(loss)
+                losses.append(loss.detach())
+            metrics = self._update(lr, gas)
+            metrics["loss"] = torch.stack(losses).mean()
         self.micro_steps += gas
         self._finish_step(metrics)
         if self._host_steps % self._config.steps_per_print == 0:     # the one host read
@@ -450,10 +514,27 @@ class DeepSpeedEngine:
                      f"lr={lr:.3e} loss_scale={float(metrics['loss_scale']):.0f}", ranks=[0])
         return metrics["loss"]
 
+    def _train_batch_param_offload(self, micros, lr: float, step_key: int):
+        """The streamed step (JAX ``engine.py:1010-1047``), one ``train_step``
+        span with ``offload: true`` (the step is host-synchronous)."""
+        tracer = get_tracer()
+        span = tracer.begin("train_step", cat=CAT_TRAIN,
+                            attrs={"step": self._host_steps + 1, "offload": True})
+        metrics = self._param_offload.train_step(micros, lr=lr, key=step_key)
+        tracer.end_span(span)
+        return metrics
+
+    def _refuse_eager(self) -> None:
+        if self.param_offload_enabled:
+            raise NotImplementedError(
+                "the eager forward()/backward()/step() triple is unavailable under "
+                "offload_param (no resident parameter tree): use train_batch()")
+
     def forward(self, batch) -> torch.Tensor:
         """The loss of one micro-batch, with its autograd graph to the masters
         (consumed by :meth:`backward`). Its key folds the count of
         micro-batches so far into the step's, as JAX's ``forward`` does."""
+        self._refuse_eager()
         key = rng_stream.fold_in(self._step_key(), self.micro_steps)
         self._cached_loss = self._loss(self._to_device(batch), key)
         return self._cached_loss
@@ -463,6 +544,7 @@ class DeepSpeedEngine:
     def backward(self, loss: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Add the gradients of ``loss`` (default: the last :meth:`forward`'s)
         to the accumulator."""
+        self._refuse_eager()
         loss = self._cached_loss if loss is None else loss
         if loss is None:
             raise RuntimeError("backward() called before forward()")
@@ -476,6 +558,7 @@ class DeepSpeedEngine:
     def step(self) -> None:
         """An optimizer step at a gradient-accumulation boundary; otherwise only
         counts the micro-batch."""
+        self._refuse_eager()
         take_step = self.is_gradient_accumulation_boundary()
         self.micro_steps += 1
         if not take_step:
@@ -492,21 +575,29 @@ class DeepSpeedEngine:
         self._eval_calls += 1
         key = rng_stream.fold_in(rng_stream.fold_in(self._base_key, rng_stream.EVAL_STREAM),
                                  self._eval_calls)
+        if self.param_offload_enabled:
+            return self._param_offload.eval_loss(self._to_device(batch), key)
         return self._loss(self._to_device(batch), key)
 
     # ------------------------------------------------------------- accessors
     @property
     def global_steps(self) -> int:
+        if self.state is None:
+            return self._host_steps
         return int(self.state.global_step)
 
     @property
     def skipped_steps(self) -> int:
+        if self.state is None:
+            return self._param_offload.skipped_steps
         return int(self.state.skipped_steps)
 
     def get_global_grad_norm(self) -> float:
         return float(self._last_metrics.get("grad_norm", 0.0))
 
     def loss_scale(self) -> float:
+        if self.state is None:
+            return self._param_offload._cur_scale()
         return float(self.state.scaler.cur_scale)
 
     def get_lr_value(self) -> float:
@@ -549,7 +640,12 @@ class DeepSpeedEngine:
         ckpt = self.checkpoint_engine
         path = ckpt.begin_tag(save_dir, tag)
         fault_point("ckpt.save.begin")
-        ckpt.save(state_tree(self.state), os.path.join(path, "state"))
+        if self.param_offload_enabled:
+            # the whole model is the coordinator's host masters (JAX
+            # engine.py:1352-1360): no device state to save
+            self._param_offload.save_to(ckpt, os.path.join(path, "offload_state"))
+        else:
+            ckpt.save(state_tree(self.state), os.path.join(path, "state"))
         if self.offload_enabled:
             # the host tier's masters and state (JAX engine.py:1422-1427); the
             # NVMe tier copies its moment files, never through host memory
@@ -633,6 +729,9 @@ class DeepSpeedEngine:
             validate_manifest(path)
         ckpt.add_time("validate_s", t0)
         fault_point("ckpt.load.begin")
+        if self.param_offload_enabled:
+            return self._load_param_offload(path, load_optimizer_states and not load_module_only,
+                                            load_lr_scheduler_states)
         restored = ckpt.load(os.path.join(path, "state"))
         side = ckpt.load(os.path.join(path, "client_state.pkl"))
         current = state_tree(self.state)
@@ -666,6 +765,27 @@ class DeepSpeedEngine:
         ckpt.add_time("h2d_s", t0)
         self._host_steps = int(self.state.global_step)
         self.micro_steps = side.get("micro_steps", 0)
+        if load_lr_scheduler_states and self.lr_scheduler is not None \
+                and side.get("lr_scheduler") is not None:
+            self.lr_scheduler.load_state_dict(side["lr_scheduler"])
+        log_dist(f"loaded checkpoint {path} at global_step={self._host_steps}", ranks=[0])
+        return path, side.get("client_state", {})
+
+    def _load_param_offload(self, path: str, load_optimizer_states: bool,
+                            load_lr_scheduler_states: bool):
+        """JAX ``engine.py:1513-1524``: the coordinator restores its masters
+        (and, with ``load_optimizer_states``, its step, moments and scaler),
+        reading and checking the tag before it installs anything; the host
+        counters and the schedule come from the side data."""
+        ckpt = self.checkpoint_engine
+        side = ckpt.load(os.path.join(path, "client_state.pkl"))
+        t0 = time.perf_counter()
+        self._param_offload.load_from(ckpt, os.path.join(path, "offload_state"),
+                                      load_optimizer_states=load_optimizer_states)
+        ckpt.add_time("h2d_s", t0)
+        self._host_steps = side.get("global_step", 0)
+        self.micro_steps = side.get("micro_steps", 0)
+        self._param_offload._skipped_steps = side.get("skipped_steps", 0)
         if load_lr_scheduler_states and self.lr_scheduler is not None \
                 and side.get("lr_scheduler") is not None:
             self.lr_scheduler.load_state_dict(side["lr_scheduler"])

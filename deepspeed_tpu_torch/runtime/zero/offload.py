@@ -106,20 +106,22 @@ class _NVMeMomentStore:
         else:
             buf[:2 * self.sizes[i]].zero_()
 
-    def adam_step_all(self, masters, grad_f32, lr: float, step: int, betas, eps: float,
+    def adam_step_all(self, param_f32, grad_f32, lr: float, step: int, betas, eps: float,
                       weight_decay: float, adam_w_mode: bool, bias_correction: bool,
                       on_leaf_done=None) -> None:
         """One Adam step over every leaf, its moments read and written back
-        through the handle; ``grad_f32(i)`` gives leaf ``i``'s f32 gradient and
+        through the handle; ``param_f32(i)`` gives leaf ``i``'s f32 master
+        (updated in place), then ``grad_f32(i)`` its f32 gradient, and
         ``on_leaf_done(i)`` runs after its update."""
-        n, buf = len(masters), self._scratch
+        n, buf = len(self.sizes), self._scratch
         self._fetch(0, buf[0])
         self.handle.wait()
         for i in range(n):
             if i + 1 < n:                   # the next leaf's moments stream in meanwhile
                 self._fetch(i + 1, buf[(i + 1) % 2])
             s, mv = self.sizes[i], buf[i % 2]
-            adam_step(masters[i], mv[:s], mv[s:2 * s], grad_f32(i), lr, betas[0], betas[1],
+            p = param_f32(i)
+            adam_step(p, mv[:s], mv[s:2 * s], grad_f32(i), lr, betas[0], betas[1],
                       eps, weight_decay, adam_w_mode, step, bias_correction)
             if on_leaf_done is not None:
                 on_leaf_done(i)
@@ -337,7 +339,8 @@ class OffloadOptimizerTier:
         lr = float(lr)
         if self.nvme is not None:
             self.step_count += 1
-            self.nvme.adam_step_all(self.masters, self._grad_f32, lr, self.step_count,
+            self.nvme.adam_step_all(self.masters.__getitem__, self._grad_f32, lr,
+                                    self.step_count,
                                     on_leaf_done=self._push_leaf, **self._adam_kwargs)
         elif self.kind == "adam":
             self.opt.step(self._grads, lr=lr, on_leaf_done=self._push_leaf)

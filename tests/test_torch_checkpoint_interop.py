@@ -51,13 +51,14 @@ from deepspeed_tpu.module_inject.replace_module import \
     convert_training_model as jax_convert_training_model
 from deepspeed_tpu.runtime.checkpoint_engine import checkpoint_engine as jax_ckpt
 from deepspeed_tpu_torch.checkpoint import (DeepSpeedCheckpoint, Model3DDescriptor,
+                                            export_fp32_state_dict,
                                             export_universal_checkpoint,
                                             get_model_3d_descriptor, reshape_3d,
                                             reshape_meg_2d_parallel, split_megatron_qkv,
                                             to_causal_lm_params)
 from deepspeed_tpu_torch.models import (GPT2Config, causal_lm_params_from_jax, gpt2_model,
                                         gpt2_params_from_jax)
-from deepspeed_tpu_torch.models.causal_lm import CausalLMConfig
+from deepspeed_tpu_torch.models.causal_lm import CausalLMConfig, causal_lm_model
 from deepspeed_tpu_torch.module_inject import convert_training_model
 from deepspeed_tpu_torch.runtime.checkpoint_engine import checkpoint_engine as torch_ckpt
 from deepspeed_tpu_torch.runtime.engine import state_tree
@@ -185,6 +186,48 @@ def test_deepspeed_checkpoint_reads_the_other_packages_export(runs):
     assert got.keys() == want.keys() and "h.c_attn.kernel" in got
     for name in want:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def test_streamed_export_equals_the_resident_one_and_jax_reads_it(tmp_path):
+    """A ZeRO-3 parameter-offload engine's universal export (masters and
+    moments from its coordinator) equals, file for file, that of a resident
+    engine whose optimizer runs the same host Adam (``offload_optimizer:
+    cpu``) after the same 3 steps from the same weights (f32: bit for bit);
+    JAX's ``DeepSpeedCheckpoint`` reads it as it reads the resident export;
+    the fp32 state dict export holds the masters."""
+    cfg = CausalLMConfig(vocab_size=64, max_seq_len=32, n_embd=32, n_layer=2, n_head=4,
+                         dtype=torch.float32, tie_word_embeddings=True, name="tiny")
+    start = causal_lm_model(cfg).init(0, "cpu")
+    resident = dst.initialize(
+        model=dataclasses.replace(causal_lm_model(cfg), init_fn=lambda seed, device: start),
+        config=dict(CONFIG, zero_optimization={"stage": 3, "offload_optimizer": {
+            "device": "cpu"}}), device="cpu")[0]
+    streamed = dst.initialize(model=causal_lm_model(cfg, layers_per_group=1), config=dict(
+        CONFIG, zero_optimization={"stage": 3, "offload_param": {"device": "cpu"}}),
+        device="cpu")[0]
+    streamed._param_offload.load_full_params(start)
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        ids = rng.integers(0, 64, (8, 16)).astype(np.int32)
+        resident.train_batch({"input_ids": ids})
+        streamed.train_batch({"input_ids": ids})
+    paths = {name: export_universal_checkpoint(engine, str(tmp_path / name))
+             for name, engine in (("resident", resident), ("streamed", streamed))}
+    for name in start:
+        for kind in ("fp32", "exp_avg", "exp_avg_sq"):
+            got, want = (torch.load(os.path.join(paths[run], "zero", name, f"{kind}.pt"),
+                                    weights_only=True)["param"]
+                         for run in ("streamed", "resident"))
+            assert torch.equal(got, want), (name, kind)
+    by_jax = JaxDeepSpeedCheckpoint(paths["streamed"])
+    assert by_jax.get_iteration() == 3
+    got = _named(by_jax.merged_state_dict())
+    masters = streamed._param_offload.full_params_host()
+    assert got.keys() == masters.keys()
+    for name, want in masters.items():
+        np.testing.assert_array_equal(got[name], want.numpy(), err_msg=name)
+    fp32 = export_fp32_state_dict(streamed, str(tmp_path / "fp32" / "pytorch_model.bin"))
+    assert list(fp32) == list(masters) and all(torch.equal(fp32[k], masters[k]) for k in fp32)
 
 
 def _megatron_port_cfg():

@@ -480,11 +480,13 @@ def test_config_takes_stages_offload_and_aio():
     for zero, match in (({"offload_optimizer": {"device": "cpu", "pin_memory": True}},
                          "not read by the JAX engine"),
                         ({"reduce_bucket_size": 10}, "not read by the JAX engine"),
-                        ({"stage": 3, "cpu_offload_param": True}, "item 12b"),
-                        ({"stage3_param_persistence_threshold": 0}, "item 12b"),
-                        ({"param_persistence_threshold": 0}, "item 12b")):
+                        ({"stage3_param_persistence_threshold": 0}, "item 11"),
+                        ({"param_persistence_threshold": 0}, "item 11")):
         with pytest.raises(NotImplementedError, match=match):
             DeepSpeedConfig({"train_batch_size": 4, "zero_optimization": zero})
+    # the deprecated alias of offload_param: {device: cpu}
+    assert DeepSpeedConfig({"train_batch_size": 4, "zero_optimization": {
+        "stage": 3, "cpu_offload_param": True}}).zero_config.offload_param.device == "cpu"
     with pytest.raises(NotImplementedError, match="not read by the JAX engine"):
         DeepSpeedConfig({"train_batch_size": 4, "aio": {"single_submit": True}})
     with pytest.raises(Exception, match="nvme_path"):
